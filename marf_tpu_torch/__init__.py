@@ -1,0 +1,20 @@
+"""marf_tpu_torch — the PyTorch / CUDA port of marf_tpu for NVIDIA Hopper.
+
+Mirrors marf_tpu's layout so each module's counterpart is easy to find:
+
+  marf_tpu_torch.utils   — options (CLI DSL, yaml, device, seeds), console
+                           log, TensorBoard scalars, JAX<->torch parameter
+                           transfer
+  marf_tpu_torch.ops     — grids, Lie/expm, homography, warps, posenc,
+                           filters, losses; ops.cuda holds the hand-written
+                           Hopper kernels (sources under csrc/)
+  marf_tpu_torch.models  — the neural-image MLP and the planar graph
+  marf_tpu_torch.data    — host-side synthetic dataset
+  marf_tpu_torch.engine  — train step (fused kernel or autograd) and the
+                           five-phase trainer
+
+The package imports torch and never jax, and imports no module of marf_tpu;
+it reads marf_tpu/configs/*.yaml as data.
+"""
+
+__version__ = "0.1.0"

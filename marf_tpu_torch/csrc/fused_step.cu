@@ -1,0 +1,576 @@
+// Fused planar train step for Hopper (sm_90a), float32.
+//
+// Replaces marf_tpu/ops/pallas/fused_step.py:_kernel_warp (K1, wrapper
+// fused_train_kernel_warp). One call computes, for N points (columns
+// b*HW + i of the constant (u, v, b) grid):
+//   the per-point homography warp with H[b] and the +1e-8 perspective divide;
+//   the BARF posenc with c2f band weights;
+//   the MLP forward (ReLU hidden layers, sigmoid rgb);
+//   the masked-MSE loss partial and the per-point squared error;
+//   the analytic rgb cotangent dscale*(rgb-t)*m*m chained through the sigmoid;
+//   the full backward (dW, db of every layer);
+//   the analytic posenc VJP and the warp VJP, reduced to dH[b] per image.
+//
+// What bounds it: float32 FLOPs. The canonical step (N = 216,000, MLP
+// 34->256x4->3) needs about 267 GFLOP (forward, dX and dW products) against
+// about 1 GB of activation traffic, so it sits far above the card's float32
+// balance point. The design spends its effort on the products: each dense
+// layer is a tiled SIMT SGEMM (128x128 block tile, 8x8 outputs per thread,
+// double-buffered shared memory, FMA in float32 with float32 accumulation;
+// no TF32, no library GEMM), with bias+ReLU, the ReLU gate and the
+// split-K partials fused into its epilogue. The elementwise stages (warp +
+// posenc, the 256->3 head with the loss, the posenc/warp VJP) are
+// memory-bound passes of their own.
+//
+// The TPU kernel carried dW/db/dH/loss across a sequential grid in scratch.
+// CUDA blocks run in parallel in no order, so every reduction over points
+// runs in two deterministic stages: per-block (or per-split) partials into a
+// workspace, then a fixed-order sum. There are no float atomics: two calls on
+// the same inputs give bitwise-equal outputs. A 256x256 float32 layer is
+// 256 KB, more than a block's shared memory, so the GEMMs stream weight tiles
+// from global memory (all weights together sit in L2) and the activations of
+// all points go to a global workspace (about 1.4 GB at the canonical size).
+//
+// Layouts: weights are nn.Linear's [out, in], row-major; activations are
+// point-major [N, width]; grid, targets, rgb are channels-first [C, N].
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 128;  // GEMM block tile rows
+constexpr int BN = 128;  // GEMM block tile columns
+constexpr int BK = 8;    // GEMM depth per stage
+constexpr int PADS = 4;  // shared-memory row padding (bank spread, keeps float4 alignment)
+constexpr int GEMM_THREADS = 256;
+constexpr int ELEM_THREADS = 256;
+constexpr int HEAD_POINTS = 8;   // points per head-kernel tile (one per warp)
+constexpr int HEAD_MAX_K = 1024; // widest last hidden layer the head kernel takes
+constexpr int MAX_IMAGES = 8;
+constexpr int MAX_L = 16;
+constexpr int SPLIT_TARGET_BLOCKS = 264;  // 2 blocks per SM on 132 SMs
+constexpr int COLSUM_SPLITS = 128;
+constexpr float PI_F = 3.14159265358979323846f;
+
+enum Epilogue { EPI_STORE = 0, EPI_BIAS_RELU = 1, EPI_GATE = 2 };
+
+// C[M, N] (+)= A[M, K] * B[K, N] over k in this block's split.
+// A(m, k) = A_K_CONTIG ? A[m*lda + k] : A[k*lda + m]
+// B(k, n) = B_N_CONTIG ? B[k*ldb + n] : B[n*ldb + k]
+// blockIdx.z selects a split of K of length k_chunk; its output goes to
+// C + z*c_split_stride (the split-K partials of the dW products).
+// Two blocks per SM: at more than 128 registers a thread only one fits.
+template <bool A_K_CONTIG, bool B_N_CONTIG, int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+sgemm_kernel(int M, int N, int K,
+             const float* __restrict__ A, int lda,
+             const float* __restrict__ B, int ldb,
+             float* __restrict__ C, int ldc,
+             const float* __restrict__ bias,
+             const float* __restrict__ gate, int ldg,
+             int k_chunk, long long c_split_stride) {
+  __shared__ __align__(16) float As[2][BK][BM + PADS];
+  __shared__ __align__(16) float Bs[2][BK][BN + PADS];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int k0 = blockIdx.z * k_chunk;
+  const int k1 = min(K, k0 + k_chunk);
+  C += (long long)blockIdx.z * c_split_stride;
+
+  float ra[4], rb[4];
+  auto load_tiles = [&](int kt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int e = tid + r * GEMM_THREADS;
+      int mm, kk;
+      if (A_K_CONTIG) { kk = e % BK; mm = e / BK; } else { mm = e % BM; kk = e / BM; }
+      const int m = m0 + mm, k = kt + kk;
+      ra[r] = (m < M && k < k1) ? (A_K_CONTIG ? A[(long long)m * lda + k] : A[(long long)k * lda + m]) : 0.0f;
+      int nn;
+      if (B_N_CONTIG) { nn = e % BN; kk = e / BN; } else { kk = e % BK; nn = e / BK; }
+      const int n = n0 + nn, k2 = kt + kk;
+      rb[r] = (n < N && k2 < k1) ? (B_N_CONTIG ? B[(long long)k2 * ldb + n] : B[(long long)n * ldb + k2]) : 0.0f;
+    }
+  };
+  auto store_tiles = [&](int buf) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int e = tid + r * GEMM_THREADS;
+      int mm, kk;
+      if (A_K_CONTIG) { kk = e % BK; mm = e / BK; } else { mm = e % BM; kk = e / BM; }
+      As[buf][kk][mm] = ra[r];
+      int nn;
+      if (B_N_CONTIG) { nn = e % BN; kk = e / BN; } else { kk = e % BK; nn = e / BK; }
+      Bs[buf][kk][nn] = rb[r];
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  if (k0 < k1) {
+    load_tiles(k0);
+    store_tiles(0);
+  }
+  __syncthreads();
+  int buf = 0;
+  for (int kt = k0; kt < k1; kt += BK) {
+    const bool has_next = kt + BK < k1;
+    if (has_next) load_tiles(kt + BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[8], b[8];
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (has_next) store_tiles(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
+      if (n >= N) continue;
+      float v = acc[i][j];
+      if (EPI == EPI_BIAS_RELU) v = fmaxf(v + bias[n], 0.0f);
+      if (EPI == EPI_GATE) v = gate[(long long)m * ldg + n] > 0.0f ? v : 0.0f;
+      C[(long long)m * ldc + n] = v;
+    }
+  }
+}
+
+// Per-point warp + posenc: enc[p] = [x, y, sin(x f_k) w_k, cos(x f_k) w_k,
+// sin(y f_k) w_k, cos(y f_k) w_k] (the reference row order, 2 + 4L wide).
+__device__ __forceinline__ void warp_point(const float* __restrict__ grid, const float* __restrict__ H, int B,
+                                           int Np, int p, float& u, float& v, int& b, float h[9],
+                                           float& rden, float& x, float& y) {
+  u = grid[p];
+  v = grid[Np + p];
+  b = (int)grid[2 * (long long)Np + p];
+  const bool valid = b >= 0 && b < B;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) h[j] = valid ? H[b * 9 + j] : 0.0f;
+  rden = 1.0f / (((h[8] + h[6] * u) + h[7] * v) + 1e-8f);
+  x = ((h[0] * u + h[1] * v) + h[2]) * rden;
+  y = ((h[3] * u + h[4] * v) + h[5]) * rden;
+  if (!valid) b = -1;
+}
+
+__global__ void encode_kernel(int Np, int B, int L, const float* __restrict__ grid, const float* __restrict__ H,
+                              const float* __restrict__ cw, float* __restrict__ enc) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= Np) return;
+  const int E = 2 + 4 * L;
+  float u, v, h[9], rden, x, y;
+  int b;
+  warp_point(grid, H, B, Np, p, u, v, b, h, rden, x, y);
+  float* e = enc + (long long)p * E;
+  e[0] = x;
+  e[1] = y;
+  for (int k = 0; k < L; ++k) {
+    const float f = ldexpf(PI_F, k);
+    const float w = cw[k];
+    float sx, cx, sy, cy;
+    sincosf(x * f, &sx, &cx);
+    sincosf(y * f, &sy, &cy);
+    e[2 + k] = sx * w;
+    e[2 + L + k] = cx * w;
+    e[2 + 2 * L + k] = sy * w;
+    e[2 + 3 * L + k] = cy * w;
+  }
+}
+
+// The last layer (K -> 3, sigmoid) with the loss and the first backward
+// step, per chunk of points:
+//   rgb = sigmoid(W X + b); sq = sum_c (rgb - t)^2;
+//   loss partial = lscale * sum ((rgb - t) m)^2;
+//   dz = dscale (rgb - t) m m rgb (1 - rgb);
+//   dX[p, f] = (sum_c dz_c W[c, f]) * (X[p, f] > 0)  (the previous layer's ReLU gate);
+//   dW partial [3, K] = sum_p dz X, db partial [3] = sum_p dz.
+__global__ void __launch_bounds__(ELEM_THREADS)
+head_kernel(int Np, int K, int chunk, const float* __restrict__ X, const float* __restrict__ W,
+            const float* __restrict__ bias, const float* __restrict__ tgt, const float* __restrict__ msk,
+            const float* __restrict__ scal, float* __restrict__ rgb, float* __restrict__ sq,
+            float* __restrict__ dX, float* __restrict__ part, int part_stride) {
+  __shared__ float Ws[3][HEAD_MAX_K];
+  __shared__ float dzs[HEAD_POINTS][3];
+  __shared__ float warp_loss[HEAD_POINTS];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int wid = tid / 32;
+  for (int i = tid; i < 3 * K; i += ELEM_THREADS) Ws[i / K][i % K] = W[i];
+  const float b0 = bias[0], b1 = bias[1], b2 = bias[2];
+  const float dscale = scal[0], lscale = scal[1];
+  const int p_begin = blockIdx.x * chunk;
+  const int p_end = min(Np, p_begin + chunk);
+
+  constexpr int MAXJ = HEAD_MAX_K / ELEM_THREADS;
+  float acc[MAXJ][3];
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = 0.0f;
+  float db0 = 0.0f, db1 = 0.0f, db2 = 0.0f;
+  float lacc = 0.0f;  // per-warp loss sum (lane 0)
+  __syncthreads();
+
+  for (int t0 = p_begin; t0 < p_end; t0 += HEAD_POINTS) {
+    // forward + loss + output cotangent: one warp per point
+    const int p = t0 + wid;
+    if (p < p_end) {
+      const float* xr = X + (long long)p * K;
+      float z0 = 0.0f, z1 = 0.0f, z2 = 0.0f;
+      for (int f = lane; f < K; f += 32) {
+        const float xv = xr[f];
+        z0 = fmaf(xv, Ws[0][f], z0);
+        z1 = fmaf(xv, Ws[1][f], z1);
+        z2 = fmaf(xv, Ws[2][f], z2);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        z0 += __shfl_xor_sync(0xffffffffu, z0, off);
+        z1 += __shfl_xor_sync(0xffffffffu, z1, off);
+        z2 += __shfl_xor_sync(0xffffffffu, z2, off);
+      }
+      if (lane == 0) {
+        const float m = msk[p];
+        const float zz[3] = {z0 + b0, z1 + b1, z2 + b2};
+        float s = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float r = 1.0f / (1.0f + expf(-zz[c]));
+          rgb[(long long)c * Np + p] = r;
+          const float diff = r - tgt[(long long)c * Np + p];
+          s += diff * diff;
+          const float dm = diff * m;
+          lacc += dm * dm;
+          dzs[wid][c] = dscale * dm * m * (r * (1.0f - r));
+        }
+        sq[p] = s;
+      }
+    } else if (lane == 0) {
+      dzs[wid][0] = dzs[wid][1] = dzs[wid][2] = 0.0f;
+    }
+    __syncthreads();
+    // backward into the last hidden layer: one thread per feature
+    const int np = min(HEAD_POINTS, p_end - t0);
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      const int f = tid + j * ELEM_THREADS;
+      if (f < K) {
+        const float w0 = Ws[0][f], w1 = Ws[1][f], w2 = Ws[2][f];
+        for (int q = 0; q < np; ++q) {
+          const long long idx = (long long)(t0 + q) * K + f;
+          const float xv = X[idx];
+          const float d0 = dzs[q][0], d1 = dzs[q][1], d2 = dzs[q][2];
+          const float g = d0 * w0 + d1 * w1 + d2 * w2;
+          dX[idx] = xv > 0.0f ? g : 0.0f;
+          acc[j][0] = fmaf(xv, d0, acc[j][0]);
+          acc[j][1] = fmaf(xv, d1, acc[j][1]);
+          acc[j][2] = fmaf(xv, d2, acc[j][2]);
+        }
+      }
+    }
+    if (tid == 0) {
+      for (int q = 0; q < np; ++q) {
+        db0 += dzs[q][0];
+        db1 += dzs[q][1];
+        db2 += dzs[q][2];
+      }
+    }
+    __syncthreads();
+  }
+
+  // partial layout per block: [dW (3K) | db (3) | loss (1)]
+  float* out = part + (long long)blockIdx.x * part_stride;
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j) {
+    const int f = tid + j * ELEM_THREADS;
+    if (f < K) {
+      out[f] = acc[j][0];
+      out[K + f] = acc[j][1];
+      out[2 * K + f] = acc[j][2];
+    }
+  }
+  if (lane == 0) warp_loss[wid] = lacc;
+  __syncthreads();
+  if (tid == 0) {
+    float l = 0.0f;
+    for (int w = 0; w < HEAD_POINTS; ++w) l += warp_loss[w];
+    out[3 * K] = db0;
+    out[3 * K + 1] = db1;
+    out[3 * K + 2] = db2;
+    out[3 * K + 3] = l * lscale;
+  }
+}
+
+// Posenc VJP + warp VJP per point, reduced per image within the block:
+//   dx = denc_x + sum_k f_k (cos(x f_k) w_k dsin_k - sin(x f_k) w_k dcos_k), same for y;
+//   dH[b] rows = [dxh u, dxh v, dxh, dyh u, dyh v, dyh, dw u, dw v, dw]
+//   with dxh = dx rden, dyh = dy rden, dw = -(dx x + dy y) rden.
+__global__ void __launch_bounds__(ELEM_THREADS)
+encode_bwd_kernel(int Np, int B, int L, int chunk, const float* __restrict__ grid, const float* __restrict__ H,
+                  const float* __restrict__ cw, const float* __restrict__ denc, float* __restrict__ part) {
+  __shared__ float red[9][ELEM_THREADS];
+  const int tid = threadIdx.x;
+  const int E = 2 + 4 * L;
+  const int p_begin = blockIdx.x * chunk;
+  const int p_end = min(Np, p_begin + chunk);
+  float acc[MAX_IMAGES][9];
+#pragma unroll
+  for (int i = 0; i < MAX_IMAGES; ++i)
+#pragma unroll
+    for (int j = 0; j < 9; ++j) acc[i][j] = 0.0f;
+
+  for (int p = p_begin + tid; p < p_end; p += ELEM_THREADS) {
+    float u, v, h[9], rden, x, y;
+    int b;
+    warp_point(grid, H, B, Np, p, u, v, b, h, rden, x, y);
+    const float* d = denc + (long long)p * E;
+    float dx = d[0], dy = d[1];
+    float sx_acc = 0.0f, sy_acc = 0.0f;
+    for (int k = 0; k < L; ++k) {
+      const float f = ldexpf(PI_F, k);
+      const float w = cw[k];
+      float sx, cx, sy, cy;
+      sincosf(x * f, &sx, &cx);
+      sincosf(y * f, &sy, &cy);
+      sx_acc += f * ((cx * w) * d[2 + k] - (sx * w) * d[2 + L + k]);
+      sy_acc += f * ((cy * w) * d[2 + 2 * L + k] - (sy * w) * d[2 + 3 * L + k]);
+    }
+    dx += sx_acc;
+    dy += sy_acc;
+    const float dxh = dx * rden, dyh = dy * rden;
+    const float dw = -(dx * x + dy * y) * rden;
+    const float rows[9] = {dxh * u, dxh * v, dxh, dyh * u, dyh * v, dyh, dw * u, dw * v, dw};
+#pragma unroll
+    for (int i = 0; i < MAX_IMAGES; ++i) {
+      if (i == b) {
+#pragma unroll
+        for (int j = 0; j < 9; ++j) acc[i][j] += rows[j];
+      }
+    }
+  }
+
+  // fixed-order tree reduction over the block, one image at a time
+#pragma unroll
+  for (int i = 0; i < MAX_IMAGES; ++i) {
+    if (i >= B) break;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) red[j][tid] = acc[i][j];
+    __syncthreads();
+    for (int s = ELEM_THREADS / 2; s > 0; s >>= 1) {
+      if (tid < s) {
+#pragma unroll
+        for (int j = 0; j < 9; ++j) red[j][tid] += red[j][tid + s];
+      }
+      __syncthreads();
+    }
+    if (tid < 9) part[(long long)blockIdx.x * B * 9 + i * 9 + tid] = red[tid][0];
+    __syncthreads();
+  }
+}
+
+// Column sums of D [Np, ncol] over one split of points -> part[split][ncol].
+__global__ void colsum_kernel(int Np, int ncol, int chunk, const float* __restrict__ D, float* __restrict__ part) {
+  const int col = blockIdx.y * blockDim.x + threadIdx.x;
+  if (col >= ncol) return;
+  const int p_begin = blockIdx.x * chunk;
+  const int p_end = min(Np, p_begin + chunk);
+  float s = 0.0f;
+  for (int p = p_begin; p < p_end; ++p) s += D[(long long)p * ncol + col];
+  part[(long long)blockIdx.x * ncol + col] = s;
+}
+
+// out[i] = sum_{z < S} part[z*stride + i], in fixed order of z.
+__global__ void reduce_kernel(int S, int count, long long stride, const float* __restrict__ part,
+                              float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float s = 0.0f;
+  for (int z = 0; z < S; ++z) s += part[(long long)z * stride + i];
+  out[i] = s;
+}
+
+inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+struct Plan {
+  int n_layers, E, widest, head_blocks, head_chunk, head_stride, bwd_blocks, bwd_chunk, colsum_chunk;
+  long long enc, acts[16], dz[2], dw_part, dw_part_size, col_part, head_part, dh_part, total;
+};
+
+// split-K layout of the dW product of a layer [out, in] over Np points
+inline void dw_split(int Np, int out, int in, int& splits, int& chunk) {
+  const int tiles = cdiv(out, BM) * cdiv(in, BN);
+  int s = cdiv(SPLIT_TARGET_BLOCKS, tiles);
+  chunk = cdiv(cdiv(Np, s), BK) * BK;
+  splits = cdiv(Np, chunk);
+}
+
+Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
+  Plan P{};
+  P.n_layers = n_layers;
+  P.E = 2 + 4 * L;
+  P.widest = P.E;
+  for (int l = 1; l <= n_layers; ++l) P.widest = dims[l] > P.widest ? dims[l] : P.widest;
+  long long off = 0;
+  auto take = [&](long long n) { long long o = off; off += (n + 3) / 4 * 4; return o; };
+  P.enc = take((long long)Np * P.E);
+  for (int l = 0; l + 1 < n_layers; ++l) P.acts[l] = take((long long)Np * dims[l + 1]);
+  P.dz[0] = take((long long)Np * P.widest);
+  P.dz[1] = take((long long)Np * P.widest);
+  long long dw_max = 0;
+  for (int l = 0; l + 1 < n_layers; ++l) {
+    int splits, chunk;
+    dw_split(Np, dims[l + 1], dims[l], splits, chunk);
+    long long n = (long long)splits * dims[l + 1] * dims[l];
+    dw_max = n > dw_max ? n : dw_max;
+  }
+  P.dw_part_size = dw_max;
+  P.dw_part = take(dw_max);
+  P.colsum_chunk = cdiv(Np, COLSUM_SPLITS);
+  P.col_part = take((long long)COLSUM_SPLITS * P.widest);
+  const int K = dims[n_layers - 1];
+  P.head_blocks = cdiv(Np, 64) < 1024 ? cdiv(Np, 64) : 1024;
+  P.head_chunk = cdiv(cdiv(Np, P.head_blocks), HEAD_POINTS) * HEAD_POINTS;
+  P.head_blocks = cdiv(Np, P.head_chunk);
+  P.head_stride = 3 * K + 4;
+  P.head_part = take((long long)P.head_blocks * P.head_stride);
+  P.bwd_blocks = cdiv(Np, 1024) < 1024 ? cdiv(Np, 1024) : 1024;
+  P.bwd_chunk = cdiv(Np, P.bwd_blocks);
+  P.bwd_blocks = cdiv(Np, P.bwd_chunk);
+  P.dh_part = take((long long)P.bwd_blocks * B * 9);
+  P.total = off;
+  return P;
+}
+
+template <bool AK, bool BNC, int EPI>
+void gemm(cudaStream_t st, int M, int N, int K, const float* A, int lda, const float* B, int ldb, float* C, int ldc,
+          const float* bias, const float* gate, int ldg, int splits, int k_chunk, long long c_split_stride) {
+  dim3 grid(cdiv(M, BM), cdiv(N, BN), splits);
+  sgemm_kernel<AK, BNC, EPI><<<grid, GEMM_THREADS, 0, st>>>(M, N, K, A, lda, B, ldb, C, ldc, bias, gate, ldg,
+                                                           k_chunk, c_split_stride);
+}
+
+void reduce(cudaStream_t st, int S, int count, long long stride, const float* part, float* out) {
+  reduce_kernel<<<cdiv(count, ELEM_THREADS), ELEM_THREADS, 0, st>>>(S, count, stride, part, out);
+}
+
+}  // namespace
+
+#define MARF_CHECK_LAUNCH()                     \
+  do {                                          \
+    cudaError_t err_ = cudaGetLastError();      \
+    if (err_ != cudaSuccess) return (int)err_;  \
+  } while (0)
+
+extern "C" {
+
+// Floats of workspace one call needs (the wrapper allocates it).
+long long marf_fused_step_warp_workspace(int Np, int B, int L, int n_layers, const int* dims) {
+  return make_plan(Np, B, L, n_layers, dims).total;
+}
+
+// Returns 0, or the CUDA error code of the first launch that failed.
+// dims[0..n_layers]: layer widths, dims[0] = 2 + 4L, dims[n_layers] = 3.
+// W[l]: [dims[l+1], dims[l]]; bias[l]: [dims[l+1]]; dW/db the same shapes.
+// grid [3, Np] rows (u, v, b); H [B, 9]; cw [L]; tgt/rgb [3, Np]; msk/sq [Np];
+// scal [2] = (dscale, lscale); loss [1]; dH [B, 9].
+int marf_fused_step_warp(int Np, int B, int L, int n_layers, const int* dims, const float* grid, const float* H,
+                         const float* cw, const float* tgt, const float* msk, const float* scal,
+                         const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
+                         float* const* dW, float* const* db, float* dH, float* ws, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_layers < 2 || n_layers > 16 || B < 1 || B > MAX_IMAGES || L < 0 || L > MAX_L) return (int)cudaErrorInvalidValue;
+  if (dims[0] != 2 + 4 * L || dims[n_layers] != 3 || dims[n_layers - 1] > HEAD_MAX_K) return (int)cudaErrorInvalidValue;
+  const Plan P = make_plan(Np, B, L, n_layers, dims);
+  const int last = n_layers - 1;
+
+  // ---- forward
+  encode_kernel<<<cdiv(Np, ELEM_THREADS), ELEM_THREADS, 0, st>>>(Np, B, L, grid, H, cw, ws + P.enc);
+  MARF_CHECK_LAUNCH();
+  for (int l = 0; l < last; ++l) {
+    const float* in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
+    gemm<true, false, EPI_BIAS_RELU>(st, Np, dims[l + 1], dims[l], in, dims[l], W[l], dims[l], ws + P.acts[l],
+                                     dims[l + 1], bias[l], nullptr, 0, 1, dims[l], 0);
+    MARF_CHECK_LAUNCH();
+  }
+
+  // ---- head: rgb, sq, loss, dz of the last hidden layer, dW/db of the last layer
+  const int K = dims[last];
+  float* dz_cur = ws + P.dz[0];
+  head_kernel<<<P.head_blocks, ELEM_THREADS, 0, st>>>(Np, K, P.head_chunk, ws + P.acts[last - 1], W[last],
+                                                       bias[last], tgt, msk, scal, rgb, sq, dz_cur,
+                                                       ws + P.head_part, P.head_stride);
+  MARF_CHECK_LAUNCH();
+  reduce(st, P.head_blocks, 3 * K, P.head_stride, ws + P.head_part, dW[last]);
+  MARF_CHECK_LAUNCH();
+  reduce(st, P.head_blocks, 3, P.head_stride, ws + P.head_part + 3 * K, db[last]);
+  MARF_CHECK_LAUNCH();
+  reduce(st, P.head_blocks, 1, P.head_stride, ws + P.head_part + 3 * K + 3, loss);
+  MARF_CHECK_LAUNCH();
+
+  // ---- backward through the hidden layers
+  int cur = 0;
+  for (int l = last - 1; l >= 0; --l) {
+    const int out = dims[l + 1], in = dims[l];
+    const float* x_in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
+    dz_cur = ws + P.dz[cur];
+    // dW[l] = dz^T x_in, split over points, then a fixed-order sum
+    int splits, chunk;
+    dw_split(Np, out, in, splits, chunk);
+    gemm<false, true, EPI_STORE>(st, out, in, Np, dz_cur, out, x_in, in, ws + P.dw_part, in, nullptr, nullptr, 0,
+                                 splits, chunk, (long long)out * in);
+    MARF_CHECK_LAUNCH();
+    reduce(st, splits, out * in, (long long)out * in, ws + P.dw_part, dW[l]);
+    MARF_CHECK_LAUNCH();
+    // db[l] = column sums of dz
+    dim3 cgrid(cdiv(Np, P.colsum_chunk), cdiv(out, ELEM_THREADS));
+    colsum_kernel<<<cgrid, ELEM_THREADS, 0, st>>>(Np, out, P.colsum_chunk, dz_cur, ws + P.col_part);
+    MARF_CHECK_LAUNCH();
+    reduce(st, cdiv(Np, P.colsum_chunk), out, out, ws + P.col_part, db[l]);
+    MARF_CHECK_LAUNCH();
+    // dz of the layer below (ReLU-gated by its activation), or d(encoding)
+    float* dz_next = ws + P.dz[cur ^ 1];
+    if (l > 0) {
+      gemm<true, true, EPI_GATE>(st, Np, in, out, dz_cur, out, W[l], in, dz_next, in, nullptr, ws + P.acts[l - 1],
+                                 in, 1, out, 0);
+    } else {
+      gemm<true, true, EPI_STORE>(st, Np, in, out, dz_cur, out, W[l], in, dz_next, in, nullptr, nullptr, 0, 1, out,
+                                  0);
+    }
+    MARF_CHECK_LAUNCH();
+    cur ^= 1;
+  }
+
+  // ---- posenc + warp VJP -> dH
+  encode_bwd_kernel<<<P.bwd_blocks, ELEM_THREADS, 0, st>>>(Np, B, L, P.bwd_chunk, grid, H, cw, ws + P.dz[cur],
+                                                            ws + P.dh_part);
+  MARF_CHECK_LAUNCH();
+  reduce(st, P.bwd_blocks, B * 9, (long long)B * 9, ws + P.dh_part, dH);
+  MARF_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // extern "C"

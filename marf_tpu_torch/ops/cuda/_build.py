@@ -1,0 +1,65 @@
+"""Build a csrc/*.cu source into a shared library with a plain C interface
+and load it with ctypes.
+
+The library is compiled at first use with
+`nvcc -gencode arch=compute_90a,code=sm_90a` into `build/marf_tpu_torch/` at
+the repository root (listed in .gitignore), under a file name keyed by a hash
+of the sources and flags, so an edited source rebuilds and an unchanged one
+is loaded as it is. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from collections.abc import Callable
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build", "marf_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# seconds the last nvcc run took, per library (0.0 when it was loaded from the build directory)
+BUILD_SECONDS: dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc") if os.environ.get("CUDA_HOME") else None,
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked on PATH, in $CUDA_HOME/bin and /usr/local/cuda/bin)")
+
+
+def load_library(name: str, sources: list[str], bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """Compile csrc/<sources> into lib<name>-<hash>.so (once), load it and
+    set its C signatures with `bind` (once)."""
+    if name in _loaded:
+        return _loaded[name]
+    paths = [os.path.join(_CSRC, s) for s in sources]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    so_path = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    BUILD_SECONDS[name] = 0.0
+    if not os.path.isfile(so_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {name}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so_path)  # atomic: a concurrent loader never sees a partial file
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+    lib = ctypes.CDLL(so_path)
+    bind(lib)
+    _loaded[name] = lib
+    return lib

@@ -1,0 +1,172 @@
+"""The fused planar train step: warp + posenc + MLP forward + masked-MSE loss
++ full backward, in one call (csrc/fused_step.cu), beside its plain PyTorch
+version.
+
+Replaces marf_tpu/ops/pallas/fused_step.py `fused_train_kernel_warp` (K1).
+The masked rgb MSE has the analytic cotangent
+d loss/d rgb = dscale * (rgb - t) * m * m with dscale = 2 * C * inv_sum3,
+C = d total / d rgb_loss and inv_sum3 = 1 / (3 * sum(mask)) (reference
+model/planar.py:359-390), so the kernel returns the MLP gradients and
+dH [B, 3, 3]; the caller pulls dH back through the expm with autograd.
+
+`fused_train_kernel_warp` dispatches on the device of its inputs: CUDA
+tensors launch the kernel (or raise), CPU tensors run
+`fused_train_kernel_warp_reference`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from marf_tpu_torch.models.neural_image import NeuralImage, encode_coords_cf
+
+# launches of the CUDA kernel in this process (the plain version does not count)
+LAUNCHES = 0
+
+# images per call: the kernel keeps one dH accumulator per image in registers
+# (MAX_IMAGES in csrc/fused_step.cu, which rejects a larger B)
+MAX_IMAGES = 8
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, pi, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+    lib.marf_fused_step_warp_workspace.argtypes = [i, i, i, i, pi]
+    lib.marf_fused_step_warp_workspace.restype = ctypes.c_longlong
+    lib.marf_fused_step_warp.argtypes = [i, i, i, i, pi, p, p, p, p, p, p, pp, pp, p, p, p, pp, pp, p, p, p]
+    lib.marf_fused_step_warp.restype = ctypes.c_int
+
+
+def _library() -> ctypes.CDLL:
+    """Build (at first use) and bind the kernel library."""
+    from marf_tpu_torch.ops.cuda._build import load_library
+
+    return load_library("fused_step", ["fused_step.cu"], _bind)
+
+
+def _scalars(g_loss_scale, inv_sum3: torch.Tensor) -> torch.Tensor:
+    """[dscale, lscale] = [2 * C * inv_sum3, inv_sum3] on the device."""
+    return torch.stack([2.0 * g_loss_scale * inv_sum3, inv_sum3])
+
+
+def fused_train_kernel_warp(net: NeuralImage, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3):
+    """One fused train-step pass over N points.
+
+    Args:
+      net: the neural image (weights [out, in], as nn.Linear keeps them).
+      grid_b: [3, N] float32 rows (u, v, b): the unwarped normalized grid and
+        each column's image index (columns b*HW + i). A column whose b lies
+        outside [0, B) is inert: zero coordinates, no dH.
+      H: [B, 3, 3] homographies (sl3_to_SL3 of the warp), B <= 8.
+      cw: [L] c2f band weights, or None when c2f is off.
+      targets: [3, N]; masks: [1, N] (ones when masks are off).
+      g_loss_scale: d total / d rgb_loss (float or 0-d tensor).
+      inv_sum3: 0-d tensor 1 / (3 * sum(mask)).
+
+    Returns:
+      (rgb [3, N], rgb_loss 0-d, dparams [(dW [out, in], db [out]) per layer],
+       dH [B, 3, 3], sq [1, N] raw per-point squared error).
+    """
+    if grid_b.device.type == "cpu":
+        return fused_train_kernel_warp_reference(net, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3)
+    if grid_b.device.type != "cuda":
+        raise ValueError(f"fused_train_kernel_warp: unsupported device {grid_b.device}")
+    return _launch(net, grid_b, H, cw, targets, masks, _scalars(g_loss_scale, inv_sum3))
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"fused_train_kernel_warp: {name} must be a contiguous float32 {shape} tensor on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def _launch(net, grid_b, H, cw, targets, masks, scal):
+    global LAUNCHES
+    cfg = net.cfg
+    if cfg.skip:
+        raise NotImplementedError("the fused kernel has no skip re-concat (arch.skip)")
+    device = grid_b.device
+    L = int(cfg.posenc_L or 0)
+    N = grid_b.shape[1]
+    B = H.shape[0]
+    layers = list(net.layers)
+    dims = [cfg.input_dim] + [layer.out_features for layer in layers]
+    if len(layers) < 2 or dims[-1] != 3 or not 1 <= B <= MAX_IMAGES or dims[-2] > 1024 or L > 16:
+        raise ValueError(f"fused_train_kernel_warp: unsupported shape (dims={dims}, B={B}, L={L})")
+    _check("grid_b", grid_b, (3, N), device)
+    _check("H", H, (B, 3, 3), device)
+    _check("targets", targets, (3, N), device)
+    _check("masks", masks, (1, N), device)
+    _check("scalars", scal, (2,), device)
+    if cw is None:
+        cw = torch.ones(max(L, 1), dtype=torch.float32, device=device)
+    _check("cw", cw, (max(L, 1),), device)
+    weights = [layer.weight.detach() for layer in layers]
+    biases = [layer.bias.detach() for layer in layers]
+    for li, (w, b) in enumerate(zip(weights, biases)):
+        _check(f"weight[{li}]", w, (dims[li + 1], dims[li]), device)
+        _check(f"bias[{li}]", b, (dims[li + 1],), device)
+
+    lib = _library()
+    n_layers = len(layers)
+    c_dims = (ctypes.c_int * (n_layers + 1))(*dims)
+    rgb = torch.empty((3, N), dtype=torch.float32, device=device)
+    sq = torch.empty((1, N), dtype=torch.float32, device=device)
+    loss = torch.empty((), dtype=torch.float32, device=device)
+    dH = torch.empty((B, 3, 3), dtype=torch.float32, device=device)
+    dws = [torch.empty_like(w) for w in weights]
+    dbs = [torch.empty_like(b) for b in biases]
+    ws = torch.empty(lib.marf_fused_step_warp_workspace(N, B, L, n_layers, c_dims), dtype=torch.float32, device=device)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.marf_fused_step_warp(
+        N, B, L, n_layers, c_dims,
+        grid_b.data_ptr(), H.data_ptr(), cw.data_ptr(), targets.data_ptr(), masks.data_ptr(), scal.data_ptr(),
+        ptrs(weights), ptrs(biases),
+        rgb.data_ptr(), sq.data_ptr(), loss.data_ptr(), ptrs(dws), ptrs(dbs), dH.data_ptr(),
+        ws.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return rgb, loss, list(zip(dws, dbs)), dH, sq
+
+
+def fused_train_kernel_warp_reference(net: NeuralImage, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3):
+    """Plain PyTorch version of `fused_train_kernel_warp`: same arguments and
+    returns. The warp, posenc, MLP and loss partial run under autograd, and
+    the gradients are pulled back from rgb with the cotangent
+    dscale * (rgb - t) * m * m."""
+    cfg = net.cfg
+    B = H.shape[0]
+    scal = _scalars(g_loss_scale, inv_sum3)
+    with torch.enable_grad():
+        Hd = H.detach().requires_grad_(True)
+        weights = [layer.weight.detach().requires_grad_(True) for layer in net.layers]
+        biases = [layer.bias.detach().requires_grad_(True) for layer in net.layers]
+        u, v, bidx = grid_b[0], grid_b[1], grid_b[2].long()
+        valid = ((bidx >= 0) & (bidx < B)).to(torch.float32)
+        hp = Hd.reshape(B, 9)[bidx.clamp(0, B - 1)] * valid[:, None]  # [N, 9] per-point H
+        rden = 1.0 / (hp[:, 8] + hp[:, 6] * u + hp[:, 7] * v + 1e-8)
+        x = (hp[:, 0] * u + hp[:, 1] * v + hp[:, 2]) * rden
+        y = (hp[:, 3] * u + hp[:, 4] * v + hp[:, 5]) * rden
+        feat = encode_coords_cf(torch.stack([x, y]), cfg.posenc_L, cw)
+        last = len(weights) - 1
+        for li, (w, b) in enumerate(zip(weights, biases)):
+            feat = torch.addmm(b[:, None], w, feat)
+            if li != last:
+                feat = torch.relu(feat)
+        rgb = torch.sigmoid(feat)
+        diff = rgb - targets
+        diff_m = diff * masks
+        loss = torch.sum(diff_m * diff_m) * scal[1]
+        grads = torch.autograd.grad(rgb, [*weights, *biases, Hd], scal[0] * diff_m * masks)
+    n = len(weights)
+    sq = torch.sum(diff * diff, dim=0, keepdim=True)
+    return rgb.detach(), loss.detach(), list(zip(grads[:n], grads[n : 2 * n])), grads[-1], sq.detach()

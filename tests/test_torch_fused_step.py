@@ -1,0 +1,159 @@
+"""The fused train step (K1) of the PyTorch port.
+
+On the CPU the wrapper runs its plain PyTorch version, which is held against
+marf_tpu's `fused_train_kernel_warp` (the Pallas kernel, in interpret mode
+off-TPU) and against the port's own autograd step. The CUDA kernel against
+the plain version runs only on a card (marker `cuda`).
+
+Tolerances: float32 values (rgb, sq, loss) rtol=1e-5; gradients by relative
+error to the max-abs <= 1e-4 (different summation order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from marf_tpu.ops.grid import GridSpec, normalized_pixel_grid
+from marf_tpu.ops.lie import sl3_to_SL3 as jsl3
+from marf_tpu.ops.pallas.fused_step import build_grid_b, fused_train_kernel_warp as jax_kernel
+from marf_tpu_torch.ops.cuda import fused_step as fs
+from test_torch_models import cfg_pair, fake_data, jax_params, port_graph, rel_err, to_torch
+
+
+def k1_inputs(jcfg, rng, use_masks=True):
+    """The kernel's inputs as numpy: (u, v, b) grid, H, targets, masks."""
+    jp = jax_params(jcfg)
+    B = jcfg.batch_size
+    grid = normalized_pixel_grid(GridSpec(jcfg.H, jcfg.W, jcfg.patch_H, jcfg.patch_W), crop=True)
+    grid_b = np.array(build_grid_b(grid, B))
+    N = grid_b.shape[1]
+    H = np.array(jsl3(jnp.asarray(jp["warp"])))
+    targets = rng.rand(3, N).astype(np.float32)
+    masks = (rng.rand(1, N) > 0.3).astype(np.float32) if use_masks else np.ones((1, N), np.float32)
+    return jp, grid_b, H, targets, masks
+
+
+def compare(ours, ref):
+    rgb, loss, dparams, dH, sq = ours
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref[1]), rtol=1e-5)
+    np.testing.assert_allclose(sq.numpy(), np.asarray(ref[4]), rtol=1e-5, atol=1e-7)
+    assert rel_err(dH.numpy(), ref[3]) <= 1e-4
+    for (dw, db), jl in zip(dparams, ref[2]["mlp"]):
+        assert rel_err(dw.numpy().T, jl["w"]) <= 1e-4
+        assert rel_err(db.numpy(), jl["b"]) <= 1e-4
+
+
+@pytest.mark.parametrize(
+    "use_masks,arch",
+    [(True, {}), (False, {}), (True, {"posenc_L": None, "barf_c2f": None}), (True, {"barf_c2f": None})],
+    ids=["masks_c2f", "no_masks", "no_posenc", "no_c2f"],
+)
+def test_plain_matches_pallas_interpret(rng, use_masks, arch):
+    jcfg, tcfg = cfg_pair(arch=arch)
+    jp, grid_b, H, targets, masks = k1_inputs(jcfg, rng, use_masks)
+    g = port_graph(tcfg, jp)
+    L = jcfg.arch.posenc_L
+    cw = None if jcfg.arch.barf_c2f is None else np.array([1.0, 0.8, 0.3, 0.0], np.float32)
+    inv_sum3 = np.float32(1.0 / (masks.sum() * 3.0))
+    ref = jax_kernel(
+        jax.tree.map(jnp.asarray, jp["neural_image"]), jnp.asarray(grid_b), jnp.asarray(H),
+        None if cw is None else jnp.asarray(cw), jnp.asarray(targets), jnp.asarray(masks),
+        jnp.float32(1.7), jnp.float32(inv_sum3), jcfg.arch,
+    )
+    t = torch.from_numpy
+    ours = fs.fused_train_kernel_warp(
+        g.neural_image, t(grid_b), t(H), None if cw is None else t(cw), t(targets), t(masks),
+        torch.tensor(1.7), torch.tensor(inv_sum3),
+    )
+    assert L is None or ours[0].shape == (3, grid_b.shape[1])
+    compare(ours, ref)
+
+
+def test_wrapper_runs_plain_version_on_cpu_without_counting(rng):
+    jcfg, tcfg = cfg_pair()
+    jp, grid_b, H, targets, masks = k1_inputs(jcfg, rng)
+    g = port_graph(tcfg, jp)
+    t = torch.from_numpy
+    before = fs.LAUNCHES
+    args = (g.neural_image, t(grid_b), t(H), None, t(targets), t(masks), 1.0, torch.tensor(0.01))
+    a = fs.fused_train_kernel_warp(*args)
+    b = fs.fused_train_kernel_warp_reference(*args)
+    assert fs.LAUNCHES == before
+    assert torch.equal(a[0], b[0]) and torch.equal(a[3], b[3])
+
+
+def test_padding_columns_are_inert(rng):
+    """Columns whose image index lies outside [0, B) (marf_tpu pads with
+    b = -1) add nothing to the loss or the gradients when their mask is 0."""
+    jcfg, tcfg = cfg_pair()
+    jp, grid_b, H, targets, masks = k1_inputs(jcfg, rng)
+    g = port_graph(tcfg, jp)
+    pad = 64
+    grid_p = np.concatenate([grid_b, np.stack([np.zeros(pad), np.zeros(pad), -np.ones(pad)]).astype(np.float32)], 1)
+    t = torch.from_numpy
+    inv = torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32)
+    a = fs.fused_train_kernel_warp(g.neural_image, t(grid_b), t(H), None, t(targets), t(masks), 1.0, inv)
+    b = fs.fused_train_kernel_warp(
+        g.neural_image, t(grid_p), t(H), None, t(np.pad(targets, ((0, 0), (0, pad)))),
+        t(np.pad(masks, ((0, 0), (0, pad)))), 1.0, inv,
+    )
+    np.testing.assert_allclose(b[1].numpy(), a[1].numpy(), rtol=1e-6)
+    assert rel_err(b[3].numpy(), a[3].numpy()) <= 1e-6
+    for (dw_b, _), (dw_a, _) in zip(b[2], a[2]):
+        assert rel_err(dw_b.numpy(), dw_a.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("use_masks", [True, False])
+def test_plain_matches_port_autograd_step(rng, use_masks):
+    """The fused step's gradients (plain K1 + autograd through the expm
+    only) equal the port's autograd step's, at one step, every parameter."""
+    from marf_tpu_torch.engine.step import make_optimizer, make_train_step
+
+    grads = {}
+    for mode in ("off", "on"):
+        jcfg, tcfg = cfg_pair(use_masks=use_masks, fused_step=mode, fused_warp="on", alpha_initial=0.3)
+        g = port_graph(tcfg, jax_params(jcfg))
+        data = to_torch(fake_data(jcfg, np.random.RandomState(5)))
+        if not use_masks:
+            data.update(masks=None, masks_eroded=None)
+        opt, _ = make_optimizer(g, {"lr": 0.0, "lr_warp": 0.0}, tcfg.max_iter)
+        make_train_step(tcfg, g, opt, data)(3)
+        grads[mode] = {k: p.grad.clone() for k, p in g.named_parameters()}
+    for k, ref in grads["off"].items():
+        assert rel_err(grads["on"][k].numpy(), ref.numpy()) <= 1e-4, k
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (run on the card: python -m pytest tests/test_torch_fused_step.py -m cuda)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [{}, {"posenc_L": None, "barf_c2f": None}], ids=["c2f", "no_posenc"])
+def test_kernel_matches_plain_on_card(rng, cuda_device, arch):
+    jcfg, tcfg = cfg_pair(arch=arch)
+    jp, grid_b, H, targets, masks = k1_inputs(jcfg, rng)
+    g = port_graph(tcfg, jp).to(cuda_device)
+    cw = None if jcfg.arch.barf_c2f is None else torch.tensor([1.0, 0.8, 0.3, 0.0], device=cuda_device)
+    d = lambda x: torch.from_numpy(x).to(cuda_device)
+    args = (g.neural_image, d(grid_b), d(H), cw, d(targets), d(masks), torch.tensor(1.7, device=cuda_device),
+            torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32, device=cuda_device))
+    before = fs.LAUNCHES
+    out = fs.fused_train_kernel_warp(*args)
+    out2 = fs.fused_train_kernel_warp(*args)
+    ref = fs.fused_train_kernel_warp_reference(*args)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == before + 2
+    for a, b, tol in [(out[0], ref[0], 1e-5), (out[1], ref[1], 1e-5), (out[4], ref[4], 1e-5), (out[3], ref[3], 1e-4)]:
+        assert rel_err(a.cpu().numpy(), b.cpu().numpy()) <= tol
+    for (dw, db), (rw, rb) in zip(out[2], ref[2]):
+        assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= 1e-4
+        assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= 1e-4
+    # no float atomics: two launches on the same inputs are bitwise equal
+    assert torch.equal(out[3], out2[3]) and all(torch.equal(a[0], b[0]) for a, b in zip(out[2], out2[2]))
