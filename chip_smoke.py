@@ -4,16 +4,28 @@
 
 Phases, one result line each; any failure exits non-zero:
   1. device: a CUDA card is required; its name and power limit (nvidia-smi).
-  2. build: compile the fused train-step kernel (K1) from
-     marf_tpu_torch/csrc/ with nvcc for sm_90a.
-  3. kernel: K1 against its plain PyTorch version at the canonical shape
-     (N = 216,000 points, B = 5, L = 8, c2f mid-schedule, synthetic masks, a
-     nonzero warp), both also against a float64 run of the plain version;
-     two launches on the same inputs must be bitwise equal; time per call.
-  4. main path: the port's trainer (`marf_tpu_torch.engine.trainer.Model`)
-     on the canonical config (planar.yaml + barf_c2f=[0,0.4]) with synthetic
-     data, seed 3, 60 steps, first on the fused path (K1 must launch once per
-     step), then on the autograd path (fused_step=off) from the same init.
+  2. build: compile the kernel sources of marf_tpu_torch/csrc/ with nvcc for
+     sm_90a, one nvcc process per library, all started together.
+  3. kernels, each against its plain PyTorch version and against a float64
+     run of the plain version, with a bitwise-equal relaunch, its time per
+     call beside the plain version's and the least time the card could take:
+     - K1 (fused_train_kernel_warp) and K2 (fused_train_kernel) at the
+       canonical shape (N = 216,000 points, B = 5, L = 8, c2f mid-schedule,
+       synthetic masks, a nonzero warp);
+     - K3 (fused_mask_forward) and K4 (fused_mask_backward_dedup) on the dedup
+       columns of the canonical synthetic batch with a few saturated pixels,
+       so that extra columns occur (E > 0).
+  4. main path: the port's trainer (`marf_tpu_torch.engine.trainer.Model`),
+     synthetic data, seed 3, each run with the launch counts set to 0 just
+     before it and read just after:
+     - canonical config (planar.yaml + barf_c2f=[0,0.4]), fused (K1 once per
+       step) then autograd (no kernel) from the same init;
+     - the `implicit` config (+ --use_implicit_mask --use_masks=false), fused
+       (K3, K1, K4 once per step, K2 never) then autograd from the same init,
+       per-step rgb and mask losses within 1e-3 over the first 10 steps;
+     - `implicit` with fused_warp=off (K3, K2, K4 once per step, K1 never),
+       per-step rgb and mask losses within 1e-3 of the K1 run's over the
+       first 10 steps.
 Then a JSON line with each kernel's numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
@@ -26,21 +38,28 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 ITERS = 60
 # float32 tolerances, relative to the max-abs of the plain version's output:
-# elementwise outputs (rgb, sq) and the loss agree to float32 rounding;
-# gradients are sums over 216,000 points taken in different orders (the
-# kernel's fixed split-K blocks against cuBLAS's), hence the looser bound.
-# Measured on an H100: at most 8.3e-5 against the plain version and 1.2e-4
-# against float64, both on dH.
+# elementwise outputs (rgb, sq, m) and the loss agree to float32 rounding;
+# gradients are sums over up to 216,000 points taken in different orders
+# (the kernels' fixed split-K blocks against cuBLAS's), hence the looser
+# bound. Measured on an H100 for K1: at most 8.3e-5 against the plain version
+# and 1.2e-4 against float64, both on dH.
 VALUE_TOL = 1e-5
 GRAD_TOL = 1e-3
 # the fused and autograd trainers start from the same init and differ only
-# in float32 summation order; their per-step rgb losses over the first 10
-# steps agree to this relative tolerance
+# in float32 summation order; their per-step losses over the first 10 steps
+# agree to this relative tolerance
 TRAJ_TOL = 1e-3
+# H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# saturated pixels in the K3/K4 inputs: each channel is set to 1.0 with this
+# probability, which gives some 1.3k extra columns beside the 43,200 of slot0
+SATURATED = 0.002
 
 
 def fail(msg: str):
@@ -64,22 +83,26 @@ def phase_device():
 
 def phase_build():
     from marf_tpu_torch.ops.cuda import _build
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
     from marf_tpu_torch.ops.cuda import fused_step as fs
 
     t0 = time.perf_counter()
+    _build.build_libraries({"fused_step": fs.SOURCES, "fused_mask": fm.SOURCES})
     fs._library()
-    print(f"[build] fused_step.cu: nvcc {_build.BUILD_SECONDS['fused_step']:.2f} s "
-          f"(load incl. {time.perf_counter() - t0:.2f} s) -> {_build.BUILD_DIR}", flush=True)
+    fm._library()
+    secs = ", ".join(f"{name}: nvcc {s:.2f} s" for name, s in _build.BUILD_SECONDS.items())
+    print(f"[build] {secs} (in parallel; build + load {time.perf_counter() - t0:.2f} s) -> {_build.BUILD_DIR}", flush=True)
 
 
 def canonical_inputs(device):
-    """K1's inputs at the canonical shape from the port's own modules."""
+    """K1's and K2's inputs at the canonical shape from the port's own modules."""
     from marf_tpu_torch.data.planar import synthesize_planar_dataset
     from marf_tpu_torch.models.neural_image import NeuralImage, NeuralImageConfig
     from marf_tpu_torch.models.planar import PlanarConfig
     from marf_tpu_torch.ops.grid import normalized_pixel_grid
     from marf_tpu_torch.ops.lie import sl3_to_SL3
     from marf_tpu_torch.ops.posenc import barf_c2f_weights
+    from marf_tpu_torch.ops.warp import warp_grid_cf_flat
 
     cfg = PlanarConfig(arch=NeuralImageConfig(barf_c2f=(0.0, 0.4)))
     h, w = cfg.map_hw
@@ -93,22 +116,40 @@ def canonical_inputs(device):
     H = sl3_to_SL3(warp).contiguous()
     grid = normalized_pixel_grid(cfg.grid_spec, crop=True, device=device)
     grid_b = torch.cat([grid.T.repeat(1, B), torch.arange(B, dtype=torch.float32, device=device).repeat_interleave(HW)[None]]).contiguous()
+    coords = warp_grid_cf_flat(grid, warp).contiguous()
     targets = torch.as_tensor(data["rgb"]).permute(1, 0, 2, 3).reshape(3, N).contiguous().to(device)
     masks = torch.as_tensor(data["masks"]).permute(1, 0, 2, 3).reshape(1, N).contiguous().to(device)
     progress = torch.tensor(0.23, device=device)  # alpha = 4.6 bands: w = [1,1,1,1,0.65,0,0,0]
     cw = barf_c2f_weights(progress, (0.0, 0.4), 8).contiguous()
     g_loss_scale = 1.0 + (1.0 - progress)  # render (1 - alpha) + rgb, alpha = progress here
     inv_sum3 = 1.0 / (masks.sum() * 3.0)
-    return net, (grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3)
+    return cfg, data, net, (grid_b, H, coords, cw, targets, masks, g_loss_scale, inv_sum3)
 
 
-def _flat(out):
-    rgb, loss, dparams, dH, sq = out
-    named = {"rgb": rgb, "sq": sq, "loss": loss, "dH": dH}
-    for li, (dw, db) in enumerate(dparams):
-        named[f"dW{li}"] = dw
-        named[f"db{li}"] = db
-    return named
+def mask_inputs(cfg, data, device):
+    """K3's and K4's inputs: the dedup columns of the synthetic batch with a
+    few saturated pixels, a seeded mask head, and per-position streams."""
+    from marf_tpu_torch.models.implicit_mask import ImplicitMask, init_view_embedding
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+    from marf_tpu_torch.ops.grid import normalized_pixel_grid
+
+    rng = np.random.RandomState(3)
+    rgb = np.where(rng.rand(*data["rgb"].shape) < SATURATED, 1.0, data["rgb"]).astype(np.float32)
+    gen = torch.Generator().manual_seed(3)
+    head = ImplicitMask(gen).to(device)
+    view = init_view_embedding(cfg.N_vocab, gen)
+    grid = normalized_pixel_grid(cfg.grid_spec, crop=True)
+    uv, onehot, table = fm.factor_mask_inputs(view, torch.from_numpy(rgb), grid)
+    X, s0map, _, _, cnt = fm.slot_dedup_inputs(uv.numpy(), onehot.numpy())
+    B, HW = s0map.shape
+    K = X.shape[1]
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    layers = fm.mask_w_stack(head, table.to(device))
+    # a plausible cotangent: sq, esq of a half-fitted image, c = 2 C_m / N
+    sq_b, esq_b = d(rng.rand(B, HW) * 0.05), d(rng.rand(B, HW) * 0.5)
+    base = d(cnt * (2.0 * 0.5 / (B * HW)) + np.pad(rng.rand(1, K - HW) * 1e-5, ((0, 0), (HW, 0))))
+    abk = d([2.0 / (3 * 0.7 * B * HW), 1e-6, -1e-5])
+    return layers, d(X), d(s0map), sq_b, esq_b, base, d(cnt), abk
 
 
 def _rel(a, b):
@@ -127,122 +168,255 @@ def _time_ms(fn, n=20):
     return e0.elapsed_time(e1) / n
 
 
-def phase_kernel(device):
-    from marf_tpu_torch.ops.cuda import fused_step as fs
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
-    net, args = canonical_inputs(device)
-    grid_b, H, cw, targets, masks, g, inv_sum3 = args
-    out = _flat(fs.fused_train_kernel_warp(net, *args))
-    out2 = _flat(fs.fused_train_kernel_warp(net, *args))
-    ref = _flat(fs.fused_train_kernel_warp_reference(net, *args))
-    net64 = copy.deepcopy(net).double()
-    ref64 = _flat(fs.fused_train_kernel_warp_reference(
-        net64, grid_b.double(), H.double(), cw.double(), targets.double(), masks.double(), g.double(), inv_sum3.double()))
+
+def check_kernel(tag, launch, plain, plain64, value_keys, flops, nbytes):
+    """Hold a kernel (launch() -> {name: tensor}) against its plain version
+    and a float64 run of it; a relaunch must be bitwise equal. Time both and
+    compute the bound: the larger of flops over the float32 peak and bytes
+    over the memory rate."""
+    out, out2, ref, ref64 = launch(), launch(), plain(), plain64()
     torch.cuda.synchronize()
-
-    errs = {k: _rel(out[k], ref[k]) for k in out}
-    errs64 = {k: _rel(out[k], ref64[k]) for k in out}
-    plain64 = {k: _rel(ref[k], ref64[k]) for k in out}
-    max_abs = max((out[k] - ref[k]).abs().max().item() for k in out)
-    for name, e in {"kernel vs plain": errs, "kernel vs float64": errs64}.items():
-        for k, v in e.items():
-            tol = VALUE_TOL if k in ("rgb", "sq", "loss") else GRAD_TOL
-            if not v <= tol:
-                fail(f"{name}: {k} relative error {v:.3e} > {tol:.0e}")
     for k in out:
         if tuple(out[k].shape) != tuple(ref[k].shape) or not torch.isfinite(out[k]).all():
-            fail(f"kernel output {k}: shape {tuple(out[k].shape)} or non-finite values")
-    bitwise = all(torch.equal(out[k], out2[k]) for k in out)
-    if not bitwise:
-        fail("two launches on the same inputs differ")
-    ms = _time_ms(lambda: fs.fused_train_kernel_warp(net, *args))
-    plain_ms = _time_ms(lambda: fs.fused_train_kernel_warp_reference(net, *args))
+            fail(f"{tag} output {k}: shape {tuple(out[k].shape)} or non-finite values")
+    errs = {k: _rel(out[k], ref[k]) for k in out}
+    errs64 = {k: _rel(out[k], ref64[k]) for k in out}
+    plain_errs64 = {k: _rel(ref[k], ref64[k]) for k in out}
+    for k in out:
+        tol = VALUE_TOL if k in value_keys else GRAD_TOL
+        if not errs[k] <= tol:
+            fail(f"{tag} kernel vs plain: {k} relative error {errs[k]:.3e} > {tol:.0e}")
+        # against float64, the kernel may be as far off as twice the plain
+        # float32 version where that one is itself off by more than tol: K2's
+        # per-point dcoords are differences of posenc terms up to 2^k pi larger
+        # than their result, and float32 loses some 4e-2 of their max-abs there
+        # whatever the order of the sums (kernel and plain version both 4.38e-2,
+        # 7.7e-7 apart, on an H100)
+        tol64 = max(tol, 2.0 * plain_errs64[k])
+        if not errs64[k] <= tol64:
+            fail(f"{tag} kernel vs float64: {k} relative error {errs64[k]:.3e} > {tol64:.2e}")
+    if not all(torch.equal(out[k], out2[k]) for k in out):
+        fail(f"{tag}: two launches on the same inputs differ")
+    max_abs = max((out[k] - ref[k]).abs().max().item() for k in out)
+    ms = _time_ms(launch)
+    plain_ms = _time_ms(plain)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     fmt = lambda e: " ".join(f"{k}={v:.2e}" for k, v in e.items())
-    print(f"[kernel] N={grid_b.shape[1]} max rel err vs plain (tol values {VALUE_TOL:.0e}, grads {GRAD_TOL:.0e}): {fmt(errs)}", flush=True)
-    print(f"[kernel] kernel vs float64: {fmt(errs64)}", flush=True)
-    print(f"[kernel] plain float32 vs float64: {fmt(plain64)}", flush=True)
-    print(f"[kernel] bitwise equal across two launches: {bitwise}; {ms:.3f} ms/call kernel, {plain_ms:.3f} ms/call plain "
-          f"(TF32 off); max abs err {max_abs:.3e}", flush=True)
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    print(f"[kernel] {tag} rel err vs plain (tol values {VALUE_TOL:.0e}, grads {GRAD_TOL:.0e}): {fmt(errs)}", flush=True)
+    print(f"[kernel] {tag} kernel vs float64: {fmt(errs64)}", flush=True)
+    print(f"[kernel] {tag} plain float32 vs float64: {fmt(plain_errs64)}", flush=True)
+    print(f"[kernel] {tag} bitwise equal across two launches: True; {ms:.3f} ms/call kernel, {plain_ms:.3f} ms/call "
+          f"plain (TF32 off); bound {bound_ms:.3f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, {bound_by}); "
+          f"max abs err {max_abs:.3e}", flush=True)
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def canonical_options(out_root: str, fused_step: str):
-    """The canonical config through the port's config path."""
+def _named(rgb, loss, dparams, dgeo, sq, geo_name):
+    named = {"rgb": rgb, "sq": sq, "loss": loss, geo_name: dgeo}
+    for li, (dw, db) in enumerate(dparams):
+        named[f"dW{li}"] = dw
+        named[f"db{li}"] = db
+    return named
+
+
+def _mlp_flops(N, dims, dx_layers):
+    """2 N (in out) per layer for the forward and the dW products, and for the
+    dX products of `dx_layers` (counted from the last layer down)."""
+    macs = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    return 2 * N * (2 * sum(macs) + sum(macs[len(macs) - dx_layers:]))
+
+
+def phase_kernels(device):
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+    from marf_tpu_torch.ops.cuda import fused_step as fs
+
+    cfg, data, net, (grid_b, H, coords, cw, targets, masks, g, inv_sum3) = canonical_inputs(device)
+    N = grid_b.shape[1]
+    net64 = copy.deepcopy(net).double()
+    dims = [net.cfg.input_dim] + [layer.out_features for layer in net.layers]
+    weights = [t for layer in net.layers for t in (layer.weight, layer.bias)]
+    rgb_flops = _mlp_flops(N, dims, len(dims) - 1)  # dX of every layer, down to d(encoding)
+    out_bytes = (3 + 1) * N * 4 + _nbytes(*weights)  # rgb, sq, dW, db
+    results = {}
+
+    k1 = (grid_b, H, cw, targets, masks, g, inv_sum3)
+    k1_64 = tuple(t.double() for t in k1)
+    results["K1"] = check_kernel(
+        f"K1 fused_train_kernel_warp N={N}",
+        lambda: _named(*fs.fused_train_kernel_warp(net, *k1), "dH"),
+        lambda: _named(*fs.fused_train_kernel_warp_reference(net, *k1), "dH"),
+        lambda: _named(*fs.fused_train_kernel_warp_reference(net64, *k1_64), "dH"),
+        ("rgb", "sq", "loss"), rgb_flops, _nbytes(grid_b, H, cw, targets, masks, *weights) + out_bytes + _nbytes(H),
+    )
+    k2 = (coords, cw, targets, masks, g, inv_sum3)
+    k2_64 = tuple(t.double() for t in k2)
+    results["K2"] = check_kernel(
+        f"K2 fused_train_kernel N={N}",
+        lambda: _named(*fs.fused_train_kernel(net, *k2), "dcoords"),
+        lambda: _named(*fs.fused_train_kernel_reference(net, *k2), "dcoords"),
+        lambda: _named(*fs.fused_train_kernel_reference(net64, *k2_64), "dcoords"),
+        ("rgb", "sq", "loss"), rgb_flops, _nbytes(coords, cw, targets, masks, *weights) + out_bytes + _nbytes(coords),
+    )
+
+    layers, X, s0map, sq_b, esq_b, base, cnt, abk = mask_inputs(cfg, data, device)
+    K, HW = X.shape[1], s0map.shape[1]
+    print(f"[kernel] mask-head dedup columns: K={K} (HW={HW}, E={K - HW}) for N={N} positions", flush=True)
+    if K <= HW:
+        fail("the K3/K4 inputs have no extra dedup columns")
+    layers64 = [(w.double(), b.double()) for w, b in layers]
+    mdims = [X.shape[0]] + [w.shape[0] for w, _ in layers]
+    mweights = [t for wb in layers for t in wb]
+    results["K3"] = check_kernel(
+        f"K3 fused_mask_forward K={K}",
+        lambda: {"m": fm.fused_mask_forward(layers, X)},
+        lambda: {"m": fm.fused_mask_forward_reference(layers, X)},
+        lambda: {"m": fm.fused_mask_forward_reference(layers64, X.double())},
+        ("m",), 2 * K * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])), _nbytes(X, *mweights) + K * 4,
+    )
+    k4 = (X, s0map, sq_b, esq_b, base, cnt, abk)
+    k4_64 = tuple(t.double() for t in k4)
+
+    def named4(grads):
+        return {f"d{p}{li}": t for li, (dw, db) in enumerate(grads) for p, t in (("W", dw), ("b", db))}
+
+    results["K4"] = check_kernel(
+        f"K4 fused_mask_backward_dedup K={K}",
+        lambda: named4(fm.fused_mask_backward_dedup(layers, *k4)),
+        lambda: named4(fm.fused_mask_backward_dedup_reference(layers, *k4)),
+        lambda: named4(fm.fused_mask_backward_dedup_reference(layers64, *k4_64)),
+        (), _mlp_flops(K, mdims, len(mdims) - 2), _nbytes(*k4, *mweights) + _nbytes(*mweights),
+    )
+    return results
+
+
+def options(out_root: str, name: str, iters: int, *extra):
+    """A config through the port's config path."""
     from marf_tpu_torch.utils.config import parse_arguments, set_opt
 
     args = [
-        "--model=planar", "--yaml=planar", "--group=smoke", f"--name=canonical_{fused_step}", "--seed=3",
-        "--barf_c2f=[0,0.4]", "--dataset=synthetic", f"--max_iter={ITERS}", "--freq.scalar=20",
-        f"--tpu.fused_step={fused_step}", f"--output_root={out_root}", "--tb=",
+        "--model=planar", "--yaml=planar", "--group=smoke", f"--name={name}", "--seed=3",
+        "--barf_c2f=[0,0.4]", "--dataset=synthetic", f"--max_iter={iters}", "--freq.scalar=20",
+        f"--output_root={out_root}", "--tb=", *extra,
     ]
     return set_opt(parse_arguments(args), interactive=False)
 
 
-def run_model(opt):
+def run_model(opt, expect: dict):
+    """Train with every launch count set to 0 just before and read just
+    after; each kernel must have launched exactly `expect[name]` times (0
+    when absent)."""
     from marf_tpu_torch.engine.trainer import Model
+    from marf_tpu_torch.ops.cuda import LAUNCHES
 
     m = Model(opt)
     m.load_dataset()
     m.build_networks()
     m.setup_optimizer()
     m.setup_visualizer()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
     m.train()
     torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    want = {k: expect.get(k, 0) for k in LAUNCHES}
+    if counts != want or m.it != opt.max_iter:
+        fail(f"{opt.name}: launches {counts} in {m.it} steps, expected {want}")
     hist = {k: torch.cat([torch.as_tensor(h[k]) for h in m.history]) for k in m.history[0]}
-    return m, hist
+    for k in ("loss_rgb", "loss_render", "all", "finite"):
+        if not torch.isfinite(hist[k]).all() or (k == "finite" and not bool((hist[k] == 1).all())):
+            fail(f"{opt.name}: non-finite {k}")
+    if not hist["loss_rgb"][-1] < hist["loss_rgb"][0]:
+        fail(f"{opt.name}: rgb loss did not decrease ({hist['loss_rgb'][0]:.5f} -> {hist['loss_rgb'][-1]:.5f})")
+    print(f"[main] {opt.name}: {m.steps_per_sec:.2f} steps/s, launches {counts}, rgb loss "
+          f"{hist['loss_rgb'][0]:.5f} -> {hist['loss_rgb'][-1]:.5f}, mask loss {hist['loss_mask'][-1]:.5f}, "
+          f"PSNR {hist['PSNR'][-1]:.3f}", flush=True)
+    return m, hist, counts
+
+
+def _traj(h_f, h_a, key):
+    return ((h_f[key][:10] - h_a[key][:10]).abs() / h_a[key][:10].abs().clamp_min(1e-30)).max().item()
 
 
 def phase_main_path(out_root: str):
-    from marf_tpu_torch.ops.cuda import fused_step as fs
+    from marf_tpu_torch.models.planar import graph_forward
 
-    fs.LAUNCHES = 0
-    m_f, h_f = run_model(canonical_options(out_root, "on"))
-    launches = fs.LAUNCHES
-    if launches != ITERS or m_f.it != ITERS:
-        fail(f"K1 launched {launches} times in {m_f.it} fused steps (expected {ITERS})")
-    m_a, h_a = run_model(canonical_options(out_root, "off"))
-    if fs.LAUNCHES != launches:
-        fail("the autograd path launched K1")
-    for name, h in (("fused", h_f), ("autograd", h_a)):
-        for k in ("loss_rgb", "loss_render", "all", "finite"):
-            if not torch.isfinite(h[k]).all() or (k == "finite" and not bool((h[k] == 1).all())):
-                fail(f"{name} path: non-finite {k}")
-        if not h["loss_rgb"][-1] < h["loss_rgb"][0]:
-            fail(f"{name} path: rgb loss did not decrease ({h['loss_rgb'][0]:.5f} -> {h['loss_rgb'][-1]:.5f})")
-    traj = ((h_f["loss_rgb"][:10] - h_a["loss_rgb"][:10]).abs() / h_a["loss_rgb"][:10]).max().item()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    implicit = ("--use_implicit_mask", "--use_masks=false")
+    m_f, h_f, c = run_model(options(out_root, "canonical_fused", ITERS, "--tpu.fused_step=on"),
+                            {"fused_train_kernel_warp": ITERS})
+    add(c)
+    _, h_a, _ = run_model(options(out_root, "canonical_autograd", ITERS, "--tpu.fused_step=off"), {})
+    traj = _traj(h_f, h_a, "loss_rgb")
     if not traj <= TRAJ_TOL:
-        fail(f"fused and autograd rgb losses differ by {traj:.2e} over the first 10 steps (tol {TRAJ_TOL:.0e})")
+        fail(f"canonical: fused and autograd rgb losses differ by {traj:.2e} over the first 10 steps (tol {TRAJ_TOL:.0e})")
     rgb = m_f.graph.neural_image(m_f.graph.grid.T.contiguous(), torch.tensor(1.0, device=m_f.device))
     if tuple(rgb.shape) != (3, m_f.cfg.patch_H * m_f.cfg.patch_W) or not torch.isfinite(rgb).all():
         fail("rendered patch has the wrong shape or non-finite values")
-    print(f"[main] fused: {m_f.steps_per_sec:.2f} steps/s, K1 launches {launches}/{ITERS} steps, "
-          f"rgb loss {h_f['loss_rgb'][0]:.5f} -> {h_f['loss_rgb'][-1]:.5f}, PSNR {h_f['PSNR'][-1]:.3f}", flush=True)
-    print(f"[main] autograd (TF32 off): {m_a.steps_per_sec:.2f} steps/s, "
-          f"rgb loss {h_a['loss_rgb'][0]:.5f} -> {h_a['loss_rgb'][-1]:.5f}, PSNR {h_a['PSNR'][-1]:.3f}; "
-          f"first-10-step rgb loss rel diff fused vs autograd {traj:.2e}", flush=True)
-    return launches
+    print(f"[main] canonical: first-10-step rgb loss rel diff fused vs autograd {traj:.2e}", flush=True)
+
+    m_i, h_i, c = run_model(
+        options(out_root, "implicit_fused", ITERS, "--tpu.fused_step=on", *implicit),
+        {"fused_mask_forward": ITERS, "fused_train_kernel_warp": ITERS, "fused_mask_backward_dedup": ITERS},
+    )
+    add(c)
+    _, h_ia, _ = run_model(options(out_root, "implicit_autograd", ITERS, "--tpu.fused_step=off", *implicit), {})
+    trajs = {k: _traj(h_i, h_ia, k) for k in ("loss_rgb", "loss_mask")}
+    if not max(trajs.values()) <= TRAJ_TOL:
+        fail(f"implicit: fused and autograd losses differ over the first 10 steps: {trajs} (tol {TRAJ_TOL:.0e})")
+    with torch.no_grad():
+        out = graph_forward(m_i.graph, m_i.data, m_i.cfg, torch.tensor(1.0, device=m_i.device))
+    B, (h, w) = m_i.cfg.batch_size, m_i.cfg.map_hw
+    for k, shape in (("rgb_prediction_map", (B, 3, h, w)), ("mask_prediction_map", (B, 1, h, w))):
+        if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
+            fail(f"implicit: {k} has the wrong shape or non-finite values")
+    print(f"[main] implicit: first-10-step loss rel diff fused vs autograd "
+          + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
+
+    _, h_k2, c = run_model(
+        options(out_root, "implicit_fused_warp_off", ITERS, "--tpu.fused_step=on", "--tpu.fused_warp=off", *implicit),
+        {"fused_mask_forward": ITERS, "fused_train_kernel": ITERS, "fused_mask_backward_dedup": ITERS},
+    )
+    add(c)
+    trajs = {k: _traj(h_k2, h_i, k) for k in ("loss_rgb", "loss_mask")}
+    if not max(trajs.values()) <= TRAJ_TOL:
+        fail(f"implicit: the K2 and K1 runs' losses differ over the first 10 steps: {trajs} (tol {TRAJ_TOL:.0e})")
+    print(f"[main] implicit: first-10-step loss rel diff K2 vs K1 "
+          + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
+    return total
+
+
+KERNELS = [
+    ("K1", "fused_train_kernel_warp", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:272"),
+    ("K2", "fused_train_kernel", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:208"),
+    ("K3", "fused_mask_forward", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:252"),
+    ("K4", "fused_mask_backward_dedup", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:837"),
+]
 
 
 def main():
     smi = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
-    k1 = phase_kernel(device)
+    results = phase_kernels(device)
     torch.cuda.synchronize()
     out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output")
     os.makedirs(out_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_root) as tmp:
         launches = phase_main_path(tmp)
-    print(json.dumps({"kernels": [{
-        "name": "fused_train_kernel_warp",
-        "route": "cuda",
-        "source": "marf_tpu_torch/csrc/fused_step.cu",
-        "replaces": "marf_tpu/ops/pallas/fused_step.py:272",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
+         **results[kid], "library_ms": None}
+        for kid, name, source, replaces in KERNELS
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

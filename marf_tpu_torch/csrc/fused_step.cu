@@ -1,25 +1,27 @@
-// Fused planar train step for Hopper (sm_90a), float32.
+// Fused planar train step for Hopper (sm_90a), float32: two entry points
+// over one pipeline.
 //
-// Replaces marf_tpu/ops/pallas/fused_step.py:_kernel_warp (K1, wrapper
-// fused_train_kernel_warp). One call computes, for N points (columns
-// b*HW + i of the constant (u, v, b) grid):
-//   the per-point homography warp with H[b] and the +1e-8 perspective divide;
+// marf_fused_step_warp replaces marf_tpu/ops/pallas/fused_step.py:_kernel_warp
+// (K1, wrapper fused_train_kernel_warp); marf_fused_step_coords replaces
+// fused_step.py:_kernel (K2, wrapper fused_train_kernel), which is K1 given
+// the warped coordinates. One call computes, for N points:
+//   K1: the per-point homography warp of the constant (u, v, b) grid with
+//       H[b] and the +1e-8 perspective divide; K2: reads coords [2, N];
 //   the BARF posenc with c2f band weights;
 //   the MLP forward (ReLU hidden layers, sigmoid rgb);
 //   the masked-MSE loss partial and the per-point squared error;
 //   the analytic rgb cotangent dscale*(rgb-t)*m*m chained through the sigmoid;
 //   the full backward (dW, db of every layer);
-//   the analytic posenc VJP and the warp VJP, reduced to dH[b] per image.
+//   the analytic posenc VJP, then K1: the warp VJP reduced to dH[b] per
+//   image; K2: dcoords [2, N] per point (no limit on the number of images).
 //
 // What bounds it: float32 FLOPs. The canonical step (N = 216,000, MLP
 // 34->256x4->3) needs about 267 GFLOP (forward, dX and dW products) against
 // about 1 GB of activation traffic, so it sits far above the card's float32
 // balance point. The design spends its effort on the products: each dense
-// layer is a tiled SIMT SGEMM (128x128 block tile, 8x8 outputs per thread,
-// double-buffered shared memory, FMA in float32 with float32 accumulation;
-// no TF32, no library GEMM), with bias+ReLU, the ReLU gate and the
-// split-K partials fused into its epilogue. The elementwise stages (warp +
-// posenc, the 256->3 head with the loss, the posenc/warp VJP) are
+// layer is a tiled SIMT SGEMM (mlp_kernels.cuh) with bias+ReLU, the ReLU gate
+// and the split-K partials fused into its epilogue. The elementwise stages
+// (warp + posenc, the 256->3 head with the loss, the posenc/warp VJP) are
 // memory-bound passes of their own.
 //
 // The TPU kernel carried dW/db/dH/loss across a sequential grid in scratch.
@@ -32,138 +34,18 @@
 // all points go to a global workspace (about 1.4 GB at the canonical size).
 //
 // Layouts: weights are nn.Linear's [out, in], row-major; activations are
-// point-major [N, width]; grid, targets, rgb are channels-first [C, N].
+// point-major [N, width]; grid, coords, targets, rgb, dcoords are
+// channels-first [C, N].
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mlp_kernels.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // GEMM block tile rows
-constexpr int BN = 128;  // GEMM block tile columns
-constexpr int BK = 8;    // GEMM depth per stage
-constexpr int PADS = 4;  // shared-memory row padding (bank spread, keeps float4 alignment)
-constexpr int GEMM_THREADS = 256;
-constexpr int ELEM_THREADS = 256;
-constexpr int HEAD_POINTS = 8;   // points per head-kernel tile (one per warp)
-constexpr int HEAD_MAX_K = 1024; // widest last hidden layer the head kernel takes
 constexpr int MAX_IMAGES = 8;
 constexpr int MAX_L = 16;
-constexpr int SPLIT_TARGET_BLOCKS = 264;  // 2 blocks per SM on 132 SMs
-constexpr int COLSUM_SPLITS = 128;
 constexpr float PI_F = 3.14159265358979323846f;
 
-enum Epilogue { EPI_STORE = 0, EPI_BIAS_RELU = 1, EPI_GATE = 2 };
-
-// C[M, N] (+)= A[M, K] * B[K, N] over k in this block's split.
-// A(m, k) = A_K_CONTIG ? A[m*lda + k] : A[k*lda + m]
-// B(k, n) = B_N_CONTIG ? B[k*ldb + n] : B[n*ldb + k]
-// blockIdx.z selects a split of K of length k_chunk; its output goes to
-// C + z*c_split_stride (the split-K partials of the dW products).
-// Two blocks per SM: at more than 128 registers a thread only one fits.
-template <bool A_K_CONTIG, bool B_N_CONTIG, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-sgemm_kernel(int M, int N, int K,
-             const float* __restrict__ A, int lda,
-             const float* __restrict__ B, int ldb,
-             float* __restrict__ C, int ldc,
-             const float* __restrict__ bias,
-             const float* __restrict__ gate, int ldg,
-             int k_chunk, long long c_split_stride) {
-  __shared__ __align__(16) float As[2][BK][BM + PADS];
-  __shared__ __align__(16) float Bs[2][BK][BN + PADS];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int k0 = blockIdx.z * k_chunk;
-  const int k1 = min(K, k0 + k_chunk);
-  C += (long long)blockIdx.z * c_split_stride;
-
-  float ra[4], rb[4];
-  auto load_tiles = [&](int kt) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int e = tid + r * GEMM_THREADS;
-      int mm, kk;
-      if (A_K_CONTIG) { kk = e % BK; mm = e / BK; } else { mm = e % BM; kk = e / BM; }
-      const int m = m0 + mm, k = kt + kk;
-      ra[r] = (m < M && k < k1) ? (A_K_CONTIG ? A[(long long)m * lda + k] : A[(long long)k * lda + m]) : 0.0f;
-      int nn;
-      if (B_N_CONTIG) { nn = e % BN; kk = e / BN; } else { kk = e % BK; nn = e / BK; }
-      const int n = n0 + nn, k2 = kt + kk;
-      rb[r] = (n < N && k2 < k1) ? (B_N_CONTIG ? B[(long long)k2 * ldb + n] : B[(long long)n * ldb + k2]) : 0.0f;
-    }
-  };
-  auto store_tiles = [&](int buf) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int e = tid + r * GEMM_THREADS;
-      int mm, kk;
-      if (A_K_CONTIG) { kk = e % BK; mm = e / BK; } else { mm = e % BM; kk = e / BM; }
-      As[buf][kk][mm] = ra[r];
-      int nn;
-      if (B_N_CONTIG) { nn = e % BN; kk = e / BN; } else { kk = e % BK; nn = e / BK; }
-      Bs[buf][kk][nn] = rb[r];
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  if (k0 < k1) {
-    load_tiles(k0);
-    store_tiles(0);
-  }
-  __syncthreads();
-  int buf = 0;
-  for (int kt = k0; kt < k1; kt += BK) {
-    const bool has_next = kt + BK < k1;
-    if (has_next) load_tiles(kt + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[8], b[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (has_next) store_tiles(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (n >= N) continue;
-      float v = acc[i][j];
-      if (EPI == EPI_BIAS_RELU) v = fmaxf(v + bias[n], 0.0f);
-      if (EPI == EPI_GATE) v = gate[(long long)m * ldg + n] > 0.0f ? v : 0.0f;
-      C[(long long)m * ldc + n] = v;
-    }
-  }
-}
-
-// Per-point warp + posenc: enc[p] = [x, y, sin(x f_k) w_k, cos(x f_k) w_k,
-// sin(y f_k) w_k, cos(y f_k) w_k] (the reference row order, 2 + 4L wide).
+// Per-point warp: (x, y) = H[b] (u, v, 1) with the perspective divide.
 __device__ __forceinline__ void warp_point(const float* __restrict__ grid, const float* __restrict__ H, int B,
                                            int Np, int p, float& u, float& v, int& b, float h[9],
                                            float& rden, float& x, float& y) {
@@ -179,14 +61,30 @@ __device__ __forceinline__ void warp_point(const float* __restrict__ grid, const
   if (!valid) b = -1;
 }
 
+// The point's coordinates: warped from the grid (coords == nullptr, K1) or
+// read from coords [2, Np] (K2).
+__device__ __forceinline__ void point_xy(const float* __restrict__ grid, const float* __restrict__ H,
+                                         const float* __restrict__ coords, int B, int Np, int p, float& x, float& y) {
+  if (coords) {
+    x = coords[p];
+    y = coords[Np + p];
+  } else {
+    float u, v, h[9], rden;
+    int b;
+    warp_point(grid, H, B, Np, p, u, v, b, h, rden, x, y);
+  }
+}
+
+// enc[p] = [x, y, sin(x f_k) w_k, cos(x f_k) w_k, sin(y f_k) w_k,
+// cos(y f_k) w_k] (the reference row order, 2 + 4L wide).
 __global__ void encode_kernel(int Np, int B, int L, const float* __restrict__ grid, const float* __restrict__ H,
-                              const float* __restrict__ cw, float* __restrict__ enc) {
+                              const float* __restrict__ coords, const float* __restrict__ cw,
+                              float* __restrict__ enc) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= Np) return;
   const int E = 2 + 4 * L;
-  float u, v, h[9], rden, x, y;
-  int b;
-  warp_point(grid, H, B, Np, p, u, v, b, h, rden, x, y);
+  float x, y;
+  point_xy(grid, H, coords, B, Np, p, x, y);
   float* e = enc + (long long)p * E;
   e[0] = x;
   e[1] = y;
@@ -201,6 +99,24 @@ __global__ void encode_kernel(int Np, int B, int L, const float* __restrict__ gr
     e[2 + 2 * L + k] = sy * w;
     e[2 + 3 * L + k] = cy * w;
   }
+}
+
+// Posenc VJP of one point: d = d(encoding) row, returns dx, dy:
+//   dx = d_x + sum_k f_k (cos(x f_k) w_k dsin_k - sin(x f_k) w_k dcos_k), same for y.
+__device__ __forceinline__ void posenc_vjp(float x, float y, int L, const float* __restrict__ cw,
+                                           const float* __restrict__ d, float& dx, float& dy) {
+  float sx_acc = 0.0f, sy_acc = 0.0f;
+  for (int k = 0; k < L; ++k) {
+    const float f = ldexpf(PI_F, k);
+    const float w = cw[k];
+    float sx, cx, sy, cy;
+    sincosf(x * f, &sx, &cx);
+    sincosf(y * f, &sy, &cy);
+    sx_acc += f * ((cx * w) * d[2 + k] - (sx * w) * d[2 + L + k]);
+    sy_acc += f * ((cy * w) * d[2 + 2 * L + k] - (sy * w) * d[2 + 3 * L + k]);
+  }
+  dx = d[0] + sx_acc;
+  dy = d[1] + sy_acc;
 }
 
 // The last layer (K -> 3, sigmoid) with the loss and the first backward
@@ -325,8 +241,7 @@ head_kernel(int Np, int K, int chunk, const float* __restrict__ X, const float* 
   }
 }
 
-// Posenc VJP + warp VJP per point, reduced per image within the block:
-//   dx = denc_x + sum_k f_k (cos(x f_k) w_k dsin_k - sin(x f_k) w_k dcos_k), same for y;
+// K1: posenc VJP + warp VJP per point, reduced per image within the block:
 //   dH[b] rows = [dxh u, dxh v, dxh, dyh u, dyh v, dyh, dw u, dw v, dw]
 //   with dxh = dx rden, dyh = dy rden, dw = -(dx x + dy y) rden.
 __global__ void __launch_bounds__(ELEM_THREADS)
@@ -344,23 +259,10 @@ encode_bwd_kernel(int Np, int B, int L, int chunk, const float* __restrict__ gri
     for (int j = 0; j < 9; ++j) acc[i][j] = 0.0f;
 
   for (int p = p_begin + tid; p < p_end; p += ELEM_THREADS) {
-    float u, v, h[9], rden, x, y;
+    float u, v, h[9], rden, x, y, dx, dy;
     int b;
     warp_point(grid, H, B, Np, p, u, v, b, h, rden, x, y);
-    const float* d = denc + (long long)p * E;
-    float dx = d[0], dy = d[1];
-    float sx_acc = 0.0f, sy_acc = 0.0f;
-    for (int k = 0; k < L; ++k) {
-      const float f = ldexpf(PI_F, k);
-      const float w = cw[k];
-      float sx, cx, sy, cy;
-      sincosf(x * f, &sx, &cx);
-      sincosf(y * f, &sy, &cy);
-      sx_acc += f * ((cx * w) * d[2 + k] - (sx * w) * d[2 + L + k]);
-      sy_acc += f * ((cy * w) * d[2 + 2 * L + k] - (sy * w) * d[2 + 3 * L + k]);
-    }
-    dx += sx_acc;
-    dy += sy_acc;
+    posenc_vjp(x, y, L, cw, denc + (long long)p * E, dx, dy);
     const float dxh = dx * rden, dyh = dy * rden;
     const float dw = -(dx * x + dy * y) * rden;
     const float rows[9] = {dxh * u, dxh * v, dxh, dyh * u, dyh * v, dyh, dw * u, dw * v, dw};
@@ -392,54 +294,33 @@ encode_bwd_kernel(int Np, int B, int L, int chunk, const float* __restrict__ gri
   }
 }
 
-// Column sums of D [Np, ncol] over one split of points -> part[split][ncol].
-__global__ void colsum_kernel(int Np, int ncol, int chunk, const float* __restrict__ D, float* __restrict__ part) {
-  const int col = blockIdx.y * blockDim.x + threadIdx.x;
-  if (col >= ncol) return;
-  const int p_begin = blockIdx.x * chunk;
-  const int p_end = min(Np, p_begin + chunk);
-  float s = 0.0f;
-  for (int p = p_begin; p < p_end; ++p) s += D[(long long)p * ncol + col];
-  part[(long long)blockIdx.x * ncol + col] = s;
+// K2: posenc VJP per point -> dcoords [2, Np].
+__global__ void coords_bwd_kernel(int Np, int L, const float* __restrict__ coords, const float* __restrict__ cw,
+                                  const float* __restrict__ denc, float* __restrict__ dcoords) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= Np) return;
+  float dx, dy;
+  posenc_vjp(coords[p], coords[Np + p], L, cw, denc + (long long)p * (2 + 4 * L), dx, dy);
+  dcoords[p] = dx;
+  dcoords[Np + p] = dy;
 }
-
-// out[i] = sum_{z < S} part[z*stride + i], in fixed order of z.
-__global__ void reduce_kernel(int S, int count, long long stride, const float* __restrict__ part,
-                              float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.0f;
-  for (int z = 0; z < S; ++z) s += part[(long long)z * stride + i];
-  out[i] = s;
-}
-
-inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 struct Plan {
-  int n_layers, E, widest, head_blocks, head_chunk, head_stride, bwd_blocks, bwd_chunk, colsum_chunk;
-  long long enc, acts[16], dz[2], dw_part, dw_part_size, col_part, head_part, dh_part, total;
+  int E, widest, head_blocks, head_chunk, head_stride, bwd_blocks, bwd_chunk, colsum_chunk;
+  long long enc, acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dh_part, total;
 };
 
-// split-K layout of the dW product of a layer [out, in] over Np points
-inline void dw_split(int Np, int out, int in, int& splits, int& chunk) {
-  const int tiles = cdiv(out, BM) * cdiv(in, BN);
-  int s = cdiv(SPLIT_TARGET_BLOCKS, tiles);
-  chunk = cdiv(cdiv(Np, s), BK) * BK;
-  splits = cdiv(Np, chunk);
-}
-
+// B = 0 for K2 (no dH partials)
 Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
   Plan P{};
-  P.n_layers = n_layers;
   P.E = 2 + 4 * L;
   P.widest = P.E;
   for (int l = 1; l <= n_layers; ++l) P.widest = dims[l] > P.widest ? dims[l] : P.widest;
-  long long off = 0;
-  auto take = [&](long long n) { long long o = off; off += (n + 3) / 4 * 4; return o; };
-  P.enc = take((long long)Np * P.E);
-  for (int l = 0; l + 1 < n_layers; ++l) P.acts[l] = take((long long)Np * dims[l + 1]);
-  P.dz[0] = take((long long)Np * P.widest);
-  P.dz[1] = take((long long)Np * P.widest);
+  Arena a;
+  P.enc = a.take((long long)Np * P.E);
+  for (int l = 0; l + 1 < n_layers; ++l) P.acts[l] = a.take((long long)Np * dims[l + 1]);
+  P.dz[0] = a.take((long long)Np * P.widest);
+  P.dz[1] = a.take((long long)Np * P.widest);
   long long dw_max = 0;
   for (int l = 0; l + 1 < n_layers; ++l) {
     int splits, chunk;
@@ -447,68 +328,36 @@ Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
     long long n = (long long)splits * dims[l + 1] * dims[l];
     dw_max = n > dw_max ? n : dw_max;
   }
-  P.dw_part_size = dw_max;
-  P.dw_part = take(dw_max);
+  P.dw_part = a.take(dw_max);
   P.colsum_chunk = cdiv(Np, COLSUM_SPLITS);
-  P.col_part = take((long long)COLSUM_SPLITS * P.widest);
+  P.col_part = a.take((long long)COLSUM_SPLITS * P.widest);
   const int K = dims[n_layers - 1];
   P.head_blocks = cdiv(Np, 64) < 1024 ? cdiv(Np, 64) : 1024;
   P.head_chunk = cdiv(cdiv(Np, P.head_blocks), HEAD_POINTS) * HEAD_POINTS;
   P.head_blocks = cdiv(Np, P.head_chunk);
   P.head_stride = 3 * K + 4;
-  P.head_part = take((long long)P.head_blocks * P.head_stride);
+  P.head_part = a.take((long long)P.head_blocks * P.head_stride);
   P.bwd_blocks = cdiv(Np, 1024) < 1024 ? cdiv(Np, 1024) : 1024;
   P.bwd_chunk = cdiv(Np, P.bwd_blocks);
   P.bwd_blocks = cdiv(Np, P.bwd_chunk);
-  P.dh_part = take((long long)P.bwd_blocks * B * 9);
-  P.total = off;
+  P.dh_part = a.take((long long)P.bwd_blocks * B * 9);
+  P.total = a.off;
   return P;
 }
 
-template <bool AK, bool BNC, int EPI>
-void gemm(cudaStream_t st, int M, int N, int K, const float* A, int lda, const float* B, int ldb, float* C, int ldc,
-          const float* bias, const float* gate, int ldg, int splits, int k_chunk, long long c_split_stride) {
-  dim3 grid(cdiv(M, BM), cdiv(N, BN), splits);
-  sgemm_kernel<AK, BNC, EPI><<<grid, GEMM_THREADS, 0, st>>>(M, N, K, A, lda, B, ldb, C, ldc, bias, gate, ldg,
-                                                           k_chunk, c_split_stride);
-}
-
-void reduce(cudaStream_t st, int S, int count, long long stride, const float* part, float* out) {
-  reduce_kernel<<<cdiv(count, ELEM_THREADS), ELEM_THREADS, 0, st>>>(S, count, stride, part, out);
-}
-
-}  // namespace
-
-#define MARF_CHECK_LAUNCH()                     \
-  do {                                          \
-    cudaError_t err_ = cudaGetLastError();      \
-    if (err_ != cudaSuccess) return (int)err_;  \
-  } while (0)
-
-extern "C" {
-
-// Floats of workspace one call needs (the wrapper allocates it).
-long long marf_fused_step_warp_workspace(int Np, int B, int L, int n_layers, const int* dims) {
-  return make_plan(Np, B, L, n_layers, dims).total;
-}
-
-// Returns 0, or the CUDA error code of the first launch that failed.
-// dims[0..n_layers]: layer widths, dims[0] = 2 + 4L, dims[n_layers] = 3.
-// W[l]: [dims[l+1], dims[l]]; bias[l]: [dims[l+1]]; dW/db the same shapes.
-// grid [3, Np] rows (u, v, b); H [B, 9]; cw [L]; tgt/rgb [3, Np]; msk/sq [Np];
-// scal [2] = (dscale, lscale); loss [1]; dH [B, 9].
-int marf_fused_step_warp(int Np, int B, int L, int n_layers, const int* dims, const float* grid, const float* H,
-                         const float* cw, const float* tgt, const float* msk, const float* scal,
-                         const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
-                         float* const* dW, float* const* db, float* dH, float* ws, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n_layers < 2 || n_layers > 16 || B < 1 || B > MAX_IMAGES || L < 0 || L > MAX_L) return (int)cudaErrorInvalidValue;
+// The shared pipeline. K1: grid/H given, coords == nullptr, writes dH.
+// K2: coords given, grid/H unused, writes dcoords.
+int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float* grid, const float* H,
+               const float* coords, const float* cw, const float* tgt, const float* msk, const float* scal,
+               const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
+               float* const* dW, float* const* db, float* dH, float* dcoords, float* ws, cudaStream_t st) {
+  if (n_layers < 2 || n_layers > MAX_LAYERS || L < 0 || L > MAX_L) return (int)cudaErrorInvalidValue;
   if (dims[0] != 2 + 4 * L || dims[n_layers] != 3 || dims[n_layers - 1] > HEAD_MAX_K) return (int)cudaErrorInvalidValue;
   const Plan P = make_plan(Np, B, L, n_layers, dims);
   const int last = n_layers - 1;
 
   // ---- forward
-  encode_kernel<<<cdiv(Np, ELEM_THREADS), ELEM_THREADS, 0, st>>>(Np, B, L, grid, H, cw, ws + P.enc);
+  encode_kernel<<<cdiv(Np, ELEM_THREADS), ELEM_THREADS, 0, st>>>(Np, B, L, grid, H, coords, cw, ws + P.enc);
   MARF_CHECK_LAUNCH();
   for (int l = 0; l < last; ++l) {
     const float* in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
@@ -545,11 +394,7 @@ int marf_fused_step_warp(int Np, int B, int L, int n_layers, const int* dims, co
     MARF_CHECK_LAUNCH();
     reduce(st, splits, out * in, (long long)out * in, ws + P.dw_part, dW[l]);
     MARF_CHECK_LAUNCH();
-    // db[l] = column sums of dz
-    dim3 cgrid(cdiv(Np, P.colsum_chunk), cdiv(out, ELEM_THREADS));
-    colsum_kernel<<<cgrid, ELEM_THREADS, 0, st>>>(Np, out, P.colsum_chunk, dz_cur, ws + P.col_part);
-    MARF_CHECK_LAUNCH();
-    reduce(st, cdiv(Np, P.colsum_chunk), out, out, ws + P.col_part, db[l]);
+    colsum(st, Np, out, P.colsum_chunk, dz_cur, ws + P.col_part, db[l]);
     MARF_CHECK_LAUNCH();
     // dz of the layer below (ReLU-gated by its activation), or d(encoding)
     float* dz_next = ws + P.dz[cur ^ 1];
@@ -564,13 +409,55 @@ int marf_fused_step_warp(int Np, int B, int L, int n_layers, const int* dims, co
     cur ^= 1;
   }
 
-  // ---- posenc + warp VJP -> dH
+  // ---- posenc VJP -> dcoords (K2), or posenc + warp VJP -> dH (K1)
+  if (coords) {
+    coords_bwd_kernel<<<cdiv(Np, ELEM_THREADS), ELEM_THREADS, 0, st>>>(Np, L, coords, cw, ws + P.dz[cur], dcoords);
+    MARF_CHECK_LAUNCH();
+    return 0;
+  }
   encode_bwd_kernel<<<P.bwd_blocks, ELEM_THREADS, 0, st>>>(Np, B, L, P.bwd_chunk, grid, H, cw, ws + P.dz[cur],
                                                             ws + P.dh_part);
   MARF_CHECK_LAUNCH();
   reduce(st, P.bwd_blocks, B * 9, (long long)B * 9, ws + P.dh_part, dH);
   MARF_CHECK_LAUNCH();
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of workspace one call needs (the wrapper allocates it).
+long long marf_fused_step_warp_workspace(int Np, int B, int L, int n_layers, const int* dims) {
+  return make_plan(Np, B, L, n_layers, dims).total;
+}
+
+// K1. Returns 0, or the CUDA error code of the first launch that failed.
+// dims[0..n_layers]: layer widths, dims[0] = 2 + 4L, dims[n_layers] = 3.
+// W[l]: [dims[l+1], dims[l]]; bias[l]: [dims[l+1]]; dW/db the same shapes.
+// grid [3, Np] rows (u, v, b); H [B, 9]; cw [L]; tgt/rgb [3, Np]; msk/sq [Np];
+// scal [2] = (dscale, lscale); loss [1]; dH [B, 9].
+int marf_fused_step_warp(int Np, int B, int L, int n_layers, const int* dims, const float* grid, const float* H,
+                         const float* cw, const float* tgt, const float* msk, const float* scal,
+                         const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
+                         float* const* dW, float* const* db, float* dH, float* ws, void* stream) {
+  if (B < 1 || B > MAX_IMAGES) return (int)cudaErrorInvalidValue;
+  return fused_step(Np, B, L, n_layers, dims, grid, H, nullptr, cw, tgt, msk, scal, W, bias, rgb, sq, loss, dW, db,
+                    dH, nullptr, ws, (cudaStream_t)stream);
+}
+
+long long marf_fused_step_coords_workspace(int Np, int L, int n_layers, const int* dims) {
+  return make_plan(Np, 0, L, n_layers, dims).total;
+}
+
+// K2: as K1 with coords [2, Np] (warped coordinates) in place of grid and H,
+// and dcoords [2, Np] in place of dH.
+int marf_fused_step_coords(int Np, int L, int n_layers, const int* dims, const float* coords, const float* cw,
+                           const float* tgt, const float* msk, const float* scal, const float* const* W,
+                           const float* const* bias, float* rgb, float* sq, float* loss, float* const* dW,
+                           float* const* db, float* dcoords, float* ws, void* stream) {
+  return fused_step(Np, 0, L, n_layers, dims, nullptr, nullptr, coords, cw, tgt, msk, scal, W, bias, rgb, sq, loss,
+                    dW, db, nullptr, dcoords, ws, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,19 +1,28 @@
 """The train step and the chunked loop (twin of marf_tpu/engine/step.py).
 
-Two gradient paths compute the same update:
-  - the autograd step (`graph_forward` + `graph_loss` + backward), and
-  - the fused step: one call of the K1 kernel (ops/cuda/fused_step.py)
-    returns the MLP gradients and dH; dH is pulled back to the warp through
-    the torch expm with `torch.autograd.grad`. No autograd runs through the MLP.
+Three gradient paths; the fused ones compute the autograd path's update:
+  - the autograd step (`graph_forward` + `graph_loss` + backward);
+  - the fused fixed-mask step: one call of the rgb kernel
+    (ops/cuda/fused_step.py) returns the MLP gradients and dH (K1, warp in
+    the kernel) or dcoords (K2, under fused_warp=off or more than 8 images);
+    autograd pulls them back to the warp through the expm (K1) or the warp
+    (K2) only. No autograd runs through the MLP;
+  - the fused shared-head implicit-mask step on deduplicated mask columns
+    (marf_tpu `_fused_implicit_dedup_grads`): K3 (mask forward) -> the rgb
+    kernel masked by the predicted m -> the gradient-blocked edge term -> K4
+    (mask backward, ops/cuda/fused_mask.py), with the cotangent
+    dL/dm = (a sq + b esq + c) m + k from `mask_cot_scalars`.
 Then Adam with per-group learning rates (MLP at optim.lr, warp at
-optim.lr_warp; reference model/planar.py:86-104), Homography_Error from the
-post-update warp, and the fix_first re-zero of warp 0 (reference
-model/planar.py:156-158), in that order.
+optim.lr_warp, mask head at optim.lr_mask; reference model/planar.py:86-104),
+Homography_Error from the post-update warp, Mask_Error of the pre-update mask
+(implicit masks with premade masks), and the fix_first re-zero of warp 0
+(reference model/planar.py:156-158), in that order.
 
-Per-step constants (the flat target/mask/grid streams, 1/(3 sum m), and the
-progress / alpha / c2f schedules for every step) are built once when the
-step is made, so a step reads no value back to the host: its metrics stay on
-the device until `run_chunk` reads a whole chunk at once.
+Per-step constants (the flat target/mask/grid streams, 1/(3 sum m) of fixed
+masks, the mask-head inputs and their dedup structures, and the progress /
+alpha / c2f schedules for every step) are built once when the step is made,
+so a step reads no value back to the host: its metrics stay on the device
+until `run_chunk` reads a whole chunk at once.
 """
 
 from __future__ import annotations
@@ -23,7 +32,16 @@ import math
 import numpy as np
 import torch
 
-from marf_tpu_torch.models.planar import Graph, PlanarConfig, graph_forward, graph_loss, use_fused_step, use_lazy_metrics
+from marf_tpu_torch.models.implicit_mask import mask_head_inputs_cf
+from marf_tpu_torch.models.planar import (
+    Graph,
+    PlanarConfig,
+    graph_forward,
+    graph_loss,
+    use_fused_implicit,
+    use_fused_step,
+    use_lazy_metrics,
+)
 from marf_tpu_torch.ops.filters import compute_edges
 from marf_tpu_torch.ops.lie import sl3_to_SL3
 from marf_tpu_torch.ops.losses import (
@@ -36,6 +54,7 @@ from marf_tpu_torch.ops.losses import (
     summarize_loss,
 )
 from marf_tpu_torch.ops.posenc import barf_c2f_weights
+from marf_tpu_torch.ops.warp import warp_grid_cf_flat
 from marf_tpu_torch.utils.console import log
 
 
@@ -64,13 +83,21 @@ def _lr_lambda(optim_opt: dict, base_lr: float, max_iter: int):
 
 def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
     """Adam with one learning rate per group and torch's default
-    hyperparameters (the update optax.adam computes). Returns
+    hyperparameters (the update optax.adam computes): the neural image at
+    optim.lr, the warp at optim.lr_warp, the mask head at optim.lr_mask. The
+    view embedding joins the mask group only when it takes gradients
+    (optim.train_view_embedding); the reference never optimizes it. Returns
     (optimizer, LR scheduler or None); step the scheduler once per step."""
     lr = float(optim_opt["lr"])
     groups = [
         {"params": list(graph.neural_image.parameters()), "lr": lr},
         {"params": [graph.warp], "lr": float(optim_opt.get("lr_warp") or lr)},
     ]
+    if hasattr(graph, "implicit_mask"):
+        mask_params = list(graph.implicit_mask.parameters())
+        if graph.view_embedding.requires_grad:
+            mask_params.append(graph.view_embedding)
+        groups.append({"params": mask_params, "lr": float(optim_opt.get("lr_mask") or lr)})
     algo = optim_opt.get("algo", "Adam")
     if algo != "Adam":
         raise NotImplementedError(f"optim.algo={algo!r} is not ported; the port runs Adam (ROADMAP.md)")
@@ -86,6 +113,50 @@ def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambdas)
 
 
+def implicit_loss_coeffs(cfg: PlanarConfig, alpha):
+    """Loss-term coefficients of the implicit-mask pipeline: total =
+    sum_k 10^w_k loss_k with render = (1 - alpha) rgb + 0.5 mask + alpha edge
+    (reference model/planar.py:371-374). Returns (C_r, C_e, C_m)."""
+    w_render = 10.0 ** float(cfg.w_render)
+    C_r = w_render * (1.0 - alpha)
+    if cfg.w_rgb is not None:
+        C_r = C_r + 10.0 ** float(cfg.w_rgb)
+    C_e = w_render * alpha
+    if cfg.w_edge is not None:
+        C_e = C_e + 10.0 ** float(cfg.w_edge)
+    C_m = w_render * 0.5
+    if cfg.w_mask is not None:
+        C_m = C_m + 10.0 ** float(cfg.w_mask)
+    return C_r, C_e, C_m
+
+
+def mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, use_edges):
+    """(a, b, c, k) of the mask cotangent dL/dm = (a sq + b esq + c) m + k,
+    from dL/dm_i = C_r (2 m_i sq_i - 3 rgb_l) / (3 sum m)
+                 + C_e (2 m_i esq_i - 3 edge_l) / (3 sum m) + C_m 2 (m_i - 1) / N.
+    a, b, k are 0-d tensors on the device; c is a float."""
+    a_s = 2.0 * C_r * inv_sum3
+    b_s = 2.0 * C_e * inv_sum3 if use_edges else torch.zeros_like(a_s)
+    c_s = 2.0 * C_m / N
+    k_s = -3.0 * inv_sum3 * (C_r * rgb_loss + C_e * edge_loss) - 2.0 * C_m / N
+    return a_s, b_s, c_s, k_s
+
+
+def stage_mask_inputs(graph: Graph, images: torch.Tensor) -> tuple:
+    """The fused implicit step's constant inputs, built once on the host
+    (factoring and slot0+extras dedup, ops/cuda/fused_mask.py) and moved to
+    the graph's device: (X_all [56, K], slot0map [B, HW], ext_pix [E] int64,
+    extmap [B, E], cnt_all [1, K], table [8, 384])."""
+    from marf_tpu_torch.ops.cuda.fused_mask import factor_mask_inputs, slot_dedup_inputs
+
+    with torch.no_grad():
+        uv, onehot, table = factor_mask_inputs(graph.view_embedding.cpu(), images.cpu(), graph.grid.cpu())
+    X_all, slot0map, ext_pix, extmap, cnt_all = slot_dedup_inputs(uv.numpy(), onehot.numpy())
+    dev = graph.warp.device
+    arrays = (X_all, slot0map, ext_pix.astype(np.int64), extmap, cnt_all)
+    return (*(torch.from_numpy(a).to(dev) for a in arrays), table.to(dev))
+
+
 def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, scheduler=None, use_homographies: bool = True):
     """Build step_fn(step: int, heavy: bool) -> metrics dict of 0-d tensors.
 
@@ -93,10 +164,15 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     (model/planar.py:199-201): loss terms and PSNR from the pre-update
     forward, Homography_Error from the post-update warp before the fix_first
     re-zero. `heavy` marks the chunk-final step: with lazy metrics, only it
-    computes the metric-only work and the other rows report 0.
+    computes the metric-only work and the other rows report 0. The implicit
+    path's edge term is not metric-only (its esq feeds K4), so it runs every
+    step.
     """
+    from marf_tpu_torch.ops.cuda.fused_step import MAX_IMAGES
+
     device = graph.warp.device
     fused = use_fused_step(cfg, device)
+    fused_implicit = use_fused_implicit(cfg, device)
     lazy = use_lazy_metrics(cfg, device)
     h, w = cfg.map_hw
     B = cfg.batch_size
@@ -107,28 +183,80 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     zero = torch.zeros((), dtype=torch.float32, device=device)
     alphas = alpha_schedule(steps, cfg.max_iter, cfg.alpha_initial, cfg.alpha_final) if cfg.use_edges else zero.expand(len(steps))
     gt_hom = data.get("gt_hom") if use_homographies else None
-    log.info(f"train step: {'fused (K1)' if fused else 'autograd'} on {device}")
+    masks_ref = None  # the premade masks, [1, N], for Mask_Error
+    if cfg.use_implicit_mask and cfg.use_masks and data.get("masks") is not None:
+        masks_ref = data["masks"].permute(1, 0, 2, 3).reshape(1, N)
+    coords_kernel = cfg.fused_warp == "off" or B > MAX_IMAGES  # K2 in place of K1
+    if fused_implicit:
+        path = f"fused implicit dedup (K3 -> {'K2' if coords_kernel else 'K1'} -> K4)"
+    elif fused:
+        path = f"fused ({'K2' if coords_kernel else 'K1'})"
+    else:
+        path = "autograd"
+    log.info(f"train step: {path} on {device}")
 
-    if fused:
-        from marf_tpu_torch.ops.cuda.fused_step import fused_train_kernel_warp
+    if fused or fused_implicit:
+        from marf_tpu_torch.ops.cuda.fused_step import fused_train_kernel, fused_train_kernel_warp
 
         arch = cfg.arch
         cws = barf_c2f_weights(progress, tuple(arch.barf_c2f), arch.posenc_L) if (arch.posenc_L and arch.barf_c2f is not None) else None
         targets_cf = data["rgb"].permute(1, 0, 2, 3).reshape(3, N).contiguous()
+        if not coords_kernel:
+            # the kernel's (u, v, b) stream: the unwarped grid repeated per image
+            grid_b = torch.cat(
+                [graph.grid.T.repeat(1, B), torch.arange(B, dtype=torch.float32, device=device).repeat_interleave(HW)[None]]
+            ).contiguous()
+        edges_cf = data["edges"].permute(1, 0, 2, 3).contiguous() if cfg.use_edges else None
+    if fused:
         if cfg.use_masks and data.get("masks") is not None:
             masks_cf = data["masks"].permute(1, 0, 2, 3).reshape(1, N).contiguous()
         else:
             masks_cf = torch.ones((1, N), dtype=torch.float32, device=device)
-        inv_sum3 = 1.0 / (torch.sum(masks_cf) * 3.0)
-        # the kernel's (u, v, b) stream: the unwarped grid repeated per image
-        grid_b = torch.cat(
-            [graph.grid.T.repeat(1, B), torch.arange(B, dtype=torch.float32, device=device).repeat_interleave(HW)[None]]
-        ).contiguous()
-        edges_cf = data["edges"].permute(1, 0, 2, 3).contiguous() if cfg.use_edges else None
+        inv_sum3_fixed = 1.0 / (torch.sum(masks_cf) * 3.0)
         me = data.get("masks_eroded")
         me_cf = None if me is None else me.permute(1, 0, 2, 3).contiguous()
         c_render = 10.0 ** float(cfg.w_render)
         c_rgb = 10.0 ** float(cfg.w_rgb) if cfg.w_rgb is not None else None
+    if fused_implicit:
+        from marf_tpu_torch.ops.cuda.fused_mask import (
+            fused_mask_backward_dedup,
+            fused_mask_forward,
+            mask_w_stack,
+            unfactor_mask_grads,
+        )
+
+        X_all, slot0map, ext_pix, extmap, cnt_all, table = stage_mask_inputs(graph, data["rgb"])
+        E = ext_pix.shape[0]  # known at setup: the extras' index ops run only when E > 0
+        log.info(f"mask-head dedup: K = {HW + E} columns (HW = {HW}, E = {E}) for N = {N} positions")
+    elif cfg.use_implicit_mask and not cfg.train_view_embedding:
+        # frozen view embedding: the dense mask-head inputs are constants
+        with torch.no_grad():
+            x = mask_head_inputs_cf(graph.view_embedding, data["rgb"], graph.grid, cfg.mask_quantize_levels)
+        if not cfg.build_single_masks:
+            x = x.transpose(0, 1).reshape(x.shape[1], -1)  # [426, B*HW]
+        data = dict(data, mask_head_inputs_cf=x)
+
+    def rgb_kernel_grads(step: int, masks, g_loss_scale, inv_sum3):
+        """K1 or K2 on this step's warp; sets the MLP and warp gradients and
+        returns (rgb [3, N], rgb_loss, sq [1, N])."""
+        cw = None if cws is None else cws[step]
+        if coords_kernel:
+            coords = warp_grid_cf_flat(graph.grid, graph.warp)
+            rgb_cf, rgb_loss, dmlp, dcoords, sq = fused_train_kernel(
+                graph.neural_image, coords.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3
+            )
+            (dwarp,) = torch.autograd.grad(coords, graph.warp, dcoords)
+        else:
+            H = sl3_to_SL3(graph.warp)
+            rgb_cf, rgb_loss, dmlp, dH, sq = fused_train_kernel_warp(
+                graph.neural_image, grid_b, H.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3
+            )
+            (dwarp,) = torch.autograd.grad(H, graph.warp, dH)
+        for layer, (dw, db) in zip(graph.neural_image.layers, dmlp):
+            layer.weight.grad = dw
+            layer.bias.grad = db
+        graph.warp.grad = dwarp
+        return rgb_cf, rgb_loss, sq
 
     def fused_grads(step: int, heavy: bool):
         alpha = alphas[step]
@@ -136,37 +264,73 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         g_loss_scale = c_render * (1.0 - alpha)
         if c_rgb is not None:
             g_loss_scale = g_loss_scale + c_rgb
-        H = sl3_to_SL3(graph.warp)
-        rgb_cf, rgb_loss, dmlp, dH, _ = fused_train_kernel_warp(
-            graph.neural_image, grid_b, H.detach(), None if cws is None else cws[step],
-            targets_cf, masks_cf, g_loss_scale, inv_sum3,
-        )
-        (dwarp,) = torch.autograd.grad(H, graph.warp, dH)
-        for layer, (dw, db) in zip(graph.neural_image.layers, dmlp):
-            layer.weight.grad = dw
-            layer.bias.grad = db
-        graph.warp.grad = dwarp
+        rgb_cf, rgb_loss, _ = rgb_kernel_grads(step, masks_cf, g_loss_scale, inv_sum3_fixed)
         if cfg.use_edges and (heavy or not lazy):
             # the gradient-blocked edge term; [3, B, h, w] keeps the image axis as channels
             edge_loss = mse(compute_edges(rgb_cf.reshape(3, B, h, w)), edges_cf, me_cf)
         else:
             edge_loss = zero
-        return {
-            "render": render_loss(rgb_loss, edge_loss, zero, alpha),
+        loss = {"render": render_loss(rgb_loss, edge_loss, zero, alpha), "rgb": rgb_loss, "mask": zero, "edge": edge_loss}
+        return loss, None
+
+    def implicit_grads(step: int, heavy: bool):
+        alpha = alphas[step]
+        C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
+        # ---- mask forward on the K dedup columns, expanded to positions:
+        # m[b, p] = slot0map[b, p] m[p] + the one extra column that covers (b, p)
+        stack = mask_w_stack(graph.implicit_mask, table)
+        m_all = fused_mask_forward(stack, X_all)  # [1, K]
+        m_pos = slot0map * m_all[:, :HW]  # [B, HW]
+        if E:
+            m_pos = m_pos.index_add(1, ext_pix, extmap * m_all[:, HW:])
+        m_flat = m_pos.reshape(1, N)
+        inv_sum3 = 1.0 / (torch.dot(cnt_all[0], m_all[0]) * 3.0)
+        # ---- the rgb kernel, masked by the predicted m
+        rgb_cf, rgb_loss, sq = rgb_kernel_grads(step, m_flat, C_r, inv_sum3)
+        # ---- the gradient-blocked edge term, per position [B, HW]
+        if cfg.use_edges:
+            edge_pred_cf = compute_edges(rgb_cf.reshape(3, B, h, w))
+            esq_b = torch.sum((edge_pred_cf - edges_cf) ** 2, dim=0).reshape(B, HW)
+            edge_loss = torch.sum(m_pos * m_pos * esq_b) * inv_sum3
+        else:
+            esq_b = None
+            edge_loss = zero
+        mask_loss = torch.mean((1.0 - m_flat) ** 2)
+        # ---- K4: the extras' segment sums go in `base`, slot0's in the kernel
+        a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
+        sq_b = sq.reshape(B, HW)
+        base = c_s * cnt_all
+        if E:
+            tail = a_s * torch.sum(extmap * sq_b[:, ext_pix], dim=0)
+            if esq_b is not None:
+                tail = tail + b_s * torch.sum(extmap * esq_b[:, ext_pix], dim=0)
+            base = base + torch.nn.functional.pad(tail[None], (HW, 0))
+        dstack = fused_mask_backward_dedup(stack, X_all, slot0map, sq_b, esq_b, base, cnt_all, torch.stack([a_s, b_s, k_s]))
+        for layer, (dw, db) in zip(graph.implicit_mask.layers, unfactor_mask_grads(dstack, table)):
+            layer.weight.grad = dw
+            layer.bias.grad = db
+        loss = {
+            "render": render_loss(rgb_loss, edge_loss, mask_loss, alpha),
             "rgb": rgb_loss,
-            "mask": zero,
+            "mask": mask_loss,
             "edge": edge_loss,
         }
+        return loss, m_flat
 
-    def autograd_grads(step: int):
+    def autograd_grads(step: int, heavy: bool):
         optimizer.zero_grad(set_to_none=True)
         outputs = graph_forward(graph, data, cfg, progress[step])
         loss = graph_loss(outputs, data, cfg, steps[step])
         summarize_loss(loss, cfg.loss_weight).backward()
-        return {k: v.detach() for k, v in loss.items()}
+        mask_cf = None
+        if masks_ref is not None:
+            mask_cf = outputs["mask_prediction_map"].detach().permute(1, 0, 2, 3).reshape(1, N)
+        return {k: v.detach() for k, v in loss.items()}, mask_cf
+
+    grads_fn = implicit_grads if fused_implicit else fused_grads if fused else autograd_grads
 
     def step_fn(step: int, heavy: bool = True) -> dict:
-        loss = fused_grads(step, heavy) if fused else autograd_grads(step)
+        loss, mask_cf = grads_fn(step, heavy)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -179,6 +343,8 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
                 metrics["Homography_Error"] = (
                     homography_error(sl3_to_SL3(graph.warp), gt_hom) if (heavy or not lazy) else zero
                 )
+            if masks_ref is not None:
+                metrics["Mask_Error"] = mse(mask_cf, masks_ref) if (heavy or not lazy) else zero
             if cfg.fix_first:
                 graph.warp[0].zero_()
         return metrics

@@ -5,8 +5,10 @@ model/planar.py:31-292): load_dataset -> build_networks -> setup_optimizer ->
 setup_visualizer -> train. The loop runs `gcd(freq.scalar, freq.vis)` steps
 per chunk and reads each chunk's metrics (every step's finite flag, the
 chunk-final scalars) back in one copy; TensorBoard gets the reference's
-scalar tags `train/loss_*`, `train/PSNR`, `train/Homography_Error` at
-`freq.scalar`.
+scalar tags `train/loss_*`, `train/PSNR`, `train/Homography_Error` and, for
+implicit masks with premade masks, `train/Mask_Error` at `freq.scalar`. The
+step's constants (the flat streams, the mask-head inputs and their dedup
+structures) are built once when `train` makes the step.
 
 Not ported yet (each logs one line when its config asks for it): vis frames
 and the mp4, checkpoint save/resume, `load_torch_init`.
@@ -144,6 +146,7 @@ class Model:
         for key in ("render", "rgb", "mask", "edge"):
             if self.cfg.loss_weight.get(key) is not None and f"loss_{key}" in row:
                 self.tb.add_scalar(f"{split}/loss_{key}", row[f"loss_{key}"], step)
-        if "Homography_Error" in row:
-            self.tb.add_scalar(f"{split}/Homography_Error", row["Homography_Error"], step)
+        for key in ("Homography_Error", "Mask_Error"):
+            if key in row:
+                self.tb.add_scalar(f"{split}/{key}", row[key], step)
         self.tb.add_scalar(f"{split}/PSNR", row["PSNR"], step)

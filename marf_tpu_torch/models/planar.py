@@ -1,10 +1,12 @@
 """The planar bundle-adjusting graph: per-image sl(3) warps + the neural image
-(twin of marf_tpu/models/planar.py, reference model/planar.py:296-391).
++ the optional implicit mask head (twin of marf_tpu/models/planar.py,
+reference model/planar.py:296-391).
 
-`Graph` holds the trainable parameters: the neural-image MLP and the [B, 8]
-zero-initialized warp (reference :310-311). `graph_forward` and `graph_loss`
-are the autograd path; the fused CUDA step (engine/step.py) computes the same
-loss and gradients in one kernel call.
+`Graph` holds the trainable parameters: the neural-image MLP, the [B, 8]
+zero-initialized warp (reference :310-311) and, with `use_implicit_mask`, the
+mask head (one shared, or one per image) and the view embedding.
+`graph_forward` and `graph_loss` are the autograd path; the fused CUDA steps
+(engine/step.py) compute the same loss and gradients with the kernels.
 """
 
 from __future__ import annotations
@@ -14,11 +16,11 @@ import dataclasses
 import torch
 from torch import nn
 
+from marf_tpu_torch.models.implicit_mask import ImplicitMask, init_view_embedding, mask_head_inputs_cf
 from marf_tpu_torch.models.neural_image import NeuralImage, NeuralImageConfig
-from marf_tpu_torch.ops.cuda.fused_step import MAX_IMAGES as FUSED_MAX_IMAGES
 from marf_tpu_torch.ops.filters import compute_edges
 from marf_tpu_torch.ops.grid import GridSpec, normalized_pixel_grid
-from marf_tpu_torch.ops.losses import alpha_schedule, mse, render_loss
+from marf_tpu_torch.ops.losses import alpha_schedule, mask_counterweight, mse, render_loss
 from marf_tpu_torch.ops.warp import warp_grid_cf_flat
 from marf_tpu_torch.utils.console import log
 
@@ -36,6 +38,12 @@ class PlanarConfig:
     use_cropped_images: bool = True
     use_masks: bool = True
     use_implicit_mask: bool = False
+    build_single_masks: bool = False  # one mask head per image instead of a shared one
+    # fix mode: optimize the view embedding (the reference never does,
+    # model/planar.py:89-96)
+    train_view_embedding: bool = False
+    N_vocab: int = 1500
+    mask_quantize_levels: int = 1  # 1 = the reference's {0,1} image.long() quirk
     use_edges: bool = True
     alpha_initial: float = 0.0
     alpha_final: float = 1.0
@@ -47,8 +55,12 @@ class PlanarConfig:
     # the fused CUDA train step: 'auto' (on under CUDA when the config is in
     # scope), 'on', 'off'
     fused_step: str = "auto"
-    # homography warp inside the fused kernel; 'off' needs kernel K2
+    # homography warp inside the rgb kernel (K1); 'off', or more than 8
+    # images, runs K2 on warped coordinates
     fused_warp: str = "auto"
+    # implicit-mask column dedup (the only fused implicit pipeline so far):
+    # 'auto' and 'on' run it; 'off' needs kernels K5/K6
+    fused_dedup: str = "auto"
     # metric-only work (the gradient-blocked edge term of the fused path,
     # Homography_Error) only at chunk-final steps: 'auto' (on under CUDA), 'on', 'off'
     lazy_metrics: str = "auto"
@@ -61,10 +73,6 @@ class PlanarConfig:
     def __post_init__(self):
         if self.warp_type != "homography" or self.warp_dof != 8:
             raise ValueError("only 8-dof homography warps are supported (reference warp.py:72-80)")
-        if self.use_implicit_mask:
-            raise NotImplementedError(
-                "use_implicit_mask: the implicit-mask model is not ported yet (ROADMAP.md Queue 1, slice 2)"
-            )
 
     @property
     def grid_spec(self) -> GridSpec:
@@ -99,6 +107,8 @@ class PlanarConfig:
             barf_c2f=(tuple(opt.barf_c2f) if opt.get("barf_c2f") else None),
             compute_dtype=str(tpu_opts.get("compute_dtype", "float32")),
         )
+        if tpu_opts.get("fused_streams"):
+            log.info("tpu.fused_streams is a TPU knob (column streams per Pallas grid step); ignored")
         return cls(
             H=opt.H,
             W=opt.W,
@@ -109,6 +119,10 @@ class PlanarConfig:
             use_cropped_images=bool(opt.get("use_cropped_images", True)),
             use_masks=bool(opt.get("use_masks", True)),
             use_implicit_mask=bool(opt.get("use_implicit_mask", False)),
+            build_single_masks=bool(opt.get("build_single_masks", False)),
+            train_view_embedding=bool((opt.get("optim") or {}).get("train_view_embedding", False)),
+            N_vocab=int(opt.get("N_vocab", 1500)),
+            mask_quantize_levels=int(tpu_opts.get("mask_quantize_levels", 1)),
             use_edges=bool(opt.get("use_edges", True)),
             alpha_initial=float(opt.get("alpha_initial", 0.0)),
             alpha_final=float(opt.get("alpha_final", 1.0)),
@@ -119,6 +133,7 @@ class PlanarConfig:
             arch=arch,
             fused_step=tristate("fused_step"),
             fused_warp=tristate("fused_warp"),
+            fused_dedup=tristate("fused_dedup"),
             lazy_metrics=tristate("lazy_metrics"),
             w_render=lw.get("render", 0.0),
             w_rgb=lw.get("rgb", 0.0),
@@ -127,31 +142,57 @@ class PlanarConfig:
         )
 
 
-def use_fused_step(cfg: PlanarConfig, device: torch.device) -> bool:
-    """Whether the step runs the fused CUDA kernel (K1). 'on' raises for a
-    config outside the kernel's scope; 'auto' takes the autograd path for
-    it, with a log line, and is on under CUDA otherwise."""
-    if cfg.fused_step == "off":
-        return False
-    out_of_scope = []
-    if cfg.fused_warp == "off" or cfg.batch_size > FUSED_MAX_IMAGES:
-        out_of_scope.append(
-            f"fused_warp=off or batch_size>{FUSED_MAX_IMAGES} needs kernel K2 (ROADMAP.md Queue 2)"
-        )
+def _kernel_scope(cfg: PlanarConfig) -> list[str]:
+    """What keeps the rgb kernels (K1, K2) from a config."""
+    out = []
     if cfg.arch.skip:
-        out_of_scope.append("arch.skip: the kernel has no skip re-concat")
+        out.append("arch.skip: the kernel has no skip re-concat")
     if cfg.w_render is None:
-        out_of_scope.append("loss_weight.render is disabled")
+        out.append("loss_weight.render is disabled")
     if cfg.differentiable_edges:
-        out_of_scope.append("differentiable_edges needs autograd through the edge term")
+        out.append("differentiable_edges needs autograd through the edge term")
     if len(cfg.arch.layers) < 3 or cfg.arch.layers[-1] != 3:
-        out_of_scope.append("the kernel takes at least one hidden layer and 3 outputs")
+        out.append("the kernel takes at least one hidden layer and 3 outputs")
+    return out
+
+
+def _gate(cfg: PlanarConfig, device: torch.device, out_of_scope: list[str]) -> bool:
+    """'on' raises for a config outside the kernels' scope; 'auto' takes the
+    autograd path for it, with a log line, and is on under CUDA otherwise."""
     if out_of_scope:
         if cfg.fused_step == "on":
             raise NotImplementedError("fused_step=on: " + "; ".join(out_of_scope))
         log.info("fused_step=auto: using the autograd step (" + "; ".join(out_of_scope) + ")")
         return False
     return cfg.fused_step == "on" or device.type == "cuda"
+
+
+def use_fused_step(cfg: PlanarConfig, device: torch.device) -> bool:
+    """Whether a fixed-mask config runs the fused CUDA step: K1, or K2 under
+    fused_warp=off or more than 8 images."""
+    if cfg.fused_step == "off" or cfg.use_implicit_mask:
+        return False
+    return _gate(cfg, device, _kernel_scope(cfg))
+
+
+def use_fused_implicit(cfg: PlanarConfig, device: torch.device) -> bool:
+    """Whether an implicit-mask config runs the fused shared-head pipeline on
+    deduplicated columns: K3 -> K1 (or K2) masked by the predicted m -> K4.
+    It needs the factoring to be exact: a frozen view embedding and the {0,1}
+    quantization. marf_tpu's `use_fused_dedup` is this same decision here:
+    the port has no fused implicit pipeline without the dedup yet."""
+    if cfg.fused_step == "off" or not cfg.use_implicit_mask:
+        return False
+    out_of_scope = _kernel_scope(cfg)
+    if cfg.build_single_masks:
+        out_of_scope.append("build_single_masks: per-image heads need kernels K5/K6 (ROADMAP.md Queue 1, slice 3)")
+    elif cfg.fused_dedup == "off":
+        out_of_scope.append("fused_dedup=off: the shared head without column dedup needs kernels K5/K6 (slice 3)")
+    if cfg.train_view_embedding:
+        out_of_scope.append("optim.train_view_embedding: the factored mask input needs a frozen view embedding")
+    if cfg.mask_quantize_levels != 1:
+        out_of_scope.append("tpu.mask_quantize_levels != 1: the factored mask input needs the {0,1} quantization")
+    return _gate(cfg, device, out_of_scope)
 
 
 def use_lazy_metrics(cfg: PlanarConfig, device: torch.device) -> bool:
@@ -164,12 +205,23 @@ def use_lazy_metrics(cfg: PlanarConfig, device: torch.device) -> bool:
 
 
 class Graph(nn.Module):
-    """Trainable parameters: `neural_image` (the MLP) and `warp` [B, 8]."""
+    """Trainable parameters: `neural_image` (the MLP), `warp` [B, 8] and, with
+    implicit masks, `implicit_mask` (an ImplicitMask, or a ModuleList of B
+    under build_single_masks) and `view_embedding` [N_vocab, 128], which
+    takes gradients only under optim.train_view_embedding."""
 
     def __init__(self, cfg: PlanarConfig, generator: torch.Generator | None = None, device=None):
         super().__init__()
         self.neural_image = NeuralImage(cfg.arch, generator=generator, device=device)
         self.warp = nn.Parameter(torch.zeros(cfg.batch_size, cfg.warp_dof, device=device))
+        if cfg.use_implicit_mask:
+            if cfg.build_single_masks:
+                self.implicit_mask = nn.ModuleList(ImplicitMask(generator, device) for _ in range(cfg.batch_size))
+            else:
+                self.implicit_mask = ImplicitMask(generator, device)
+            self.view_embedding = nn.Parameter(
+                init_view_embedding(cfg.N_vocab, generator, device), requires_grad=cfg.train_view_embedding
+            )
         # the constant unwarped [HW, 2] grid (the reference rebuilds it every step)
         grid = normalized_pixel_grid(cfg.grid_spec, crop=cfg.use_cropped_images, device=device)
         self.register_buffer("grid", grid, persistent=False)
@@ -177,8 +229,11 @@ class Graph(nn.Module):
 
 def graph_forward(graph: Graph, data: dict, cfg: PlanarConfig, progress: torch.Tensor) -> dict:
     """Forward pass (reference Graph.forward, model/planar.py:329-353):
-    rgb_prediction [B, HW, 3], rgb_prediction_map [B, 3, h, w] and, with
-    edges on, edge_prediction [B, 3, h, w]."""
+    rgb_prediction [B, HW, 3], rgb_prediction_map [B, 3, h, w]; with edges
+    on, edge_prediction [B, 3, h, w]; with implicit masks, mask_prediction
+    [B, HW, 1] and mask_prediction_map [B, 1, h, w]. The mask-head inputs are
+    data["mask_head_inputs_cf"] when the step precomputed them ([426, B*HW]
+    for the shared head, [B, 426, HW] per image)."""
     h, w = cfg.map_hw
     B = cfg.batch_size
     warped = warp_grid_cf_flat(graph.grid, graph.warp)  # [2, B*HW]
@@ -190,6 +245,20 @@ def graph_forward(graph: Graph, data: dict, cfg: PlanarConfig, progress: torch.T
     }
     if cfg.use_edges:
         out["edge_prediction"] = compute_edges(rgb_map, differentiable=cfg.differentiable_edges)
+    if cfg.use_implicit_mask:
+        inputs_cf = data.get("mask_head_inputs_cf")
+        if inputs_cf is None:
+            inputs_cf = mask_head_inputs_cf(graph.view_embedding, data["rgb"], graph.grid, cfg.mask_quantize_levels)
+        if cfg.build_single_masks:
+            mask_cf = torch.stack([head(x) for head, x in zip(graph.implicit_mask, inputs_cf)])  # [B, 1, HW]
+            out["mask_prediction"] = mask_cf.transpose(1, 2)
+            out["mask_prediction_map"] = mask_cf.reshape(B, 1, h, w)
+        else:
+            if inputs_cf.dim() == 3:  # batch folded into the pixel axis, columns b*HW + i
+                inputs_cf = inputs_cf.transpose(0, 1).reshape(inputs_cf.shape[1], -1)
+            mask_flat = graph.implicit_mask(inputs_cf)  # [1, B*HW]
+            out["mask_prediction"] = mask_flat.reshape(1, B, h * w).permute(1, 2, 0)
+            out["mask_prediction_map"] = mask_flat.reshape(1, B, h, w).permute(1, 0, 2, 3)
     return out
 
 
@@ -200,15 +269,21 @@ def graph_loss(outputs: dict, data: dict, cfg: PlanarConfig, step: torch.Tensor)
     alpha = alpha_schedule(step, cfg.max_iter, cfg.alpha_initial, cfg.alpha_final) if cfg.use_edges else zero
     if cfg.w_render is None:
         return {}
-    rgb_masks = data["masks"] if cfg.use_masks else None
+    implicit = cfg.use_implicit_mask
+    if implicit:
+        rgb_masks = outputs["mask_prediction_map"]
+    else:
+        rgb_masks = data["masks"] if cfg.use_masks else None
     rgb_loss = mse(outputs["rgb_prediction_map"], data["rgb"], rgb_masks)
     if cfg.use_edges:
-        edge_loss = mse(outputs["edge_prediction"], data["edges"], data.get("masks_eroded"))
+        edge_masks = outputs["mask_prediction_map"] if implicit else data.get("masks_eroded")
+        edge_loss = mse(outputs["edge_prediction"], data["edges"], edge_masks)
     else:
         edge_loss = zero
+    mask_loss = mask_counterweight(outputs["mask_prediction_map"]) if implicit else zero
     return {
-        "render": render_loss(rgb_loss, edge_loss, zero, alpha),
+        "render": render_loss(rgb_loss, edge_loss, mask_loss, alpha),
         "rgb": rgb_loss,
-        "mask": zero,
+        "mask": mask_loss,
         "edge": edge_loss,
     }

@@ -1,2 +1,14 @@
 """Hand-written Hopper kernels (sources in marf_tpu_torch/csrc/), each beside
-its plain PyTorch version."""
+its plain PyTorch version.
+
+`LAUNCHES` counts the launches of each kernel in this process, by wrapper
+name. A wrapper adds one where it launches its kernel and nowhere else: the
+plain versions, which CPU tensors take, do not count.
+"""
+
+LAUNCHES = {
+    "fused_train_kernel_warp": 0,  # K1, fused_step.py
+    "fused_train_kernel": 0,  # K2, fused_step.py
+    "fused_mask_forward": 0,  # K3, fused_mask.py
+    "fused_mask_backward_dedup": 0,  # K4, fused_mask.py
+}

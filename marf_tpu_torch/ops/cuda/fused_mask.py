@@ -1,0 +1,256 @@
+"""The shared-head implicit-mask head on deduplicated columns: the host-side
+factoring and dedup (copies of marf_tpu/ops/pallas/fused_mask.py:68-89,
+108-166, 290-308), and the mask-head forward and backward as CUDA kernels
+(csrc/fused_mask.cu) beside their plain PyTorch versions.
+
+Factoring. `image.long()` truncates the [0, 1] photo to {0, 1}, so each
+pixel's 384-wide embedded RGB is one of 8 rows of `table` (the {0,1}^3 combos
+of view-embedding rows 0 and 1). The 426-wide head input becomes a constant
+56-row input X = [uv embedding (42); one-hot of the combo (8); zeros (6)],
+and the first layer an effective [256, 56] one (`mask_w_stack`); its
+gradients map back with `unfactor_mask_grads`. With the view embedding
+frozen, X is constant across training.
+
+Dedup (`slot_dedup_inputs`, numpy at setup). The shared head sees the N =
+B*HW columns as (pixel, combo) pairs, and most pixels have one combo in every
+image, so only K = HW + E columns are distinct: slot0 (each pixel's majority
+combo, in pixel order, aligned with the per-position [B, HW] streams) and E
+extras (the other (pixel, combo) pairs, combo-major). The per-position mask
+is slot0map * m[:HW] plus an E-sized index_add of the extras; each position
+has exactly one nonzero term, so the order of the adds cannot change the
+result. The backward's segment sums are a fixed-order sum over B for slot0
+(inside K4) and E-sized gathers for the extras (in `base`); no float
+scatter-add, so the step stays bitwise reproducible.
+
+`fused_mask_forward` replaces fused_mask.py `fused_mask_forward` (K3);
+`fused_mask_backward_dedup` replaces `fused_mask_backward_dedup` (K4). Each
+dispatches on the device of its inputs: CUDA tensors launch the kernel (or
+raise), CPU tensors run its `*_reference` plain version. Effective layers are
+lists of (W [out, in], b [out]) tensors, nn.Linear's layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from marf_tpu_torch.ops.cuda import LAUNCHES
+from marf_tpu_torch.ops.cuda.fused_step import check_tensor, ptr_array
+from marf_tpu_torch.ops.posenc import hanerf_pos_embedding
+
+N_COMBOS = 8  # {0,1}^3 RGB index combinations (the faithful quantization)
+UV_DIM = 42
+X_ROWS = 56  # 42 uv + 8 one-hot + 6 zero rows (marf_tpu's layout)
+SOURCES = ["fused_mask.cu"]
+
+
+def factor_mask_inputs(view_embedding: torch.Tensor, images: torch.Tensor, xy_grid: torch.Tensor):
+    """Factor the mask-head inputs (reference model/planar.py:340-349).
+
+    Args:
+      view_embedding: [N_vocab, 128]; images: [B, 3, H, W] in [0, 1];
+      xy_grid: [HW, 2] unwarped normalized grid.
+
+    Returns:
+      (uv [42, HW], onehot [B, 8, HW], table [8, 384]); table row c =
+      concat(emb[bit2 c], emb[bit1 c], emb[bit0 c]), the dense input's
+      [emb_r, emb_g, emb_b] order.
+    """
+    B = images.shape[0]
+    idx = images.long()  # truncation on [0, 1] -> {0, 1}
+    combo = (idx[:, 0] * 4 + idx[:, 1] * 2 + idx[:, 2]).reshape(B, -1)  # [B, HW]
+    uv = hanerf_pos_embedding(xy_grid).T.contiguous()  # [42, HW]
+    bits = torch.tensor([[(c >> 2) & 1, (c >> 1) & 1, c & 1] for c in range(N_COMBOS)], device=view_embedding.device)
+    table = view_embedding[bits].reshape(N_COMBOS, -1)  # [8, 384]
+    onehot = (combo[:, None, :] == torch.arange(N_COMBOS, device=combo.device)[None, :, None]).to(torch.float32)
+    return uv, onehot, table
+
+
+def slot_dedup_inputs(uv: np.ndarray, onehot: np.ndarray):
+    """Deduplicate the shared-head input columns (host, setup time).
+
+    Args:
+      uv: [42, HW]; onehot: [B, 8, HW] (factor_mask_inputs, as numpy).
+
+    Returns:
+      (X_all [56, HW+E] slot0 columns then extras,
+       slot0map [B, HW] 1 where image b's combo at p is the slot0 one,
+       ext_pix [E] int32 pixel of each extra column,
+       extmap [B, E] 1 where image b's combo at ext_pix[j] is extra j,
+       cnt_all [1, HW+E] position count per column), float32 unless noted.
+    """
+    uv = np.asarray(uv)
+    onehot = np.asarray(onehot)
+    B, _, HW = onehot.shape
+    combo = np.argmax(onehot, axis=1)  # [B, HW]
+    counts = np.zeros((N_COMBOS, HW), np.int32)
+    np.add.at(counts, (combo, np.arange(HW)[None].repeat(B, 0)), 1)
+    slot0 = np.argmax(counts, axis=0)  # [HW] majority combo (ties -> smallest)
+    slot0map = (combo == slot0[None]).astype(np.float32)  # [B, HW]
+    present = counts > 0
+    present[slot0, np.arange(HW)] = False
+    cmb_e, pix_e = np.nonzero(present)  # extras, combo-major order
+    E = len(pix_e)
+    eye = np.eye(N_COMBOS, dtype=np.float32)
+    pad0 = np.zeros((X_ROWS - UV_DIM - N_COMBOS, HW), dtype=np.float32)
+    X0 = np.concatenate([uv, eye[:, slot0], pad0], axis=0)
+    pad_e = np.zeros((X_ROWS - UV_DIM - N_COMBOS, E), dtype=np.float32)
+    Xe = np.concatenate([uv[:, pix_e], eye[:, cmb_e], pad_e], axis=0)
+    X_all = np.concatenate([X0, Xe], axis=1).astype(np.float32)
+    extmap = (combo[:, pix_e] == cmb_e[None]).astype(np.float32)  # [B, E]
+    cnt_all = np.concatenate([slot0map.sum(0), extmap.sum(0)])[None].astype(np.float32)
+    return X_all, slot0map, pix_e.astype(np.int32), extmap, cnt_all
+
+
+def mask_w_stack(head, table: torch.Tensor) -> list:
+    """Effective layers of the factored input: the first layer's [256, 426]
+    weights become [256, 56] = [W_uv (cols 384:426) | W_emb (cols 0:384) @
+    table^T | zeros]; later layers pass through. Detached."""
+    layers = [(layer.weight.detach(), layer.bias.detach()) for layer in head.layers]
+    w1, b1 = layers[0]
+    pad = torch.zeros((w1.shape[0], X_ROWS - UV_DIM - N_COMBOS), dtype=w1.dtype, device=w1.device)
+    w1_eff = torch.cat([w1[:, 384:426], w1[:, :384] @ table.T, pad], dim=1).contiguous()
+    return [(w1_eff, b1)] + layers[1:]
+
+
+def unfactor_mask_grads(dlayers: list, table: torch.Tensor) -> list:
+    """Effective-layer grads -> the head's own layout: dW1 [256, 426] =
+    [dW_onehot @ table | dW_uv]."""
+    dw1_eff, db1 = dlayers[0]
+    dw1 = torch.cat([dw1_eff[:, UV_DIM : UV_DIM + N_COMBOS] @ table, dw1_eff[:, :UV_DIM]], dim=1)
+    return [(dw1, db1)] + list(dlayers[1:])
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, pi, pp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+    lib.marf_mask_forward_workspace.argtypes = [i, i, pi]
+    lib.marf_mask_forward_workspace.restype = ctypes.c_longlong
+    lib.marf_mask_backward_workspace.argtypes = [i, i, pi]
+    lib.marf_mask_backward_workspace.restype = ctypes.c_longlong
+    lib.marf_mask_forward.argtypes = [i, i, pi, p, pp, pp, p, p, p]
+    lib.marf_mask_forward.restype = ctypes.c_int
+    lib.marf_mask_backward_dedup.argtypes = [i, i, i, i, pi, p, p, p, p, p, p, p, pp, pp, pp, pp, p, p]
+    lib.marf_mask_backward_dedup.restype = ctypes.c_int
+
+
+def _library() -> ctypes.CDLL:
+    """Build (at first use) and bind the kernel library."""
+    from marf_tpu_torch.ops.cuda._build import load_library
+
+    return load_library("fused_mask", SOURCES, _bind)
+
+
+def _checked_layers(fn: str, layers: list, x_cf: torch.Tensor):
+    device = x_cf.device
+    dims = [x_cf.shape[0]] + [w.shape[0] for w, _ in layers]
+    if len(layers) < 2 or dims[-1] != 1 or dims[-2] > 1024 or x_cf.shape[1] < 1:
+        raise ValueError(f"{fn}: unsupported shape (dims={dims}, K={x_cf.shape[1]})")
+    check_tensor(fn, "x_cf", x_cf, (dims[0], x_cf.shape[1]), device)
+    for li, (w, b) in enumerate(layers):
+        check_tensor(fn, f"weight[{li}]", w, (dims[li + 1], dims[li]), device)
+        check_tensor(fn, f"bias[{li}]", b, (dims[li + 1],), device)
+    return dims, (ctypes.c_int * len(dims))(*dims)
+
+
+def fused_mask_forward(layers: list, x_cf: torch.Tensor) -> torch.Tensor:
+    """Mask-head forward on the K factored columns (K3): X [56, K] -> m [1, K]."""
+    if x_cf.device.type == "cpu":
+        return fused_mask_forward_reference(layers, x_cf)
+    if x_cf.device.type != "cuda":
+        raise ValueError(f"fused_mask_forward: unsupported device {x_cf.device}")
+    dims, c_dims = _checked_layers("fused_mask_forward", layers, x_cf)
+    lib = _library()
+    K = x_cf.shape[1]
+    m = torch.empty((1, K), dtype=torch.float32, device=x_cf.device)
+    ws = torch.empty(lib.marf_mask_forward_workspace(K, len(layers), c_dims), dtype=torch.float32, device=x_cf.device)
+    rc = lib.marf_mask_forward(K, len(layers), c_dims, x_cf.data_ptr(), ptr_array([w for w, _ in layers]),
+                               ptr_array([b for _, b in layers]), m.data_ptr(), ws.data_ptr(),
+                               torch.cuda.current_stream(x_cf.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_mask_forward kernel launch failed: CUDA error {rc}")
+    LAUNCHES["fused_mask_forward"] += 1
+    return m
+
+
+def fused_mask_backward_dedup(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt, abk) -> list:
+    """Mask-head backward on the K dedup columns with the slot0 segment sum
+    and the cotangent in the kernel (K4).
+
+    Args:
+      layers: effective layers [(W [out, in], b [out])] (mask_w_stack).
+      x_cf: [56, K] factored columns, slot0 block first (K = HW + E).
+      s0map: [B, HW] slot0 indicator; sq_b: [B, HW] per-position rgb squared
+        error; esq_b: [B, HW] per-position edge squared error, or None.
+      base: [1, K] c*cnt plus the extras' segment sums a*Ssq + b*Sesq.
+      cnt: [1, K] positions per column.
+      abk: [3] (a, b, k) of dL/dm = (a Ssq + b Sesq + c cnt) m + k cnt.
+
+    Returns the effective-layer grads [(dW [out, in], db [out])]
+    (unfactor_mask_grads maps them back).
+    """
+    if x_cf.device.type == "cpu":
+        return fused_mask_backward_dedup_reference(layers, x_cf, s0map, sq_b, esq_b, base, cnt, abk)
+    if x_cf.device.type != "cuda":
+        raise ValueError(f"fused_mask_backward_dedup: unsupported device {x_cf.device}")
+    fn = "fused_mask_backward_dedup"
+    dims, c_dims = _checked_layers(fn, layers, x_cf)
+    device = x_cf.device
+    K = x_cf.shape[1]
+    B, HW = s0map.shape
+    if HW > K:
+        raise ValueError(f"{fn}: the slot0 block ({HW} columns) is wider than K={K}")
+    for name, t, shape in (("s0map", s0map, (B, HW)), ("sq_b", sq_b, (B, HW)), ("esq_b", esq_b, (B, HW)),
+                           ("base", base, (1, K)), ("cnt", cnt, (1, K)), ("abk", abk, (3,))):
+        if t is not None:
+            check_tensor(fn, name, t, shape, device)
+    lib = _library()
+    dws = [torch.empty_like(w) for w, _ in layers]
+    dbs = [torch.empty_like(b) for _, b in layers]
+    ws = torch.empty(lib.marf_mask_backward_workspace(K, len(layers), c_dims), dtype=torch.float32, device=device)
+    rc = lib.marf_mask_backward_dedup(
+        K, HW, B, len(layers), c_dims, x_cf.data_ptr(), s0map.data_ptr(), sq_b.data_ptr(),
+        None if esq_b is None else esq_b.data_ptr(), base.data_ptr(), cnt.data_ptr(), abk.data_ptr(),
+        ptr_array([w for w, _ in layers]), ptr_array([b for _, b in layers]), ptr_array(dws), ptr_array(dbs),
+        ws.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[fn] += 1
+    return list(zip(dws, dbs))
+
+
+def _mask_mlp(layers: list, x_cf: torch.Tensor) -> torch.Tensor:
+    feat = x_cf
+    last = len(layers) - 1
+    for li, (w, b) in enumerate(layers):
+        feat = torch.addmm(b[:, None], w, feat)
+        feat = torch.relu(feat) if li != last else torch.sigmoid(feat)
+    return feat
+
+
+def fused_mask_forward_reference(layers: list, x_cf: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `fused_mask_forward`."""
+    return _mask_mlp(layers, x_cf)
+
+
+def fused_mask_backward_dedup_reference(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt, abk) -> list:
+    """Plain PyTorch version of `fused_mask_backward_dedup`: the forward under
+    autograd, pulled back from m with the cotangent (seg m + k cnt), seg =
+    a Ssq + b Sesq + base with the slot0 sums over B on the first HW columns."""
+    HW = s0map.shape[1]
+    with torch.enable_grad():
+        params = [(w.detach().requires_grad_(True), b.detach().requires_grad_(True)) for w, b in layers]
+        m = _mask_mlp(params, x_cf)
+        seg = _slot0_pad(abk[0] * torch.sum(s0map * sq_b, dim=0), base) + base
+        if esq_b is not None:
+            seg = seg + _slot0_pad(abk[1] * torch.sum(s0map * esq_b, dim=0), base)
+        g = seg * m.detach() + abk[2] * cnt
+        grads = torch.autograd.grad(m, [t for wb in params for t in wb], g)
+    return list(zip(grads[0::2], grads[1::2]))
+
+
+def _slot0_pad(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """[HW] -> [1, K] with zeros past the slot0 block."""
+    return torch.nn.functional.pad(v[None], (0, like.shape[1] - v.shape[0]))

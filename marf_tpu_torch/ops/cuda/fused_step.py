@@ -1,17 +1,19 @@
-"""The fused planar train step: warp + posenc + MLP forward + masked-MSE loss
-+ full backward, in one call (csrc/fused_step.cu), beside its plain PyTorch
-version.
+"""The fused planar train step: (warp +) posenc + MLP forward + masked-MSE
+loss + full backward, in one call (csrc/fused_step.cu), beside its plain
+PyTorch versions.
 
-Replaces marf_tpu/ops/pallas/fused_step.py `fused_train_kernel_warp` (K1).
-The masked rgb MSE has the analytic cotangent
-d loss/d rgb = dscale * (rgb - t) * m * m with dscale = 2 * C * inv_sum3,
-C = d total / d rgb_loss and inv_sum3 = 1 / (3 * sum(mask)) (reference
-model/planar.py:359-390), so the kernel returns the MLP gradients and
-dH [B, 3, 3]; the caller pulls dH back through the expm with autograd.
+`fused_train_kernel_warp` replaces marf_tpu/ops/pallas/fused_step.py
+`fused_train_kernel_warp` (K1): it warps the constant (u, v, b) grid by H[b]
+in the kernel and returns dH [B, 3, 3]. `fused_train_kernel` replaces
+`fused_train_kernel` (K2): it takes the warped coordinates [2, N] and returns
+dcoords [2, N], for fused_warp=off and for more than 8 images. The masked rgb
+MSE has the analytic cotangent d loss/d rgb = dscale * (rgb - t) * m * m with
+dscale = 2 * C * inv_sum3, C = d total / d rgb_loss and inv_sum3 = 1 / (3 *
+sum(mask)) (reference model/planar.py:359-390); the caller pulls dH or dcoords
+back to the warp with autograd.
 
-`fused_train_kernel_warp` dispatches on the device of its inputs: CUDA
-tensors launch the kernel (or raise), CPU tensors run
-`fused_train_kernel_warp_reference`.
+Each wrapper dispatches on the device of its inputs: CUDA tensors launch the
+kernel (or raise), CPU tensors run its `*_reference` plain version.
 """
 
 from __future__ import annotations
@@ -21,12 +23,10 @@ import ctypes
 import torch
 
 from marf_tpu_torch.models.neural_image import NeuralImage, encode_coords_cf
+from marf_tpu_torch.ops.cuda import LAUNCHES
 
-# launches of the CUDA kernel in this process (the plain version does not count)
-LAUNCHES = 0
-
-# images per call: the kernel keeps one dH accumulator per image in registers
-# (MAX_IMAGES in csrc/fused_step.cu, which rejects a larger B)
+# images per K1 call: the kernel keeps one dH accumulator per image in
+# registers (MAX_IMAGES in csrc/fused_step.cu, which rejects a larger B)
 MAX_IMAGES = 8
 
 
@@ -36,13 +36,20 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_fused_step_warp_workspace.restype = ctypes.c_longlong
     lib.marf_fused_step_warp.argtypes = [i, i, i, i, pi, p, p, p, p, p, p, pp, pp, p, p, p, pp, pp, p, p, p]
     lib.marf_fused_step_warp.restype = ctypes.c_int
+    lib.marf_fused_step_coords_workspace.argtypes = [i, i, i, pi]
+    lib.marf_fused_step_coords_workspace.restype = ctypes.c_longlong
+    lib.marf_fused_step_coords.argtypes = [i, i, i, pi, p, p, p, p, p, pp, pp, p, p, p, pp, pp, p, p, p]
+    lib.marf_fused_step_coords.restype = ctypes.c_int
+
+
+SOURCES = ["fused_step.cu"]
 
 
 def _library() -> ctypes.CDLL:
     """Build (at first use) and bind the kernel library."""
     from marf_tpu_torch.ops.cuda._build import load_library
 
-    return load_library("fused_step", ["fused_step.cu"], _bind)
+    return load_library("fused_step", SOURCES, _bind)
 
 
 def _scalars(g_loss_scale, inv_sum3: torch.Tensor) -> torch.Tensor:
@@ -50,8 +57,22 @@ def _scalars(g_loss_scale, inv_sum3: torch.Tensor) -> torch.Tensor:
     return torch.stack([2.0 * g_loss_scale * inv_sum3, inv_sum3])
 
 
+def check_tensor(fn: str, name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    """Raise unless `t` is a contiguous float32 tensor of `shape` on `device`."""
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"{fn}: {name} must be a contiguous float32 {shape} tensor on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def ptr_array(ts) -> ctypes.Array:
+    """A C array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
 def fused_train_kernel_warp(net: NeuralImage, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3):
-    """One fused train-step pass over N points.
+    """One fused train-step pass over N points, warp in the kernel (K1).
 
     Args:
       net: the neural image (weights [out, in], as nn.Linear keeps them).
@@ -60,7 +81,8 @@ def fused_train_kernel_warp(net: NeuralImage, grid_b, H, cw, targets, masks, g_l
         outside [0, B) is inert: zero coordinates, no dH.
       H: [B, 3, 3] homographies (sl3_to_SL3 of the warp), B <= 8.
       cw: [L] c2f band weights, or None when c2f is off.
-      targets: [3, N]; masks: [1, N] (ones when masks are off).
+      targets: [3, N]; masks: [1, N] (ones when masks are off, or the
+        predicted occlusion probability of the implicit-mask model).
       g_loss_scale: d total / d rgb_loss (float or 0-d tensor).
       inv_sum3: 0-d tensor 1 / (3 * sum(mask)).
 
@@ -72,43 +94,58 @@ def fused_train_kernel_warp(net: NeuralImage, grid_b, H, cw, targets, masks, g_l
         return fused_train_kernel_warp_reference(net, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3)
     if grid_b.device.type != "cuda":
         raise ValueError(f"fused_train_kernel_warp: unsupported device {grid_b.device}")
-    return _launch(net, grid_b, H, cw, targets, masks, _scalars(g_loss_scale, inv_sum3))
+    return _launch(net, None, grid_b, H, cw, targets, masks, _scalars(g_loss_scale, inv_sum3))
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(
-            f"fused_train_kernel_warp: {name} must be a contiguous float32 {shape} tensor on {device}, "
-            f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
-        )
+def fused_train_kernel(net: NeuralImage, coords, cw, targets, masks, g_loss_scale, inv_sum3):
+    """One fused train-step pass over N given warped coordinates (K2).
+
+    Args as `fused_train_kernel_warp`, with coords [2, N] in place of the grid
+    and H; any number of images.
+
+    Returns:
+      (rgb [3, N], rgb_loss 0-d, dparams [(dW [out, in], db [out]) per layer],
+       dcoords [2, N], sq [1, N] raw per-point squared error).
+    """
+    if coords.device.type == "cpu":
+        return fused_train_kernel_reference(net, coords, cw, targets, masks, g_loss_scale, inv_sum3)
+    if coords.device.type != "cuda":
+        raise ValueError(f"fused_train_kernel: unsupported device {coords.device}")
+    return _launch(net, coords, None, None, cw, targets, masks, _scalars(g_loss_scale, inv_sum3))
 
 
-def _launch(net, grid_b, H, cw, targets, masks, scal):
-    global LAUNCHES
+def _launch(net, coords, grid_b, H, cw, targets, masks, scal):
+    """K2 when `coords` is given, else K1."""
+    fn = "fused_train_kernel" if coords is not None else "fused_train_kernel_warp"
     cfg = net.cfg
     if cfg.skip:
-        raise NotImplementedError("the fused kernel has no skip re-concat (arch.skip)")
-    device = grid_b.device
+        raise NotImplementedError(f"{fn}: the fused kernel has no skip re-concat (arch.skip)")
+    stream_in = coords if coords is not None else grid_b
+    device = stream_in.device
     L = int(cfg.posenc_L or 0)
-    N = grid_b.shape[1]
-    B = H.shape[0]
+    N = stream_in.shape[1]
     layers = list(net.layers)
     dims = [cfg.input_dim] + [layer.out_features for layer in layers]
-    if len(layers) < 2 or dims[-1] != 3 or not 1 <= B <= MAX_IMAGES or dims[-2] > 1024 or L > 16:
-        raise ValueError(f"fused_train_kernel_warp: unsupported shape (dims={dims}, B={B}, L={L})")
-    _check("grid_b", grid_b, (3, N), device)
-    _check("H", H, (B, 3, 3), device)
-    _check("targets", targets, (3, N), device)
-    _check("masks", masks, (1, N), device)
-    _check("scalars", scal, (2,), device)
+    B = H.shape[0] if coords is None else 0
+    if len(layers) < 2 or dims[-1] != 3 or dims[-2] > 1024 or L > 16 or (coords is None and not 1 <= B <= MAX_IMAGES):
+        raise ValueError(f"{fn}: unsupported shape (dims={dims}, B={B}, L={L})")
+    check = lambda name, t, shape: check_tensor(fn, name, t, shape, device)
+    if coords is not None:
+        check("coords", coords, (2, N))
+    else:
+        check("grid_b", grid_b, (3, N))
+        check("H", H, (B, 3, 3))
+    check("targets", targets, (3, N))
+    check("masks", masks, (1, N))
+    check("scalars", scal, (2,))
     if cw is None:
         cw = torch.ones(max(L, 1), dtype=torch.float32, device=device)
-    _check("cw", cw, (max(L, 1),), device)
+    check("cw", cw, (max(L, 1),))
     weights = [layer.weight.detach() for layer in layers]
     biases = [layer.bias.detach() for layer in layers]
     for li, (w, b) in enumerate(zip(weights, biases)):
-        _check(f"weight[{li}]", w, (dims[li + 1], dims[li]), device)
-        _check(f"bias[{li}]", b, (dims[li + 1],), device)
+        check(f"weight[{li}]", w, (dims[li + 1], dims[li]))
+        check(f"bias[{li}]", b, (dims[li + 1],))
 
     lib = _library()
     n_layers = len(layers)
@@ -116,57 +153,69 @@ def _launch(net, grid_b, H, cw, targets, masks, scal):
     rgb = torch.empty((3, N), dtype=torch.float32, device=device)
     sq = torch.empty((1, N), dtype=torch.float32, device=device)
     loss = torch.empty((), dtype=torch.float32, device=device)
-    dH = torch.empty((B, 3, 3), dtype=torch.float32, device=device)
     dws = [torch.empty_like(w) for w in weights]
     dbs = [torch.empty_like(b) for b in biases]
-    ws = torch.empty(lib.marf_fused_step_warp_workspace(N, B, L, n_layers, c_dims), dtype=torch.float32, device=device)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.marf_fused_step_warp(
-        N, B, L, n_layers, c_dims,
-        grid_b.data_ptr(), H.data_ptr(), cw.data_ptr(), targets.data_ptr(), masks.data_ptr(), scal.data_ptr(),
-        ptrs(weights), ptrs(biases),
-        rgb.data_ptr(), sq.data_ptr(), loss.data_ptr(), ptrs(dws), ptrs(dbs), dH.data_ptr(),
-        ws.data_ptr(), stream,
-    )
+    common = (targets.data_ptr(), masks.data_ptr(), scal.data_ptr(), ptr_array(weights), ptr_array(biases),
+              rgb.data_ptr(), sq.data_ptr(), loss.data_ptr(), ptr_array(dws), ptr_array(dbs))
+    if coords is not None:
+        dout = torch.empty((2, N), dtype=torch.float32, device=device)
+        ws = torch.empty(lib.marf_fused_step_coords_workspace(N, L, n_layers, c_dims), dtype=torch.float32, device=device)
+        rc = lib.marf_fused_step_coords(N, L, n_layers, c_dims, coords.data_ptr(), cw.data_ptr(), *common,
+                                        dout.data_ptr(), ws.data_ptr(), stream)
+    else:
+        dout = torch.empty((B, 3, 3), dtype=torch.float32, device=device)
+        ws = torch.empty(lib.marf_fused_step_warp_workspace(N, B, L, n_layers, c_dims), dtype=torch.float32, device=device)
+        rc = lib.marf_fused_step_warp(N, B, L, n_layers, c_dims, grid_b.data_ptr(), H.data_ptr(), cw.data_ptr(),
+                                      *common, dout.data_ptr(), ws.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return rgb, loss, list(zip(dws, dbs)), dH, sq
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[fn] += 1
+    return rgb, loss, list(zip(dws, dbs)), dout, sq
+
+
+def _mlp_loss_and_grads(net, coords, cw, targets, masks, scal, extra):
+    """posenc + MLP + loss partial under autograd from coords [2, N]; the
+    gradients of the weights, the biases and `extra` pulled back from rgb
+    with the cotangent dscale * (rgb - t) * m * m."""
+    weights = [layer.weight.detach().requires_grad_(True) for layer in net.layers]
+    biases = [layer.bias.detach().requires_grad_(True) for layer in net.layers]
+    feat = encode_coords_cf(coords, net.cfg.posenc_L, cw)
+    last = len(weights) - 1
+    for li, (w, b) in enumerate(zip(weights, biases)):
+        feat = torch.addmm(b[:, None], w, feat)
+        if li != last:
+            feat = torch.relu(feat)
+    rgb = torch.sigmoid(feat)
+    diff = rgb - targets
+    diff_m = diff * masks
+    loss = torch.sum(diff_m * diff_m) * scal[1]
+    grads = torch.autograd.grad(rgb, [*weights, *biases, extra], scal[0] * diff_m * masks)
+    n = len(weights)
+    sq = torch.sum(diff * diff, dim=0, keepdim=True)
+    return rgb.detach(), loss.detach(), list(zip(grads[:n], grads[n : 2 * n])), grads[-1], sq.detach()
 
 
 def fused_train_kernel_warp_reference(net: NeuralImage, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3):
     """Plain PyTorch version of `fused_train_kernel_warp`: same arguments and
-    returns. The warp, posenc, MLP and loss partial run under autograd, and
-    the gradients are pulled back from rgb with the cotangent
-    dscale * (rgb - t) * m * m."""
-    cfg = net.cfg
+    returns. The warp, posenc, MLP and loss partial run under autograd."""
     B = H.shape[0]
     scal = _scalars(g_loss_scale, inv_sum3)
     with torch.enable_grad():
         Hd = H.detach().requires_grad_(True)
-        weights = [layer.weight.detach().requires_grad_(True) for layer in net.layers]
-        biases = [layer.bias.detach().requires_grad_(True) for layer in net.layers]
         u, v, bidx = grid_b[0], grid_b[1], grid_b[2].long()
         valid = ((bidx >= 0) & (bidx < B)).to(torch.float32)
         hp = Hd.reshape(B, 9)[bidx.clamp(0, B - 1)] * valid[:, None]  # [N, 9] per-point H
         rden = 1.0 / (hp[:, 8] + hp[:, 6] * u + hp[:, 7] * v + 1e-8)
         x = (hp[:, 0] * u + hp[:, 1] * v + hp[:, 2]) * rden
         y = (hp[:, 3] * u + hp[:, 4] * v + hp[:, 5]) * rden
-        feat = encode_coords_cf(torch.stack([x, y]), cfg.posenc_L, cw)
-        last = len(weights) - 1
-        for li, (w, b) in enumerate(zip(weights, biases)):
-            feat = torch.addmm(b[:, None], w, feat)
-            if li != last:
-                feat = torch.relu(feat)
-        rgb = torch.sigmoid(feat)
-        diff = rgb - targets
-        diff_m = diff * masks
-        loss = torch.sum(diff_m * diff_m) * scal[1]
-        grads = torch.autograd.grad(rgb, [*weights, *biases, Hd], scal[0] * diff_m * masks)
-    n = len(weights)
-    sq = torch.sum(diff * diff, dim=0, keepdim=True)
-    return rgb.detach(), loss.detach(), list(zip(grads[:n], grads[n : 2 * n])), grads[-1], sq.detach()
+        return _mlp_loss_and_grads(net, torch.stack([x, y]), cw, targets, masks, scal, Hd)
+
+
+def fused_train_kernel_reference(net: NeuralImage, coords, cw, targets, masks, g_loss_scale, inv_sum3):
+    """Plain PyTorch version of `fused_train_kernel`: same arguments and
+    returns. Posenc, MLP and loss partial run under autograd."""
+    scal = _scalars(g_loss_scale, inv_sum3)
+    with torch.enable_grad():
+        c = coords.detach().requires_grad_(True)
+        return _mlp_loss_and_grads(net, c, cw, targets, masks, scal, c)

@@ -30,6 +30,12 @@ def render_loss(rgb_loss, edge_loss, mask_loss, alpha) -> torch.Tensor:
     return (1 - alpha) * rgb_loss + 0.5 * mask_loss + alpha * edge_loss
 
 
+def mask_counterweight(mask_prediction_map: torch.Tensor) -> torch.Tensor:
+    """mean((1 - m)^2): keeps the learned mask from masking everything
+    (reference model/planar.py:370)."""
+    return torch.mean((1 - mask_prediction_map) ** 2)
+
+
 def summarize_loss(loss: dict, loss_weight: dict) -> torch.Tensor:
     """sum_k 10^w_k * loss_k; weights are log10 exponents and None disables
     a term (reference model/planar.py:172-185)."""

@@ -41,3 +41,14 @@ def barf_c2f_weights(progress, c2f: tuple[float, float], L: int) -> torch.Tensor
     alpha = (progress - start) / (end - start) * L
     k = torch.arange(L, dtype=torch.float32, device=progress.device)
     return (1 - torch.cos(torch.clamp(alpha[..., None] - k, 0.0, 1.0) * math.pi)) / 2
+
+
+def hanerf_pos_embedding(x: torch.Tensor, max_logscale: int = 9, n_freqs: int = 10) -> torch.Tensor:
+    """Ha-NeRF embedding of the mask head's uv input (reference
+    model/planar.py:491-517): [..., C] -> [..., C * (1 + 2 n_freqs)], ordered
+    [x, sin(f_0 x), cos(f_0 x), sin(f_1 x), ...] with f = 2^linspace(0, 9, 10)
+    taken in float64 (powers of two, so exact in float32)."""
+    parts = [x]
+    for f in 2.0 ** np.linspace(0, max_logscale, n_freqs):
+        parts += [torch.sin(float(f) * x), torch.cos(float(f) * x)]
+    return torch.cat(parts, dim=-1)

@@ -1,0 +1,123 @@
+"""Time the port's train step on the card and split its device time.
+
+    python -m marf_tpu_torch.step_profile                       # canonical config
+    python -m marf_tpu_torch.step_profile --use_implicit_mask --use_masks=false
+    python -m marf_tpu_torch.step_profile --tpu.fused_step=off  # the autograd step
+
+Takes the options of `python -m marf_tpu_torch.train` on top of planar.yaml,
+--barf_c2f=[0,0.4], --dataset=synthetic and --seed=3, builds the trainer's
+step once, and then, on one CUDA card:
+  - runs 20 warm-up steps;
+  - times 100 steps ended by torch.cuda.synchronize() (steps/s);
+  - times 20 steps without a sync (host enqueue ms/step);
+  - traces 20 steps with torch.profiler: device ms/step of each hand-written
+    kernel (K1-K4, the device time of the launches inside each wrapper) and
+    of all device work; the busy share is that device time over the step
+    time of the untraced steps.
+Metric-only work follows the trainer's cadence: the last step of every 20 is
+the chunk-final one. Prints one line per part and the card's nvidia-smi name
+and power limit; it raises without a card.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+from marf_tpu_torch.ops.cuda import fused_mask, fused_step
+
+WRAPPERS = [
+    ("K1", fused_step, "fused_train_kernel_warp"),
+    ("K2", fused_step, "fused_train_kernel"),
+    ("K3", fused_mask, "fused_mask_forward"),
+    ("K4", fused_mask, "fused_mask_backward_dedup"),
+]
+CHUNK = 20
+
+
+def _traced(tag: str, fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(tag):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def main(argv: list[str]) -> dict:
+    from marf_tpu_torch.engine.step import make_train_step
+    from marf_tpu_torch.engine.trainer import Model
+    from marf_tpu_torch.utils.config import parse_arguments, set_opt
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("step_profile measures the card: no CUDA device is available")
+    for tag, mod, name in WRAPPERS:
+        setattr(mod, name, _traced(tag, getattr(mod, name)))
+    with tempfile.TemporaryDirectory(prefix="step_profile_") as out_root:
+        base = ["--model=planar", "--yaml=planar", "--group=profile", "--name=step", "--seed=3",
+                "--barf_c2f=[0,0.4]", "--dataset=synthetic", f"--output_root={out_root}", "--tb="]
+        m = Model(set_opt(parse_arguments(base + argv), interactive=False))
+    m.load_dataset()
+    m.build_networks()
+    m.setup_optimizer()
+    step_fn = make_train_step(m.cfg, m.graph, m.optimizer, m.data, m.scheduler, use_homographies=m.use_homographies)
+    it = 0
+
+    def run(n: int):
+        nonlocal it
+        for _ in range(n):
+            step_fn(it, heavy=(it % CHUNK == CHUNK - 1))
+            it += 1
+
+    run(CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(5 * CHUNK)
+    torch.cuda.synchronize()
+    steps_per_sec = 5 * CHUNK / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    run(CHUNK)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / CHUNK
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(CHUNK)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    tags = {tag for tag, _, _ in WRAPPERS}
+    # the record_function ranges also appear on the device timeline, spanning
+    # their kernels: count kernels only
+    device_ms = sum(
+        e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in tags
+    ) / 1e3 / CHUNK
+    parts = {tag: sum(e.device_time_total for e in events if e.key == tag) / 1e3 / CHUNK for tag in sorted(tags)}
+    parts = {k: v for k, v in parts.items() if v > 0}
+    result = {
+        "options": argv,
+        "steps_per_sec": steps_per_sec,
+        "host_enqueue_ms_per_step": enqueue_ms,
+        "device_ms_per_step": device_ms,
+        "kernel_ms_per_step": parts,
+        "other_device_ms_per_step": device_ms - sum(parts.values()),
+        "device_busy_share": device_ms * steps_per_sec / 1e3,
+    }
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[profile] {' '.join(argv) or 'canonical'}: {steps_per_sec:.2f} steps/s, host enqueue "
+          f"{enqueue_ms:.2f} ms/step, device {result['device_ms_per_step']:.3f} ms/step "
+          + " ".join(f"{k}={v:.3f}" for k, v in parts.items())
+          + f" other={result['other_device_ms_per_step']:.3f}, busy share {result['device_busy_share']:.3f}; {smi}",
+          flush=True)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,9 +1,11 @@
-"""The fused train step (K1) of the PyTorch port.
+"""The fused train step (K1, K2) of the PyTorch port, and the card tests of
+the mask kernels (K3, K4).
 
-On the CPU the wrapper runs its plain PyTorch version, which is held against
-marf_tpu's `fused_train_kernel_warp` (the Pallas kernel, in interpret mode
-off-TPU) and against the port's own autograd step. The CUDA kernel against
-the plain version runs only on a card (marker `cuda`).
+On the CPU each wrapper runs its plain PyTorch version, which is held against
+marf_tpu's `fused_train_kernel_warp` / `fused_train_kernel` (the Pallas
+kernels, in interpret mode off-TPU) and against the port's own autograd step.
+The CUDA kernels against their plain versions run only on a card (marker
+`cuda`).
 
 Tolerances: float32 values (rgb, sq, loss) rtol=1e-5; gradients by relative
 error to the max-abs <= 1e-4 (different summation order).
@@ -17,7 +19,9 @@ import torch
 
 from marf_tpu.ops.grid import GridSpec, normalized_pixel_grid
 from marf_tpu.ops.lie import sl3_to_SL3 as jsl3
-from marf_tpu.ops.pallas.fused_step import build_grid_b, fused_train_kernel_warp as jax_kernel
+from marf_tpu.ops.pallas.fused_step import build_grid_b, fused_train_kernel as jax_kernel_coords
+from marf_tpu.ops.pallas.fused_step import fused_train_kernel_warp as jax_kernel
+from marf_tpu_torch.ops.cuda import LAUNCHES
 from marf_tpu_torch.ops.cuda import fused_step as fs
 from test_torch_models import cfg_pair, fake_data, jax_params, port_graph, rel_err, to_torch
 
@@ -77,12 +81,52 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting(rng):
     jp, grid_b, H, targets, masks = k1_inputs(jcfg, rng)
     g = port_graph(tcfg, jp)
     t = torch.from_numpy
-    before = fs.LAUNCHES
+    before = dict(LAUNCHES)
     args = (g.neural_image, t(grid_b), t(H), None, t(targets), t(masks), 1.0, torch.tensor(0.01))
     a = fs.fused_train_kernel_warp(*args)
     b = fs.fused_train_kernel_warp_reference(*args)
-    assert fs.LAUNCHES == before
+    cargs = (g.neural_image, t(grid_b[:2].copy()), None, t(targets), t(masks), 1.0, torch.tensor(0.01))
+    c = fs.fused_train_kernel(*cargs)
+    d = fs.fused_train_kernel_reference(*cargs)
+    assert LAUNCHES == before
     assert torch.equal(a[0], b[0]) and torch.equal(a[3], b[3])
+    assert torch.equal(c[0], d[0]) and torch.equal(c[3], d[3])
+
+
+def compare_coords(ours, ref):
+    rgb, loss, dparams, dcoords, sq = ours
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref[1]), rtol=1e-5)
+    np.testing.assert_allclose(sq.numpy(), np.asarray(ref[4]), rtol=1e-5, atol=1e-7)
+    assert rel_err(dcoords.numpy(), ref[3]) <= 1e-4
+    for (dw, db), jl in zip(dparams, ref[2]["mlp"]):
+        assert rel_err(dw.numpy().T, jl["w"]) <= 1e-4
+        assert rel_err(db.numpy(), jl["b"]) <= 1e-4
+
+
+@pytest.mark.parametrize(
+    "use_masks,arch",
+    [(True, {}), (False, {}), (True, {"posenc_L": None, "barf_c2f": None})],
+    ids=["masks_c2f", "no_masks", "no_posenc"],
+)
+def test_coords_plain_matches_pallas_interpret(rng, use_masks, arch):
+    """K2's plain version against marf_tpu's `fused_train_kernel` (the
+    Pallas `_kernel`, interpret mode) on warped coordinates."""
+    jcfg, tcfg = cfg_pair(arch=arch)
+    jp, _, _, targets, masks = k1_inputs(jcfg, rng, use_masks)
+    g = port_graph(tcfg, jp)
+    coords = (rng.rand(2, targets.shape[1]) * 2.2 - 1.1).astype(np.float32)
+    cw = None if jcfg.arch.barf_c2f is None else np.array([1.0, 0.8, 0.3, 0.0], np.float32)
+    inv_sum3 = np.float32(1.0 / (masks.sum() * 3.0))
+    ref = jax_kernel_coords(
+        jax.tree.map(jnp.asarray, jp["neural_image"]), jnp.asarray(coords), None if cw is None else jnp.asarray(cw),
+        jnp.asarray(targets), jnp.asarray(masks), jnp.float32(1.7), jnp.float32(inv_sum3), jcfg.arch,
+    )
+    t = torch.from_numpy
+    ours = fs.fused_train_kernel(g.neural_image, t(coords), None if cw is None else t(cw), t(targets), t(masks),
+                                 torch.tensor(1.7), torch.tensor(inv_sum3))
+    assert ours[3].shape == (2, coords.shape[1])
+    compare_coords(ours, ref)
 
 
 def test_padding_columns_are_inert(rng):
@@ -126,6 +170,23 @@ def test_plain_matches_port_autograd_step(rng, use_masks):
         assert rel_err(grads["on"][k].numpy(), ref.numpy()) <= 1e-4, k
 
 
+@pytest.mark.parametrize("kw", [{"fused_warp": "off"}, {"batch_size": 9}], ids=["fused_warp_off", "B9"])
+def test_coords_step_matches_port_autograd_step(rng, kw):
+    """The K2 branch of the fused step (warp under autograd, plain K2, dcoords
+    pulled back to the warp) equals the autograd step, every parameter."""
+    from marf_tpu_torch.engine.step import make_optimizer, make_train_step
+
+    grads = {}
+    for mode in ("off", "on"):
+        jcfg, tcfg = cfg_pair(fused_step=mode, alpha_initial=0.3, **kw)
+        g = port_graph(tcfg, jax_params(jcfg))
+        opt, _ = make_optimizer(g, {"lr": 0.0, "lr_warp": 0.0}, tcfg.max_iter)
+        make_train_step(tcfg, g, opt, to_torch(fake_data(jcfg, np.random.RandomState(5))))(3)
+        grads[mode] = {k: p.grad.clone() for k, p in g.named_parameters()}
+    for k, ref in grads["off"].items():
+        assert rel_err(grads["on"][k].numpy(), ref.numpy()) <= 1e-4, k
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -144,12 +205,12 @@ def test_kernel_matches_plain_on_card(rng, cuda_device, arch):
     d = lambda x: torch.from_numpy(x).to(cuda_device)
     args = (g.neural_image, d(grid_b), d(H), cw, d(targets), d(masks), torch.tensor(1.7, device=cuda_device),
             torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32, device=cuda_device))
-    before = fs.LAUNCHES
+    before = LAUNCHES["fused_train_kernel_warp"]
     out = fs.fused_train_kernel_warp(*args)
     out2 = fs.fused_train_kernel_warp(*args)
     ref = fs.fused_train_kernel_warp_reference(*args)
     torch.cuda.synchronize()
-    assert fs.LAUNCHES == before + 2
+    assert LAUNCHES["fused_train_kernel_warp"] == before + 2
     for a, b, tol in [(out[0], ref[0], 1e-5), (out[1], ref[1], 1e-5), (out[4], ref[4], 1e-5), (out[3], ref[3], 1e-4)]:
         assert rel_err(a.cpu().numpy(), b.cpu().numpy()) <= tol
     for (dw, db), (rw, rb) in zip(out[2], ref[2]):
@@ -157,3 +218,60 @@ def test_kernel_matches_plain_on_card(rng, cuda_device, arch):
         assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= 1e-4
     # no float atomics: two launches on the same inputs are bitwise equal
     assert torch.equal(out[3], out2[3]) and all(torch.equal(a[0], b[0]) for a, b in zip(out[2], out2[2]))
+
+
+@pytest.mark.cuda
+def test_coords_kernel_matches_plain_on_card(rng, cuda_device):
+    """K2 against its plain version: values 1e-5, grads 1e-4, bitwise relaunch."""
+    jcfg, tcfg = cfg_pair()
+    jp, _, _, targets, masks = k1_inputs(jcfg, rng)
+    g = port_graph(tcfg, jp).to(cuda_device)
+    d = lambda x: torch.from_numpy(x).to(cuda_device)
+    coords = (rng.rand(2, targets.shape[1]) * 2.2 - 1.1).astype(np.float32)
+    args = (g.neural_image, d(coords), torch.tensor([1.0, 0.8, 0.3, 0.0], device=cuda_device), d(targets), d(masks),
+            torch.tensor(1.7, device=cuda_device),
+            torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32, device=cuda_device))
+    before = LAUNCHES["fused_train_kernel"]
+    out = fs.fused_train_kernel(*args)
+    out2 = fs.fused_train_kernel(*args)
+    ref = fs.fused_train_kernel_reference(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_train_kernel"] == before + 2
+    for a, b, tol in [(out[0], ref[0], 1e-5), (out[1], ref[1], 1e-5), (out[4], ref[4], 1e-5), (out[3], ref[3], 1e-4)]:
+        assert rel_err(a.cpu().numpy(), b.cpu().numpy()) <= tol
+    for (dw, db), (rw, rb) in zip(out[2], ref[2]):
+        assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= 1e-4
+        assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= 1e-4
+    assert torch.equal(out[3], out2[3]) and all(torch.equal(a[0], b[0]) for a, b in zip(out[2], out2[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_edges", [True, False])
+def test_mask_kernels_match_plain_on_card(rng, cuda_device, use_edges):
+    """K3 and K4 against their plain versions on dedup columns with extras:
+    values 1e-5, grads 1e-4, bitwise relaunch."""
+    from marf_tpu_torch.models.implicit_mask import ImplicitMask
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+
+    B, HW = 3, 512
+    combo = np.where(rng.rand(B, HW) > 0.7, rng.randint(0, 8, (B, HW)), 0)
+    onehot = np.eye(8, dtype=np.float32)[combo].transpose(0, 2, 1)
+    X, s0, _, _, cnt = fm.slot_dedup_inputs(rng.randn(42, HW).astype(np.float32), onehot)
+    K = X.shape[1]
+    assert K > HW
+    d = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    stack = fm.mask_w_stack(ImplicitMask(gen).to(cuda_device), d(rng.randn(8, 384)))
+    args = (stack, d(X), d(s0), d(np.abs(rng.randn(B, HW))), d(np.abs(rng.randn(B, HW))) if use_edges else None,
+            d(0.01 * cnt + rng.rand(1, K) * 0.1), d(cnt), d([0.7, 0.3, -0.05]))
+    before = dict(LAUNCHES)
+    m, m2, m_ref = fm.fused_mask_forward(stack, args[1]), fm.fused_mask_forward(stack, args[1]), fm.fused_mask_forward_reference(stack, args[1])
+    g, g2, g_ref = fm.fused_mask_backward_dedup(*args), fm.fused_mask_backward_dedup(*args), fm.fused_mask_backward_dedup_reference(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_mask_forward"] == before["fused_mask_forward"] + 2
+    assert LAUNCHES["fused_mask_backward_dedup"] == before["fused_mask_backward_dedup"] + 2
+    assert rel_err(m.cpu().numpy(), m_ref.cpu().numpy()) <= 1e-5 and torch.equal(m, m2)
+    for (dw, db), (rw, rb), (dw2, _) in zip(g, g_ref, g2):
+        assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= 1e-4
+        assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= 1e-4
+        assert torch.equal(dw, dw2)

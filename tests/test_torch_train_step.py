@@ -116,12 +116,14 @@ def test_fused_gating():
     assert tplanar.use_fused_step(on(fused_warp="on"), cpu)
     assert not tplanar.use_fused_step(auto(), cpu)  # auto = on under CUDA only
     assert tplanar.use_fused_step(auto(), torch.device("cuda"))
-    for kw in ({"fused_warp": "off"}, {"batch_size": 9}, {"arch": {"skip": (1,)}}, {"differentiable_edges": True}):
+    # fused_warp=off and more than 8 images run K2
+    assert tplanar.use_fused_step(on(fused_warp="off"), cpu) and tplanar.use_fused_step(on(batch_size=9), cpu)
+    for kw in ({"arch": {"skip": (1,)}}, {"differentiable_edges": True}):
         with pytest.raises(NotImplementedError):
             tplanar.use_fused_step(on(**kw), cpu)
         assert not tplanar.use_fused_step(auto(**kw), torch.device("cuda"))
-    with pytest.raises(NotImplementedError):
-        cfg_pair(use_implicit_mask=True)
+    # implicit masks take their own fused pipeline (tests/test_torch_implicit.py)
+    assert not tplanar.use_fused_step(on(use_implicit_mask=True), cpu)
 
 
 def test_lr_schedule_fix_mode():

@@ -165,14 +165,20 @@ def test_device_resolution_without_cuda(monkeypatch, tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Neither jax nor any module of marf_tpu (the JAX package) is imported."""
+    """Neither jax nor any module of marf_tpu (the JAX package) is imported,
+    on the canonical path and on the implicit-mask path."""
     code = f"""
 import sys
 from marf_tpu_torch.train import main
 m = main(["--model=planar", "--yaml=planar", "--cpu", "--output_root={tmp_path}", "--max_iter=2",
           "--freq.scalar=2", "--freq.vis=2", "--tpu.fused_step=on", *{TINY!r}])
 assert m.it == 2
-import marf_tpu_torch.ops.cuda._build, marf_tpu_torch.ops.cuda.fused_step, marf_tpu_torch.utils.params
+m = main(["--model=planar", "--yaml=planar", "--cpu", "--output_root={tmp_path}", "--max_iter=2", "--name=implicit",
+          "--freq.scalar=2", "--freq.vis=2", "--tpu.fused_step=on", "--use_implicit_mask", "--use_masks=false",
+          "--N_vocab=8", *{TINY!r}])
+assert m.it == 2
+import marf_tpu_torch.ops.cuda._build, marf_tpu_torch.ops.cuda.fused_step, marf_tpu_torch.ops.cuda.fused_mask
+import marf_tpu_torch.utils.params
 leaked = sorted(k for k in sys.modules if k in ("jax", "marf_tpu") or k.startswith(("jax.", "jaxlib", "flax", "optax", "marf_tpu.")))
 assert not leaked, leaked
 print("JAX-FREE")
