@@ -14,7 +14,10 @@ Phases, one result line each; any failure exits non-zero:
        synthetic masks, a nonzero warp);
      - K3 (fused_mask_forward) and K4 (fused_mask_backward_dedup) on the dedup
        columns of the canonical synthetic batch with a few saturated pixels,
-       so that extra columns occur (E > 0).
+       so that extra columns occur (E > 0);
+     - K5 (fused_implicit_train_kernel) and K6 (fused_mask_backward_g) on all
+       N = 216,000 columns of that batch, with 5 per-image heads and with
+       one shared head.
   4. main path: the port's trainer (`marf_tpu_torch.engine.trainer.Model`),
      synthetic data, seed 3, each run with the launch counts set to 0 just
      before it and read just after:
@@ -25,7 +28,12 @@ Phases, one result line each; any failure exits non-zero:
        per-step rgb and mask losses within 1e-3 over the first 10 steps;
      - `implicit` with fused_warp=off (K3, K2, K4 once per step, K1 never),
        per-step rgb and mask losses within 1e-3 of the K1 run's over the
-       first 10 steps.
+       first 10 steps;
+     - `implicit_single` (+ --build_single_masks: per-image heads), fused (K5,
+       K6 once per step, K1-K4 never) then autograd, per-step rgb and mask
+       losses within 1e-3 over the first 10 steps;
+     - `implicit` with fused_dedup=off (K5, K6 once per step), per-step rgb
+       and mask losses within 1e-3 of the dedup K1 run's.
 Then a JSON line with each kernel's numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
@@ -83,13 +91,15 @@ def phase_device():
 
 def phase_build():
     from marf_tpu_torch.ops.cuda import _build
+    from marf_tpu_torch.ops.cuda import fused_implicit as fi
     from marf_tpu_torch.ops.cuda import fused_mask as fm
     from marf_tpu_torch.ops.cuda import fused_step as fs
 
     t0 = time.perf_counter()
-    _build.build_libraries({"fused_step": fs.SOURCES, "fused_mask": fm.SOURCES})
+    _build.build_libraries({"fused_step": fs.SOURCES, "fused_mask": fm.SOURCES, "fused_implicit": fi.SOURCES})
     fs._library()
     fm._library()
+    fi._library()
     secs = ", ".join(f"{name}: nvcc {s:.2f} s" for name, s in _build.BUILD_SECONDS.items())
     print(f"[build] {secs} (in parallel; build + load {time.perf_counter() - t0:.2f} s) -> {_build.BUILD_DIR}", flush=True)
 
@@ -126,9 +136,9 @@ def canonical_inputs(device):
     return cfg, data, net, (grid_b, H, coords, cw, targets, masks, g_loss_scale, inv_sum3)
 
 
-def mask_inputs(cfg, data, device):
-    """K3's and K4's inputs: the dedup columns of the synthetic batch with a
-    few saturated pixels, a seeded mask head, and per-position streams."""
+def factored_batch(cfg, data, device, n_heads=1):
+    """The synthetic batch with a few saturated pixels, factored for the mask
+    head, and `n_heads` seeded heads: (rng, heads, uv, onehot, table)."""
     from marf_tpu_torch.models.implicit_mask import ImplicitMask, init_view_embedding
     from marf_tpu_torch.ops.cuda import fused_mask as fm
     from marf_tpu_torch.ops.grid import normalized_pixel_grid
@@ -136,20 +146,49 @@ def mask_inputs(cfg, data, device):
     rng = np.random.RandomState(3)
     rgb = np.where(rng.rand(*data["rgb"].shape) < SATURATED, 1.0, data["rgb"]).astype(np.float32)
     gen = torch.Generator().manual_seed(3)
-    head = ImplicitMask(gen).to(device)
+    heads = [ImplicitMask(gen).to(device) for _ in range(n_heads)]
     view = init_view_embedding(cfg.N_vocab, gen)
     grid = normalized_pixel_grid(cfg.grid_spec, crop=True)
     uv, onehot, table = fm.factor_mask_inputs(view, torch.from_numpy(rgb), grid)
+    return rng, heads, uv, onehot, table.to(device)
+
+
+def mask_inputs(cfg, data, device):
+    """K3's and K4's inputs: the dedup columns of the synthetic batch with a
+    few saturated pixels, a seeded mask head, and per-position streams."""
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+
+    rng, (head,), uv, onehot, table = factored_batch(cfg, data, device)
     X, s0map, _, _, cnt = fm.slot_dedup_inputs(uv.numpy(), onehot.numpy())
     B, HW = s0map.shape
     K = X.shape[1]
     d = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-    layers = fm.mask_w_stack(head, table.to(device))
+    layers = fm.mask_w_stack(head, table)
     # a plausible cotangent: sq, esq of a half-fitted image, c = 2 C_m / N
     sq_b, esq_b = d(rng.rand(B, HW) * 0.05), d(rng.rand(B, HW) * 0.5)
     base = d(cnt * (2.0 * 0.5 / (B * HW)) + np.pad(rng.rand(1, K - HW) * 1e-5, ((0, 0), (HW, 0))))
     abk = d([2.0 / (3 * 0.7 * B * HW), 1e-6, -1e-5])
     return layers, d(X), d(s0map), sq_b, esq_b, base, d(cnt), abk
+
+
+def heads_inputs(cfg, data, device, n_heads):
+    """K5's and K6's inputs without dedup: X [56, N] of the same batch
+    (build_mask_x; per image for n_heads = B, head h on columns h HW ..
+    (h+1) HW - 1), the heads' effective layers, and [1, N] streams for K6
+    with the cotangent scalars of a mid-run step (a, b, k on the device, c =
+    2 C_m / N)."""
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+
+    rng, heads, uv, onehot, table = factored_batch(cfg, data, device, n_heads)
+    X = fm.build_mask_x(uv, onehot, n_heads > 1)
+    if n_heads > 1:
+        X = X.transpose(0, 1).reshape(X.shape[1], -1)
+    N = X.shape[1]
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    stacks = [fm.mask_w_stack(head, table) for head in heads]
+    sq, esq = d(rng.rand(1, N) * 0.05), d(rng.rand(1, N) * 0.5)
+    abk = d([2.0 / (3 * 0.7 * N), 1e-6, -1e-5])
+    return stacks, X.contiguous().to(device), sq, esq, abk, 2.0 * 1.5 / N
 
 
 def _rel(a, b):
@@ -231,6 +270,7 @@ def _mlp_flops(N, dims, dx_layers):
 
 
 def phase_kernels(device):
+    from marf_tpu_torch.ops.cuda import fused_implicit as fi
     from marf_tpu_torch.ops.cuda import fused_mask as fm
     from marf_tpu_torch.ops.cuda import fused_step as fs
 
@@ -290,6 +330,41 @@ def phase_kernels(device):
         lambda: named4(fm.fused_mask_backward_dedup_reference(layers64, *k4_64)),
         (), _mlp_flops(K, mdims, len(mdims) - 2), _nbytes(*k4, *mweights) + _nbytes(*mweights),
     )
+
+    # K5 and K6 on all N columns: per-image heads (the JSON line's numbers), then the shared head
+    for n_heads, tag in ((cfg.batch_size, ""), (1, " shared")):
+        stacks, Xn, sq, esq, abk, c = heads_inputs(cfg, data, device, n_heads)
+        stacks64 = [[(w.double(), b.double()) for w, b in layers] for layers in stacks]
+        hweights = [t for layers in stacks for wb in layers for t in wb]
+        g2C = 2.0 * (1.0 + (1.0 - 0.23))  # 2 C_r at progress 0.23, as K1's inputs
+        k5 = (coords, Xn, cw, targets)
+        k5_64 = tuple(t.double() for t in k5)
+
+        def named5(out):
+            rgb, m, sq5, dcoords, msum, loss, dmlp = out
+            return {"m": m, "msum": msum, **_named(rgb, loss, dmlp, dcoords, sq5, "dcoords")}
+
+        results["K5" + tag] = check_kernel(
+            f"K5 fused_implicit_train_kernel N={N} heads={n_heads}",
+            lambda: named5(fi.fused_implicit_train_kernel(net, stacks, *k5, g2C)),
+            lambda: named5(fi.fused_implicit_train_kernel_reference(net, stacks, *k5, g2C)),
+            lambda: named5(fi.fused_implicit_train_kernel_reference(net64, stacks64, *k5_64, g2C)),
+            ("rgb", "sq", "loss", "m", "msum"), rgb_flops + 2 * N * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])),
+            _nbytes(*k5, *weights, *hweights) + out_bytes + N * 4 * (1 + 2) + 8,  # + m, dcoords, msum, loss
+        )
+        k6 = (Xn, sq, esq, abk)
+        k6_64 = tuple(t.double() for t in k6)
+
+        def named6(grads):
+            return {f"h{h}.{k}": t for h, hg in enumerate(grads) for k, t in named4(hg).items()}
+
+        results["K6" + tag] = check_kernel(
+            f"K6 fused_mask_backward_g N={N} heads={n_heads}",
+            lambda: named6(fm.fused_mask_backward_g(stacks, *k6, c)),
+            lambda: named6(fm.fused_mask_backward_g_reference(stacks, *k6, c)),
+            lambda: named6(fm.fused_mask_backward_g_reference(stacks64, *k6_64, c)),
+            (), _mlp_flops(N, mdims, len(mdims) - 2), _nbytes(*k6, *hweights) + _nbytes(*hweights),
+        )
     return results
 
 
@@ -341,9 +416,20 @@ def _traj(h_f, h_a, key):
     return ((h_f[key][:10] - h_a[key][:10]).abs() / h_a[key][:10].abs().clamp_min(1e-30)).max().item()
 
 
-def phase_main_path(out_root: str):
+def check_outputs(m):
+    """The trained implicit-mask model's rendered patches and masks: finite,
+    of the expected shape."""
     from marf_tpu_torch.models.planar import graph_forward
 
+    with torch.no_grad():
+        out = graph_forward(m.graph, m.data, m.cfg, torch.tensor(1.0, device=m.device))
+    B, (h, w) = m.cfg.batch_size, m.cfg.map_hw
+    for k, shape in (("rgb_prediction_map", (B, 3, h, w)), ("mask_prediction_map", (B, 1, h, w))):
+        if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
+            fail(f"{m.opt.name}: {k} has the wrong shape or non-finite values")
+
+
+def phase_main_path(out_root: str):
     total = {}
 
     def add(counts):
@@ -372,12 +458,7 @@ def phase_main_path(out_root: str):
     trajs = {k: _traj(h_i, h_ia, k) for k in ("loss_rgb", "loss_mask")}
     if not max(trajs.values()) <= TRAJ_TOL:
         fail(f"implicit: fused and autograd losses differ over the first 10 steps: {trajs} (tol {TRAJ_TOL:.0e})")
-    with torch.no_grad():
-        out = graph_forward(m_i.graph, m_i.data, m_i.cfg, torch.tensor(1.0, device=m_i.device))
-    B, (h, w) = m_i.cfg.batch_size, m_i.cfg.map_hw
-    for k, shape in (("rgb_prediction_map", (B, 3, h, w)), ("mask_prediction_map", (B, 1, h, w))):
-        if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
-            fail(f"implicit: {k} has the wrong shape or non-finite values")
+    check_outputs(m_i)
     print(f"[main] implicit: first-10-step loss rel diff fused vs autograd "
           + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
 
@@ -391,6 +472,29 @@ def phase_main_path(out_root: str):
         fail(f"implicit: the K2 and K1 runs' losses differ over the first 10 steps: {trajs} (tol {TRAJ_TOL:.0e})")
     print(f"[main] implicit: first-10-step loss rel diff K2 vs K1 "
           + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
+
+    heads = {"fused_implicit_train_kernel": ITERS, "fused_mask_backward_g": ITERS}
+    single = (*implicit, "--build_single_masks")
+    m_s, h_s, c = run_model(options(out_root, "implicit_single_fused", ITERS, "--tpu.fused_step=on", *single), heads)
+    add(c)
+    check_outputs(m_s)
+    _, h_sa, _ = run_model(options(out_root, "implicit_single_autograd", ITERS, "--tpu.fused_step=off", *single), {})
+    trajs = {k: _traj(h_s, h_sa, k) for k in ("loss_rgb", "loss_mask")}
+    if not max(trajs.values()) <= TRAJ_TOL:
+        fail(f"implicit_single: fused and autograd losses differ over the first 10 steps: {trajs} (tol {TRAJ_TOL:.0e})")
+    print(f"[main] implicit_single: first-10-step loss rel diff fused vs autograd "
+          + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
+
+    _, h_nd, c = run_model(
+        options(out_root, "implicit_fused_dedup_off", ITERS, "--tpu.fused_step=on", "--tpu.fused_dedup=off", *implicit), heads
+    )
+    add(c)
+    trajs = {k: _traj(h_nd, h_i, k) for k in ("loss_rgb", "loss_mask")}
+    if not max(trajs.values()) <= TRAJ_TOL:
+        fail(f"implicit: the fused_dedup=off and dedup runs' losses differ over the first 10 steps: {trajs} "
+             f"(tol {TRAJ_TOL:.0e})")
+    print(f"[main] implicit: first-10-step loss rel diff fused_dedup=off (K5, K6) vs dedup (K3, K1, K4) "
+          + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
     return total
 
 
@@ -399,6 +503,8 @@ KERNELS = [
     ("K2", "fused_train_kernel", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:208"),
     ("K3", "fused_mask_forward", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:252"),
     ("K4", "fused_mask_backward_dedup", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:837"),
+    ("K5", "fused_implicit_train_kernel", "marf_tpu_torch/csrc/fused_implicit.cu", "marf_tpu/ops/pallas/fused_mask.py:434"),
+    ("K6", "fused_mask_backward_g", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:510"),
 ]
 
 

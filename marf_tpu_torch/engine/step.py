@@ -1,6 +1,6 @@
 """The train step and the chunked loop (twin of marf_tpu/engine/step.py).
 
-Three gradient paths; the fused ones compute the autograd path's update:
+Four gradient paths; the fused ones compute the autograd path's update:
   - the autograd step (`graph_forward` + `graph_loss` + backward);
   - the fused fixed-mask step: one call of the rgb kernel
     (ops/cuda/fused_step.py) returns the MLP gradients and dH (K1, warp in
@@ -11,7 +11,12 @@ Three gradient paths; the fused ones compute the autograd path's update:
     (marf_tpu `_fused_implicit_dedup_grads`): K3 (mask forward) -> the rgb
     kernel masked by the predicted m -> the gradient-blocked edge term -> K4
     (mask backward, ops/cuda/fused_mask.py), with the cotangent
-    dL/dm = (a sq + b esq + c) m + k from `mask_cot_scalars`.
+    dL/dm = (a sq + b esq + c) m + k from `mask_cot_scalars`;
+  - the fused implicit-mask step without dedup, for per-image heads and for
+    the shared head under fused_dedup=off (marf_tpu `_fused_implicit_grads`):
+    K5 (mask forward + the rgb step with the unnormalized cotangent,
+    ops/cuda/fused_implicit.py) -> the 1 / (3 sum m) scaling -> the edge term
+    -> K6 (head-blocked mask backward, the same cotangent per column).
 Then Adam with per-group learning rates (MLP at optim.lr, warp at
 optim.lr_warp, mask head at optim.lr_mask; reference model/planar.py:86-104),
 Homography_Error from the post-update warp, Mask_Error of the pre-update mask
@@ -19,7 +24,7 @@ Homography_Error from the post-update warp, Mask_Error of the pre-update mask
 (reference model/planar.py:156-158), in that order.
 
 Per-step constants (the flat target/mask/grid streams, 1/(3 sum m) of fixed
-masks, the mask-head inputs and their dedup structures, and the progress /
+masks, the mask-head inputs X or their dedup structures, and the progress /
 alpha / c2f schedules for every step) are built once when the step is made,
 so a step reads no value back to the host: its metrics stay on the device
 until `run_chunk` reads a whole chunk at once.
@@ -38,6 +43,7 @@ from marf_tpu_torch.models.planar import (
     PlanarConfig,
     graph_forward,
     graph_loss,
+    use_fused_dedup,
     use_fused_implicit,
     use_fused_step,
     use_lazy_metrics,
@@ -157,6 +163,28 @@ def stage_mask_inputs(graph: Graph, images: torch.Tensor) -> tuple:
     return (*(torch.from_numpy(a).to(dev) for a in arrays), table.to(dev))
 
 
+def stage_mask_x(graph: Graph, images: torch.Tensor, single: bool) -> tuple:
+    """K5's and K6's constant input, built once on the graph's device:
+    (X [56, N], table [8, 384]). Head h owns the columns h HW .. (h+1) HW - 1:
+    per-image X [B, 56, HW] is flattened in that order (marf_tpu
+    engine/step.py:480-481)."""
+    from marf_tpu_torch.ops.cuda.fused_mask import build_mask_x, factor_mask_inputs
+
+    with torch.no_grad():
+        uv, onehot, table = factor_mask_inputs(graph.view_embedding, images, graph.grid)
+        X = build_mask_x(uv, onehot, single)
+        if single:
+            X = X.transpose(0, 1).reshape(X.shape[1], -1)
+    return X.contiguous(), table
+
+
+def set_grads(layers, grads) -> None:
+    """Give each nn.Linear of `layers` its (dW, db)."""
+    for layer, (dw, db) in zip(layers, grads):
+        layer.weight.grad = dw
+        layer.bias.grad = db
+
+
 def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, scheduler=None, use_homographies: bool = True):
     """Build step_fn(step: int, heavy: bool) -> metrics dict of 0-d tensors.
 
@@ -165,14 +193,15 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     forward, Homography_Error from the post-update warp before the fix_first
     re-zero. `heavy` marks the chunk-final step: with lazy metrics, only it
     computes the metric-only work and the other rows report 0. The implicit
-    path's edge term is not metric-only (its esq feeds K4), so it runs every
-    step.
+    paths' edge term is not metric-only (its esq feeds K4 or K6), so it runs
+    every step.
     """
     from marf_tpu_torch.ops.cuda.fused_step import MAX_IMAGES
 
     device = graph.warp.device
     fused = use_fused_step(cfg, device)
     fused_implicit = use_fused_implicit(cfg, device)
+    dedup = fused_implicit and use_fused_dedup(cfg, device)
     lazy = use_lazy_metrics(cfg, device)
     h, w = cfg.map_hw
     B = cfg.batch_size
@@ -187,8 +216,10 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     if cfg.use_implicit_mask and cfg.use_masks and data.get("masks") is not None:
         masks_ref = data["masks"].permute(1, 0, 2, 3).reshape(1, N)
     coords_kernel = cfg.fused_warp == "off" or B > MAX_IMAGES  # K2 in place of K1
-    if fused_implicit:
+    if dedup:
         path = f"fused implicit dedup (K3 -> {'K2' if coords_kernel else 'K1'} -> K4)"
+    elif fused_implicit:
+        path = f"fused implicit, {'per-image heads' if cfg.build_single_masks else 'shared head, no dedup'} (K5 -> K6)"
     elif fused:
         path = f"fused ({'K2' if coords_kernel else 'K1'})"
     else:
@@ -201,7 +232,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         arch = cfg.arch
         cws = barf_c2f_weights(progress, tuple(arch.barf_c2f), arch.posenc_L) if (arch.posenc_L and arch.barf_c2f is not None) else None
         targets_cf = data["rgb"].permute(1, 0, 2, 3).reshape(3, N).contiguous()
-        if not coords_kernel:
+        if (fused or dedup) and not coords_kernel:
             # the kernel's (u, v, b) stream: the unwarped grid repeated per image
             grid_b = torch.cat(
                 [graph.grid.T.repeat(1, B), torch.arange(B, dtype=torch.float32, device=device).repeat_interleave(HW)[None]]
@@ -218,16 +249,22 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         c_render = 10.0 ** float(cfg.w_render)
         c_rgb = 10.0 ** float(cfg.w_rgb) if cfg.w_rgb is not None else None
     if fused_implicit:
+        from marf_tpu_torch.ops.cuda.fused_implicit import fused_implicit_train_kernel
         from marf_tpu_torch.ops.cuda.fused_mask import (
             fused_mask_backward_dedup,
+            fused_mask_backward_g,
             fused_mask_forward,
             mask_w_stack,
             unfactor_mask_grads,
         )
 
+    if dedup:
         X_all, slot0map, ext_pix, extmap, cnt_all, table = stage_mask_inputs(graph, data["rgb"])
         E = ext_pix.shape[0]  # known at setup: the extras' index ops run only when E > 0
         log.info(f"mask-head dedup: K = {HW + E} columns (HW = {HW}, E = {E}) for N = {N} positions")
+    elif fused_implicit:
+        X_flat, table = stage_mask_x(graph, data["rgb"], cfg.build_single_masks)
+        heads = list(graph.implicit_mask) if cfg.build_single_masks else [graph.implicit_mask]
     elif cfg.use_implicit_mask and not cfg.train_view_embedding:
         # frozen view embedding: the dense mask-head inputs are constants
         with torch.no_grad():
@@ -252,11 +289,23 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
                 graph.neural_image, grid_b, H.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3
             )
             (dwarp,) = torch.autograd.grad(H, graph.warp, dH)
-        for layer, (dw, db) in zip(graph.neural_image.layers, dmlp):
-            layer.weight.grad = dw
-            layer.bias.grad = db
+        set_grads(graph.neural_image.layers, dmlp)
         graph.warp.grad = dwarp
         return rgb_cf, rgb_loss, sq
+
+    def edge_sq(rgb_cf):
+        """The gradient-blocked edge term's squared error per position, [1, N];
+        [3, B, h, w] keeps the image axis as channels."""
+        edge_pred_cf = compute_edges(rgb_cf.reshape(3, B, h, w))
+        return torch.sum((edge_pred_cf - edges_cf) ** 2, dim=0).reshape(1, N)
+
+    def implicit_loss(rgb_loss, edge_loss, mask_loss, alpha) -> dict:
+        return {
+            "render": render_loss(rgb_loss, edge_loss, mask_loss, alpha),
+            "rgb": rgb_loss,
+            "mask": mask_loss,
+            "edge": edge_loss,
+        }
 
     def fused_grads(step: int, heavy: bool):
         alpha = alphas[step]
@@ -289,8 +338,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         rgb_cf, rgb_loss, sq = rgb_kernel_grads(step, m_flat, C_r, inv_sum3)
         # ---- the gradient-blocked edge term, per position [B, HW]
         if cfg.use_edges:
-            edge_pred_cf = compute_edges(rgb_cf.reshape(3, B, h, w))
-            esq_b = torch.sum((edge_pred_cf - edges_cf) ** 2, dim=0).reshape(B, HW)
+            esq_b = edge_sq(rgb_cf).reshape(B, HW)
             edge_loss = torch.sum(m_pos * m_pos * esq_b) * inv_sum3
         else:
             esq_b = None
@@ -306,16 +354,39 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
                 tail = tail + b_s * torch.sum(extmap * esq_b[:, ext_pix], dim=0)
             base = base + torch.nn.functional.pad(tail[None], (HW, 0))
         dstack = fused_mask_backward_dedup(stack, X_all, slot0map, sq_b, esq_b, base, cnt_all, torch.stack([a_s, b_s, k_s]))
-        for layer, (dw, db) in zip(graph.implicit_mask.layers, unfactor_mask_grads(dstack, table)):
-            layer.weight.grad = dw
-            layer.bias.grad = db
-        loss = {
-            "render": render_loss(rgb_loss, edge_loss, mask_loss, alpha),
-            "rgb": rgb_loss,
-            "mask": mask_loss,
-            "edge": edge_loss,
-        }
-        return loss, m_flat
+        set_grads(graph.implicit_mask.layers, unfactor_mask_grads(dstack, table))
+        return implicit_loss(rgb_loss, edge_loss, mask_loss, alpha), m_flat
+
+    def implicit_heads_grads(step: int, heavy: bool):
+        alpha = alphas[step]
+        C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
+        stacks = [mask_w_stack(head, table) for head in heads]
+        # ---- K5: the mask forward on every head's column block, then the rgb
+        # step masked by m with the unnormalized cotangent 2 C_r (rgb - t) m^2
+        coords = warp_grid_cf_flat(graph.grid, graph.warp)
+        rgb_cf, m_flat, sq, dcoords_u, msum, loss_u, dmlp_u = fused_implicit_train_kernel(
+            graph.neural_image, stacks, coords.detach(), X_flat, None if cws is None else cws[step], targets_cf, 2.0 * C_r
+        )
+        # the masked-MSE normalization 1 / (3 sum m): K5's outputs are linear in it
+        inv_sum3 = 1.0 / (msum * 3.0)
+        rgb_loss = loss_u * inv_sum3
+        (dwarp,) = torch.autograd.grad(coords, graph.warp, dcoords_u)
+        graph.warp.grad = dwarp * inv_sum3
+        set_grads(graph.neural_image.layers, [(dw * inv_sum3, db * inv_sum3) for dw, db in dmlp_u])
+        # ---- the gradient-blocked edge term, per position [1, N]
+        if cfg.use_edges:
+            esq = edge_sq(rgb_cf)
+            edge_loss = torch.sum(m_flat * m_flat * esq) * inv_sum3
+        else:
+            esq = None
+            edge_loss = zero
+        mask_loss = torch.mean((1.0 - m_flat) ** 2)
+        # ---- K6: each head's backward on its block with the per-column cotangent
+        a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
+        dstacks = fused_mask_backward_g(stacks, X_flat, sq, esq, torch.stack([a_s, b_s, k_s]), c_s)
+        for head, dstack in zip(heads, dstacks):
+            set_grads(head.layers, unfactor_mask_grads(dstack, table))
+        return implicit_loss(rgb_loss, edge_loss, mask_loss, alpha), m_flat
 
     def autograd_grads(step: int, heavy: bool):
         optimizer.zero_grad(set_to_none=True)
@@ -327,7 +398,10 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             mask_cf = outputs["mask_prediction_map"].detach().permute(1, 0, 2, 3).reshape(1, N)
         return {k: v.detach() for k, v in loss.items()}, mask_cf
 
-    grads_fn = implicit_grads if fused_implicit else fused_grads if fused else autograd_grads
+    if fused_implicit:
+        grads_fn = implicit_grads if dedup else implicit_heads_grads
+    else:
+        grads_fn = fused_grads if fused else autograd_grads
 
     def step_fn(step: int, heavy: bool = True) -> dict:
         loss, mask_cf = grads_fn(step, heavy)

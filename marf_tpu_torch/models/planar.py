@@ -58,8 +58,9 @@ class PlanarConfig:
     # homography warp inside the rgb kernel (K1); 'off', or more than 8
     # images, runs K2 on warped coordinates
     fused_warp: str = "auto"
-    # implicit-mask column dedup (the only fused implicit pipeline so far):
-    # 'auto' and 'on' run it; 'off' needs kernels K5/K6
+    # implicit-mask column dedup of the shared head (K3 -> K1/K2 -> K4):
+    # 'auto' and 'on' run it, 'off' runs the shared head on all N columns
+    # (K5 -> K6); per-image heads always take K5 -> K6
     fused_dedup: str = "auto"
     # metric-only work (the gradient-blocked edge term of the fused path,
     # Homography_Error) only at chunk-final steps: 'auto' (on under CUDA), 'on', 'off'
@@ -176,23 +177,32 @@ def use_fused_step(cfg: PlanarConfig, device: torch.device) -> bool:
 
 
 def use_fused_implicit(cfg: PlanarConfig, device: torch.device) -> bool:
-    """Whether an implicit-mask config runs the fused shared-head pipeline on
-    deduplicated columns: K3 -> K1 (or K2) masked by the predicted m -> K4.
-    It needs the factoring to be exact: a frozen view embedding and the {0,1}
-    quantization. marf_tpu's `use_fused_dedup` is this same decision here:
-    the port has no fused implicit pipeline without the dedup yet."""
+    """Whether an implicit-mask config runs a fused pipeline: the dedup one
+    (K3 -> K1 or K2 -> K4, see `use_fused_dedup`) or K5 -> K6 for per-image
+    heads and the shared head without dedup. Both need the factoring to be
+    exact: a frozen view embedding and the {0,1} quantization."""
     if cfg.fused_step == "off" or not cfg.use_implicit_mask:
         return False
     out_of_scope = _kernel_scope(cfg)
-    if cfg.build_single_masks:
-        out_of_scope.append("build_single_masks: per-image heads need kernels K5/K6 (ROADMAP.md Queue 1, slice 3)")
-    elif cfg.fused_dedup == "off":
-        out_of_scope.append("fused_dedup=off: the shared head without column dedup needs kernels K5/K6 (slice 3)")
     if cfg.train_view_embedding:
         out_of_scope.append("optim.train_view_embedding: the factored mask input needs a frozen view embedding")
     if cfg.mask_quantize_levels != 1:
         out_of_scope.append("tpu.mask_quantize_levels != 1: the factored mask input needs the {0,1} quantization")
     return _gate(cfg, device, out_of_scope)
+
+
+def use_fused_dedup(cfg: PlanarConfig, device: torch.device) -> bool:
+    """Whether the fused implicit step deduplicates the mask-head columns
+    (twin of marf_tpu's): the shared head only, unless fused_dedup=off.
+    Per-image heads have no duplicate columns, so fused_dedup=on is ignored
+    for them with a log line. marf_tpu's TPU hardware-validation gate is not
+    ported: on the card 'auto' means on."""
+    if cfg.build_single_masks:
+        if cfg.fused_dedup == "on":
+            log.warn("tpu.fused_dedup=on ignored: column dedup covers the shared head only "
+                     "(per-image heads have no duplicate columns)")
+        return False
+    return cfg.fused_dedup != "off" and use_fused_implicit(cfg, device)
 
 
 def use_lazy_metrics(cfg: PlanarConfig, device: torch.device) -> bool:

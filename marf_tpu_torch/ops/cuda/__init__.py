@@ -11,4 +11,6 @@ LAUNCHES = {
     "fused_train_kernel": 0,  # K2, fused_step.py
     "fused_mask_forward": 0,  # K3, fused_mask.py
     "fused_mask_backward_dedup": 0,  # K4, fused_mask.py
+    "fused_implicit_train_kernel": 0,  # K5, fused_implicit.py
+    "fused_mask_backward_g": 0,  # K6, fused_mask.py
 }

@@ -22,11 +22,17 @@ result. The backward's segment sums are a fixed-order sum over B for slot0
 (inside K4) and E-sized gathers for the extras (in `base`); no float
 scatter-add, so the step stays bitwise reproducible.
 
+Without dedup (per-image heads, or the shared head under fused_dedup=off)
+the head sees all N columns of X = `build_mask_x`, head h its column block
+[h HW, (h+1) HW).
+
 `fused_mask_forward` replaces fused_mask.py `fused_mask_forward` (K3);
-`fused_mask_backward_dedup` replaces `fused_mask_backward_dedup` (K4). Each
+`fused_mask_backward_dedup` replaces `fused_mask_backward_dedup` (K4);
+`fused_mask_backward_g` replaces `fused_mask_backward_g` (K6). Each
 dispatches on the device of its inputs: CUDA tensors launch the kernel (or
 raise), CPU tensors run its `*_reference` plain version. Effective layers are
-lists of (W [out, in], b [out]) tensors, nn.Linear's layout.
+lists of (W [out, in], b [out]) tensors, nn.Linear's layout; a head-blocked
+kernel takes one such list per head.
 """
 
 from __future__ import annotations
@@ -66,6 +72,21 @@ def factor_mask_inputs(view_embedding: torch.Tensor, images: torch.Tensor, xy_gr
     table = view_embedding[bits].reshape(N_COMBOS, -1)  # [8, 384]
     onehot = (combo[:, None, :] == torch.arange(N_COMBOS, device=combo.device)[None, :, None]).to(torch.float32)
     return uv, onehot, table
+
+
+def build_mask_x(uv: torch.Tensor, onehot: torch.Tensor, single: bool) -> torch.Tensor:
+    """The factored mask-head input X (copy of fused_mask.py `build_mask_x`).
+
+    Shared head: [56, B*HW], column b*HW + i (the flat rgb streams' order).
+    Per-image heads: [B, 56, HW].
+    """
+    B, _, HW = onehot.shape
+    if single:
+        pad = torch.zeros((B, X_ROWS - UV_DIM - N_COMBOS, HW), dtype=torch.float32, device=uv.device)
+        return torch.cat([uv[None].expand(B, -1, -1), onehot, pad], dim=1)
+    oh_flat = onehot.transpose(0, 1).reshape(N_COMBOS, B * HW)
+    pad = torch.zeros((X_ROWS - UV_DIM - N_COMBOS, B * HW), dtype=torch.float32, device=uv.device)
+    return torch.cat([uv.repeat(1, B), oh_flat, pad], dim=0)
 
 
 def slot_dedup_inputs(uv: np.ndarray, onehot: np.ndarray):
@@ -133,6 +154,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_mask_forward.restype = ctypes.c_int
     lib.marf_mask_backward_dedup.argtypes = [i, i, i, i, pi, p, p, p, p, p, p, p, pp, pp, pp, pp, p, p]
     lib.marf_mask_backward_dedup.restype = ctypes.c_int
+    lib.marf_mask_backward_g.argtypes = [i, i, i, pi, p, p, p, p, p, ctypes.c_float, pp, pp, pp, pp, p, p]
+    lib.marf_mask_backward_g.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
@@ -142,16 +165,33 @@ def _library() -> ctypes.CDLL:
     return load_library("fused_mask", SOURCES, _bind)
 
 
-def _checked_layers(fn: str, layers: list, x_cf: torch.Tensor):
+def _checked_layers(fn: str, layers: list, x_cf: torch.Tensor, cols: int | None = None):
+    """Check X [rows, K] and one head's effective layers; `cols` is the
+    columns the head sees (all K by default). Returns (dims, C dims array)."""
     device = x_cf.device
+    cols = x_cf.shape[1] if cols is None else cols
     dims = [x_cf.shape[0]] + [w.shape[0] for w, _ in layers]
-    if len(layers) < 2 or dims[-1] != 1 or dims[-2] > 1024 or x_cf.shape[1] < 1:
-        raise ValueError(f"{fn}: unsupported shape (dims={dims}, K={x_cf.shape[1]})")
+    if len(layers) < 2 or dims[-1] != 1 or dims[-2] > 1024 or cols < 1:
+        raise ValueError(f"{fn}: unsupported shape (dims={dims}, columns={cols})")
     check_tensor(fn, "x_cf", x_cf, (dims[0], x_cf.shape[1]), device)
     for li, (w, b) in enumerate(layers):
         check_tensor(fn, f"weight[{li}]", w, (dims[li + 1], dims[li]), device)
         check_tensor(fn, f"bias[{li}]", b, (dims[li + 1],), device)
     return dims, (ctypes.c_int * len(dims))(*dims)
+
+
+def checked_stacks(fn: str, stacks: list, x_cf: torch.Tensor):
+    """Check X [rows, N] and every head's effective layers (one shape for
+    all heads; N splits into len(stacks) column blocks). Returns (HW, dims,
+    C dims array)."""
+    n_heads, N = len(stacks), x_cf.shape[1]
+    if n_heads < 1 or N % n_heads:
+        raise ValueError(f"{fn}: {N} columns do not split into {n_heads} heads")
+    HW = N // n_heads
+    dims, c_dims = _checked_layers(fn, stacks[0], x_cf, HW)
+    if any(_checked_layers(fn, layers, x_cf, HW)[0] != dims for layers in stacks[1:]):
+        raise ValueError(f"{fn}: the heads' effective layers differ in shape")
+    return HW, dims, c_dims
 
 
 def fused_mask_forward(layers: list, x_cf: torch.Tensor) -> torch.Tensor:
@@ -221,6 +261,52 @@ def fused_mask_backward_dedup(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt,
     return list(zip(dws, dbs))
 
 
+def fused_mask_backward_g(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None) -> list:
+    """Head-blocked mask-head backward with the cotangent in the kernel (K6).
+
+    Args:
+      stacks: per head, its effective layers [(W [out, in], b [out])]
+        (mask_w_stack); one list for the shared head, B for per-image heads.
+      x_cf: [56, N] factored columns, N = n_heads * HW; head h owns columns
+        [h HW, (h+1) HW).
+      sq: [1, N] per-column rgb squared error; esq: [1, N] edge squared
+        error, or None.
+      abk: [3] (a, b, k) on the device; c: float; of the cotangent
+        dL/dm = (a sq + b esq + c cnt) m + k cnt.
+      cnt: [1, N] column counts, or None (ones).
+
+    Returns, per head, the effective-layer grads [(dW [out, in], db [out])]
+    (unfactor_mask_grads maps them back).
+    """
+    if x_cf.device.type == "cpu":
+        return fused_mask_backward_g_reference(stacks, x_cf, sq, esq, abk, c, cnt)
+    if x_cf.device.type != "cuda":
+        raise ValueError(f"fused_mask_backward_g: unsupported device {x_cf.device}")
+    fn = "fused_mask_backward_g"
+    device = x_cf.device
+    n_heads, N = len(stacks), x_cf.shape[1]
+    HW, _, c_dims = checked_stacks(fn, stacks, x_cf)
+    for name, t, shape in (("sq", sq, (1, N)), ("esq", esq, (1, N)), ("cnt", cnt, (1, N)), ("abk", abk, (3,))):
+        if t is not None:
+            check_tensor(fn, name, t, shape, device)
+    lib = _library()
+    flat = [wb for layers in stacks for wb in layers]
+    dws = [torch.empty_like(w) for w, _ in flat]
+    dbs = [torch.empty_like(b) for _, b in flat]
+    ws = torch.empty(lib.marf_mask_backward_workspace(HW, len(stacks[0]), c_dims), dtype=torch.float32, device=device)
+    rc = lib.marf_mask_backward_g(
+        N, n_heads, len(stacks[0]), c_dims, x_cf.data_ptr(), sq.data_ptr(), None if esq is None else esq.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), abk.data_ptr(), float(c), ptr_array([w for w, _ in flat]),
+        ptr_array([b for _, b in flat]), ptr_array(dws), ptr_array(dbs), ws.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[fn] += 1
+    n = len(stacks[0])
+    return [list(zip(dws[h * n : (h + 1) * n], dbs[h * n : (h + 1) * n])) for h in range(n_heads)]
+
+
 def _mask_mlp(layers: list, x_cf: torch.Tensor) -> torch.Tensor:
     feat = x_cf
     last = len(layers) - 1
@@ -254,3 +340,24 @@ def fused_mask_backward_dedup_reference(layers: list, x_cf, s0map, sq_b, esq_b, 
 def _slot0_pad(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """[HW] -> [1, K] with zeros past the slot0 block."""
     return torch.nn.functional.pad(v[None], (0, like.shape[1] - v.shape[0]))
+
+
+def fused_mask_backward_g_reference(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None) -> list:
+    """Plain PyTorch version of `fused_mask_backward_g`: per head, the
+    forward on its column block under autograd, pulled back from m with the
+    cotangent (a sq + b esq + c cnt) m + k cnt."""
+    HW = x_cf.shape[1] // len(stacks)
+    out = []
+    for h, layers in enumerate(stacks):
+        cols = slice(h * HW, (h + 1) * HW)
+        with torch.enable_grad():
+            params = [(w.detach().requires_grad_(True), b.detach().requires_grad_(True)) for w, b in layers]
+            m = _mask_mlp(params, x_cf[:, cols])
+            n = 1.0 if cnt is None else cnt[:, cols]
+            s = abk[0] * sq[:, cols]
+            if esq is not None:
+                s = s + abk[1] * esq[:, cols]
+            g = (s + c * n) * m.detach() + abk[2] * n
+            grads = torch.autograd.grad(m, [t for wb in params for t in wb], g)
+        out.append(list(zip(grads[0::2], grads[1::2])))
+    return out

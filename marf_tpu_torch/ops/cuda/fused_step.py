@@ -114,21 +114,38 @@ def fused_train_kernel(net: NeuralImage, coords, cw, targets, masks, g_loss_scal
     return _launch(net, coords, None, None, cw, targets, masks, _scalars(g_loss_scale, inv_sum3))
 
 
-def _launch(net, coords, grid_b, H, cw, targets, masks, scal):
-    """K2 when `coords` is given, else K1."""
-    fn = "fused_train_kernel" if coords is not None else "fused_train_kernel_warp"
+def rgb_net_args(fn: str, net: NeuralImage, cw, device: torch.device):
+    """The rgb pipeline's network arguments, checked: (L, dims, C dims array,
+    weights, biases, cw), with cw ones [max(L, 1)] when c2f is off."""
     cfg = net.cfg
     if cfg.skip:
         raise NotImplementedError(f"{fn}: the fused kernel has no skip re-concat (arch.skip)")
-    stream_in = coords if coords is not None else grid_b
-    device = stream_in.device
     L = int(cfg.posenc_L or 0)
-    N = stream_in.shape[1]
     layers = list(net.layers)
     dims = [cfg.input_dim] + [layer.out_features for layer in layers]
+    if len(layers) < 2 or dims[-1] != 3 or dims[-2] > 1024 or L > 16:
+        raise ValueError(f"{fn}: unsupported shape (dims={dims}, L={L})")
+    if cw is None:
+        cw = torch.ones(max(L, 1), dtype=torch.float32, device=device)
+    check_tensor(fn, "cw", cw, (max(L, 1),), device)
+    weights = [layer.weight.detach() for layer in layers]
+    biases = [layer.bias.detach() for layer in layers]
+    for li, (w, b) in enumerate(zip(weights, biases)):
+        check_tensor(fn, f"weight[{li}]", w, (dims[li + 1], dims[li]), device)
+        check_tensor(fn, f"bias[{li}]", b, (dims[li + 1],), device)
+    return L, dims, (ctypes.c_int * len(dims))(*dims), weights, biases, cw
+
+
+def _launch(net, coords, grid_b, H, cw, targets, masks, scal):
+    """K2 when `coords` is given, else K1."""
+    fn = "fused_train_kernel" if coords is not None else "fused_train_kernel_warp"
+    stream_in = coords if coords is not None else grid_b
+    device = stream_in.device
+    N = stream_in.shape[1]
+    L, dims, c_dims, weights, biases, cw = rgb_net_args(fn, net, cw, device)
     B = H.shape[0] if coords is None else 0
-    if len(layers) < 2 or dims[-1] != 3 or dims[-2] > 1024 or L > 16 or (coords is None and not 1 <= B <= MAX_IMAGES):
-        raise ValueError(f"{fn}: unsupported shape (dims={dims}, B={B}, L={L})")
+    if coords is None and not 1 <= B <= MAX_IMAGES:
+        raise ValueError(f"{fn}: unsupported number of images B={B} (1 to {MAX_IMAGES})")
     check = lambda name, t, shape: check_tensor(fn, name, t, shape, device)
     if coords is not None:
         check("coords", coords, (2, N))
@@ -138,18 +155,9 @@ def _launch(net, coords, grid_b, H, cw, targets, masks, scal):
     check("targets", targets, (3, N))
     check("masks", masks, (1, N))
     check("scalars", scal, (2,))
-    if cw is None:
-        cw = torch.ones(max(L, 1), dtype=torch.float32, device=device)
-    check("cw", cw, (max(L, 1),))
-    weights = [layer.weight.detach() for layer in layers]
-    biases = [layer.bias.detach() for layer in layers]
-    for li, (w, b) in enumerate(zip(weights, biases)):
-        check(f"weight[{li}]", w, (dims[li + 1], dims[li]))
-        check(f"bias[{li}]", b, (dims[li + 1],))
 
     lib = _library()
-    n_layers = len(layers)
-    c_dims = (ctypes.c_int * (n_layers + 1))(*dims)
+    n_layers = len(weights)
     rgb = torch.empty((3, N), dtype=torch.float32, device=device)
     sq = torch.empty((1, N), dtype=torch.float32, device=device)
     loss = torch.empty((), dtype=torch.float32, device=device)

@@ -3,6 +3,7 @@
     python -m marf_tpu_torch.step_profile                       # canonical config
     python -m marf_tpu_torch.step_profile --use_implicit_mask --use_masks=false
     python -m marf_tpu_torch.step_profile --tpu.fused_step=off  # the autograd step
+    python -m marf_tpu_torch.step_profile --use_implicit_mask --use_masks=false --build_single_masks
 
 Takes the options of `python -m marf_tpu_torch.train` on top of planar.yaml,
 --barf_c2f=[0,0.4], --dataset=synthetic and --seed=3, builds the trainer's
@@ -11,7 +12,7 @@ step once, and then, on one CUDA card:
   - times 100 steps ended by torch.cuda.synchronize() (steps/s);
   - times 20 steps without a sync (host enqueue ms/step);
   - traces 20 steps with torch.profiler: device ms/step of each hand-written
-    kernel (K1-K4, the device time of the launches inside each wrapper) and
+    kernel (K1-K6, the device time of the launches inside each wrapper) and
     of all device work; the busy share is that device time over the step
     time of the untraced steps.
 Metric-only work follows the trainer's cadence: the last step of every 20 is
@@ -30,13 +31,15 @@ import time
 
 import torch
 
-from marf_tpu_torch.ops.cuda import fused_mask, fused_step
+from marf_tpu_torch.ops.cuda import fused_implicit, fused_mask, fused_step
 
 WRAPPERS = [
     ("K1", fused_step, "fused_train_kernel_warp"),
     ("K2", fused_step, "fused_train_kernel"),
     ("K3", fused_mask, "fused_mask_forward"),
     ("K4", fused_mask, "fused_mask_backward_dedup"),
+    ("K5", fused_implicit, "fused_implicit_train_kernel"),
+    ("K6", fused_mask, "fused_mask_backward_g"),
 ]
 CHUNK = 20
 

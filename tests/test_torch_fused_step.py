@@ -1,5 +1,5 @@
 """The fused train step (K1, K2) of the PyTorch port, and the card tests of
-the mask kernels (K3, K4).
+the mask kernels (K3, K4) and of K5 and K6.
 
 On the CPU each wrapper runs its plain PyTorch version, which is held against
 marf_tpu's `fused_train_kernel_warp` / `fused_train_kernel` (the Pallas
@@ -275,3 +275,46 @@ def test_mask_kernels_match_plain_on_card(rng, cuda_device, use_edges):
         assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= 1e-4
         assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= 1e-4
         assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_heads", [1, 3], ids=["shared", "per_image"])
+def test_heads_kernels_match_plain_on_card(rng, cuda_device, n_heads):
+    """K5 and K6 against their plain versions on head-blocked columns, each
+    head with its own weights and its own uv block: values 1e-5, gradients
+    1e-4, dcoords 1e-3 (float32 cancellation of the posenc VJP, see
+    tests/test_torch_implicit_heads.py), bitwise relaunch."""
+    from marf_tpu_torch.models.implicit_mask import ImplicitMask
+    from marf_tpu_torch.ops.cuda import fused_implicit as fi
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+
+    jcfg, tcfg = cfg_pair()
+    jp, _, _, targets, _ = k1_inputs(jcfg, rng)
+    g = port_graph(tcfg, jp).to(cuda_device)
+    N = targets.shape[1]
+    d = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda_device)
+    X = np.concatenate([rng.randn(42, N), np.eye(8)[rng.randint(0, 8, N)].T, np.zeros((6, N))])
+    gen = torch.Generator().manual_seed(0)
+    stacks = [fm.mask_w_stack(ImplicitMask(gen).to(cuda_device), d(rng.randn(8, 384))) for _ in range(n_heads)]
+    k5 = (g.neural_image, stacks, d(rng.rand(2, N) * 2.2 - 1.1), d(X), torch.tensor([1.0, 0.8, 0.3, 0.0], device=cuda_device),
+          d(targets), torch.tensor(1.7, device=cuda_device))
+    k6 = (stacks, d(X), d(np.abs(rng.randn(1, N))), d(np.abs(rng.randn(1, N))), d([0.7, 0.3, 0.05]), -0.2,
+          d(rng.randint(1, 5, (1, N))))
+    before = dict(LAUNCHES)
+    out, out2, ref = fi.fused_implicit_train_kernel(*k5), fi.fused_implicit_train_kernel(*k5), fi.fused_implicit_train_kernel_reference(*k5)
+    gk, gk2, gref = fm.fused_mask_backward_g(*k6), fm.fused_mask_backward_g(*k6), fm.fused_mask_backward_g_reference(*k6)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_implicit_train_kernel"] == before["fused_implicit_train_kernel"] + 2
+    assert LAUNCHES["fused_mask_backward_g"] == before["fused_mask_backward_g"] + 2
+    c = lambda x: x.cpu().numpy()
+    for i in (0, 1, 2, 4, 5):  # rgb, m, sq, msum, loss
+        assert rel_err(c(out[i]), c(ref[i])) <= 1e-5, i
+    assert rel_err(c(out[3]), c(ref[3])) <= 1e-3
+    for (dw, db), (rw, rb) in zip(out[6], ref[6]):
+        assert rel_err(c(dw), c(rw)) <= 1e-4 and rel_err(c(db), c(rb)) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(out[:6], out2[:6]))
+    assert len(gk) == n_heads
+    for grads, grads2, refs in zip(gk, gk2, gref):
+        for (dw, db), (dw2, _), (rw, rb) in zip(grads, grads2, refs):
+            assert rel_err(c(dw), c(rw)) <= 1e-4 and rel_err(c(db), c(rb)) <= 1e-4
+            assert torch.equal(dw, dw2)

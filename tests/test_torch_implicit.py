@@ -300,7 +300,13 @@ def test_implicit_gating(capsys):
     assert tplanar.use_fused_implicit(on(), cpu) and not tplanar.use_fused_step(on(), cpu)
     assert tplanar.use_fused_implicit(on(fused_warp="off"), cpu)
     assert not tplanar.use_fused_implicit(auto(), cpu) and tplanar.use_fused_implicit(auto(), cuda)
-    for kw, word in (({"build_single_masks": True}, "slice 3"), ({"fused_dedup": "off"}, "K5/K6"),
+    # per-image heads and the shared head without dedup run K5 -> K6
+    for kw in ({"build_single_masks": True}, {"fused_dedup": "off"}):
+        assert tplanar.use_fused_implicit(on(**kw), cpu) and tplanar.use_fused_implicit(auto(**kw), cuda)
+        assert not tplanar.use_fused_dedup(auto(**kw), cuda)
+    assert tplanar.use_fused_dedup(auto(), cuda)
+    for kw, word in (({"build_single_masks": True, "train_view_embedding": True}, "frozen"),
+                     ({"fused_dedup": "off", "mask_quantize_levels": 256}, "quantization"),
                      ({"train_view_embedding": True}, "frozen"), ({"mask_quantize_levels": 256}, "quantization")):
         with pytest.raises(NotImplementedError, match=word):
             tplanar.use_fused_implicit(on(**kw), cpu)
