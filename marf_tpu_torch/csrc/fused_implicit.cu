@@ -5,9 +5,9 @@
 // first half of the implicit-mask step without column dedup: per-image mask
 // heads (n_heads = B) or the shared head on all N columns (n_heads = 1). One
 // call runs, on one stream:
-//   1. per head h, the factored mask head's forward on the column block
-//      [h HW, (h+1) HW) of X [56, N] (hidden_forward reads the block in place,
-//      lda = N) and the sigmoid head pass -> m [N];
+//   1. the factored mask heads' forward, head h on the column block
+//      [h HW, (h+1) HW) of X [56, N] (hidden_forward reads the blocks in
+//      place, lda = N), and the sigmoid head pass -> m [N];
 //   2. msum = sum(m), a two-stage fixed-order sum;
 //   3. the rgb pipeline of K2 (fused_step.cuh) on the warped coords with
 //      masks = m and scalars (2 C_r, 1): rgb, sq, dcoords and dW/db with the
@@ -19,29 +19,46 @@
 //
 // What bounds it: float32 FLOPs, some 358 GFLOP at the main path's shape (the
 // rgb step's 267 GFLOP plus the mask forward on N = 216,000 columns, 91
-// GFLOP): 5.35 ms at 67 TFLOP/s. Its streamed inputs and outputs (coords,
-// X, targets; rgb, m, sq, dcoords) are some 65 MB, 0.02 ms at 3.35 TB/s.
-// Design: no new kernel code; the stages are the K2 and K3 building blocks in
-// order. On the TPU the mask forward and the rgb chain were interleaved in
-// one tile to keep the matrix unit busy; on the card each stage's SGEMMs
-// fill the SMs on their own. The mask activations are dead once m is
-// written, so the rgb pipeline's workspace reuses theirs.
+// GFLOP): 2.17 ms at 165 TFLOP/s, the card's float32-accurate tensor-core
+// rate (3xTF32: three TF32 products per float32 product, 495 / 3). Its
+// streamed inputs and outputs (coords, X, targets; rgb, m, sq, dcoords) are
+// some 65 MB, 0.02 ms at 3.35 TB/s.
+// Design: every product runs on the 3xTF32 tensor-core engine (tc_gemm.cuh,
+// wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32, A split into
+// registers from the landed tile in either layout, B split into K-major
+// hi/lo tiles in shared memory, transposed there where it lies point-major):
+// the mask's first layer reads X channels-first (A MN-major), the hidden
+// layers and the rgb forward read activations and weights K-major, the rgb
+// dz products read W [out, in] as it lies (B N-major, no transposed copy in
+// device memory), and the rgb dW products read dz and the layer input
+// point-major, with db folded into the dW product (the row sums of dz over
+// each split, no column-sum pass).
+// The mask forward runs all heads in one launch per layer (the head is part
+// of the block index, as the TPU grid's g // T; the heads' weights and
+// biases come from the GemmCall's pointer table, passed by value), then one
+// launch of the 256 -> 1 head pass over all heads. The non-GEMM stages
+// (posenc, the rgb head with the loss, the posenc VJP, the two-stage sums)
+// are K2's. The mask activations (nh HW columns, 885 MB at 5 heads of
+// 43,200) are dead once m is written, so the rgb pipeline's workspace
+// reuses theirs.
 
 #include "fused_step.cuh"
 #include "mask_head.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
 struct ImplicitPlan {
-  MaskPlan mask;  // one head's HW columns, reused by every head
+  MaskPlan mask;  // up to MAX_GROUP heads' columns, reused by each group of heads
   long long msum_part, total;
 };
 
 ImplicitPlan make_implicit_plan(int N, int n_heads, int L, int n_rgb, const int* rgb_dims, int n_mask,
                                 const int* mask_dims) {
   ImplicitPlan I{};
-  I.mask = make_mask_plan(N / n_heads, n_mask, mask_dims, false);
-  const long long rgb_total = make_plan(N, 0, L, n_rgb, rgb_dims).total;
+  const int nh = n_heads < MAX_GROUP ? n_heads : MAX_GROUP;
+  I.mask = make_mask_plan<TcEngine>(N / n_heads, nh, n_mask, mask_dims, false);
+  const long long rgb_total = make_plan<TcEngine>(N, 0, L, n_rgb, rgb_dims).total;
   Arena a;
   a.take(I.mask.total > rgb_total ? I.mask.total : rgb_total);  // both stages start at offset 0
   I.msum_part = a.take(COLSUM_SPLITS);
@@ -79,26 +96,24 @@ int marf_implicit_train(int N, int n_heads, int L, int n_rgb, const int* rgb_dim
   cudaStream_t st = (cudaStream_t)stream;
   const ImplicitPlan I = make_implicit_plan(N, n_heads, L, n_rgb, rgb_dims, n_mask, mask_dims);
 
-  // ---- 1. the mask forward, head by head on its column block
-  const int last = n_mask - 1;
-  for (int h = 0; h < n_heads; ++h) {
-    const long long o = (long long)h * HW;
-    const float* const* hW = mW + h * n_mask;
-    const float* const* hb = mb + h * n_mask;
-    int rc = hidden_forward(st, I.mask, HW, N, n_mask, mask_dims, X + o, hW, hb, ws);
+  // ---- 1. the mask forward, all heads (up to MAX_GROUP) per launch
+  for (int h0 = 0; h0 < n_heads; h0 += I.mask.nh) {
+    MaskPlan P = I.mask;
+    P.nh = n_heads - h0 < P.nh ? n_heads - h0 : P.nh;
+    const long long o = (long long)h0 * HW;
+    int rc = hidden_forward<TcEngine>(st, P, N, n_mask, mask_dims, X + o, mW + h0 * n_mask, mb + h0 * n_mask, ws);
     if (rc) return rc;
-    mask_head_fwd_kernel<<<cdiv(HW, HEAD_POINTS), ELEM_THREADS, 0, st>>>(
-        HW, mask_dims[last], ws + I.mask.acts[last - 1], hW[last], hb[last], m + o);
-    MARF_CHECK_LAUNCH();
+    rc = mask_head_forward(st, P, n_mask, mask_dims, mW + h0 * n_mask, mb + h0 * n_mask, ws, m + o);
+    if (rc) return rc;
   }
 
   // ---- 2. msum, in two fixed-order stages
   colsum(st, N, 1, cdiv(N, COLSUM_SPLITS), m, ws + I.msum_part, msum);
   MARF_CHECK_LAUNCH();
 
-  // ---- 3. K2's pipeline masked by m with the unnormalized scalars
-  return fused_step(N, 0, L, n_rgb, rgb_dims, nullptr, nullptr, coords, cw, tgt, m, scal, W, bias, rgb, sq, loss, dW,
-                    db, nullptr, dcoords, ws, st);
+  // ---- 3. K2's pipeline masked by m with the unnormalized scalars, on the tensor cores
+  return fused_step<TcEngine>(N, 0, L, n_rgb, rgb_dims, nullptr, nullptr, coords, cw, tgt, m, scal, W, bias, rgb, sq,
+                              loss, dW, db, nullptr, dcoords, ws, st);
 }
 
 }  // extern "C"

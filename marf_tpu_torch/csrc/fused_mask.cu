@@ -22,41 +22,66 @@
 // [56, N] and with its own layers and gradients, and the cotangent formed
 // per column from the [N] streams:
 //   g = (a sq + b esq + c cnt) m + k cnt   (cnt = 1 when absent).
-// One workspace sized for HW columns serves the heads in turn on the stream
-// (177 MB of activations per head at HW = 43,200, not 885 MB for N).
 //
 // What bounds them: float32 FLOPs. K3 needs 2 K (56*256 + 3*256*256 + 256)
-// = 2 K 211,200 FLOP (18 GFLOP at K = 43,200, 0.27 ms at 67 TFLOP/s); K4
-// recomputes that and adds the dW and dX products, about 2 K (211,200 +
-// 211,200 + 196,864) FLOP; K6 the same over N = 216,000 columns (268 GFLOP,
-// 3.99 ms). Their streamed bytes (X, the [B, HW] or [N] streams) are tens of
-// MB at most. Design: the hidden layers are the tiled SIMT SGEMMs of
-// mlp_kernels.cuh; the 56-wide first layer reads X channels-first through the
-// GEMM's transposed-A loader (forward) and transposed-B loader (dW), with
-// lda = the row stride of X, so X and a head's block of it are never relaid.
+// = 2 K 211,200 FLOP (19.5 GFLOP at K = 46,271); K4 recomputes that and adds
+// the dW and dX products, about 2 K (211,200 + 211,200 + 196,864) FLOP (57
+// GFLOP); K6 the same over N = 216,000 columns (267.5 GFLOP). At 165 TFLOP/s,
+// the card's float32-accurate tensor-core rate (3xTF32, 495 / 3): K3 0.118
+// ms, K4 0.347 ms, K6 1.62 ms. Their streamed bytes (X, the [B, HW] or [N]
+// streams) are tens of MB at most.
+//
+// K3 and K4: the hidden layers are the tiled SIMT SGEMMs of mlp_kernels.cuh
+// (SimtEngine, fmaf); the 56-wide first layer reads X channels-first
+// through the GEMM's transposed-A loader (forward) and transposed-B loader
+// (dW), with lda = the row stride of X, so X is never relaid; db is a
+// two-stage column sum of dz.
+// K6: every product on the 3xTF32 tensor-core engine (tc_gemm.cuh,
+// wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32 with A from registers
+// for all of them: the dW products take dz as A and the layer input (or X)
+// as B, both point-major, B transposed into K-major hi/lo tiles by the
+// split pass; the dz products dz K-major and W [out, in] as it lies; the
+// forward recompute activations and weights K-major and X point-major),
+// and all heads in one launch per product: the head is part of the block index (blockIdx.z =
+// head * splits + split, as the TPU grid's g // T), its W, bias and
+// partial buffers come from the GemmCall's pointer table (passed by value),
+// and the dW partials are per head, each head's reduce a fixed-order sum
+// (one launch for all heads). db is folded into the dW product (the row
+// sums of dz over each split, from shared memory), so no column-sum pass
+// re-reads dz. The head pass and its reduces run once over all heads too.
+// K6's workspace spans all N columns (up to MAX_GROUP heads at a time):
+// four 256-wide activations and two dz buffers, 6 x 256 x 4 B = 6 KB per
+// column, 1.33 GB at N = 216,000 (the head-by-head design this replaces
+// reused one head's 177 MB in turn, at the cost of five launches of every
+// product).
 // The 256 -> 1 head would waste a 128-wide GEMM tile, so it runs as a
 // warp-per-point pass (row_dot), which in K4 and K6 also forms the cotangent
 // and the first backward step (mask_head.cuh). Every reduction over columns
-// (the dW splits, the db column sums, the head's partials) runs in two
-// fixed-order stages: no float atomics, bitwise-equal relaunches. The slot0
-// segment sum over b runs in a fixed order inside the head pass.
+// (the dW splits, the db sums, the head's partials) runs in two fixed-order
+// stages: no float atomics, bitwise-equal relaunches. The slot0 segment sum
+// over b runs in a fixed order inside the head pass.
 //
 // Layouts: weights are nn.Linear's [out, in], row-major; X is [56, K] or
 // [56, N] channels-first; activations are column-major over points
 // [K, width]; s0map, sq, esq are [B, HW] for K4 and [N] for K6.
 
 #include "mask_head.cuh"
+#include "tc_gemm.cuh"
 
 extern "C" {
 
-// Floats of workspace one call needs (the wrapper allocates it); K6 passes
-// K = HW, the columns of one head.
+// Floats of workspace one call needs (the wrapper allocates it).
 long long marf_mask_forward_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan(K, n_layers, dims, false).total;
+  return make_mask_plan<SimtEngine>(K, 1, n_layers, dims, false).total;
 }
 
 long long marf_mask_backward_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan(K, n_layers, dims, true).total;
+  return make_mask_plan<SimtEngine>(K, 1, n_layers, dims, true).total;
+}
+
+long long marf_mask_backward_g_workspace(int N, int n_heads, int n_layers, const int* dims) {
+  const int nh = n_heads < MAX_GROUP ? n_heads : MAX_GROUP;
+  return make_mask_plan<TcEngine>(N / n_heads, nh, n_layers, dims, true).total;
 }
 
 // K3. Returns 0, or the CUDA error code of the first launch that failed.
@@ -65,14 +90,10 @@ int marf_mask_forward(int K, int n_layers, const int* dims, const float* X, cons
                       const float* const* bias, float* m, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const MaskPlan P = make_mask_plan(K, n_layers, dims, false);
-  int rc = hidden_forward(st, P, K, K, n_layers, dims, X, W, bias, ws);
+  const MaskPlan P = make_mask_plan<SimtEngine>(K, 1, n_layers, dims, false);
+  int rc = hidden_forward<SimtEngine>(st, P, K, n_layers, dims, X, W, bias, ws);
   if (rc) return rc;
-  const int last = n_layers - 1;
-  mask_head_fwd_kernel<<<cdiv(K, HEAD_POINTS), ELEM_THREADS, 0, st>>>(K, dims[last], ws + P.acts[last - 1], W[last],
-                                                                      bias[last], m);
-  MARF_CHECK_LAUNCH();
-  return 0;
+  return mask_head_forward(st, P, n_layers, dims, W, bias, ws, m);
 }
 
 // K4. s0map, sq [B, HW] and esq [B, HW] (nullptr without edges) are the
@@ -82,28 +103,30 @@ int marf_mask_backward_dedup(int K, int HW, int B, int n_layers, const int* dims
                              const float* cnt, const float* abk, const float* const* W, const float* const* bias,
                              float* const* dW, float* const* db, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims) || HW < 0 || HW > K || B < 1) return (int)cudaErrorInvalidValue;
-  const MaskPlan P = make_mask_plan(K, n_layers, dims, true);
-  return mask_backward((cudaStream_t)stream, P, K, K, n_layers, dims, X, W, bias,
-                       DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
+  const MaskPlan P = make_mask_plan<SimtEngine>(K, 1, n_layers, dims, true);
+  return mask_backward<SimtEngine>((cudaStream_t)stream, P, K, n_layers, dims, X, W, bias,
+                                   DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
 }
 
 // K6. X [dims[0], N] with N = n_heads HW; sq [N], esq [N] (nullptr without
 // edges), cnt [N] (nullptr: ones); abk [3] = (a, b, k) on the device, c on
 // the host. W, bias, dW, db hold n_heads x n_layers pointers, head-major.
-// ws: marf_mask_backward_workspace(HW, ...) floats.
+// ws: marf_mask_backward_g_workspace(N, n_heads, ...) floats.
 int marf_mask_backward_g(int N, int n_heads, int n_layers, const int* dims, const float* X, const float* sq,
                          const float* esq, const float* cnt, const float* abk, float c, const float* const* W,
                          const float* const* bias, float* const* dW, float* const* db, float* ws, void* stream) {
   if (n_heads < 1 || N % n_heads != 0) return (int)cudaErrorInvalidValue;
   const int HW = N / n_heads;
   if (!valid_mask_dims(HW, n_layers, dims)) return (int)cudaErrorInvalidValue;
-  const MaskPlan P = make_mask_plan(HW, n_layers, dims, true);
-  for (int h = 0; h < n_heads; ++h) {
-    const long long o = (long long)h * HW;
+  const MaskPlan P0 = make_mask_plan<TcEngine>(HW, n_heads < MAX_GROUP ? n_heads : MAX_GROUP, n_layers, dims, true);
+  for (int h0 = 0; h0 < n_heads; h0 += P0.nh) {  // all heads at once up to MAX_GROUP of them
+    MaskPlan P = P0;
+    P.nh = n_heads - h0 < P.nh ? n_heads - h0 : P.nh;
+    const long long o = (long long)h0 * HW;
     const ColumnCot cot{sq + o, esq ? esq + o : nullptr, cnt ? cnt + o : nullptr, abk, c};
-    const int k = h * n_layers;
-    int rc = mask_backward((cudaStream_t)stream, P, HW, N, n_layers, dims, X + o, W + k, bias + k, cot, dW + k,
-                           db + k, ws);
+    const int k = h0 * n_layers;
+    int rc = mask_backward<TcEngine>((cudaStream_t)stream, P, N, n_layers, dims, X + o, W + k, bias + k, cot, dW + k,
+                                     db + k, ws);
     if (rc) return rc;
   }
   return 0;

@@ -10,7 +10,10 @@
 //   the full backward (dW, db of every layer);
 //   the analytic posenc VJP, then K1: the warp VJP reduced to dH[b] per
 //   image; K2: dcoords [2, Np] per point (no limit on the number of images).
-// Design, bound and layouts: see fused_step.cu.
+// `fused_step` is a template over the GEMM engine: K1 and K2 run it on the
+// SIMT engine (mlp_kernels.cuh), K5 on the 3xTF32 tensor-core engine
+// (tc_gemm.cuh), which also folds each db into its dW product.
+// Design, bound and layouts: see fused_step.cu and fused_implicit.cu.
 
 #pragma once
 
@@ -287,7 +290,9 @@ struct Plan {
   long long enc, acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dh_part, total;
 };
 
-// B = 0 for K2 (no dH partials)
+// B = 0 for K2 and K5 (no dH partials). col_part holds the engine's db
+// partials: colsum's (SimtEngine) or the dW products' row sums (TcEngine).
+template <class E>
 Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
   Plan P{};
   P.E = 2 + 4 * L;
@@ -298,16 +303,17 @@ Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
   for (int l = 0; l + 1 < n_layers; ++l) P.acts[l] = a.take((long long)Np * dims[l + 1]);
   P.dz[0] = a.take((long long)Np * P.widest);
   P.dz[1] = a.take((long long)Np * P.widest);
-  long long dw_max = 0;
+  long long dw_max = 0, db_max = 0;
   for (int l = 0; l + 1 < n_layers; ++l) {
     int splits, chunk;
-    dw_split(Np, dims[l + 1], dims[l], splits, chunk);
+    E::dw_split(Np, dims[l + 1], dims[l], 1, splits, chunk);
     long long n = (long long)splits * dims[l + 1] * dims[l];
     dw_max = n > dw_max ? n : dw_max;
+    db_max = (long long)splits * dims[l + 1] > db_max ? (long long)splits * dims[l + 1] : db_max;
   }
   P.dw_part = a.take(dw_max);
   P.colsum_chunk = cdiv(Np, COLSUM_SPLITS);
-  P.col_part = a.take((long long)COLSUM_SPLITS * P.widest);
+  P.col_part = a.take(E::kFoldDb ? db_max : (long long)COLSUM_SPLITS * P.widest);
   const int K = dims[n_layers - 1];
   P.head_blocks = cdiv(Np, 64) < 1024 ? cdiv(Np, 64) : 1024;
   P.head_chunk = cdiv(cdiv(Np, P.head_blocks), HEAD_POINTS) * HEAD_POINTS;
@@ -330,12 +336,13 @@ bool valid_rgb_dims(int L, int n_layers, const int* dims) {
 
 // The shared pipeline. K1: grid/H given, coords == nullptr, writes dH.
 // K2 and K5: coords given, grid/H unused, writes dcoords.
+template <class E>
 int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float* grid, const float* H,
                const float* coords, const float* cw, const float* tgt, const float* msk, const float* scal,
                const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
                float* const* dW, float* const* db, float* dH, float* dcoords, float* ws, cudaStream_t st) {
   if (!valid_rgb_dims(L, n_layers, dims)) return (int)cudaErrorInvalidValue;
-  const Plan P = make_plan(Np, B, L, n_layers, dims);
+  const Plan P = make_plan<E>(Np, B, L, n_layers, dims);
   const int last = n_layers - 1;
 
   // ---- forward
@@ -343,9 +350,10 @@ int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float*
   MARF_CHECK_LAUNCH();
   for (int l = 0; l < last; ++l) {
     const float* in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
-    gemm<true, false, EPI_BIAS_RELU>(st, Np, dims[l + 1], dims[l], in, dims[l], W[l], dims[l], ws + P.acts[l],
-                                     dims[l + 1], bias[l], nullptr, 0, 1, dims[l], 0);
-    MARF_CHECK_LAUNCH();
+    GemmCall c = gemm_call(Np, dims[l + 1], dims[l], in, dims[l], W[l], dims[l], ws + P.acts[l], dims[l + 1]);
+    c.bias[0] = bias[l];
+    const int rc = E::template run<true, false, EPI_BIAS_RELU>(st, c);
+    if (rc) return rc;
   }
 
   // ---- head: rgb, sq, loss, dz of the last hidden layer, dW/db of the last layer
@@ -369,25 +377,32 @@ int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float*
     const float* x_in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
     dz_cur = ws + P.dz[cur];
     // dW[l] = dz^T x_in, split over points, then a fixed-order sum
+    // (db: the row sums of dz folded into this product, or column sums)
     int splits, chunk;
-    dw_split(Np, out, in, splits, chunk);
-    gemm<false, true, EPI_STORE>(st, out, in, Np, dz_cur, out, x_in, in, ws + P.dw_part, in, nullptr, nullptr, 0,
-                                 splits, chunk, (long long)out * in);
-    MARF_CHECK_LAUNCH();
+    E::dw_split(Np, out, in, 1, splits, chunk);
+    GemmCall c = gemm_call(out, in, Np, dz_cur, out, x_in, in, ws + P.dw_part, in);
+    c.splits = splits, c.k_chunk = chunk, c.c_split_stride = (long long)out * in;
+    if (E::kFoldDb) c.rsum[0] = ws + P.col_part;
+    int rc = E::template run<false, true, EPI_STORE>(st, c);
+    if (rc) return rc;
     reduce(st, splits, out * in, (long long)out * in, ws + P.dw_part, dW[l]);
     MARF_CHECK_LAUNCH();
-    colsum(st, Np, out, P.colsum_chunk, dz_cur, ws + P.col_part, db[l]);
+    if (E::kFoldDb) {
+      reduce(st, splits, out, out, ws + P.col_part, db[l]);
+    } else {
+      colsum(st, Np, out, P.colsum_chunk, dz_cur, ws + P.col_part, db[l]);
+    }
     MARF_CHECK_LAUNCH();
     // dz of the layer below (ReLU-gated by its activation), or d(encoding)
     float* dz_next = ws + P.dz[cur ^ 1];
+    GemmCall d = gemm_call(Np, in, out, dz_cur, out, W[l], in, dz_next, in);
     if (l > 0) {
-      gemm<true, true, EPI_GATE>(st, Np, in, out, dz_cur, out, W[l], in, dz_next, in, nullptr, ws + P.acts[l - 1],
-                                 in, 1, out, 0);
+      d.gate[0] = ws + P.acts[l - 1], d.ldg = in;
+      rc = E::template run<true, true, EPI_GATE>(st, d);
     } else {
-      gemm<true, true, EPI_STORE>(st, Np, in, out, dz_cur, out, W[l], in, dz_next, in, nullptr, nullptr, 0, 1, out,
-                                  0);
+      rc = E::template run<true, true, EPI_STORE>(st, d);
     }
-    MARF_CHECK_LAUNCH();
+    if (rc) return rc;
     cur ^= 1;
   }
 

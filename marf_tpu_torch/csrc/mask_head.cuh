@@ -1,14 +1,18 @@
 // The factored implicit-mask head's building blocks for Hopper (sm_90a),
-// float32, shared by fused_mask.cu (K3, K4, K6) and fused_implicit.cu (K5):
-//   - hidden_forward: the hidden layers' SGEMMs over one block of columns of
-//     X [56, ldx] (the column block starts at X, rows are ldx apart), so a
-//     head's block of a wider X is read in place;
+// float32, shared by fused_mask.cu (K3, K4, K6) and fused_implicit.cu (K5),
+// templates over the GEMM engine (SimtEngine for K3/K4, TcEngine for K5/K6)
+// and grouped over heads: one call runs `nh` heads (nh <= MAX_GROUP), head h
+// on the column block [h HW, (h+1) HW) of X, each GEMM launch covering every
+// head's block (the per-head operands in the GemmCall's pointer tables):
+//   - hidden_forward: the hidden layers' GEMMs over X [56, ldx] read in place
+//     (X points at head 0's block, rows are ldx apart);
 //   - mask_head_fwd_kernel: the 256 -> 1 sigmoid layer, one warp per column;
 //   - mask_backward: forward recompute, the head pass with the in-kernel
 //     cotangent (a functor: DedupCot for K4, ColumnCot for K6) and the
 //     backward chain into dW/db of every effective layer.
-// Layouts: weights are nn.Linear's [out, in], row-major; X is channels-first;
-// activations are column-major over points [K, width].
+// Layouts: weights are nn.Linear's [out, in], row-major, in head-major
+// tables W[h * n_layers + l]; X is channels-first; activations are
+// point-major [nh HW, width], head h's block at row h HW.
 
 #pragma once
 
@@ -16,18 +20,22 @@
 
 namespace {
 
-// m[p] = sigmoid(W X[p] + b) for the last layer (F -> 1), one warp per point.
+// m[h HW + p] = sigmoid(W_h X[h HW + p] + b_h) for the last layer (F -> 1),
+// one warp per point, head h = blockIdx.y.
 __global__ void __launch_bounds__(ELEM_THREADS)
-mask_head_fwd_kernel(int K, int F, const float* __restrict__ X, const float* __restrict__ W,
-                     const float* __restrict__ bias, float* __restrict__ m) {
+mask_head_fwd_kernel(int K, int F, const float* __restrict__ X, GroupConstPtrs W, GroupConstPtrs bias,
+                     float* __restrict__ m) {
   __shared__ float Ws[HEAD_MAX_K];
-  for (int i = threadIdx.x; i < F; i += ELEM_THREADS) Ws[i] = W[i];
+  const int h = blockIdx.y;
+  const float* __restrict__ Wh = pick(W, h);
+  for (int i = threadIdx.x; i < F; i += ELEM_THREADS) Ws[i] = Wh[i];
   __syncthreads();
   const int lane = threadIdx.x % 32;
   const int p = blockIdx.x * HEAD_POINTS + threadIdx.x / 32;
   if (p >= K) return;
-  const float z = row_dot(X + (long long)p * F, Ws, F, lane);
-  if (lane == 0) m[p] = sigmoidf_(z + bias[0]);
+  const long long q = (long long)h * K + p;
+  const float z = row_dot(X + q * F, Ws, F, lane);
+  if (lane == 0) m[q] = sigmoidf_(z + pick(bias, h)[0]);
 }
 
 // K4's cotangent of column p: g = seg m + kk cnt[p] with
@@ -68,23 +76,29 @@ struct ColumnCot {
 };
 
 // The last layer's backward with the in-kernel cotangent, per chunk of
-// columns (one warp per column, tiles of HEAD_POINTS):
-//   m = sigmoid(W X[p] + b) (bitwise as mask_head_fwd_kernel);
-//   d = cot(p, m) m (1 - m);
-//   dX[p, f] = d W[f] (X[p, f] > 0);
-//   partial [dW (F) | db (1)] = sum_p d X[p], sum_p d.
+// columns of head h = blockIdx.y (one warp per column, tiles of
+// HEAD_POINTS); q = h K + p is the column's index across the heads:
+//   m = sigmoid(W_h X[q] + b_h) (bitwise as mask_head_fwd_kernel);
+//   d = cot(q, m) m (1 - m);
+//   dX[q, f] = d W_h[f] (X[q, f] > 0);
+//   partial [dW (F) | db (1)] of head h = sum_p d X[q], sum_p d.
 template <class Cot>
 __global__ void __launch_bounds__(ELEM_THREADS)
-mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, const float* __restrict__ W,
-                     const float* __restrict__ bias, Cot cot, float* __restrict__ dX, float* __restrict__ part,
-                     int part_stride) {
+mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, GroupConstPtrs W, GroupConstPtrs bias,
+                     Cot cot, float* __restrict__ dX, float* __restrict__ part, int part_stride,
+                     long long part_gstride) {
   __shared__ float Ws[HEAD_MAX_K];
   __shared__ float ds[HEAD_POINTS];
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int wid = tid / 32;
-  for (int i = tid; i < F; i += ELEM_THREADS) Ws[i] = W[i];
-  const float b0 = bias[0];
+  const int h = blockIdx.y;
+  const float* __restrict__ Wh = pick(W, h);
+  for (int i = tid; i < F; i += ELEM_THREADS) Ws[i] = Wh[i];
+  const float b0 = pick(bias, h)[0];
+  const long long q0 = (long long)h * K;
+  X += q0 * F;
+  dX += q0 * F;
   const int p_begin = blockIdx.x * chunk;
   const int p_end = min(K, p_begin + chunk);
 
@@ -101,7 +115,7 @@ mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, const
       const float z = row_dot(X + (long long)p * F, Ws, F, lane);
       if (lane == 0) {
         const float m = sigmoidf_(z + b0);
-        ds[wid] = cot(p, m) * m * (1.0f - m);
+        ds[wid] = cot(q0 + p, m) * m * (1.0f - m);
       }
     } else if (lane == 0) {
       ds[wid] = 0.0f;
@@ -128,7 +142,7 @@ mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, const
     __syncthreads();
   }
 
-  float* out = part + (long long)blockIdx.x * part_stride;
+  float* out = part + h * part_gstride + (long long)blockIdx.x * part_stride;
 #pragma unroll
   for (int j = 0; j < MAXJ; ++j) {
     const int f = tid + j * ELEM_THREADS;
@@ -137,39 +151,50 @@ mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, const
   if (tid == 0) out[F] = dbias;
 }
 
+// Offsets (floats) into the workspace of one call on nh heads of HW columns;
+// dw_gs, col_gs, head_gs: one head's share of dw_part, col_part, head_part.
 struct MaskPlan {
-  int head_blocks, head_chunk, head_stride, colsum_chunk;
-  long long acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, total;
+  int nh, HW, head_blocks, head_chunk, head_stride, colsum_chunk;
+  long long acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dw_gs, col_gs, head_gs, total;
 };
 
-// The workspace of one block of K columns. dims[0..n_layers]: effective layer
-// widths, dims[0] = X rows, dims[n_layers] = 1.
-MaskPlan make_mask_plan(int K, int n_layers, const int* dims, bool backward) {
+// dims[0..n_layers]: effective layer widths, dims[0] = X rows, dims[n_layers]
+// = 1. col_part holds the engine's db partials: the folded row sums per head
+// and split (TcEngine), or colsum's (SimtEngine, one head at a time).
+template <class E>
+MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool backward) {
   MaskPlan P{};
+  P.nh = nh;
+  P.HW = HW;
   Arena a;
+  const long long cols = (long long)nh * HW;
   int widest = 1;
   for (int l = 0; l + 1 < n_layers; ++l) {
-    P.acts[l] = a.take((long long)K * dims[l + 1]);
+    P.acts[l] = a.take(cols * dims[l + 1]);
     widest = dims[l + 1] > widest ? dims[l + 1] : widest;
   }
   if (backward) {
-    P.dz[0] = a.take((long long)K * widest);
-    P.dz[1] = a.take((long long)K * widest);
-    long long dw_max = 0;
+    P.dz[0] = a.take(cols * widest);
+    P.dz[1] = a.take(cols * widest);
+    long long dw_max = 0, db_max = 0;
     for (int l = 0; l + 1 < n_layers; ++l) {
       int splits, chunk;
-      dw_split(K, dims[l + 1], dims[l], splits, chunk);
-      long long n = (long long)splits * dims[l + 1] * dims[l];
+      E::dw_split(HW, dims[l + 1], dims[l], nh, splits, chunk);
+      const long long n = (long long)splits * dims[l + 1] * dims[l];
       dw_max = n > dw_max ? n : dw_max;
+      db_max = (long long)splits * dims[l + 1] > db_max ? (long long)splits * dims[l + 1] : db_max;
     }
-    P.dw_part = a.take(dw_max);
-    P.colsum_chunk = cdiv(K, COLSUM_SPLITS);
-    P.col_part = a.take((long long)COLSUM_SPLITS * widest);
-    P.head_blocks = cdiv(K, 64) < 1024 ? cdiv(K, 64) : 1024;
-    P.head_chunk = cdiv(cdiv(K, P.head_blocks), HEAD_POINTS) * HEAD_POINTS;
-    P.head_blocks = cdiv(K, P.head_chunk);
+    P.dw_gs = (dw_max + 3) / 4 * 4;
+    P.dw_part = a.take(nh * P.dw_gs);
+    P.colsum_chunk = cdiv(HW, COLSUM_SPLITS);
+    P.col_gs = E::kFoldDb ? (db_max + 3) / 4 * 4 : 0;
+    P.col_part = a.take(E::kFoldDb ? nh * P.col_gs : (long long)COLSUM_SPLITS * widest);
+    P.head_blocks = cdiv(HW, 64) < 1024 ? cdiv(HW, 64) : 1024;
+    P.head_chunk = cdiv(cdiv(HW, P.head_blocks), HEAD_POINTS) * HEAD_POINTS;
+    P.head_blocks = cdiv(HW, P.head_chunk);
     P.head_stride = dims[n_layers - 1] + 4;
-    P.head_part = a.take((long long)P.head_blocks * P.head_stride);
+    P.head_gs = (long long)P.head_blocks * P.head_stride;
+    P.head_part = a.take(nh * P.head_gs);
   }
   P.total = a.off;
   return P;
@@ -180,44 +205,77 @@ bool valid_mask_dims(int K, int n_layers, const int* dims) {
          dims[n_layers - 1] <= HEAD_MAX_K;
 }
 
-// The hidden layers' forward on K columns: acts[l] = relu(W[l] x + b[l]),
-// x = X (channels-first, rows ldx apart) for l = 0.
-int hidden_forward(cudaStream_t st, const MaskPlan& P, int K, int ldx, int n_layers, const int* dims, const float* X,
+// Layer l's pointers of each head: W[h * n_layers + l] -> out.p[h]
+template <class T, class Ptrs>
+Ptrs layer_ptrs(int nh, int n_layers, int l, T* const* table) {
+  Ptrs out{};
+  for (int h = 0; h < nh; ++h) out.p[h] = table[h * n_layers + l];
+  return out;
+}
+
+// The hidden layers' forward on nh heads of HW columns: acts[l] =
+// relu(W_h[l] x + b_h[l]), x = X (channels-first, rows ldx apart, head h at
+// column h HW) for l = 0.
+template <class E>
+int hidden_forward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, const int* dims, const float* X,
                    const float* const* W, const float* const* bias, float* ws) {
+  const long long HW = P.HW;
   for (int l = 0; l + 1 < n_layers; ++l) {
-    if (l == 0) {
-      gemm<false, false, EPI_BIAS_RELU>(st, K, dims[1], dims[0], X, ldx, W[0], dims[0], ws + P.acts[0], dims[1],
-                                        bias[0], nullptr, 0, 1, dims[0], 0);
-    } else {
-      gemm<true, false, EPI_BIAS_RELU>(st, K, dims[l + 1], dims[l], ws + P.acts[l - 1], dims[l], W[l], dims[l],
-                                       ws + P.acts[l], dims[l + 1], bias[l], nullptr, 0, 1, dims[l], 0);
+    GemmCall c = gemm_call(P.HW, dims[l + 1], dims[l], nullptr, l == 0 ? ldx : dims[l], nullptr, dims[l], nullptr,
+                           dims[l + 1]);
+    c.groups = P.nh;
+    for (int h = 0; h < P.nh; ++h) {
+      c.A[h] = l == 0 ? X + h * HW : ws + P.acts[l - 1] + h * HW * dims[l];
+      c.B[h] = W[h * n_layers + l];
+      c.C[h] = ws + P.acts[l] + h * HW * dims[l + 1];
+      c.bias[h] = bias[h * n_layers + l];
     }
-    MARF_CHECK_LAUNCH();
+    const int rc = l == 0 ? E::template run<false, false, EPI_BIAS_RELU>(st, c)
+                          : E::template run<true, false, EPI_BIAS_RELU>(st, c);
+    if (rc) return rc;
   }
   return 0;
 }
 
-// The head's backward on K columns (X as in hidden_forward): the forward
-// recompute, the head pass with the cotangent `cot`, then dW/db of every
-// layer through the hidden layers (ReLU-gated dX, split-K dW products with
-// a fixed-order sum, two-stage column sums for db; no dX for X).
-template <class Cot>
-int mask_backward(cudaStream_t st, const MaskPlan& P, int K, int ldx, int n_layers, const int* dims, const float* X,
+// The last layer's forward on the heads: m [nh HW] (head h at h HW).
+int mask_head_forward(cudaStream_t st, const MaskPlan& P, int n_layers, const int* dims, const float* const* W,
+                      const float* const* bias, float* ws, float* m) {
+  const int last = n_layers - 1;
+  mask_head_fwd_kernel<<<dim3(cdiv(P.HW, HEAD_POINTS), P.nh), ELEM_THREADS, 0, st>>>(
+      P.HW, dims[last], ws + P.acts[last - 1], layer_ptrs<const float, GroupConstPtrs>(P.nh, n_layers, last, W),
+      layer_ptrs<const float, GroupConstPtrs>(P.nh, n_layers, last, bias), m);
+  MARF_CHECK_LAUNCH();
+  return 0;
+}
+
+// The heads' backward on nh heads of HW columns (X as in hidden_forward):
+// the forward recompute, the head pass with the cotangent `cot` (indexed by
+// the column across the heads, h HW + p), then dW/db of every layer
+// through the hidden layers (ReLU-gated dX, split-K dW products with a
+// fixed-order sum, db folded into the dW product or two-stage column sums;
+// no dX for X). dW, db: head-major tables like W, bias.
+template <class E, class Cot>
+int mask_backward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, const int* dims, const float* X,
                   const float* const* W, const float* const* bias, Cot cot, float* const* dW, float* const* db,
                   float* ws) {
-  int rc = hidden_forward(st, P, K, ldx, n_layers, dims, X, W, bias, ws);
+  int rc = hidden_forward<E>(st, P, ldx, n_layers, dims, X, W, bias, ws);
   if (rc) return rc;
+  const int nh = P.nh;
+  const long long HW = P.HW;
 
   // ---- head: cotangent, dz of the last hidden layer, dW/db of the last layer
   const int last = n_layers - 1;
   const int F = dims[last];
-  mask_head_bwd_kernel<Cot><<<P.head_blocks, ELEM_THREADS, 0, st>>>(
-      K, F, P.head_chunk, ws + P.acts[last - 1], W[last], bias[last], cot, ws + P.dz[0], ws + P.head_part,
-      P.head_stride);
+  mask_head_bwd_kernel<Cot><<<dim3(P.head_blocks, nh), ELEM_THREADS, 0, st>>>(
+      P.HW, F, P.head_chunk, ws + P.acts[last - 1], layer_ptrs<const float, GroupConstPtrs>(nh, n_layers, last, W),
+      layer_ptrs<const float, GroupConstPtrs>(nh, n_layers, last, bias), cot, ws + P.dz[0], ws + P.head_part,
+      P.head_stride, P.head_gs);
   MARF_CHECK_LAUNCH();
-  reduce(st, P.head_blocks, F, P.head_stride, ws + P.head_part, dW[last]);
+  reduce_group(st, nh, P.head_blocks, F, P.head_stride, ws + P.head_part, P.head_gs,
+               layer_ptrs<float, GroupPtrs>(nh, n_layers, last, dW));
   MARF_CHECK_LAUNCH();
-  reduce(st, P.head_blocks, 1, P.head_stride, ws + P.head_part + F, db[last]);
+  reduce_group(st, nh, P.head_blocks, 1, P.head_stride, ws + P.head_part + F, P.head_gs,
+               layer_ptrs<float, GroupPtrs>(nh, n_layers, last, db));
   MARF_CHECK_LAUNCH();
 
   // ---- backward through the hidden layers
@@ -227,23 +285,42 @@ int mask_backward(cudaStream_t st, const MaskPlan& P, int K, int ldx, int n_laye
     const float* dz_cur = ws + P.dz[cur];
     // dW[l] = dz^T x_in, split over columns, then a fixed-order sum
     int splits, chunk;
-    dw_split(K, out, in, splits, chunk);
-    if (l == 0) {  // x_in = X, channels-first [in, ldx]
-      gemm<false, false, EPI_STORE>(st, out, in, K, dz_cur, out, X, ldx, ws + P.dw_part, in, nullptr, nullptr, 0,
-                                    splits, chunk, (long long)out * in);
-    } else {
-      gemm<false, true, EPI_STORE>(st, out, in, K, dz_cur, out, ws + P.acts[l - 1], in, ws + P.dw_part, in, nullptr,
-                                   nullptr, 0, splits, chunk, (long long)out * in);
+    E::dw_split(P.HW, out, in, nh, splits, chunk);
+    GemmCall c = gemm_call(out, in, P.HW, nullptr, out, nullptr, l == 0 ? ldx : in, nullptr, in);
+    c.groups = nh, c.splits = splits, c.k_chunk = chunk, c.c_split_stride = (long long)out * in;
+    for (int h = 0; h < nh; ++h) {
+      c.A[h] = dz_cur + h * HW * out;
+      c.B[h] = l == 0 ? X + h * HW : ws + P.acts[l - 1] + h * HW * in;
+      c.C[h] = ws + P.dw_part + h * P.dw_gs;
+      if (E::kFoldDb) c.rsum[h] = ws + P.col_part + h * P.col_gs;
     }
+    // x_in = X, channels-first [in, ldx], for l = 0
+    rc = l == 0 ? E::template run<false, false, EPI_STORE>(st, c) : E::template run<false, true, EPI_STORE>(st, c);
+    if (rc) return rc;
+    reduce_group(st, nh, splits, out * in, (long long)out * in, ws + P.dw_part, P.dw_gs,
+                 layer_ptrs<float, GroupPtrs>(nh, n_layers, l, dW));
     MARF_CHECK_LAUNCH();
-    reduce(st, splits, out * in, (long long)out * in, ws + P.dw_part, dW[l]);
-    MARF_CHECK_LAUNCH();
-    colsum(st, K, out, P.colsum_chunk, dz_cur, ws + P.col_part, db[l]);
-    MARF_CHECK_LAUNCH();
-    if (l > 0) {  // dz of the layer below, ReLU-gated by its activation
-      gemm<true, true, EPI_GATE>(st, K, in, out, dz_cur, out, W[l], in, ws + P.dz[cur ^ 1], in, nullptr,
-                                 ws + P.acts[l - 1], in, 1, out, 0);
+    if (E::kFoldDb) {
+      reduce_group(st, nh, splits, out, out, ws + P.col_part, P.col_gs,
+                   layer_ptrs<float, GroupPtrs>(nh, n_layers, l, db));
       MARF_CHECK_LAUNCH();
+    } else {
+      for (int h = 0; h < nh; ++h) {
+        colsum(st, P.HW, out, P.colsum_chunk, dz_cur + h * HW * out, ws + P.col_part, db[h * n_layers + l]);
+        MARF_CHECK_LAUNCH();
+      }
+    }
+    if (l > 0) {  // dz of the layer below, ReLU-gated by its activation
+      GemmCall d = gemm_call(P.HW, in, out, nullptr, out, nullptr, in, nullptr, in);
+      d.groups = nh, d.ldg = in;
+      for (int h = 0; h < nh; ++h) {
+        d.A[h] = dz_cur + h * HW * out;
+        d.B[h] = W[h * n_layers + l];
+        d.C[h] = ws + P.dz[cur ^ 1] + h * HW * in;
+        d.gate[h] = ws + P.acts[l - 1] + h * HW * in;
+      }
+      rc = E::template run<true, true, EPI_GATE>(st, d);
+      if (rc) return rc;
       cur ^= 1;
     }
   }

@@ -1,13 +1,16 @@
 // Building blocks shared by the port's MLP kernels (fused_step.cu,
-// fused_mask.cu), float32, sm_90a:
+// fused_mask.cu, fused_implicit.cu), float32, sm_90a:
 //   - sgemm_kernel: tiled SIMT SGEMM (128x128 block tile, 8x8 outputs per
 //     thread, double-buffered shared memory, fmaf with float32 accumulation;
 //     no TF32, no library GEMM) with bias+ReLU, ReLU-gate or plain-store
-//     epilogues and split-K partials;
-//   - colsum_kernel and reduce_kernel: the two stages of every reduction over
-//     points. Partials go to a workspace and are summed in a fixed order, so
-//     there are no float atomics and two calls on the same inputs give
-//     bitwise-equal outputs;
+//     epilogues and split-K partials; the engine of K1-K4 (SimtEngine);
+//   - GemmCall: one product shape over up to MAX_GROUP operand sets (one per
+//     mask head), the argument of both engines' `run` (SimtEngine here,
+//     TcEngine in tc_gemm.cuh), so the pipelines are templates over the engine;
+//   - colsum_kernel, reduce_kernel and reduce_group_kernel: the stages of
+//     every reduction over points. Partials go to a workspace and are summed
+//     in a fixed order, so there are no float atomics and two calls on the
+//     same inputs give bitwise-equal outputs;
 //   - row_dot: one warp's dot product of a point's row with a weight row,
 //     reduced by a fixed shuffle tree (the 256->1 and 256->3 head layers,
 //     which would waste a 128-wide GEMM tile).
@@ -32,6 +35,7 @@ constexpr int HEAD_MAX_K = 1024; // widest last hidden layer a head kernel takes
 constexpr int MAX_LAYERS = 16;
 constexpr int SPLIT_TARGET_BLOCKS = 264;  // 2 blocks per SM on 132 SMs
 constexpr int COLSUM_SPLITS = 128;
+constexpr int MAX_GROUP = 16;  // operand sets (mask heads) per grouped launch
 
 enum Epilogue { EPI_STORE = 0, EPI_BIAS_RELU = 1, EPI_GATE = 2 };
 
@@ -163,6 +167,43 @@ __global__ void reduce_kernel(int S, int count, long long stride, const float* _
   out[i] = s;
 }
 
+// One pointer per group (mask head), passed by value.
+struct GroupPtrs {
+  float* p[MAX_GROUP];
+};
+struct GroupConstPtrs {
+  const float* p[MAX_GROUP];
+};
+
+// a[h] of a kernel parameter's pointer table for a block-uniform h.
+// Indexing a parameter array at run time makes the compiler copy it to
+// local memory in every thread (an 8x slower head pass on an H100);
+// constant-index selects keep it in parameter space.
+template <class T>
+__device__ __forceinline__ T pick(const T (&a)[MAX_GROUP], int h) {
+  T r = a[0];
+#pragma unroll
+  for (int i = 1; i < MAX_GROUP; ++i) r = i == h ? a[i] : r;
+  return r;
+}
+
+template <class Ptrs>
+__device__ __forceinline__ auto pick(const Ptrs& t, int h) -> decltype(+t.p[0]) {
+  return pick(t.p, h);
+}
+
+// reduce_kernel per group g = blockIdx.y: out.p[g][i] = sum_z part[g*gstride + z*stride + i]
+// (the same fixed order, so one group gives reduce_kernel's bits).
+__global__ void reduce_group_kernel(int S, int count, long long stride, const float* __restrict__ part,
+                                    long long gstride, GroupPtrs out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const float* q = part + (long long)blockIdx.y * gstride;
+  float s = 0.0f;
+  for (int z = 0; z < S; ++z) s += q[(long long)z * stride + i];
+  pick(out, blockIdx.y)[i] = s;
+}
+
 // One warp: dot(x[0:F], w[0:F]) with lane-strided partial sums and a fixed
 // xor-shuffle tree; lane 0's value is the one callers use.
 __device__ __forceinline__ float row_dot(const float* __restrict__ x, const float* w, int F, int lane) {
@@ -177,9 +218,10 @@ __device__ __forceinline__ float sigmoidf_(float z) { return 1.0f / (1.0f + expf
 
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// split-K layout of the dW product of a layer [out, in] over Np points
-inline void dw_split(int Np, int out, int in, int& splits, int& chunk) {
-  const int tiles = cdiv(out, BM) * cdiv(in, BN);
+// split-K layout of the dW products of `groups` layers [out, in] over Np
+// points each (SimtEngine's; TcEngine has its own)
+inline void simt_dw_split(int Np, int out, int in, int groups, int& splits, int& chunk) {
+  const int tiles = groups * cdiv(out, BM) * cdiv(in, BN);
   int s = cdiv(SPLIT_TARGET_BLOCKS, tiles);
   chunk = cdiv(cdiv(Np, s), BK) * BK;
   splits = cdiv(Np, chunk);
@@ -195,16 +237,63 @@ struct Arena {
   }
 };
 
-template <bool AK, bool BNC, int EPI>
-void gemm(cudaStream_t st, int M, int N, int K, const float* A, int lda, const float* B, int ldb, float* C, int ldc,
-          const float* bias, const float* gate, int ldg, int splits, int k_chunk, long long c_split_stride) {
-  dim3 grid(cdiv(M, BM), cdiv(N, BN), splits);
-  sgemm_kernel<AK, BNC, EPI><<<grid, GEMM_THREADS, 0, st>>>(M, N, K, A, lda, B, ldb, C, ldc, bias, gate, ldg,
-                                                           k_chunk, c_split_stride);
+// One product shape C[M, N] (+)= A[M, K] B[K, N] for `groups` operand sets
+// (the layouts are the engines' template flags, as sgemm_kernel's). Split z
+// of K (length k_chunk) writes C[g] + z*c_split_stride; rsum[g], where set,
+// gets the row sums of A over each split at rsum[g] + z*M (TcEngine only:
+// the db of a dW product, folded into it).
+struct GemmCall {
+  int groups, M, N, K, lda, ldb, ldc, ldg, splits, k_chunk;
+  long long c_split_stride;
+  const float* A[MAX_GROUP];
+  const float* B[MAX_GROUP];
+  float* C[MAX_GROUP];
+  const float* bias[MAX_GROUP];
+  const float* gate[MAX_GROUP];
+  float* rsum[MAX_GROUP];
+};
+
+// A one-group call, no split; the caller fills in what else it needs.
+inline GemmCall gemm_call(int M, int N, int K, const float* A, int lda, const float* B, int ldb, float* C, int ldc) {
+  GemmCall c{};
+  c.groups = 1;
+  c.M = M, c.N = N, c.K = K, c.lda = lda, c.ldb = ldb, c.ldc = ldc;
+  c.splits = 1, c.k_chunk = K;
+  c.A[0] = A, c.B[0] = B, c.C[0] = C;
+  return c;
 }
+
+// The SIMT float32 engine: one sgemm_kernel launch per group; no folded db
+// (the pipelines take the column sums with colsum).
+struct SimtEngine {
+  static constexpr bool kFoldDb = false;
+  static void dw_split(int Np, int out, int in, int groups, int& splits, int& chunk) {
+    simt_dw_split(Np, out, in, groups, splits, chunk);
+  }
+  template <bool AK, bool BNC, int EPI>
+  static int run(cudaStream_t st, const GemmCall& c) {
+    dim3 grid(cdiv(c.M, BM), cdiv(c.N, BN), c.splits);
+    for (int g = 0; g < c.groups; ++g) {
+      if (c.rsum[g]) return (int)cudaErrorInvalidValue;
+      sgemm_kernel<AK, BNC, EPI><<<grid, GEMM_THREADS, 0, st>>>(c.M, c.N, c.K, c.A[g], c.lda, c.B[g], c.ldb, c.C[g],
+                                                               c.ldc, c.bias[g], c.gate[g], c.ldg, c.k_chunk,
+                                                               c.c_split_stride);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+  }
+};
 
 void reduce(cudaStream_t st, int S, int count, long long stride, const float* part, float* out) {
   reduce_kernel<<<cdiv(count, ELEM_THREADS), ELEM_THREADS, 0, st>>>(S, count, stride, part, out);
+}
+
+// reduce() for `groups` partial blocks gstride apart, into out.p[g]
+void reduce_group(cudaStream_t st, int groups, int S, int count, long long stride, const float* part,
+                  long long gstride, const GroupPtrs& out) {
+  reduce_group_kernel<<<dim3(cdiv(count, ELEM_THREADS), groups), ELEM_THREADS, 0, st>>>(S, count, stride, part,
+                                                                                         gstride, out);
 }
 
 // db = column sums of dz [Np, out], in two fixed-order stages

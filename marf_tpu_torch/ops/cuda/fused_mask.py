@@ -150,6 +150,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_mask_forward_workspace.restype = ctypes.c_longlong
     lib.marf_mask_backward_workspace.argtypes = [i, i, pi]
     lib.marf_mask_backward_workspace.restype = ctypes.c_longlong
+    lib.marf_mask_backward_g_workspace.argtypes = [i, i, i, pi]
+    lib.marf_mask_backward_g_workspace.restype = ctypes.c_longlong
     lib.marf_mask_forward.argtypes = [i, i, pi, p, pp, pp, p, p, p]
     lib.marf_mask_forward.restype = ctypes.c_int
     lib.marf_mask_backward_dedup.argtypes = [i, i, i, i, pi, p, p, p, p, p, p, p, pp, pp, pp, pp, p, p]
@@ -285,7 +287,7 @@ def fused_mask_backward_g(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None) 
     fn = "fused_mask_backward_g"
     device = x_cf.device
     n_heads, N = len(stacks), x_cf.shape[1]
-    HW, _, c_dims = checked_stacks(fn, stacks, x_cf)
+    _, _, c_dims = checked_stacks(fn, stacks, x_cf)
     for name, t, shape in (("sq", sq, (1, N)), ("esq", esq, (1, N)), ("cnt", cnt, (1, N)), ("abk", abk, (3,))):
         if t is not None:
             check_tensor(fn, name, t, shape, device)
@@ -293,7 +295,9 @@ def fused_mask_backward_g(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None) 
     flat = [wb for layers in stacks for wb in layers]
     dws = [torch.empty_like(w) for w, _ in flat]
     dbs = [torch.empty_like(b) for _, b in flat]
-    ws = torch.empty(lib.marf_mask_backward_workspace(HW, len(stacks[0]), c_dims), dtype=torch.float32, device=device)
+    # the workspace spans all N columns (every head's activations at once, up to 16 heads)
+    ws = torch.empty(lib.marf_mask_backward_g_workspace(N, n_heads, len(stacks[0]), c_dims), dtype=torch.float32,
+                     device=device)
     rc = lib.marf_mask_backward_g(
         N, n_heads, len(stacks[0]), c_dims, x_cf.data_ptr(), sq.data_ptr(), None if esq is None else esq.data_ptr(),
         None if cnt is None else cnt.data_ptr(), abk.data_ptr(), float(c), ptr_array([w for w, _ in flat]),

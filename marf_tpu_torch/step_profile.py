@@ -13,8 +13,9 @@ step once, and then, on one CUDA card:
   - times 20 steps without a sync (host enqueue ms/step);
   - traces 20 steps with torch.profiler: device ms/step of each hand-written
     kernel (K1-K6, the device time of the launches inside each wrapper) and
-    of all device work; the busy share is that device time over the step
-    time of the untraced steps.
+    of all device work, and the device kernels that take the most of it, by
+    name (the GEMM engines' template instances among them); the busy share
+    is that device time over the step time of the untraced steps.
 Metric-only work follows the trainer's cadence: the last step of every 20 is
 the chunk-final one. Prints one line per part and the card's nvidia-smi name
 and power limit; it raises without a card.
@@ -42,6 +43,13 @@ WRAPPERS = [
     ("K6", fused_mask, "fused_mask_backward_g"),
 ]
 CHUNK = 20
+TOP_KERNELS = 12
+
+
+def _short(key: str) -> str:
+    """A device kernel's name without namespaces and arguments (template
+    arguments kept)."""
+    return key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
 
 
 def _traced(tag: str, fn):
@@ -102,6 +110,8 @@ def main(argv: list[str]) -> dict:
     ) / 1e3 / CHUNK
     parts = {tag: sum(e.device_time_total for e in events if e.key == tag) / 1e3 / CHUNK for tag in sorted(tags)}
     parts = {k: v for k, v in parts.items() if v > 0}
+    by_kernel = sorted(((e.self_device_time_total / 1e3 / CHUNK, _short(e.key)) for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in tags), reverse=True)
     result = {
         "options": argv,
         "steps_per_sec": steps_per_sec,
@@ -110,6 +120,7 @@ def main(argv: list[str]) -> dict:
         "kernel_ms_per_step": parts,
         "other_device_ms_per_step": device_ms - sum(parts.values()),
         "device_busy_share": device_ms * steps_per_sec / 1e3,
+        "top_device_kernels_ms_per_step": {name: ms for ms, name in by_kernel[:TOP_KERNELS]},
     }
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -118,6 +129,7 @@ def main(argv: list[str]) -> dict:
           + " ".join(f"{k}={v:.3f}" for k, v in parts.items())
           + f" other={result['other_device_ms_per_step']:.3f}, busy share {result['device_busy_share']:.3f}; {smi}",
           flush=True)
+    print("[kernels] " + "; ".join(f"{name} {ms:.3f}" for ms, name in by_kernel[:TOP_KERNELS]), flush=True)
     print(json.dumps(result), flush=True)
     return result
 

@@ -1,5 +1,6 @@
 """The fused train step (K1, K2) of the PyTorch port, and the card tests of
-the mask kernels (K3, K4) and of K5 and K6.
+the mask kernels (K3, K4) and of K5 and K6 (the 3xTF32 tensor-core engine;
+the engine alone is tested in tests/test_torch_tc_gemm.py).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held against
 marf_tpu's `fused_train_kernel_warp` / `fused_train_kernel` (the Pallas
@@ -278,12 +279,15 @@ def test_mask_kernels_match_plain_on_card(rng, cuda_device, use_edges):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_heads", [1, 3], ids=["shared", "per_image"])
-def test_heads_kernels_match_plain_on_card(rng, cuda_device, n_heads):
+@pytest.mark.parametrize("n_heads,cols", [(1, None), (3, None), (5, 1537)],
+                         ids=["shared", "per_image", "per_image_5x1537"])
+def test_heads_kernels_match_plain_on_card(rng, cuda_device, n_heads, cols):
     """K5 and K6 against their plain versions on head-blocked columns, each
-    head with its own weights and its own uv block: values 1e-5, gradients
-    1e-4, dcoords 1e-3 (float32 cancellation of the posenc VJP, see
-    tests/test_torch_implicit_heads.py), bitwise relaunch."""
+    head with its own weights and its own uv block (5 heads of 1,537 columns,
+    a multiple of no tile, so that a wrong head offset in the grouped
+    launches shows): values 1e-5, gradients 1e-4, dcoords 1e-3 (float32
+    cancellation of the posenc VJP, see tests/test_torch_implicit_heads.py),
+    bitwise relaunch."""
     from marf_tpu_torch.models.implicit_mask import ImplicitMask
     from marf_tpu_torch.ops.cuda import fused_implicit as fi
     from marf_tpu_torch.ops.cuda import fused_mask as fm
@@ -291,6 +295,8 @@ def test_heads_kernels_match_plain_on_card(rng, cuda_device, n_heads):
     jcfg, tcfg = cfg_pair()
     jp, _, _, targets, _ = k1_inputs(jcfg, rng)
     g = port_graph(tcfg, jp).to(cuda_device)
+    if cols is not None:
+        targets = rng.rand(3, n_heads * cols).astype(np.float32)
     N = targets.shape[1]
     d = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda_device)
     X = np.concatenate([rng.randn(42, N), np.eye(8)[rng.randint(0, 8, N)].T, np.zeros((6, N))])
