@@ -307,9 +307,10 @@ Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
   for (int l = 0; l + 1 < n_layers; ++l) {
     int splits, chunk;
     E::dw_split(Np, dims[l + 1], dims[l], 1, splits, chunk);
-    long long n = (long long)splits * dims[l + 1] * dims[l];
+    const long long parts = E::dw_parts(splits, chunk);
+    const long long n = parts * dims[l + 1] * dims[l];
     dw_max = n > dw_max ? n : dw_max;
-    db_max = (long long)splits * dims[l + 1] > db_max ? (long long)splits * dims[l + 1] : db_max;
+    db_max = parts * dims[l + 1] > db_max ? parts * dims[l + 1] : db_max;
   }
   P.dw_part = a.take(dw_max);
   P.colsum_chunk = cdiv(Np, COLSUM_SPLITS);
@@ -376,19 +377,20 @@ int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float*
     const int out = dims[l + 1], in = dims[l];
     const float* x_in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
     dz_cur = ws + P.dz[cur];
-    // dW[l] = dz^T x_in, split over points, then a fixed-order sum
-    // (db: the row sums of dz folded into this product, or column sums)
+    // dW[l] = dz^T x_in, split over points, then a fixed-order sum of the
+    // partials (db: the row sums of dz folded into this product, or column sums)
     int splits, chunk;
     E::dw_split(Np, out, in, 1, splits, chunk);
+    const int parts = E::dw_parts(splits, chunk);
     GemmCall c = gemm_call(out, in, Np, dz_cur, out, x_in, in, ws + P.dw_part, in);
     c.splits = splits, c.k_chunk = chunk, c.c_split_stride = (long long)out * in;
     if (E::kFoldDb) c.rsum[0] = ws + P.col_part;
     int rc = E::template run<false, true, EPI_STORE>(st, c);
     if (rc) return rc;
-    reduce(st, splits, out * in, (long long)out * in, ws + P.dw_part, dW[l]);
+    E::reduce_parts(st, 1, parts, out * in, (long long)out * in, ws + P.dw_part, 0, one_ptr(dW[l]));
     MARF_CHECK_LAUNCH();
     if (E::kFoldDb) {
-      reduce(st, splits, out, out, ws + P.col_part, db[l]);
+      E::reduce_parts(st, 1, parts, out, out, ws + P.col_part, 0, one_ptr(db[l]));
     } else {
       colsum(st, Np, out, P.colsum_chunk, dz_cur, ws + P.col_part, db[l]);
     }

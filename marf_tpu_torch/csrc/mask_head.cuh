@@ -160,7 +160,7 @@ struct MaskPlan {
 
 // dims[0..n_layers]: effective layer widths, dims[0] = X rows, dims[n_layers]
 // = 1. col_part holds the engine's db partials: the folded row sums per head
-// and split (TcEngine), or colsum's (SimtEngine, one head at a time).
+// and partial (TcEngine), or colsum's (SimtEngine, one head).
 template <class E>
 MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool backward) {
   MaskPlan P{};
@@ -180,9 +180,10 @@ MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool back
     for (int l = 0; l + 1 < n_layers; ++l) {
       int splits, chunk;
       E::dw_split(HW, dims[l + 1], dims[l], nh, splits, chunk);
-      const long long n = (long long)splits * dims[l + 1] * dims[l];
+      const long long parts = E::dw_parts(splits, chunk);
+      const long long n = parts * dims[l + 1] * dims[l];
       dw_max = n > dw_max ? n : dw_max;
-      db_max = (long long)splits * dims[l + 1] > db_max ? (long long)splits * dims[l + 1] : db_max;
+      db_max = parts * dims[l + 1] > db_max ? parts * dims[l + 1] : db_max;
     }
     P.dw_gs = (dw_max + 3) / 4 * 4;
     P.dw_part = a.take(nh * P.dw_gs);
@@ -283,9 +284,10 @@ int mask_backward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, con
   for (int l = last - 1; l >= 0; --l) {
     const int out = dims[l + 1], in = dims[l];
     const float* dz_cur = ws + P.dz[cur];
-    // dW[l] = dz^T x_in, split over columns, then a fixed-order sum
+    // dW[l] = dz^T x_in, split over columns, then a fixed-order sum of the partials
     int splits, chunk;
     E::dw_split(P.HW, out, in, nh, splits, chunk);
+    const int parts = E::dw_parts(splits, chunk);
     GemmCall c = gemm_call(out, in, P.HW, nullptr, out, nullptr, l == 0 ? ldx : in, nullptr, in);
     c.groups = nh, c.splits = splits, c.k_chunk = chunk, c.c_split_stride = (long long)out * in;
     for (int h = 0; h < nh; ++h) {
@@ -297,19 +299,16 @@ int mask_backward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, con
     // x_in = X, channels-first [in, ldx], for l = 0
     rc = l == 0 ? E::template run<false, false, EPI_STORE>(st, c) : E::template run<false, true, EPI_STORE>(st, c);
     if (rc) return rc;
-    reduce_group(st, nh, splits, out * in, (long long)out * in, ws + P.dw_part, P.dw_gs,
-                 layer_ptrs<float, GroupPtrs>(nh, n_layers, l, dW));
+    E::reduce_parts(st, nh, parts, out * in, (long long)out * in, ws + P.dw_part, P.dw_gs,
+                    layer_ptrs<float, GroupPtrs>(nh, n_layers, l, dW));
     MARF_CHECK_LAUNCH();
     if (E::kFoldDb) {
-      reduce_group(st, nh, splits, out, out, ws + P.col_part, P.col_gs,
-                   layer_ptrs<float, GroupPtrs>(nh, n_layers, l, db));
-      MARF_CHECK_LAUNCH();
-    } else {
-      for (int h = 0; h < nh; ++h) {
-        colsum(st, P.HW, out, P.colsum_chunk, dz_cur + h * HW * out, ws + P.col_part, db[h * n_layers + l]);
-        MARF_CHECK_LAUNCH();
-      }
+      E::reduce_parts(st, nh, parts, out, out, ws + P.col_part, P.col_gs,
+                      layer_ptrs<float, GroupPtrs>(nh, n_layers, l, db));
+    } else {  // SimtEngine: one head
+      colsum(st, P.HW, out, P.colsum_chunk, dz_cur, ws + P.col_part, db[l]);
     }
+    MARF_CHECK_LAUNCH();
     if (l > 0) {  // dz of the layer below, ReLU-gated by its activation
       GemmCall d = gemm_call(P.HW, in, out, nullptr, out, nullptr, in, nullptr, in);
       d.groups = nh, d.ldg = in;

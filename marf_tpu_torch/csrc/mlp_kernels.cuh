@@ -7,10 +7,12 @@
 //   - GemmCall: one product shape over up to MAX_GROUP operand sets (one per
 //     mask head), the argument of both engines' `run` (SimtEngine here,
 //     TcEngine in tc_gemm.cuh), so the pipelines are templates over the engine;
-//   - colsum_kernel, reduce_kernel and reduce_group_kernel: the stages of
-//     every reduction over points. Partials go to a workspace and are summed
-//     in a fixed order, so there are no float atomics and two calls on the
-//     same inputs give bitwise-equal outputs;
+//   - colsum_kernel, reduce_kernel, reduce_group_kernel and
+//     reduce_tree_group_kernel: the stages of every reduction over points.
+//     Partials go to a workspace and are summed in a fixed order (in
+//     sequence, or pairwise for the tensor-core engine's many dW partials),
+//     so there are no float atomics and two calls on the same inputs give
+//     bitwise-equal outputs;
 //   - row_dot: one warp's dot product of a point's row with a weight row,
 //     reduced by a fixed shuffle tree (the 256->1 and 256->3 head layers,
 //     which would waste a 128-wide GEMM tile).
@@ -204,6 +206,37 @@ __global__ void reduce_group_kernel(int S, int count, long long stride, const fl
   pick(out, blockIdx.y)[i] = s;
 }
 
+// reduce_group_kernel's sums taken pairwise: part z goes onto a stack of
+// sums of 2^j consecutive parts, merging equal sizes as a binary counter
+// does ((p0 + p1) + (p2 + p3)) + ...; a fixed order whose rounding error
+// grows with log2(S), not with S. Eight parts are loaded at a time (their
+// three levels of the tree in registers), so eight loads are in flight.
+__global__ void reduce_tree_group_kernel(int S, int count, long long stride, const float* __restrict__ part,
+                                         long long gstride, GroupPtrs out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const float* q = part + (long long)blockIdx.y * gstride + i;
+  float st[32];
+  int n = 0;
+  int z = 0;
+  for (; z + 8 <= S; z += 8) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = q[(long long)(z + j) * stride];
+    float s = ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
+    for (int b = (z + 7) >> 3; b & 1; b >>= 1) s = st[--n] + s;
+    st[n++] = s;
+  }
+  for (; z < S; ++z) {
+    float s = q[(long long)z * stride];
+    for (int b = z; b & 1; b >>= 1) s = st[--n] + s;
+    st[n++] = s;
+  }
+  float s = st[--n];
+  while (n > 0) s = st[--n] + s;
+  pick(out, blockIdx.y)[i] = s;
+}
+
 // One warp: dot(x[0:F], w[0:F]) with lane-strided partial sums and a fixed
 // xor-shuffle tree; lane 0's value is the one callers use.
 __device__ __forceinline__ float row_dot(const float* __restrict__ x, const float* w, int F, int lane) {
@@ -239,9 +272,10 @@ struct Arena {
 
 // One product shape C[M, N] (+)= A[M, K] B[K, N] for `groups` operand sets
 // (the layouts are the engines' template flags, as sgemm_kernel's). Split z
-// of K (length k_chunk) writes C[g] + z*c_split_stride; rsum[g], where set,
-// gets the row sums of A over each split at rsum[g] + z*M (TcEngine only:
-// the db of a dW product, folded into it).
+// of K (length k_chunk) writes its partials from C[g] + z*c_split_stride on
+// (one per split; TcEngine: E::dw_parts(splits, k_chunk) / splits of them);
+// rsum[g], where set, gets the row sums of A likewise, M apart (TcEngine
+// only: the db of a dW product, folded into it).
 struct GemmCall {
   int groups, M, N, K, lda, ldb, ldc, ldg, splits, k_chunk;
   long long c_split_stride;
@@ -263,28 +297,6 @@ inline GemmCall gemm_call(int M, int N, int K, const float* A, int lda, const fl
   return c;
 }
 
-// The SIMT float32 engine: one sgemm_kernel launch per group; no folded db
-// (the pipelines take the column sums with colsum).
-struct SimtEngine {
-  static constexpr bool kFoldDb = false;
-  static void dw_split(int Np, int out, int in, int groups, int& splits, int& chunk) {
-    simt_dw_split(Np, out, in, groups, splits, chunk);
-  }
-  template <bool AK, bool BNC, int EPI>
-  static int run(cudaStream_t st, const GemmCall& c) {
-    dim3 grid(cdiv(c.M, BM), cdiv(c.N, BN), c.splits);
-    for (int g = 0; g < c.groups; ++g) {
-      if (c.rsum[g]) return (int)cudaErrorInvalidValue;
-      sgemm_kernel<AK, BNC, EPI><<<grid, GEMM_THREADS, 0, st>>>(c.M, c.N, c.K, c.A[g], c.lda, c.B[g], c.ldb, c.C[g],
-                                                               c.ldc, c.bias[g], c.gate[g], c.ldg, c.k_chunk,
-                                                               c.c_split_stride);
-      cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    return 0;
-  }
-};
-
 void reduce(cudaStream_t st, int S, int count, long long stride, const float* part, float* out) {
   reduce_kernel<<<cdiv(count, ELEM_THREADS), ELEM_THREADS, 0, st>>>(S, count, stride, part, out);
 }
@@ -295,6 +307,38 @@ void reduce_group(cudaStream_t st, int groups, int S, int count, long long strid
   reduce_group_kernel<<<dim3(cdiv(count, ELEM_THREADS), groups), ELEM_THREADS, 0, st>>>(S, count, stride, part,
                                                                                          gstride, out);
 }
+
+// GroupPtrs holding one pointer
+inline GroupPtrs one_ptr(float* p) {
+  GroupPtrs g{};
+  g.p[0] = p;
+  return g;
+}
+
+// The SIMT float32 engine: one sgemm_kernel launch on one operand set (its
+// pipelines, K1-K4, run one head); no folded db (the pipelines take the
+// column sums with colsum). A dW product writes one partial per split,
+// summed in sequence.
+struct SimtEngine {
+  static constexpr bool kFoldDb = false;
+  static void dw_split(int Np, int out, int in, int groups, int& splits, int& chunk) {
+    simt_dw_split(Np, out, in, groups, splits, chunk);
+  }
+  static int dw_parts(int splits, int /*chunk*/) { return splits; }
+  static void reduce_parts(cudaStream_t st, int groups, int S, int count, long long stride, const float* part,
+                           long long gstride, const GroupPtrs& out) {
+    reduce_group(st, groups, S, count, stride, part, gstride, out);
+  }
+  template <bool AK, bool BNC, int EPI>
+  static int run(cudaStream_t st, const GemmCall& c) {
+    if (c.groups != 1 || c.rsum[0]) return (int)cudaErrorInvalidValue;
+    dim3 grid(cdiv(c.M, BM), cdiv(c.N, BN), c.splits);
+    sgemm_kernel<AK, BNC, EPI><<<grid, GEMM_THREADS, 0, st>>>(c.M, c.N, c.K, c.A[0], c.lda, c.B[0], c.ldb, c.C[0],
+                                                             c.ldc, c.bias[0], c.gate[0], c.ldg, c.k_chunk,
+                                                             c.c_split_stride);
+    return (int)cudaGetLastError();
+  }
+};
 
 // db = column sums of dz [Np, out], in two fixed-order stages
 void colsum(cudaStream_t st, int Np, int out, int chunk, const float* dz, float* part, float* db) {

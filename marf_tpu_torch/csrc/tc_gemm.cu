@@ -21,41 +21,53 @@ int run_epi(cudaStream_t st, int epi, const GemmCall& c) {
 
 extern "C" {
 
-// Floats of workspace marf_tc_gemm needs: the split partials and row sums.
-long long marf_tc_gemm_workspace(int M, int N, int splits) {
-  return (long long)splits * M * N + (long long)splits * M;
+// The split-K layout of K into `splits` (at most) 32-deep-aligned chunks.
+static void split_k(int K, int splits, int& n, int& chunk) {
+  chunk = cdiv(cdiv(K, splits), TC_BK) * TC_BK;
+  n = cdiv(K, chunk);
+}
+
+// Floats of workspace marf_tc_gemm needs: the partials and their row sums
+// (0 when the product writes C directly).
+long long marf_tc_gemm_workspace(int M, int N, int K, int splits, int rowsum) {
+  int n, chunk;
+  split_k(K, splits, n, chunk);
+  const long long parts = TcEngine::dw_parts(n, chunk);
+  return parts > 1 || rowsum ? parts * M * N + parts * M : 0;
 }
 
 // C[M, N] = epi(A B) on the tensor cores; A(m, k) = a_k_contig ? A[m*lda + k]
 // : A[k*lda + m], B(k, n) = b_n_contig ? B[k*ldb + n] : B[n*ldb + k];
 // epi 0 store, 1 bias + ReLU (bias [N]), 2 ReLU gate (gate [M, ldg]).
-// splits > 1 (store only, ldc = N): split-K partials in ws, then the
-// fixed-order sum.
+// splits > 1, or K over 2,048 (store only, ldc = N; beyond one split,
+// A point-major only): split-K partials in ws, one per 2,048 deep of each
+// split, then their pairwise sum.
 // rsum [M] (nullptr: none; A point-major only): the row sums of A, folded
 // into the product as in the dW products.
 int marf_tc_gemm(int a_k_contig, int b_n_contig, int epi, int M, int N, int K, const float* A, int lda,
                  const float* B, int ldb, float* C, int ldc, const float* bias, const float* gate, int ldg, int splits,
                  float* rsum, float* ws, void* stream) {
-  const bool staged = splits > 1 || rsum;
-  if (M < 1 || N < 1 || K < 1 || splits < 1 || (staged && (epi != EPI_STORE || ldc != N)) || (rsum && a_k_contig)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || (rsum && a_k_contig)) return (int)cudaErrorInvalidValue;
+  int n, chunk;
+  split_k(K, splits, n, chunk);
+  const int parts = TcEngine::dw_parts(n, chunk);
+  const bool staged = parts > 1 || rsum;
+  if (staged && (epi != EPI_STORE || ldc != N)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   GemmCall c = gemm_call(M, N, K, A, lda, B, ldb, staged ? ws : C, ldc);
   c.bias[0] = bias, c.gate[0] = gate, c.ldg = ldg;
   if (staged) {
-    c.k_chunk = cdiv(cdiv(K, splits), TC_BK) * TC_BK;
-    c.splits = cdiv(K, c.k_chunk);
+    c.splits = n, c.k_chunk = chunk;
     c.c_split_stride = (long long)M * N;
-    if (rsum) c.rsum[0] = ws + (long long)c.splits * M * N;
+    if (rsum) c.rsum[0] = ws + (long long)parts * M * N;
   }
   int rc = a_k_contig ? (b_n_contig ? run_epi<true, true>(st, epi, c) : run_epi<true, false>(st, epi, c))
                       : (b_n_contig ? run_epi<false, true>(st, epi, c) : run_epi<false, false>(st, epi, c));
   if (rc || !staged) return rc;
-  reduce(st, c.splits, M * N, (long long)M * N, ws, C);  // the fixed-order sums
+  TcEngine::reduce_parts(st, 1, parts, M * N, (long long)M * N, ws, 0, one_ptr(C));  // the fixed-order sums
   MARF_CHECK_LAUNCH();
   if (rsum) {
-    reduce(st, c.splits, M, M, c.rsum[0], rsum);
+    TcEngine::reduce_parts(st, 1, parts, M, M, c.rsum[0], 0, one_ptr(rsum));
     MARF_CHECK_LAUNCH();
   }
   return 0;

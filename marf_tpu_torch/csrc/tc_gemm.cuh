@@ -13,9 +13,17 @@
 // of the running sum per step (2.7e-6 of the max-abs over 480 points, 14x
 // cuBLAS's float32 error, on an H100): each k-tile's 12 products go into a
 // fresh accumulator, which one float32 add (round to nearest) per element
-// then takes into the running sum. The error against float64 is then that
-// of a float32 product (tests/test_torch_tc_gemm.py emulates the split); a
-// single TF32 product keeps ~3 decimal digits and is not used anywhere.
+// then takes into the running sum. A long serial float32 sum loses accuracy
+// too: a dW product (and the row sums folded into it) writes a partial per
+// TC_FLUSH k-tiles of its split, and reduce_tree_group_kernel adds the
+// partials pairwise. At K6's real dW split (43,200 points, 7,200 a split)
+// the product and its row sums are within twice float32 torch's distance
+// from float64 (tests/test_torch_tc_gemm.py: a numpy emulation of this
+// arithmetic on the CPU, the kernel on a card). K6's own gradients can sit
+// farther from float64 than its plain version's on some layers: a ReLU that
+// flips on an activation near 0 moves them by ~1e-5 of their max-abs, as a
+// forward perturbed by float32 rounding does (PERF.md). A single TF32
+// product keeps ~3 decimal digits and is not used anywhere.
 //
 // Instruction: wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32 (N = 128,
 // or 64), three per k8 step, A from registers, B from shared memory. The
@@ -45,12 +53,12 @@
 // (m, n) tiles of their group and split, n fastest, so the blocks that
 // share an A tile run together; a block loads its next tile's first stages
 // before it stores the current one. Epilogues as the SIMT engine's: plain
-// store, bias + ReLU, ReLU gate; split-K partials summed by the fixed-order
-// reduce; and the folded db: in a dW product (A = dz, point-major) the
-// blocks of the first column tile also sum A's rows over their split from
-// the same fragment reads, in a fixed order, so db needs no pass of its own
-// over dz. No float atomics: two launches on the same inputs give
-// bitwise-equal outputs.
+// store, bias + ReLU, ReLU gate; split-K partials summed in a fixed
+// (pairwise) order; and the folded db: in a dW product (A = dz,
+// point-major) the blocks of the first column tile also sum A's rows from
+// the same fragment reads, per k-tile then per partial, in a fixed order,
+// so db needs no pass of its own over dz. No float atomics: two launches on
+// the same inputs give bitwise-equal outputs.
 //
 // Groups: one launch runs the same product for up to MAX_GROUP operand sets
 // (mask heads), blockIdx.z = group * splits + split, the per-group pointers
@@ -67,6 +75,7 @@ constexpr int TC_BK = 32;
 constexpr int TC_THREADS = 256;      // two warpgroups: block rows [0, 64) and [64, 128)
 constexpr int TC_WAVE_BLOCKS = 132;  // one block per SM on 132 SMs
 constexpr int TC_K_STRIDE = TC_BK + 4;  // K-major raw tile [rows][BK + 4]: 4 mod 32 banks per row
+constexpr int TC_FLUSH = 64;  // k-tiles (2,048 points) per partial of a dW product
 static_assert(TC_BM == BM, "dw_split counts 128-row tiles in both engines");
 
 // floats of one raw tile of `rows` rows: K-major [rows][BK + 4], or
@@ -266,6 +275,9 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
   constexpr int NACC = BN / 2;
   constexpr int RAW = 3;    // A of tile kt is read when its wgmmas are issued
   constexpr int RAW_B = 2;  // B of tile kt + 1 is split during tile kt
+  // a dW product (A point-major, plain store) writes a partial per
+  // TC_FLUSH k-tiles; every other product one per split
+  constexpr bool PARTS = !A_K_CONTIG && EPI == EPI_STORE;
   extern __shared__ __align__(128) float tc_smem[];
   float* split = tc_smem;  // [2][B hi | B lo]
   float* rawA = split + 4 * SB;
@@ -282,6 +294,8 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
   const int k1 = min(c.K, k0 + c.k_chunk);
   const int ktiles = k1 > k0 ? (k1 - k0 + TC_BK - 1) / TC_BK : 0;
   float* rsum = A_K_CONTIG ? nullptr : pick(c.rsum, g);
+  // partials per split: one per TC_FLUSH k-tiles of a whole split
+  const int subs = PARTS ? ((c.k_chunk + TC_BK - 1) / TC_BK + TC_FLUSH - 1) / TC_FLUSH : 1;
   const int wg = tid / 128, lane = tid & 31, w = (tid >> 5) & 3, gq = lane >> 2, tq = lane & 3;
   const int mr = wg * 64 + w * 16 + gq;  // this thread's rows in the block tile: mr, mr + 8
   // output tiles, n fastest (the blocks of one row of tiles share A, and
@@ -322,12 +336,46 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i] = 0.0f, fr[i] = 0.0f;
     float rs0 = 0.0f, rs1 = 0.0f;
+    // acc (and the row sums) -> partial s of this split, then zeroed
+    auto store = [&](int s) {
+      const long long slot = (long long)z * subs + s;
+      float* C = pick(c.C, g) + slot * c.c_split_stride;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + mr + h * 8;
+        if (m >= c.M) continue;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = n0 + j * 8 + tq * 2 + e;
+            if (n >= c.N) continue;
+            float v = acc[4 * j + 2 * h + e];
+            if (EPI == EPI_BIAS_RELU) v = fmaxf(v + bias[n], 0.0f);
+            if (EPI == EPI_GATE) v = gate[(long long)m * c.ldg + n] > 0.0f ? v : 0.0f;
+            C[(long long)m * c.ldc + n] = v;
+          }
+        }
+      }
+      if (do_rsum) {  // the four lanes of a row, by a fixed xor tree
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+        if (tq == 0 && m0 + mr < c.M) rsum[slot * c.M + m0 + mr] = rs0;
+        if (tq == 0 && m0 + mr + 8 < c.M) rsum[slot * c.M + m0 + mr + 8] = rs1;
+      }
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+      rs0 = 0.0f, rs1 = 0.0f;
+    };
 
     for (int kt = 0; kt < ktiles; ++kt) {
       const float* as = rawA + (kt % RAW) * A_FL;
       auto a_at = [&](int m, int k) { return A_KM ? as[m * TC_K_STRIDE + k] : as[k * (TC_BM + 8) + m]; };
       const int nk8 = min(TC_BK / 8, (k1 - (k0 + kt * TC_BK) + 7) / 8);
       uint32_t ah[TC_BK / 8][4], al[TC_BK / 8][4];
+      float t0 = 0.0f, t1 = 0.0f;  // this k-tile's row sums
 #pragma unroll
       for (int q = 0; q < TC_BK / 8; ++q) {
         const int k = q * 8 + tq;
@@ -337,10 +385,11 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
         split_tf32(x2, ah[q][2], al[q][2]);
         split_tf32(x3, ah[q][3], al[q][3]);
         if (!A_K_CONTIG && do_rsum && q < nk8) {  // past nk8 the tile holds zeros anyway
-          rs0 += x0, rs0 += x2;
-          rs1 += x1, rs1 += x3;
+          t0 += x0, t0 += x2;
+          t1 += x1, t1 += x3;
         }
       }
+      rs0 += t0, rs1 += t1;
       const float* bh = split + (kt % 2) * 2 * SB;
       const float* bl = bh + SB;
       reg_fence(fr);
@@ -373,6 +422,9 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
       for (int q = 0; q < TC_BK / 8; ++q) keep_alive(ah[q]), keep_alive(al[q]);
 #pragma unroll
       for (int i = 0; i < NACC; ++i) acc[i] += fr[i];
+      if constexpr (PARTS) {
+        if ((kt + 1) % TC_FLUSH == 0 && kt + 1 < ktiles) store(kt / TC_FLUSH);
+      }
       __syncthreads();  // split tile kt, A slot kt % 3 and B slot (kt + 1) % 2 are free
       if (kt + 3 < ktiles) load_stage(t, kt + 3);
       cp_async_commit();
@@ -384,32 +436,9 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
     if (tn < tiles && ktiles > 1) load_stage(tn, 1);
     cp_async_commit();
 
-    float* C = pick(c.C, g) + (long long)z * c.c_split_stride;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + mr + h * 8;
-      if (m >= c.M) continue;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + j * 8 + tq * 2 + e;
-          if (n >= c.N) continue;
-          float v = acc[4 * j + 2 * h + e];
-          if (EPI == EPI_BIAS_RELU) v = fmaxf(v + bias[n], 0.0f);
-          if (EPI == EPI_GATE) v = gate[(long long)m * c.ldg + n] > 0.0f ? v : 0.0f;
-          C[(long long)m * c.ldc + n] = v;
-        }
-      }
-    }
-    if (do_rsum) {  // the four lanes of a row, by a fixed xor tree
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
-      if (tq == 0 && m0 + mr < c.M) rsum[(long long)z * c.M + m0 + mr] = rs0;
-      if (tq == 0 && m0 + mr + 8 < c.M) rsum[(long long)z * c.M + m0 + mr + 8] = rs1;
-    }
+    // the last partial, then zeros in those a short (last) split leaves
+    const int done = PARTS && ktiles > 0 ? (ktiles - 1) / TC_FLUSH : 0;
+    for (int s = done; s < subs; ++s) store(s);
   }
   cp_async_wait<0>();
 }
@@ -417,10 +446,12 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
 template <bool AK, bool BNC, int EPI, int BN>
 int tc_launch(cudaStream_t st, const GemmCall& c, bool a_vec, bool b_vec) {
   constexpr int floats = 4 * BN * TC_BK + 3 * tc_tile_floats(AK, TC_BM) + 2 * tc_tile_floats(!BNC, BN);
-  const int smem = floats * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(tc_gemm_kernel<AK, BNC, EPI, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err != cudaSuccess) return (int)err;
+  constexpr int smem = floats * (int)sizeof(float);
+  // once per template instance: a host API call per launch would add to the
+  // enqueue time that paces the train step
+  static const cudaError_t attr = cudaFuncSetAttribute(tc_gemm_kernel<AK, BNC, EPI, BN>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
   // persistent over the (m, n) tiles of each group and split: one wave
   const int tiles = cdiv(c.M, TC_BM) * cdiv(c.N, BN), zs = c.groups * c.splits;
   const int wave = TC_WAVE_BLOCKS * (BN == 64 ? 2 : 1);
@@ -446,10 +477,21 @@ struct TcEngine {
     chunk = cdiv(cdiv(Np, s), TC_BK) * TC_BK;
     splits = cdiv(Np, chunk);
   }
+  // partials a dW product writes per group: one per TC_FLUSH k-tiles of
+  // each split, so no serial float32 sum in the kernel runs over more than
+  // 2,048 points
+  static int dw_parts(int splits, int chunk) { return splits * cdiv(cdiv(chunk, TC_BK), TC_FLUSH); }
+  // their sum, pairwise (reduce_tree_group_kernel)
+  static void reduce_parts(cudaStream_t st, int groups, int S, int count, long long stride, const float* part,
+                           long long gstride, const GroupPtrs& out) {
+    reduce_tree_group_kernel<<<dim3(cdiv(count, ELEM_THREADS), groups), ELEM_THREADS, 0, st>>>(S, count, stride,
+                                                                                              part, gstride, out);
+  }
   template <bool AK, bool BNC, int EPI>
   static int run(cudaStream_t st, const GemmCall& c) {
-    if (c.groups < 1 || c.groups > MAX_GROUP || (c.splits > 1 && c.k_chunk % TC_BK != 0)) {
-      return (int)cudaErrorInvalidValue;
+    if (c.groups < 1 || c.groups > MAX_GROUP || (c.splits > 1 && c.k_chunk % TC_BK != 0) ||
+        (dw_parts(c.splits, c.k_chunk) > c.splits && (AK || EPI != EPI_STORE || c.c_split_stride == 0))) {
+      return (int)cudaErrorInvalidValue;  // more than one partial per split: dW products only
     }
     bool a_vec = c.lda % 4 == 0, b_vec = c.ldb % 4 == 0;
     for (int g = 0; g < c.groups; ++g) {

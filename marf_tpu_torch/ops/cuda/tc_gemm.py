@@ -31,7 +31,7 @@ EPILOGUES = {"store": 0, "bias_relu": 1, "gate": 2}
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.marf_tc_gemm_workspace.argtypes = [i, i, i]
+    lib.marf_tc_gemm_workspace.argtypes = [i, i, i, i, i]
     lib.marf_tc_gemm_workspace.restype = ctypes.c_longlong
     lib.marf_tc_gemm.argtypes = [i, i, i, i, i, i, p, i, p, i, p, i, p, p, i, i, p, p, p]
     lib.marf_tc_gemm.restype = ctypes.c_int
@@ -65,7 +65,9 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
       layout: "<A>,<B>" (module docstring).
       epilogue: "store", "bias_relu" (bias [N]) or "gate" (C zeroed where
         gate [M, N] <= 0).
-      splits: split-K partials summed in a fixed order (store only).
+      splits: split-K partials summed in a fixed order (store only; with A
+        "km" a depth over 2,048 also takes partials, one per 2,048 deep of
+        a split; with A "mk" such a depth is refused).
       rowsum: also return A's row sums over k (A "km" only), folded into the
         product as the dW products fold db.
 
@@ -93,8 +95,8 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
     lib = _library()
     c = torch.empty((M, N), dtype=torch.float32, device=device)
     rs = torch.empty((M,), dtype=torch.float32, device=device) if rowsum else None
-    ws = torch.empty(lib.marf_tc_gemm_workspace(M, N, splits) if splits > 1 or rowsum else 1,
-                     dtype=torch.float32, device=device)
+    ws = torch.empty(max(1, lib.marf_tc_gemm_workspace(M, N, K, splits, int(rowsum))), dtype=torch.float32,
+                     device=device)
     rc = lib.marf_tc_gemm(
         int(a_k), int(b_n), EPILOGUES[epilogue], M, N, K, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
         c.data_ptr(), N, None if bias is None else bias.data_ptr(), None if gate is None else gate.data_ptr(), N,

@@ -4,16 +4,19 @@ On the CPU: a numpy emulation of the engine's arithmetic (each float32
 operand split into hi = tf32(x) and lo = tf32(x - hi), tf32 rounding to
 nearest with ties away from zero; per k-tile of 32 along K the products
 lo_a hi_b, hi_a lo_b, hi_a hi_b summed into a fresh accumulator, which one
-float32 add takes into the running sum; split-K partials summed in order) at
-the engine's shapes: its error against float64 stays within twice float32
-torch.matmul's own, while
-single-pass TF32 (hi_a hi_b only) does not, which is why the engine never
-uses it. This covers the split arithmetic only: the kernel itself runs on a
-card.
+float32 add takes into the running sum; a partial per 64 k-tiles of each
+split, the partials summed pairwise; the folded row sums in the kernel's
+order) at the engine's shapes, and at K6's real dW split with operands
+shaped as K6's dz and activations: its error against float64 stays within
+twice float32 torch's own, while single-pass TF32 (hi_a hi_b only) does
+not, which is why the engine never uses it. This covers the split
+arithmetic only: the kernel itself runs on a card.
 
 On a card (marker `cuda`): `tc_gemm` against its plain version and float64,
 for every operand layout and epilogue, at ragged sizes and depths, with
-split-K and the folded row sums, and from misaligned views (4-byte copies).
+split-K and the folded row sums, from misaligned views (4-byte copies), and
+at K6's real dW split (within twice the plain version's distance from
+float64).
 """
 
 import numpy as np
@@ -35,35 +38,97 @@ def split_tf32(x: np.ndarray):
     return hi, tf32(np.asarray(x, np.float32) - hi)
 
 
+FLUSH = 64  # k-tiles per partial (TC_FLUSH in csrc/tc_gemm.cuh)
+
+
+def pairwise(parts: list) -> np.ndarray:
+    """The partials' sum in reduce_tree_group_kernel's order (a binary counter)."""
+    stack = []
+    for z, v in enumerate(parts):
+        while z & 1:
+            v = stack.pop() + v
+            z >>= 1
+        stack.append(v)
+    s = stack.pop()
+    while stack:
+        s = stack.pop() + s
+    return s
+
+
+def _partials(K: int, chunk: int):
+    """(split start, split end, partial start) of every partial the engine
+    writes, a short last split padded with empty ones."""
+    subs = -(-(-(-chunk // 32)) // FLUSH)
+    for k0 in range(0, K, chunk):
+        k1 = min(K, k0 + chunk)
+        for j in range(subs):
+            yield k0, k1, k0 + j * 32 * FLUSH
+
+
 def emulate(a: np.ndarray, b: np.ndarray, chunk: int | None = None, passes: int = 3) -> np.ndarray:
     """A [M, K] @ B [K, N] as the engine computes it (module docstring): the
     TF32 products are exact, so the float64 sum of a k-tile's terms over its
-    32-deep slice, rounded to float32 and added to the float32 running sum,
-    models it. passes=1 is single-pass TF32."""
+    32-deep slice, rounded to float32 and added to the float32 running sum
+    of its partial, models it. passes=1 is single-pass TF32."""
     ah, al = split_tf32(a)
     bh, bl = split_tf32(b)
     terms = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
     K = a.shape[1]
-    chunk = chunk or K
-    out = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    for k0 in range(0, K, chunk):
-        acc = np.zeros_like(out)
-        for k in range(k0, min(K, k0 + chunk), 32):
-            s = slice(k, min(K, k0 + chunk, k + 32))
-            step = sum(x[:, s].astype(np.float64) @ y[s].astype(np.float64) for x, y in terms).astype(np.float32)
-            acc = acc + step
-        out = out + acc
-    return out
+    parts = []
+    for _, k1, p0 in _partials(K, chunk or -(-K // 32) * 32):
+        acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+        for k in range(p0, min(k1, p0 + 32 * FLUSH), 32):
+            s = slice(k, min(k1, k + 32))
+            acc = acc + sum(x[:, s].astype(np.float64) @ y[s].astype(np.float64) for x, y in terms).astype(np.float32)
+        parts.append(acc)
+    return pairwise(parts)
 
 
-def dw_chunk(points: int, out: int, inp: int) -> int:
-    """The points per split of a dW product (TcEngine::dw_split in
-    csrc/tc_gemm.cuh: one wave of 132 blocks of 128 x 128, or 264 of
-    128 x 64 for a layer at most 64 wide; BK = 32)."""
+def emulate_rowsum(a: np.ndarray, chunk: int) -> np.ndarray:
+    """The row sums of A [M, K] folded into a dW product, in the kernel's
+    order: lane l of a row's four adds k = 8q + l and 8q + l + 4 of each
+    k-tile into the tile's sum, then that into its partial's; the four lanes
+    meet by an xor tree; the partials are summed pairwise."""
+    K = a.shape[1]
+    parts = []
+    for _, k1, p0 in _partials(K, chunk):
+        rs = np.zeros((a.shape[0], 4), np.float32)
+        for t in range(p0, min(k1, p0 + 32 * FLUSH), 32):
+            tile = np.zeros_like(rs)
+            for k in range(t, t + 32, 8):
+                for off in (0, 4):
+                    idx = np.arange(k + off, k + off + 4)
+                    tile = tile + np.where(idx < k1, a[:, np.minimum(idx, K - 1)], np.float32(0))
+            rs = rs + tile
+        parts.append((rs[:, 0] + rs[:, 1]) + (rs[:, 2] + rs[:, 3]))
+    return pairwise(parts)
+
+
+def dw_chunk(points: int, out: int, inp: int, groups: int = 1) -> int:
+    """The points per split of a dW product over `groups` heads
+    (TcEngine::dw_split in csrc/tc_gemm.cuh: one wave of 132 blocks of
+    128 x 128, or 264 of 128 x 64 for a layer at most 64 wide; BK = 32)."""
     cdiv = lambda a, b: -(-a // b)
     bn, wave = (64, 264) if inp <= 64 else (128, 132)
-    s = max(1, wave // (cdiv(out, 128) * cdiv(inp, bn)))
+    s = max(1, wave // (groups * cdiv(out, 128) * cdiv(inp, bn)))
     return cdiv(cdiv(points, s), 32) * 32
+
+
+# K6's 256-wide dW products at the main path's shape: five heads of 43,200
+# columns, split as the engine splits them (7,200 points, six splits a head)
+K6_POINTS = 43_200
+K6_CHUNK = dw_chunk(K6_POINTS, 256, 256, groups=5)
+
+
+def k6_operands(rng, points: int = K6_POINTS, out: int = 256, inp: int = 256):
+    """A dW product's operands as K6's top hidden layer makes them: dz [pts,
+    out] = d_p w_j on the units a point keeps (about half), d_p of either
+    sign with a common bias (most points push the same way), and the layer
+    input, ReLU activations [pts, in]."""
+    d = 1e-5 * (rng.randn(points) + 0.5)
+    dz = (d[:, None] * rng.randn(out)[None] * (rng.rand(points, out) > 0.5)).astype(np.float32)
+    x = np.maximum(rng.randn(points, inp), 0.0).astype(np.float32)
+    return dz, x
 
 
 def rel(x, ref) -> float:
@@ -113,6 +178,25 @@ def test_single_pass_tf32_is_not(rng, M, K, N, chunk):
     assert rel(emulate(a, b, chunk, passes=1), ref) > 100.0 * err32
 
 
+def test_3xtf32_at_k6_dw_split(rng):
+    """dW and the folded db at K6's real split, from K6-like operands: the
+    emulated engine within twice float32 torch's distance from float64."""
+    assert K6_CHUNK == 7200
+    dz, x = k6_operands(rng)
+    ref = dz.T.astype(np.float64) @ x.astype(np.float64)
+    err32 = rel((torch.from_numpy(dz).T @ torch.from_numpy(x)).numpy(), ref)
+    assert rel(emulate(dz.T, x, K6_CHUNK), ref) <= 2.0 * err32
+    ref_db = dz.astype(np.float64).sum(0)
+    assert rel(emulate_rowsum(dz.T, K6_CHUNK), ref_db) <= 2.0 * rel(torch.from_numpy(dz).sum(0).numpy(), ref_db)
+
+
+def test_pairwise_sum_order():
+    parts = [np.float32(v) for v in (1.0, 2.0**-24, 2.0**-24, 2.0**-24, 2.0**-24)]
+    # ((1 + e) + (e + e)) + e: the early pair keeps what a running sum drops
+    assert pairwise(parts) == np.float32(1.0) + np.float32(2.0**-22)
+    assert pairwise([np.float32(3.0)]) == 3.0
+
+
 def test_wrapper_runs_plain_version_on_cpu_without_counting(rng):
     a = torch.from_numpy(rng.randn(37, 19).astype(np.float32))
     b = torch.from_numpy(rng.randn(23, 19).astype(np.float32))
@@ -142,11 +226,11 @@ def _operands(rng, layout, M, N, K, device, offset=0):
     return wide(shape_a), wide(shape_b)
 
 
-def _check(out, ref, ref64):
+def _check(out, ref, ref64, floor=1e-6):
     err, err64, plain64 = (rel(out.cpu().numpy(), ref.cpu().double().numpy()), rel(out.cpu().numpy(), ref64),
                            rel(ref.cpu().numpy(), ref64))
     assert err <= 1e-5, err
-    assert err64 <= max(2.0 * plain64, 1e-6), (err64, plain64)
+    assert err64 <= max(2.0 * plain64, floor), (err64, plain64)
 
 
 @pytest.mark.cuda
@@ -222,3 +306,19 @@ def test_tc_gemm_misaligned_views_on_card(rng, cuda_device, layout):
     ref64 = tg.tc_gemm_reference(a.double(), b.double(), layout).cpu().numpy()
     torch.cuda.synchronize()
     _check(out, ref, ref64)
+
+
+@pytest.mark.cuda
+def test_tc_gemm_at_k6_dw_split_on_card(rng, cuda_device):
+    """K6's 256-wide dW product at its real split (43,200 points of K6-like
+    operands, 7,200 a split, a partial per 2,048) with the folded row sums:
+    within twice the plain version's distance from float64, no floor."""
+    dz, x = (torch.from_numpy(t).to(cuda_device) for t in k6_operands(rng))
+    out, rs = tg.tc_gemm(dz, x, "km,kn", splits=K6_POINTS // K6_CHUNK, rowsum=True)
+    out2, rs2 = tg.tc_gemm(dz, x, "km,kn", splits=K6_POINTS // K6_CHUNK, rowsum=True)
+    ref, rs_ref = tg.tc_gemm_reference(dz, x, "km,kn", rowsum=True)
+    ref64, rs64 = tg.tc_gemm_reference(dz.double(), x.double(), "km,kn", rowsum=True)
+    torch.cuda.synchronize()
+    _check(out, ref, ref64.cpu().numpy(), floor=0.0)
+    _check(rs, rs_ref, rs64.cpu().numpy(), floor=0.0)
+    assert torch.equal(out, out2) and torch.equal(rs, rs2)
