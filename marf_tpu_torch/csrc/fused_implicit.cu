@@ -58,7 +58,7 @@ ImplicitPlan make_implicit_plan(int N, int n_heads, int L, int n_rgb, const int*
   ImplicitPlan I{};
   const int nh = n_heads < MAX_GROUP ? n_heads : MAX_GROUP;
   I.mask = make_mask_plan<TcEngine>(N / n_heads, nh, n_mask, mask_dims, false);
-  const long long rgb_total = make_plan<TcEngine>(N, 0, L, n_rgb, rgb_dims).total;
+  const long long rgb_total = make_plan(N, 0, L, n_rgb, rgb_dims).total;
   Arena a;
   a.take(I.mask.total > rgb_total ? I.mask.total : rgb_total);  // both stages start at offset 0
   I.msum_part = a.take(COLSUM_SPLITS);
@@ -112,8 +112,8 @@ int marf_implicit_train(int N, int n_heads, int L, int n_rgb, const int* rgb_dim
   MARF_CHECK_LAUNCH();
 
   // ---- 3. K2's pipeline masked by m with the unnormalized scalars, on the tensor cores
-  return fused_step<TcEngine>(N, 0, L, n_rgb, rgb_dims, nullptr, nullptr, coords, cw, tgt, m, scal, W, bias, rgb, sq,
-                              loss, dW, db, nullptr, dcoords, ws, st);
+  return fused_step(N, 0, L, n_rgb, rgb_dims, nullptr, nullptr, coords, cw, tgt, m, scal, W, bias, rgb, sq, loss,
+                    dW, db, nullptr, dcoords, ws, st);
 }
 
 }  // extern "C"

@@ -11,13 +11,12 @@
 // 34->256x4->3) needs about 267 GFLOP (forward, dX and dW products) against
 // about 1 GB of activation traffic, so it sits far above the card's float32
 // balance point: 1.62 ms at 165 TFLOP/s, the card's float32-accurate
-// tensor-core rate (3xTF32: 495 / 3), or 3.99 ms at 67 TFLOP/s, the SIMT
-// float32 rate its engine is held to. The design spends its effort on the
-// products: each dense layer is a tiled SIMT SGEMM (mlp_kernels.cuh, fmaf,
-// SimtEngine) with bias+ReLU, the ReLU gate and the split-K partials fused
-// into its epilogue. The elementwise stages
-// (warp + posenc, the 256->3 head with the loss, the posenc/warp VJP) are
-// memory-bound passes of their own.
+// tensor-core rate (3xTF32: 495 / 3). The design spends its effort on the
+// products: each dense layer runs on the 3xTF32 tensor-core engine
+// (tc_gemm.cuh, wgmma), with bias+ReLU, the ReLU gate and the split-K
+// partials fused into its epilogue and db folded into the dW product. The
+// elementwise stages (warp + posenc, the 256->3 head with the loss, the
+// posenc/warp VJP) are memory-bound passes of their own.
 //
 // The TPU kernel carried dW/db/dH/loss across a sequential grid in scratch.
 // CUDA blocks run in parallel in no order, so every reduction over points
@@ -38,7 +37,7 @@ extern "C" {
 
 // Floats of workspace one call needs (the wrapper allocates it).
 long long marf_fused_step_warp_workspace(int Np, int B, int L, int n_layers, const int* dims) {
-  return make_plan<SimtEngine>(Np, B, L, n_layers, dims).total;
+  return make_plan(Np, B, L, n_layers, dims).total;
 }
 
 // K1. Returns 0, or the CUDA error code of the first launch that failed.
@@ -51,12 +50,12 @@ int marf_fused_step_warp(int Np, int B, int L, int n_layers, const int* dims, co
                          const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
                          float* const* dW, float* const* db, float* dH, float* ws, void* stream) {
   if (B < 1 || B > MAX_IMAGES) return (int)cudaErrorInvalidValue;
-  return fused_step<SimtEngine>(Np, B, L, n_layers, dims, grid, H, nullptr, cw, tgt, msk, scal, W, bias, rgb, sq,
-                                loss, dW, db, dH, nullptr, ws, (cudaStream_t)stream);
+  return fused_step(Np, B, L, n_layers, dims, grid, H, nullptr, cw, tgt, msk, scal, W, bias, rgb, sq, loss, dW, db,
+                    dH, nullptr, ws, (cudaStream_t)stream);
 }
 
 long long marf_fused_step_coords_workspace(int Np, int L, int n_layers, const int* dims) {
-  return make_plan<SimtEngine>(Np, 0, L, n_layers, dims).total;
+  return make_plan(Np, 0, L, n_layers, dims).total;
 }
 
 // K2: as K1 with coords [2, Np] (warped coordinates) in place of grid and H,
@@ -65,8 +64,8 @@ int marf_fused_step_coords(int Np, int L, int n_layers, const int* dims, const f
                            const float* tgt, const float* msk, const float* scal, const float* const* W,
                            const float* const* bias, float* rgb, float* sq, float* loss, float* const* dW,
                            float* const* db, float* dcoords, float* ws, void* stream) {
-  return fused_step<SimtEngine>(Np, 0, L, n_layers, dims, nullptr, nullptr, coords, cw, tgt, msk, scal, W, bias, rgb,
-                                sq, loss, dW, db, nullptr, dcoords, ws, (cudaStream_t)stream);
+  return fused_step(Np, 0, L, n_layers, dims, nullptr, nullptr, coords, cw, tgt, msk, scal, W, bias, rgb, sq, loss,
+                    dW, db, nullptr, dcoords, ws, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -10,14 +10,13 @@
 //   the full backward (dW, db of every layer);
 //   the analytic posenc VJP, then K1: the warp VJP reduced to dH[b] per
 //   image; K2: dcoords [2, Np] per point (no limit on the number of images).
-// `fused_step` is a template over the GEMM engine: K1 and K2 run it on the
-// SIMT engine (mlp_kernels.cuh), K5 on the 3xTF32 tensor-core engine
-// (tc_gemm.cuh), which also folds each db into its dW product.
+// Every product runs on the 3xTF32 tensor-core engine (tc_gemm.cuh), which
+// folds each db into its dW product.
 // Design, bound and layouts: see fused_step.cu and fused_implicit.cu.
 
 #pragma once
 
-#include "mlp_kernels.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -286,13 +285,12 @@ __global__ void coords_bwd_kernel(int Np, int L, const float* __restrict__ coord
 }
 
 struct Plan {
-  int E, widest, head_blocks, head_chunk, head_stride, bwd_blocks, bwd_chunk, colsum_chunk;
+  int E, widest, head_blocks, head_chunk, head_stride, bwd_blocks, bwd_chunk;
   long long enc, acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dh_part, total;
 };
 
-// B = 0 for K2 and K5 (no dH partials). col_part holds the engine's db
-// partials: colsum's (SimtEngine) or the dW products' row sums (TcEngine).
-template <class E>
+// B = 0 for K2 and K5 (no dH partials). col_part holds the db partials,
+// the dW products' row sums.
 Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
   Plan P{};
   P.E = 2 + 4 * L;
@@ -306,15 +304,14 @@ Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
   long long dw_max = 0, db_max = 0;
   for (int l = 0; l + 1 < n_layers; ++l) {
     int splits, chunk;
-    E::dw_split(Np, dims[l + 1], dims[l], 1, splits, chunk);
-    const long long parts = E::dw_parts(splits, chunk);
+    TcEngine::dw_split(Np, dims[l + 1], dims[l], 1, splits, chunk);
+    const long long parts = TcEngine::dw_parts(splits, chunk);
     const long long n = parts * dims[l + 1] * dims[l];
     dw_max = n > dw_max ? n : dw_max;
     db_max = parts * dims[l + 1] > db_max ? parts * dims[l + 1] : db_max;
   }
   P.dw_part = a.take(dw_max);
-  P.colsum_chunk = cdiv(Np, COLSUM_SPLITS);
-  P.col_part = a.take(E::kFoldDb ? db_max : (long long)COLSUM_SPLITS * P.widest);
+  P.col_part = a.take(db_max);
   const int K = dims[n_layers - 1];
   P.head_blocks = cdiv(Np, 64) < 1024 ? cdiv(Np, 64) : 1024;
   P.head_chunk = cdiv(cdiv(Np, P.head_blocks), HEAD_POINTS) * HEAD_POINTS;
@@ -337,13 +334,12 @@ bool valid_rgb_dims(int L, int n_layers, const int* dims) {
 
 // The shared pipeline. K1: grid/H given, coords == nullptr, writes dH.
 // K2 and K5: coords given, grid/H unused, writes dcoords.
-template <class E>
 int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float* grid, const float* H,
                const float* coords, const float* cw, const float* tgt, const float* msk, const float* scal,
                const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
                float* const* dW, float* const* db, float* dH, float* dcoords, float* ws, cudaStream_t st) {
   if (!valid_rgb_dims(L, n_layers, dims)) return (int)cudaErrorInvalidValue;
-  const Plan P = make_plan<E>(Np, B, L, n_layers, dims);
+  const Plan P = make_plan(Np, B, L, n_layers, dims);
   const int last = n_layers - 1;
 
   // ---- forward
@@ -353,7 +349,7 @@ int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float*
     const float* in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
     GemmCall c = gemm_call(Np, dims[l + 1], dims[l], in, dims[l], W[l], dims[l], ws + P.acts[l], dims[l + 1]);
     c.bias[0] = bias[l];
-    const int rc = E::template run<true, false, EPI_BIAS_RELU>(st, c);
+    const int rc = TcEngine::run<true, false, EPI_BIAS_RELU>(st, c);
     if (rc) return rc;
   }
 
@@ -378,31 +374,27 @@ int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float*
     const float* x_in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
     dz_cur = ws + P.dz[cur];
     // dW[l] = dz^T x_in, split over points, then a fixed-order sum of the
-    // partials (db: the row sums of dz folded into this product, or column sums)
+    // partials (db: the row sums of dz folded into this product)
     int splits, chunk;
-    E::dw_split(Np, out, in, 1, splits, chunk);
-    const int parts = E::dw_parts(splits, chunk);
+    TcEngine::dw_split(Np, out, in, 1, splits, chunk);
+    const int parts = TcEngine::dw_parts(splits, chunk);
     GemmCall c = gemm_call(out, in, Np, dz_cur, out, x_in, in, ws + P.dw_part, in);
     c.splits = splits, c.k_chunk = chunk, c.c_split_stride = (long long)out * in;
-    if (E::kFoldDb) c.rsum[0] = ws + P.col_part;
-    int rc = E::template run<false, true, EPI_STORE>(st, c);
+    c.rsum[0] = ws + P.col_part;
+    int rc = TcEngine::run<false, true, EPI_STORE>(st, c);
     if (rc) return rc;
-    E::reduce_parts(st, 1, parts, out * in, (long long)out * in, ws + P.dw_part, 0, one_ptr(dW[l]));
+    TcEngine::reduce_parts(st, 1, parts, out * in, (long long)out * in, ws + P.dw_part, 0, one_ptr(dW[l]));
     MARF_CHECK_LAUNCH();
-    if (E::kFoldDb) {
-      E::reduce_parts(st, 1, parts, out, out, ws + P.col_part, 0, one_ptr(db[l]));
-    } else {
-      colsum(st, Np, out, P.colsum_chunk, dz_cur, ws + P.col_part, db[l]);
-    }
+    TcEngine::reduce_parts(st, 1, parts, out, out, ws + P.col_part, 0, one_ptr(db[l]));
     MARF_CHECK_LAUNCH();
     // dz of the layer below (ReLU-gated by its activation), or d(encoding)
     float* dz_next = ws + P.dz[cur ^ 1];
     GemmCall d = gemm_call(Np, in, out, dz_cur, out, W[l], in, dz_next, in);
     if (l > 0) {
       d.gate[0] = ws + P.acts[l - 1], d.ldg = in;
-      rc = E::template run<true, true, EPI_GATE>(st, d);
+      rc = TcEngine::run<true, true, EPI_GATE>(st, d);
     } else {
-      rc = E::template run<true, true, EPI_STORE>(st, d);
+      rc = TcEngine::run<true, true, EPI_STORE>(st, d);
     }
     if (rc) return rc;
     cur ^= 1;

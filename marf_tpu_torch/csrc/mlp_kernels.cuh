@@ -3,7 +3,7 @@
 //   - sgemm_kernel: tiled SIMT SGEMM (128x128 block tile, 8x8 outputs per
 //     thread, double-buffered shared memory, fmaf with float32 accumulation;
 //     no TF32, no library GEMM) with bias+ReLU, ReLU-gate or plain-store
-//     epilogues and split-K partials; the engine of K1-K4 (SimtEngine);
+//     epilogues and split-K partials; the engine of K3 and K4 (SimtEngine);
 //   - GemmCall: one product shape over up to MAX_GROUP operand sets (one per
 //     mask head), the argument of both engines' `run` (SimtEngine here,
 //     TcEngine in tc_gemm.cuh), so the pipelines are templates over the engine;
@@ -316,7 +316,7 @@ inline GroupPtrs one_ptr(float* p) {
 }
 
 // The SIMT float32 engine: one sgemm_kernel launch on one operand set (its
-// pipelines, K1-K4, run one head); no folded db (the pipelines take the
+// pipelines, K3 and K4, run one head); no folded db (the pipelines take the
 // column sums with colsum). A dW product writes one partial per split,
 // summed in sequence.
 struct SimtEngine {

@@ -1,6 +1,7 @@
 // The 3xTF32 tensor-core GEMM engine for Hopper (sm_90a): float32-accurate
-// products on the tensor cores, the engine of K5 (fused_implicit.cu) and K6
-// (fused_mask.cu). K1-K4 keep the SIMT engine of mlp_kernels.cuh.
+// products on the tensor cores, the engine of K1 and K2 (fused_step.cu), K5
+// (fused_implicit.cu) and K6 (fused_mask.cu). K3 and K4 keep the SIMT engine
+// of mlp_kernels.cuh.
 //
 // Arithmetic. Each float32 operand x is split into hi = tf32(x) and lo =
 // tf32(x - hi), tf32() rounding to nearest with ties away from zero and the
