@@ -87,7 +87,8 @@ SATURATED = 0.002
 ENGINES = {
     "simt": "simt (mlp_kernels.cuh sgemm_kernel, fmaf)",
     "3xtf32": "3xtf32 (tc_gemm.cuh, wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32, A from registers, 3 per "
-              "k8 step)",
+              "k8 step; the rgb pipeline's weights (K1, K2, K5) split once per call and their B tiles loaded by "
+              "cp.async.bulk on mbarriers)",
 }
 
 

@@ -27,12 +27,13 @@
 // wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32, A split into
 // registers from the landed tile in either layout, B split into K-major
 // hi/lo tiles in shared memory, transposed there where it lies point-major):
-// the mask's first layer reads X channels-first (A MN-major), the hidden
-// layers and the rgb forward read activations and weights K-major, the rgb
-// dz products read W [out, in] as it lies (B N-major, no transposed copy in
-// device memory), and the rgb dW products read dz and the layer input
-// point-major, with db folded into the dW product (the row sums of dz over
-// each split, no column-sum pass).
+// the mask's first layer reads X channels-first (A MN-major), its hidden
+// layers read activations and weights K-major, the rgb forward and dz
+// products read their weights pre-split once per call (W and W^T as hi/lo
+// core-matrix tiles in device memory, one bulk copy per tile; fused_step.cu),
+// and the rgb dW products read dz and the layer input point-major, with db
+// folded into the dW product (the row sums of dz over each split, no
+// column-sum pass).
 // The mask forward runs all heads in one launch per layer (the head is part
 // of the block index, as the TPU grid's g // T; the heads' weights and
 // biases come from the GemmCall's pointer table, passed by value), then one

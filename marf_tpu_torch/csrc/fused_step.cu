@@ -15,8 +15,12 @@
 // products: each dense layer runs on the 3xTF32 tensor-core engine
 // (tc_gemm.cuh, wgmma), with bias+ReLU, the ReLU gate and the split-K
 // partials fused into its epilogue and db folded into the dW product. The
-// elementwise stages (warp + posenc, the 256->3 head with the loss, the
-// posenc/warp VJP) are memory-bound passes of their own.
+// forward and dz products take their weights split into TF32 hi and lo
+// once per call (presplit_kernel, W and W^T, 3.4 MB at the canonical
+// size), each 16 KB tile brought into shared memory by one bulk copy, so no
+// block splits a weight tile again. The elementwise stages (warp + posenc,
+// the 256->3 head with the loss, the posenc/warp VJP) are memory-bound
+// passes of their own.
 //
 // The TPU kernel carried dW/db/dH/loss across a sequential grid in scratch.
 // CUDA blocks run in parallel in no order, so every reduction over points

@@ -287,6 +287,7 @@ __global__ void coords_bwd_kernel(int Np, int L, const float* __restrict__ coord
 struct Plan {
   int E, widest, head_blocks, head_chunk, head_stride, bwd_blocks, bwd_chunk;
   long long enc, acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dh_part, total;
+  long long wsplit[MAX_LAYERS][2];  // hidden layer l's weights pre-split for its forward [0] and dz [1] products
 };
 
 // B = 0 for K2 and K5 (no dH partials). col_part holds the db partials,
@@ -298,7 +299,11 @@ Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
   for (int l = 1; l <= n_layers; ++l) P.widest = dims[l] > P.widest ? dims[l] : P.widest;
   Arena a;
   P.enc = a.take((long long)Np * P.E);
-  for (int l = 0; l + 1 < n_layers; ++l) P.acts[l] = a.take((long long)Np * dims[l + 1]);
+  for (int l = 0; l + 1 < n_layers; ++l) {
+    P.acts[l] = a.take((long long)Np * dims[l + 1]);
+    P.wsplit[l][0] = a.take(presplit_floats(dims[l + 1], dims[l]));
+    P.wsplit[l][1] = a.take(presplit_floats(dims[l], dims[l + 1]));
+  }
   P.dz[0] = a.take((long long)Np * P.widest);
   P.dz[1] = a.take((long long)Np * P.widest);
   long long dw_max = 0, db_max = 0;
@@ -342,14 +347,21 @@ int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float*
   const Plan P = make_plan(Np, B, L, n_layers, dims);
   const int last = n_layers - 1;
 
+  // ---- the hidden layers' weights, split into TF32 hi and lo once for
+  // every block of their forward and dz products
+  for (int l = 0; l < last; ++l) {
+    const int rc = TcEngine::presplit(st, W[l], dims[l + 1], dims[l], ws + P.wsplit[l][0], ws + P.wsplit[l][1]);
+    if (rc) return rc;
+  }
+
   // ---- forward
   encode_kernel<<<cdiv(Np, ELEM_THREADS), ELEM_THREADS, 0, st>>>(Np, B, L, grid, H, coords, cw, ws + P.enc);
   MARF_CHECK_LAUNCH();
   for (int l = 0; l < last; ++l) {
     const float* in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
-    GemmCall c = gemm_call(Np, dims[l + 1], dims[l], in, dims[l], W[l], dims[l], ws + P.acts[l], dims[l + 1]);
+    GemmCall c = gemm_call(Np, dims[l + 1], dims[l], in, dims[l], ws + P.wsplit[l][0], 0, ws + P.acts[l], dims[l + 1]);
     c.bias[0] = bias[l];
-    const int rc = TcEngine::run<true, false, EPI_BIAS_RELU>(st, c);
+    const int rc = TcEngine::run_presplit<EPI_BIAS_RELU>(st, c);
     if (rc) return rc;
   }
 
@@ -389,12 +401,12 @@ int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float*
     MARF_CHECK_LAUNCH();
     // dz of the layer below (ReLU-gated by its activation), or d(encoding)
     float* dz_next = ws + P.dz[cur ^ 1];
-    GemmCall d = gemm_call(Np, in, out, dz_cur, out, W[l], in, dz_next, in);
+    GemmCall d = gemm_call(Np, in, out, dz_cur, out, ws + P.wsplit[l][1], 0, dz_next, in);
     if (l > 0) {
       d.gate[0] = ws + P.acts[l - 1], d.ldg = in;
-      rc = TcEngine::run<true, true, EPI_GATE>(st, d);
+      rc = TcEngine::run_presplit<EPI_GATE>(st, d);
     } else {
-      rc = TcEngine::run<true, true, EPI_STORE>(st, d);
+      rc = TcEngine::run_presplit<EPI_STORE>(st, d);
     }
     if (rc) return rc;
     cur ^= 1;

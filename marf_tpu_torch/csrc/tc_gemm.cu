@@ -1,7 +1,7 @@
 // A C entry point to the 3xTF32 tensor-core GEMM engine (tc_gemm.cuh), so
-// that every operand layout and epilogue can be held to its plain version
-// on the card (tests/test_torch_tc_gemm.py) apart from the kernels that use
-// it. No kernel of the train step calls it.
+// that every operand layout and epilogue, and the weights' pre-split, can be
+// held to their plain versions on the card (tests/test_torch_tc_gemm.py)
+// apart from the kernels that use them. No kernel of the train step calls it.
 
 #include "tc_gemm.cuh"
 
@@ -13,6 +13,15 @@ int run_epi(cudaStream_t st, int epi, const GemmCall& c) {
     case EPI_STORE: return TcEngine::run<AK, BNC, EPI_STORE>(st, c);
     case EPI_BIAS_RELU: return TcEngine::run<AK, BNC, EPI_BIAS_RELU>(st, c);
     case EPI_GATE: return TcEngine::run<AK, BNC, EPI_GATE>(st, c);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int run_presplit_epi(cudaStream_t st, int epi, const GemmCall& c) {
+  switch (epi) {
+    case EPI_STORE: return TcEngine::run_presplit<EPI_STORE>(st, c);
+    case EPI_BIAS_RELU: return TcEngine::run_presplit<EPI_BIAS_RELU>(st, c);
+    case EPI_GATE: return TcEngine::run_presplit<EPI_GATE>(st, c);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -44,10 +53,13 @@ long long marf_tc_gemm_workspace(int M, int N, int K, int splits, int rowsum) {
 // split, then their pairwise sum.
 // rsum [M] (nullptr: none; A point-major only): the row sums of A, folded
 // into the product as in the dW products.
-int marf_tc_gemm(int a_k_contig, int b_n_contig, int epi, int M, int N, int K, const float* A, int lda,
+// b_split: B is pre-split (marf_tc_presplit's output for this product, ldb
+// unused; A K-major only, depth at most 2,048, no splits, no row sums).
+int marf_tc_gemm(int a_k_contig, int b_n_contig, int b_split, int epi, int M, int N, int K, const float* A, int lda,
                  const float* B, int ldb, float* C, int ldc, const float* bias, const float* gate, int ldg, int splits,
                  float* rsum, float* ws, void* stream) {
   if (M < 1 || N < 1 || K < 1 || splits < 1 || (rsum && a_k_contig)) return (int)cudaErrorInvalidValue;
+  if (b_split && (!a_k_contig || splits > 1 || rsum || K > TC_BK * TC_FLUSH)) return (int)cudaErrorInvalidValue;
   int n, chunk;
   split_k(K, splits, n, chunk);
   const int parts = TcEngine::dw_parts(n, chunk);
@@ -61,8 +73,9 @@ int marf_tc_gemm(int a_k_contig, int b_n_contig, int epi, int M, int N, int K, c
     c.c_split_stride = (long long)M * N;
     if (rsum) c.rsum[0] = ws + (long long)parts * M * N;
   }
-  int rc = a_k_contig ? (b_n_contig ? run_epi<true, true>(st, epi, c) : run_epi<true, false>(st, epi, c))
-                      : (b_n_contig ? run_epi<false, true>(st, epi, c) : run_epi<false, false>(st, epi, c));
+  int rc = b_split      ? run_presplit_epi(st, epi, c)
+           : a_k_contig ? (b_n_contig ? run_epi<true, true>(st, epi, c) : run_epi<true, false>(st, epi, c))
+                        : (b_n_contig ? run_epi<false, true>(st, epi, c) : run_epi<false, false>(st, epi, c));
   if (rc || !staged) return rc;
   TcEngine::reduce_parts(st, 1, parts, M * N, (long long)M * N, ws, 0, one_ptr(C));  // the fixed-order sums
   MARF_CHECK_LAUNCH();
@@ -71,6 +84,17 @@ int marf_tc_gemm(int a_k_contig, int b_n_contig, int epi, int M, int N, int K, c
     MARF_CHECK_LAUNCH();
   }
   return 0;
+}
+
+// Floats of the pre-split B of a product of N columns and depth K.
+long long marf_tc_presplit_floats(int N, int K) { return presplit_floats(N, K); }
+
+// W [rows, cols] (row-major) pre-split as the B of its forward product ("mk,nk",
+// N = rows, K = cols) into fwd and of its dz product ("mk,kn", N = cols,
+// K = rows) into dz.
+int marf_tc_presplit(const float* W, int rows, int cols, float* fwd, float* dz, void* stream) {
+  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  return TcEngine::presplit((cudaStream_t)stream, W, rows, cols, fwd, dz);
 }
 
 }  // extern "C"

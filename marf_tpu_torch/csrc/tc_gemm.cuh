@@ -40,6 +40,17 @@
 //     descriptor's leading byte offset 128 B between k chunks, stride byte
 //     offset 1024 B between row groups), transposing a point-major tile on
 //     the way; it runs while the tensor cores work on the previous tile.
+//   - B pre-split (the template flag B_PRE; the rgb pipeline's forward and
+//     dz products, whose B is a weight matrix, the same for every block and
+//     k-tile of the call): presplit_kernel writes W's hi and lo once per
+//     call into device memory, in both orientations (W for the forward, W^T
+//     for the dz product), laid out as the split pass lays out a tile and
+//     ordered [n-tile][k-tile][hi | lo], so one (n, k) tile is 16 contiguous
+//     KB. A block streams each k-tile's tile into a three-stage ring with one
+//     bulk copy (cp.async.bulk ... mbarrier::complete_tx::bytes), issued by
+//     one thread and waited on with mbarrier.try_wait.parity; there is no
+//     split pass and no raw B tile. The bits the tensor cores read are the
+//     split pass's, so the products are bitwise those of the streaming mode.
 // (An mma.sync.m16n8k8 form of the same engine, every operand split in
 // registers, was no faster on the forward products and slower on the dW
 // products; PERF.md.)
@@ -49,17 +60,17 @@
 // copies where the operand's pointer and row stride allow, 4-byte copies
 // otherwise, zero fill past every ragged edge), split B tiles
 // double-buffered. BN = 128 (one block per SM, 154 KB of shared memory) for
-// the products with a point-major A, BN = 64 (two blocks per SM, 107 KB)
-// for the others, which stream a K-major A. Blocks are persistent over the
-// (m, n) tiles of their group and split, n fastest, so the blocks that
-// share an A tile run together; a block loads its next tile's first stages
-// before it stores the current one. Epilogues as the SIMT engine's: plain
-// store, bias + ReLU, ReLU gate; split-K partials summed in a fixed
-// (pairwise) order; and the folded db: in a dW product (A = dz,
-// point-major) the blocks of the first column tile also sum A's rows from
-// the same fragment reads, per k-tile then per partial, in a fixed order,
-// so db needs no pass of its own over dz. No float atomics: two launches on
-// the same inputs give bitwise-equal outputs.
+// the products with a point-major A, BN = 64 (two blocks per SM, 107 KB;
+// 104 KB with B pre-split) for the others, which stream a K-major A. Blocks
+// are persistent over the (m, n) tiles of their group and split, n fastest,
+// so the blocks that share an A tile run together; a block loads its next
+// tile's first stages before it stores the current one. Epilogues as the
+// SIMT engine's: plain store, bias + ReLU, ReLU gate; split-K partials
+// summed in a fixed (pairwise) order; and the folded db: in a dW product (A
+// = dz, point-major) the blocks of the first column tile also sum A's rows
+// from the same fragment reads, per k-tile then per partial, in a fixed
+// order, so db needs no pass of its own over dz. No float atomics: two
+// launches on the same inputs give bitwise-equal outputs.
 //
 // Groups: one launch runs the same product for up to MAX_GROUP operand sets
 // (mask heads), blockIdx.z = group * splits + split, the per-group pointers
@@ -77,6 +88,9 @@ constexpr int TC_THREADS = 256;      // two warpgroups: block rows [0, 64) and [
 constexpr int TC_WAVE_BLOCKS = 132;  // one block per SM on 132 SMs
 constexpr int TC_K_STRIDE = TC_BK + 4;  // K-major raw tile [rows][BK + 4]: 4 mod 32 banks per row
 constexpr int TC_FLUSH = 64;  // k-tiles (2,048 points) per partial of a dW product
+constexpr int TC_PRE_BN = 64;  // a pre-split B's tile width (the K-major-A products' BN)
+constexpr int TC_PRE_TILE = 2 * TC_PRE_BN * TC_BK;  // floats of one pre-split (n, k) tile: hi | lo
+constexpr int TC_PRE_RING = 3;  // pre-split B tiles in flight per block
 static_assert(TC_BM == BM, "dw_split counts 128-row tiles in both engines");
 
 // floats of one raw tile of `rows` rows: K-major [rows][BK + 4], or
@@ -100,6 +114,39 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of transactions in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device to
+// shared memory, completed on `bar`
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
 }
 
 // tf32(x): round to nearest, ties away from zero, low 13 bits cleared
@@ -260,14 +307,52 @@ __device__ __forceinline__ void tc_split_tile(const float* raw, float* hi, float
   }
 }
 
+// floats of a pre-split B of N columns and depth K
+inline long long presplit_floats(int N, int K) { return (long long)cdiv(N, TC_PRE_BN) * cdiv(K, TC_BK) * TC_PRE_TILE; }
+
+// W [rows, cols] (row-major, nn.Linear's [out, in]) as the pre-split B of
+// the two products that read it, blockIdx.y = 0: B(k, n) = W[n, k] (the
+// forward, N = rows, K = cols) into fwd; 1: B(k, n) = W[k, n] (the dz
+// product, N = cols, K = rows) into dz. Tile (n / 64, k / 32) starts at
+// ((n / 64) ktiles + k / 32) TC_PRE_TILE, its hi part then its lo part,
+// each as tc_split_tile writes one (cm_off), zeros past N and K. One thread
+// per row and 4-k chunk, row-fastest as tc_split_tile.
+__global__ void presplit_kernel(const float* __restrict__ W, int rows, int cols, float* __restrict__ fwd,
+                                float* __restrict__ dz) {
+  const bool t = blockIdx.y == 1;
+  const int N = t ? cols : rows, K = t ? rows : cols;
+  const int ktiles = (K + TC_BK - 1) / TC_BK;
+  constexpr int UNITS = TC_PRE_BN * (TC_BK / 4);  // per tile
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= (long long)((N + TC_PRE_BN - 1) / TC_PRE_BN) * ktiles * UNITS) return;
+  const int tile = (int)(u / UNITS), r = (int)(u % TC_PRE_BN), c = (int)(u % UNITS / TC_PRE_BN);
+  const int n = tile / ktiles * TC_PRE_BN + r, k0 = tile % ktiles * TC_BK + 4 * c;
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = k0 + j;
+    v[j] = n < N && k < K ? (t ? W[(long long)k * cols + n] : W[(long long)n * cols + k]) : 0.0f;
+  }
+  uint4 h, l;
+  split_tf32(v[0], h.x, l.x);
+  split_tf32(v[1], h.y, l.y);
+  split_tf32(v[2], h.z, l.z);
+  split_tf32(v[3], h.w, l.w);
+  float* o = (t ? dz : fwd) + (long long)tile * TC_PRE_TILE;
+  *reinterpret_cast<uint4*>(o + cm_off(r, c)) = h;
+  *reinterpret_cast<uint4*>(o + TC_PRE_TILE / 2 + cm_off(r, c)) = l;
+}
+
 // C[M, N] (+)= A[M, K] B[K, N] per group and split (GemmCall), layouts as
 // sgemm_kernel's: A(m, k) = A_K_CONTIG ? A[m*lda + k] : A[k*lda + m],
-// B(k, n) = B_N_CONTIG ? B[k*ldb + n] : B[n*ldb + k]. a_vec / b_vec:
+// B(k, n) = B_N_CONTIG ? B[k*ldb + n] : B[n*ldb + k]; with B_PRE, B is a
+// pre-split B (presplit_kernel; B_N_CONTIG and ldb unused). a_vec / b_vec:
 // 16-byte copies allowed for A / B (every group's pointer 16-byte aligned,
 // leading dimension a multiple of 4). The design is at the top of this file.
-template <bool A_K_CONTIG, bool B_N_CONTIG, int EPI, int BN>
+template <bool A_K_CONTIG, bool B_N_CONTIG, int EPI, int BN, bool B_PRE>
 __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(const GemmCall c, int a_vec,
                                                                               int b_vec) {
+  static_assert(!B_PRE || (A_K_CONTIG && BN == TC_PRE_BN), "a pre-split B: the K-major-A products, 64 wide");
   constexpr bool A_KM = A_K_CONTIG;
   constexpr bool B_KM = !B_N_CONTIG;
   constexpr int A_FL = tc_tile_floats(A_KM, TC_BM);
@@ -276,13 +361,17 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
   constexpr int NACC = BN / 2;
   constexpr int RAW = 3;    // A of tile kt is read when its wgmmas are issued
   constexpr int RAW_B = 2;  // B of tile kt + 1 is split during tile kt
+  // split B tiles: double-buffered, or the pre-split ring (slot kt % 3, as A's)
+  constexpr int SPLIT = B_PRE ? TC_PRE_RING : 2;
+  static_assert(!B_PRE || TC_PRE_RING == RAW, "load_stage(kt + 3) refills the slots tile kt frees");
   // a dW product (A point-major, plain store) writes a partial per
   // TC_FLUSH k-tiles; every other product one per split
   constexpr bool PARTS = !A_K_CONTIG && EPI == EPI_STORE;
   extern __shared__ __align__(128) float tc_smem[];
-  float* split = tc_smem;  // [2][B hi | B lo]
-  float* rawA = split + 4 * SB;
-  float* rawB = rawA + RAW * A_FL;
+  float* split = tc_smem;  // [SPLIT][B hi | B lo]
+  float* rawA = split + SPLIT * 2 * SB;
+  float* rawB = rawA + RAW * A_FL;  // not with B_PRE
+  uint64_t* bar = reinterpret_cast<uint64_t*>(rawA + RAW * A_FL);  // B_PRE: one per ring slot
 
   const int tid = threadIdx.x;
   const int g = blockIdx.z / c.splits;
@@ -303,11 +392,30 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
   // run together, so A comes from L2 after its first read)
   const int ntn = (c.N + BN - 1) / BN;
   const int tiles = (c.M + TC_BM - 1) / TC_BM * ntn;
+  const int kt_all = (c.K + TC_BK - 1) / TC_BK;  // a pre-split B's k-tiles
+  unsigned phase = 0;  // B_PRE: bit s, the parity of ring slot s's next fill
+
+  if constexpr (B_PRE) {
+    if (tid == 0) {
+      for (int s = 0; s < TC_PRE_RING; ++s) mbar_init(&bar[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
 
   auto load_stage = [&](int t, int kt) {
     const int kb = k0 + kt * TC_BK;
     tc_load_tile<A_KM, TC_BM>(rawA + kt % RAW * A_FL, A, c.lda, t / ntn * TC_BM, c.M, kb, k1, a_vec);
-    tc_load_tile<B_KM, BN>(rawB + kt % RAW_B * B_FL, B, c.ldb, t % ntn * BN, c.N, kb, k1, b_vec);
+    if constexpr (B_PRE) {
+      if (tid == 0) {  // the whole (n, k) tile, hi and lo, in one bulk copy
+        const int s = kt % TC_PRE_RING;
+        mbar_expect_tx(&bar[s], TC_PRE_TILE * sizeof(float));
+        bulk_load(split + s * 2 * SB, B + ((long long)(t % ntn) * kt_all + kb / TC_BK) * TC_PRE_TILE,
+                  TC_PRE_TILE * sizeof(float), &bar[s]);
+      }
+    } else {
+      tc_load_tile<B_KM, BN>(rawB + kt % RAW_B * B_FL, B, c.ldb, t % ntn * BN, c.N, kb, k1, b_vec);
+    }
   };
   auto split_b = [&](int kt) {
     float* s = split + (kt % 2) * 2 * SB;
@@ -327,9 +435,11 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
     const bool do_rsum = rsum != nullptr && n0 == 0;
     cp_async_wait<1>();
     __syncthreads();
-    if (ktiles > 0) split_b(0);
-    fence_proxy_async();
-    __syncthreads();
+    if constexpr (!B_PRE) {
+      if (ktiles > 0) split_b(0);
+      fence_proxy_async();
+      __syncthreads();
+    }
     if (ktiles > 2) load_stage(t, 2);
     cp_async_commit();
 
@@ -391,8 +501,13 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
         }
       }
       rs0 += t0, rs1 += t1;
-      const float* bh = split + (kt % 2) * 2 * SB;
+      const float* bh = split + (kt % SPLIT) * 2 * SB;
       const float* bl = bh + SB;
+      if constexpr (B_PRE) {  // tile kt's bulk copy has landed
+        const int s = kt % TC_PRE_RING;
+        mbar_wait(&bar[s], (phase >> s) & 1u);
+        phase ^= 1u << s;
+      }
       reg_fence(fr);
       wg_fence();
 #pragma unroll
@@ -411,11 +526,13 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
         }
       }
       wg_commit();
-      if (kt + 1 < ktiles) {  // split the next B tile while the tensor cores work
-        cp_async_wait<1>();
-        __syncthreads();
-        split_b(kt + 1);
-        fence_proxy_async();
+      if constexpr (!B_PRE) {
+        if (kt + 1 < ktiles) {  // split the next B tile while the tensor cores work
+          cp_async_wait<1>();
+          __syncthreads();
+          split_b(kt + 1);
+          fence_proxy_async();
+        }
       }
       wg_wait0();
       reg_fence(fr);
@@ -426,7 +543,9 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
       if constexpr (PARTS) {
         if ((kt + 1) % TC_FLUSH == 0 && kt + 1 < ktiles) store(kt / TC_FLUSH);
       }
-      __syncthreads();  // split tile kt, A slot kt % 3 and B slot (kt + 1) % 2 are free
+      // B_PRE: A of tile kt + 1 lands here, one barrier for both
+      if constexpr (B_PRE) cp_async_wait<1>();
+      __syncthreads();  // A slot kt % 3 and split tile kt are free (and raw B slot (kt + 1) % 2)
       if (kt + 3 < ktiles) load_stage(t, kt + 3);
       cp_async_commit();
     }
@@ -444,13 +563,14 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
   cp_async_wait<0>();
 }
 
-template <bool AK, bool BNC, int EPI, int BN>
+template <bool AK, bool BNC, int EPI, int BN, bool B_PRE = false>
 int tc_launch(cudaStream_t st, const GemmCall& c, bool a_vec, bool b_vec) {
-  constexpr int floats = 4 * BN * TC_BK + 3 * tc_tile_floats(AK, TC_BM) + 2 * tc_tile_floats(!BNC, BN);
+  constexpr int floats = B_PRE ? TC_PRE_RING * TC_PRE_TILE + 3 * tc_tile_floats(AK, TC_BM) + 2 * TC_PRE_RING
+                               : 4 * BN * TC_BK + 3 * tc_tile_floats(AK, TC_BM) + 2 * tc_tile_floats(!BNC, BN);
   constexpr int smem = floats * (int)sizeof(float);
   // once per template instance: a host API call per launch would add to the
   // enqueue time that paces the train step
-  static const cudaError_t attr = cudaFuncSetAttribute(tc_gemm_kernel<AK, BNC, EPI, BN>,
+  static const cudaError_t attr = cudaFuncSetAttribute(tc_gemm_kernel<AK, BNC, EPI, BN, B_PRE>,
                                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   // persistent over the (m, n) tiles of each group and split: one wave
@@ -458,7 +578,7 @@ int tc_launch(cudaStream_t st, const GemmCall& c, bool a_vec, bool b_vec) {
   const int wave = TC_WAVE_BLOCKS * (BN == 64 ? 2 : 1);
   const int per = wave / zs > 1 ? wave / zs : 1;
   dim3 grid(tiles < per ? tiles : per, 1, zs);
-  tc_gemm_kernel<AK, BNC, EPI, BN><<<grid, TC_THREADS, smem, st>>>(c, a_vec, b_vec);
+  tc_gemm_kernel<AK, BNC, EPI, BN, B_PRE><<<grid, TC_THREADS, smem, st>>>(c, a_vec, b_vec);
   return (int)cudaGetLastError();
 }
 
@@ -504,6 +624,30 @@ struct TcEngine {
       if (tile_n(AK, c.N) == 128) return tc_launch<AK, BNC, EPI, 128>(st, c, a_vec, b_vec);
     }
     return tc_launch<AK, BNC, EPI, 64>(st, c, a_vec, b_vec);
+  }
+  // W [rows, cols] as the pre-split B of its forward product (fwd,
+  // presplit_floats(rows, cols) floats) and of its dz product (dz,
+  // presplit_floats(cols, rows)), in one launch
+  static int presplit(cudaStream_t st, const float* W, int rows, int cols, float* fwd, float* dz) {
+    const long long f = presplit_floats(rows, cols), d = presplit_floats(cols, rows);
+    const long long units = (f > d ? f : d) / 8;  // a thread per 4 k of a row, hi and lo
+    presplit_kernel<<<dim3(cdiv(units, ELEM_THREADS), 2), ELEM_THREADS, 0, st>>>(W, rows, cols, fwd, dz);
+    return (int)cudaGetLastError();
+  }
+  // run<true, *, EPI> with every group's B pre-split (presplit's fwd or dz
+  // for this product); ldb unused
+  template <int EPI>
+  static int run_presplit(cudaStream_t st, const GemmCall& c) {
+    if (c.groups < 1 || c.groups > MAX_GROUP || (c.splits > 1 && c.k_chunk % TC_BK != 0) ||
+        dw_parts(c.splits, c.k_chunk) > c.splits) {
+      return (int)cudaErrorInvalidValue;
+    }
+    bool a_vec = c.lda % 4 == 0;
+    for (int g = 0; g < c.groups; ++g) {
+      a_vec = a_vec && (uintptr_t)c.A[g] % 16 == 0;
+      if ((uintptr_t)c.B[g] % 16 != 0 || c.rsum[g]) return (int)cudaErrorInvalidValue;  // bulk copies: 16 B
+    }
+    return tc_launch<true, false, EPI, TC_PRE_BN, true>(st, c, a_vec, false);
   }
 };
 

@@ -13,5 +13,6 @@ LAUNCHES = {
     "fused_mask_backward_dedup": 0,  # K4, fused_mask.py
     "fused_implicit_train_kernel": 0,  # K5, fused_implicit.py
     "fused_mask_backward_g": 0,  # K6, fused_mask.py
-    "tc_gemm": 0,  # the K5/K6 GEMM engine alone, tc_gemm.py (tests only, never on the train step)
+    "tc_gemm": 0,  # the 3xTF32 GEMM engine alone, tc_gemm.py (tests only, never on the train step)
+    "tc_presplit": 0,  # the weights' pre-split alone, tc_gemm.py (tests only)
 }

@@ -1,11 +1,22 @@
-"""The 3xTF32 tensor-core GEMM engine of K5 and K6 (csrc/tc_gemm.cuh), through
-its own C entry point (csrc/tc_gemm.cu), beside its plain PyTorch version.
+"""The 3xTF32 tensor-core GEMM engine of K1, K2, K5 and K6 (csrc/tc_gemm.cuh),
+through its own C entry point (csrc/tc_gemm.cu), beside its plain PyTorch
+versions.
 
-It exists so that each operand layout and epilogue of the engine can be held
-to `torch.matmul` on the card apart from the kernels that use it
-(tests/test_torch_tc_gemm.py); nothing on the train step calls it. The split
-arithmetic itself (hi = tf32(x), lo = tf32(x - hi), three TF32 products per
-float32 product) is emulated in numpy by the CPU tests in that file.
+It exists so that each operand layout and epilogue of the engine, and the
+weights' pre-split, can be held to their plain versions on the card apart
+from the kernels that use them (tests/test_torch_tc_gemm.py); nothing on the
+train step calls it. The split arithmetic itself (hi = tf32(x), lo = tf32(x -
+hi), three TF32 products per float32 product) is emulated in numpy by the
+CPU tests in that file.
+
+The pre-split B (`presplit`): a weight W [rows, cols] split once into TF32 hi
+and lo, laid out as the kernel's split pass lays out a B tile in shared
+memory (64 columns by 32 deep, K-major 8 x 4 core matrices of 128 bytes,
+element (n, k) of a tile at (n // 8) 256 + (k // 4) 32 + (n % 8) 4 + k % 4),
+tiles ordered [n-tile][k-tile][hi | lo], zeros past the edges; once as the B
+of the forward product ("mk,nk": B(k, n) = W[n, k]) and once as the B of the
+dz product ("mk,kn": B(k, n) = W[k, n]). The rgb pipeline (K1, K2, K5) writes
+it once per call and streams each tile into shared memory with one bulk copy.
 
 Layouts name how A [M, K] and B [K, N] lie in memory, as the kernels' products
 do: "mk" / "km" for A, "kn" / "nk" for B:
@@ -25,6 +36,7 @@ from marf_tpu_torch.ops.cuda import LAUNCHES
 from marf_tpu_torch.ops.cuda.fused_step import check_tensor
 
 SOURCES = ["tc_gemm.cu"]
+PRE_BN, BK = 64, 32  # a pre-split tile's width and depth (TC_PRE_BN, TC_BK in csrc/tc_gemm.cuh)
 LAYOUTS = {"mk,nk": (True, False), "mk,kn": (True, True), "km,kn": (False, True), "km,nk": (False, False)}
 EPILOGUES = {"store": 0, "bias_relu": 1, "gate": 2}
 
@@ -33,8 +45,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.marf_tc_gemm_workspace.argtypes = [i, i, i, i, i]
     lib.marf_tc_gemm_workspace.restype = ctypes.c_longlong
-    lib.marf_tc_gemm.argtypes = [i, i, i, i, i, i, p, i, p, i, p, i, p, p, i, i, p, p, p]
+    lib.marf_tc_gemm.argtypes = [i, i, i, i, i, i, i, p, i, p, i, p, i, p, p, i, i, p, p, p]
     lib.marf_tc_gemm.restype = ctypes.c_int
+    lib.marf_tc_presplit_floats.argtypes = [i, i]
+    lib.marf_tc_presplit_floats.restype = ctypes.c_longlong
+    lib.marf_tc_presplit.argtypes = [p, i, i, p, p, p]
+    lib.marf_tc_presplit.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
@@ -55,7 +71,8 @@ def _dims(a: torch.Tensor, b: torch.Tensor, layout: str):
     return a_k, b_n, M, N, K
 
 
-def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, splits: int = 1, rowsum: bool = False):
+def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, splits: int = 1, rowsum: bool = False,
+            presplit_b: bool = False):
     """C = epilogue(A B) on the tensor cores in 3xTF32.
 
     Args:
@@ -70,6 +87,10 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
         a split; with A "mk" such a depth is refused).
       rowsum: also return A's row sums over k (A "km" only), folded into the
         product as the dW products fold db.
+      presplit_b: B (contiguous, depth at most 2,048) pre-split by
+        `presplit` and streamed by bulk copies, as the rgb pipeline's
+        forward ("mk,nk") and dz ("mk,kn") products read their weights; no
+        splits, no rowsum.
 
     Returns C [M, N] (and the row sums [M] when rowsum). CPU tensors run
     `tc_gemm_reference`.
@@ -88,6 +109,10 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
         raise ValueError(f"tc_gemm: epilogue {epilogue!r} with bias={bias is not None}, gate={gate is not None}")
     if splits < 1 or ((splits > 1 or rowsum) and epilogue != "store") or (rowsum and a_k):
         raise ValueError(f"tc_gemm: splits={splits}, rowsum={rowsum} need the store epilogue (and A 'km' for rowsum)")
+    if presplit_b and (layout not in ("mk,nk", "mk,kn") or splits > 1 or rowsum or K > 2048
+                       or not b.is_contiguous()):
+        raise ValueError(f"tc_gemm: a pre-split B takes layout 'mk,nk' or 'mk,kn', a contiguous B of depth at most "
+                         f"2,048, no splits and no rowsum (got {layout}, {tuple(b.shape)}, splits={splits})")
     if bias is not None:
         check_tensor("tc_gemm", "bias", bias, (N,), device)
     if gate is not None:
@@ -97,8 +122,12 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
     rs = torch.empty((M,), dtype=torch.float32, device=device) if rowsum else None
     ws = torch.empty(max(1, lib.marf_tc_gemm_workspace(M, N, K, splits, int(rowsum))), dtype=torch.float32,
                      device=device)
+    b_ptr, ldb = b.data_ptr(), b.stride(0)
+    if presplit_b:
+        fwd, dz = presplit(b)
+        b_ptr, ldb = (fwd if layout == "mk,nk" else dz).data_ptr(), 0
     rc = lib.marf_tc_gemm(
-        int(a_k), int(b_n), EPILOGUES[epilogue], M, N, K, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+        int(a_k), int(b_n), int(presplit_b), EPILOGUES[epilogue], M, N, K, a.data_ptr(), a.stride(0), b_ptr, ldb,
         c.data_ptr(), N, None if bias is None else bias.data_ptr(), None if gate is None else gate.data_ptr(), N,
         splits, None if rs is None else rs.data_ptr(), ws.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
@@ -109,9 +138,9 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
 
 
 def tc_gemm_reference(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, splits: int = 1,
-                      rowsum: bool = False):
+                      rowsum: bool = False, presplit_b: bool = False):
     """Plain PyTorch version of `tc_gemm` (torch.matmul plus the epilogue);
-    `splits` does not change the function."""
+    `splits` and `presplit_b` do not change the function."""
     a_k, b_n, *_ = _dims(a, b, layout)
     A = a if a_k else a.T
     c = A @ (b if b_n else b.T)
@@ -121,3 +150,56 @@ def tc_gemm_reference(a, b, layout: str, epilogue: str = "store", bias=None, gat
         c = torch.where(gate > 0, c, torch.zeros_like(c))
     return (c, A.sum(dim=1)) if rowsum else c
 
+
+
+def presplit_floats(n: int, k: int) -> int:
+    """Floats of the pre-split B of a product of n columns and depth k."""
+    return -(-n // PRE_BN) * -(-k // BK) * 2 * PRE_BN * BK
+
+
+def presplit(w: torch.Tensor):
+    """W [rows, cols] (contiguous float32) pre-split as the B of its forward
+    and of its dz product (module docstring): (fwd [presplit_floats(rows,
+    cols)], dz [presplit_floats(cols, rows)]). CPU tensors run
+    `presplit_reference`."""
+    if w.device.type == "cpu":
+        return presplit_reference(w)
+    if w.device.type != "cuda":
+        raise ValueError(f"presplit: unsupported device {w.device}")
+    if w.dtype != torch.float32 or w.dim() != 2 or not w.is_contiguous():
+        raise ValueError(f"presplit: W must be a contiguous 2-d float32 tensor, got {w.dtype} {tuple(w.shape)}")
+    lib = _library()
+    rows, cols = w.shape
+    fwd = torch.empty(lib.marf_tc_presplit_floats(rows, cols), dtype=torch.float32, device=w.device)
+    dz = torch.empty(lib.marf_tc_presplit_floats(cols, rows), dtype=torch.float32, device=w.device)
+    rc = lib.marf_tc_presplit(w.data_ptr(), rows, cols, fwd.data_ptr(), dz.data_ptr(),
+                              torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"presplit kernel launch failed: CUDA error {rc}")
+    LAUNCHES["tc_presplit"] += 1
+    return fwd, dz
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as the engine's tf32_rna: to nearest, ties
+    away from zero, the low 13 bits cleared (finite inputs)."""
+    u = (x.contiguous().view(torch.int32).to(torch.int64) + 0x1000) & 0xFFFFE000
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(torch.float32)
+
+
+def _presplit_one(bt: torch.Tensor) -> torch.Tensor:
+    """Bt [N, K] (Bt[n, k] = B(k, n)) -> its pre-split, flat."""
+    N, K = bt.shape
+    nt, kt = -(-N // PRE_BN), -(-K // BK)
+    x = torch.zeros(nt * PRE_BN, kt * BK, dtype=torch.float32, device=bt.device)
+    x[:N, :K] = bt
+    hi = tf32(x)
+    lo = tf32(x - hi)
+    # [n-tile, n // 8, n % 8, k-tile, k // 4, k % 4] -> [n-tile, k-tile, n // 8, k // 4, n % 8, k % 4]
+    lay = lambda t: t.reshape(nt, PRE_BN // 8, 8, kt, BK // 4, 4).permute(0, 3, 1, 4, 2, 5)
+    return torch.stack([lay(hi), lay(lo)], dim=2).reshape(-1)
+
+
+def presplit_reference(w: torch.Tensor):
+    """Plain PyTorch version of `presplit`: (fwd, dz)."""
+    return _presplit_one(w), _presplit_one(w.T)

@@ -196,6 +196,33 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def hold_to_plain_on_card(kernel, plain, args, name):
+    """A K1 or K2 wrapper against its plain version on the card: values
+    (rgb, loss, sq) 1e-5, dH or dcoords and every dW, db 1e-4 of the max-abs,
+    one count per launch, bitwise-equal relaunch."""
+    before = LAUNCHES[name]
+    out = kernel(*args)
+    out2 = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 2
+    for a, b, tol in [(out[0], ref[0], 1e-5), (out[1], ref[1], 1e-5), (out[4], ref[4], 1e-5), (out[3], ref[3], 1e-4)]:
+        assert rel_err(a.cpu().numpy(), b.cpu().numpy()) <= tol
+    for (dw, db), (rw, rb) in zip(out[2], ref[2]):
+        assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= 1e-4
+        assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= 1e-4
+    # no float atomics: two launches on the same inputs are bitwise equal
+    assert torch.equal(out[3], out2[3]) and all(torch.equal(a[0], b[0]) for a, b in zip(out[2], out2[2]))
+
+
+def k2_args(g, targets, masks, rng, device):
+    """K2's arguments: random warped coordinates over the grid's range."""
+    d = lambda x: torch.from_numpy(x).to(device)
+    coords = (rng.rand(2, targets.shape[1]) * 2.2 - 1.1).astype(np.float32)
+    return (g.neural_image, d(coords), torch.tensor([1.0, 0.8, 0.3, 0.0], device=device), d(targets), d(masks),
+            torch.tensor(1.7, device=device), torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32, device=device))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", [{}, {"posenc_L": None, "barf_c2f": None}], ids=["c2f", "no_posenc"])
 def test_kernel_matches_plain_on_card(rng, cuda_device, arch):
@@ -206,19 +233,8 @@ def test_kernel_matches_plain_on_card(rng, cuda_device, arch):
     d = lambda x: torch.from_numpy(x).to(cuda_device)
     args = (g.neural_image, d(grid_b), d(H), cw, d(targets), d(masks), torch.tensor(1.7, device=cuda_device),
             torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32, device=cuda_device))
-    before = LAUNCHES["fused_train_kernel_warp"]
-    out = fs.fused_train_kernel_warp(*args)
-    out2 = fs.fused_train_kernel_warp(*args)
-    ref = fs.fused_train_kernel_warp_reference(*args)
-    torch.cuda.synchronize()
-    assert LAUNCHES["fused_train_kernel_warp"] == before + 2
-    for a, b, tol in [(out[0], ref[0], 1e-5), (out[1], ref[1], 1e-5), (out[4], ref[4], 1e-5), (out[3], ref[3], 1e-4)]:
-        assert rel_err(a.cpu().numpy(), b.cpu().numpy()) <= tol
-    for (dw, db), (rw, rb) in zip(out[2], ref[2]):
-        assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= 1e-4
-        assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= 1e-4
-    # no float atomics: two launches on the same inputs are bitwise equal
-    assert torch.equal(out[3], out2[3]) and all(torch.equal(a[0], b[0]) for a, b in zip(out[2], out2[2]))
+    hold_to_plain_on_card(fs.fused_train_kernel_warp, fs.fused_train_kernel_warp_reference, args,
+                          "fused_train_kernel_warp")
 
 
 @pytest.mark.cuda
@@ -227,23 +243,27 @@ def test_coords_kernel_matches_plain_on_card(rng, cuda_device):
     jcfg, tcfg = cfg_pair()
     jp, _, _, targets, masks = k1_inputs(jcfg, rng)
     g = port_graph(tcfg, jp).to(cuda_device)
+    hold_to_plain_on_card(fs.fused_train_kernel, fs.fused_train_kernel_reference,
+                          k2_args(g, targets, masks, rng, cuda_device), "fused_train_kernel")
+
+
+@pytest.mark.cuda
+def test_kernels_at_eight_images_and_ragged_points_on_card(rng, cuda_device):
+    """K1 and K2 at B = 8 images (the most K1 takes) of 14 x 30 points, N =
+    3,360, a multiple of no 128-point tile: values 1e-5, grads, dH and
+    dcoords 1e-4, bitwise relaunch."""
+    jcfg, tcfg = cfg_pair(batch_size=8, patch_H=14, patch_W=30)
+    jp, grid_b, H, targets, masks = k1_inputs(jcfg, rng)
+    assert H.shape[0] == fs.MAX_IMAGES and grid_b.shape[1] == 3360
+    g = port_graph(tcfg, jp).to(cuda_device)
     d = lambda x: torch.from_numpy(x).to(cuda_device)
-    coords = (rng.rand(2, targets.shape[1]) * 2.2 - 1.1).astype(np.float32)
-    args = (g.neural_image, d(coords), torch.tensor([1.0, 0.8, 0.3, 0.0], device=cuda_device), d(targets), d(masks),
-            torch.tensor(1.7, device=cuda_device),
+    args = (g.neural_image, d(grid_b), d(H), torch.tensor([1.0, 0.8, 0.3, 0.0], device=cuda_device), d(targets),
+            d(masks), torch.tensor(1.7, device=cuda_device),
             torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32, device=cuda_device))
-    before = LAUNCHES["fused_train_kernel"]
-    out = fs.fused_train_kernel(*args)
-    out2 = fs.fused_train_kernel(*args)
-    ref = fs.fused_train_kernel_reference(*args)
-    torch.cuda.synchronize()
-    assert LAUNCHES["fused_train_kernel"] == before + 2
-    for a, b, tol in [(out[0], ref[0], 1e-5), (out[1], ref[1], 1e-5), (out[4], ref[4], 1e-5), (out[3], ref[3], 1e-4)]:
-        assert rel_err(a.cpu().numpy(), b.cpu().numpy()) <= tol
-    for (dw, db), (rw, rb) in zip(out[2], ref[2]):
-        assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= 1e-4
-        assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= 1e-4
-    assert torch.equal(out[3], out2[3]) and all(torch.equal(a[0], b[0]) for a, b in zip(out[2], out2[2]))
+    hold_to_plain_on_card(fs.fused_train_kernel_warp, fs.fused_train_kernel_warp_reference, args,
+                          "fused_train_kernel_warp")
+    hold_to_plain_on_card(fs.fused_train_kernel, fs.fused_train_kernel_reference,
+                          k2_args(g, targets, masks, rng, cuda_device), "fused_train_kernel")
 
 
 @pytest.mark.cuda

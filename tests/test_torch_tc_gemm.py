@@ -12,11 +12,18 @@ twice float32 torch's own, while single-pass TF32 (hi_a hi_b only) does
 not, which is why the engine never uses it. This covers the split
 arithmetic only: the kernel itself runs on a card.
 
+On the CPU also the weights' pre-split (`presplit`, the B operand of the rgb
+pipeline's forward and dz products, split once per call): its plain version
+against the core-matrix layout formula, written out here, for W and W^T.
+
 On a card (marker `cuda`): `tc_gemm` against its plain version and float64,
 for every operand layout and epilogue, at ragged sizes and depths, with
 split-K and the folded row sums, from misaligned views (4-byte copies), and
 at K6's real dW split (within twice the plain version's distance from
-float64).
+float64); the pre-split kernel bitwise equal to its plain version; the
+forward and dz products with B pre-split (bulk copies) against the plain
+version and float64, and bitwise equal to the same products with B split in
+shared memory.
 """
 
 import numpy as np
@@ -208,6 +215,52 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting(rng):
         tg.tc_gemm(a, b, "mk,kn")
 
 
+# the rgb MLP's layers W [out, in]: 34 -> 256 (a ragged k-tile in the
+# forward, a ragged n-tile in the dz product) and 256 -> 256
+PRESPLIT_SHAPES = [(256, 34), (256, 256)]
+
+
+def presplit_offsets(N: int, K: int):
+    """The core-matrix layout, written out: the float offset of (n, k) in
+    part p (0 hi, 1 lo) of a pre-split B of N columns and depth K, for every
+    n and k of the padded tiles."""
+    kt = -(-K // tg.BK)
+    n, k, p = np.meshgrid(np.arange(-(-N // tg.PRE_BN) * tg.PRE_BN), np.arange(kt * tg.BK), np.arange(2),
+                          indexing="ij")
+    tile = (n // tg.PRE_BN) * kt + k // tg.BK
+    r, kk = n % tg.PRE_BN, k % tg.BK
+    return n, k, p, tile * 2 * tg.PRE_BN * tg.BK + p * tg.PRE_BN * tg.BK + (r // 8) * 256 + (kk // 4) * 32 + (r % 8) * 4 + kk % 4
+
+
+@pytest.mark.parametrize("rows,cols", PRESPLIT_SHAPES, ids=["34to256", "256to256"])
+def test_presplit_plain_layout(rng, rows, cols):
+    """The plain pre-split of W [rows, cols], for the forward (B(k, n) =
+    W[n, k]) and the dz product (B(k, n) = W[k, n]): every float of the
+    buffer is one (n, k, part) of the layout formula, hi is tf32(B), hi + lo
+    keeps B to 2^-22 of its size, zeros past the edges."""
+    w = (rng.randn(rows, cols) * 10.0 ** rng.randint(-3, 3, (rows, cols))).astype(np.float32)
+    for buf, bt in zip(tg.presplit_reference(torch.from_numpy(w)), (w, w.T)):
+        buf = buf.numpy()
+        N, K = bt.shape
+        n, k, p, off = presplit_offsets(N, K)
+        assert buf.shape == (tg.presplit_floats(N, K),)
+        assert np.array_equal(np.sort(off.ravel()), np.arange(buf.size))  # a permutation
+        inside = (n < N) & (k < K)
+        x = np.where(inside[..., 0], bt[np.minimum(n[..., 0], N - 1), np.minimum(k[..., 0], K - 1)], np.float32(0))
+        hi, lo = buf[off[..., 0]], buf[off[..., 1]]
+        assert np.array_equal(hi.view(np.uint32), tf32(x).view(np.uint32))
+        assert np.array_equal(lo.view(np.uint32), tf32(x - hi).view(np.uint32))
+        assert np.all(hi.view(np.uint32) & 0x1FFF == 0) and np.all(lo.view(np.uint32) & 0x1FFF == 0)
+        x64 = x.astype(np.float64)
+        assert np.all(np.abs(hi.astype(np.float64) + lo - x64) <= 2.0**-22 * np.abs(x64))
+        assert not buf[off[..., 0][~inside[..., 0]]].any() and not buf[off[..., 1][~inside[..., 0]]].any()
+
+
+def test_port_tf32_matches_emulation(rng):
+    x = np.concatenate([rng.randn(4096), [1.0 + 2.0**-11, -(1.0 + 2.0**-11), 0.0, -0.0, 3e38, -3e38]]).astype(np.float32)
+    assert np.array_equal(tg.tf32(torch.from_numpy(x)).numpy().view(np.uint32), tf32(x).view(np.uint32))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -322,3 +375,47 @@ def test_tc_gemm_at_k6_dw_split_on_card(rng, cuda_device):
     _check(out, ref, ref64.cpu().numpy(), floor=0.0)
     _check(rs, rs_ref, rs64.cpu().numpy(), floor=0.0)
     assert torch.equal(out, out2) and torch.equal(rs, rs2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", PRESPLIT_SHAPES, ids=["34to256", "256to256"])
+def test_presplit_matches_plain_on_card(rng, cuda_device, rows, cols):
+    """The pre-split kernel's buffers, for W and W^T, bitwise equal to the
+    plain version's."""
+    w = torch.from_numpy(rng.randn(rows, cols).astype(np.float32)).to(cuda_device)
+    before = LAUNCHES["tc_presplit"]
+    out = tg.presplit(w)
+    ref = tg.presplit_reference(w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tc_presplit"] == before + 1
+    for o, r in zip(out, ref):
+        assert torch.equal(o.view(torch.int32), r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", PRESPLIT_SHAPES, ids=["34to256", "256to256"])
+@pytest.mark.parametrize("layout,epilogue", [("mk,nk", "bias_relu"), ("mk,kn", "gate"), ("mk,kn", "store")],
+                         ids=["forward", "dz_gated", "dz_store"])
+def test_tc_gemm_presplit_on_card(rng, cuda_device, rows, cols, layout, epilogue):
+    """The rgb pipeline's forward and dz products with the weight W [rows,
+    cols] pre-split and streamed by bulk copies (M = 1,537 points, a
+    multiple of no tile): within 1e-5 of the plain version, within twice its
+    error of float64, and bitwise equal to the same product with B split in
+    shared memory."""
+    M = 1537
+    w = torch.from_numpy(rng.randn(rows, cols).astype(np.float32)).to(cuda_device)
+    N, K = (rows, cols) if layout == "mk,nk" else (cols, rows)
+    a = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(cuda_device)
+    kw = {}
+    if epilogue == "bias_relu":
+        kw["bias"] = torch.from_numpy(rng.randn(N).astype(np.float32)).to(cuda_device)
+    if epilogue == "gate":
+        kw["gate"] = torch.from_numpy(rng.randn(M, N).astype(np.float32)).to(cuda_device)
+    out = tg.tc_gemm(a, w, layout, epilogue, presplit_b=True, **kw)
+    streamed = tg.tc_gemm(a, w, layout, epilogue, **kw)
+    ref = tg.tc_gemm_reference(a, w, layout, epilogue, **kw)
+    ref64 = tg.tc_gemm_reference(a.double(), w.double(), layout, epilogue,
+                                 **{k: v.double() for k, v in kw.items()}).cpu().numpy()
+    torch.cuda.synchronize()
+    _check(out, ref, ref64)
+    assert torch.equal(out, streamed)
