@@ -7,13 +7,13 @@ Phases, one result line each; any failure exits non-zero:
   2. build: compile the kernel sources of marf_tpu_torch/csrc/ with nvcc for
      sm_90a, one nvcc process per library, all started together.
   3. kernels, each against its plain PyTorch version and against a float64
-     run of the plain version (K2's and K5's per-point dcoords: each point's error
-     over its own float32 error scale, the backward taken in absolute
-     values), with a bitwise-equal relaunch, its time per
-     call beside the plain version's and the least time the card could take
-     (FLOPs at the card's float32-accurate tensor-core rate, 165 TFLOP/s, or
-     bytes at 3.35 TB/s), and the GEMM engine it runs on (K3 and K4 SIMT;
-     K1, K2, K5 and K6 3xTF32 tensor cores):
+     run of the plain version (K2's and K5's per-point dcoords: each point's
+     error over its own float32 error scale, the backward taken in absolute
+     values), with a bitwise-equal relaunch, its time per call beside the
+     plain version's and the least time the card could take (FLOPs at the
+     card's float32-accurate tensor-core rate, 165 TFLOP/s, or bytes at 3.35
+     TB/s), and the GEMM engine it runs on (K3 and K4 SIMT; K1, K2, K5 and K6
+     3xTF32 tensor cores):
      - K1 (fused_train_kernel_warp) and K2 (fused_train_kernel) at the
        canonical shape (N = 216,000 points, B = 5, L = 8, c2f mid-schedule,
        synthetic masks, a nonzero warp);
@@ -67,9 +67,9 @@ GRAD_TOL = 1e-3
 # in float32 summation order; their per-step losses over the first 10 steps
 # agree to this relative tolerance
 TRAJ_TOL = 1e-3
-# K2's and K5's per-point dcoords, each point's error over its own float32 error
-# scale (dcoords_error_scale; the plain version's reading on an H100 is in
-# PERF.md): a product kept to ~3 decimal digits (single-pass TF32, 2^-11)
+# K2's and K5's per-point dcoords, each point's error over its own float32
+# error scale (dcoords_error_scale; the plain version's reading on an H100 is
+# in PERF.md): a product kept to ~3 decimal digits (single-pass TF32, 2^-11)
 # would not pass
 POINT_TOL = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet). The bound takes the card's

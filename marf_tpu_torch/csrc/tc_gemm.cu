@@ -59,7 +59,7 @@ int marf_tc_gemm(int a_k_contig, int b_n_contig, int b_split, int epi, int M, in
                  const float* B, int ldb, float* C, int ldc, const float* bias, const float* gate, int ldg, int splits,
                  float* rsum, float* ws, void* stream) {
   if (M < 1 || N < 1 || K < 1 || splits < 1 || (rsum && a_k_contig)) return (int)cudaErrorInvalidValue;
-  if (b_split && (!a_k_contig || splits > 1 || rsum || K > TC_BK * TC_FLUSH)) return (int)cudaErrorInvalidValue;
+  if (b_split && (!a_k_contig || splits > 1 || rsum)) return (int)cudaErrorInvalidValue;
   int n, chunk;
   split_k(K, splits, n, chunk);
   const int parts = TcEngine::dw_parts(n, chunk);

@@ -279,6 +279,17 @@ __device__ __forceinline__ void keep_alive(uint32_t (&a)[4]) {
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
+// v = B(k .. k + 3, n) -> hi and lo at a split tile's float offset `off`
+__device__ __forceinline__ void split_store4(const float (&v)[4], float* hi, float* lo, int off) {
+  uint4 h, l;
+  split_tf32(v[0], h.x, l.x);
+  split_tf32(v[1], h.y, l.y);
+  split_tf32(v[2], h.z, l.z);
+  split_tf32(v[3], h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + off) = h;
+  *reinterpret_cast<uint4*>(lo + off) = l;
+}
+
 // One landed B tile (as tc_load_tile wrote it, ROWS rows) -> its hi and lo
 // split tiles. Thread units run row-fastest, so the reads of either raw
 // layout and the 16-byte writes are free of bank conflicts.
@@ -297,13 +308,7 @@ __device__ __forceinline__ void tc_split_tile(const float* raw, float* hi, float
 #pragma unroll
       for (int k = 0; k < 4; ++k) v[k] = raw[(4 * c + k) * MN_STRIDE + r];
     }
-    uint4 h, l;
-    split_tf32(v[0], h.x, l.x);
-    split_tf32(v[1], h.y, l.y);
-    split_tf32(v[2], h.z, l.z);
-    split_tf32(v[3], h.w, l.w);
-    *reinterpret_cast<uint4*>(hi + cm_off(r, c)) = h;
-    *reinterpret_cast<uint4*>(lo + cm_off(r, c)) = l;
+    split_store4(v, hi, lo, cm_off(r, c));
   }
 }
 
@@ -333,14 +338,8 @@ __global__ void presplit_kernel(const float* __restrict__ W, int rows, int cols,
     const int k = k0 + j;
     v[j] = n < N && k < K ? (t ? W[(long long)k * cols + n] : W[(long long)n * cols + k]) : 0.0f;
   }
-  uint4 h, l;
-  split_tf32(v[0], h.x, l.x);
-  split_tf32(v[1], h.y, l.y);
-  split_tf32(v[2], h.z, l.z);
-  split_tf32(v[3], h.w, l.w);
   float* o = (t ? dz : fwd) + (long long)tile * TC_PRE_TILE;
-  *reinterpret_cast<uint4*>(o + cm_off(r, c)) = h;
-  *reinterpret_cast<uint4*>(o + TC_PRE_TILE / 2 + cm_off(r, c)) = l;
+  split_store4(v, o, o + TC_PRE_TILE / 2, cm_off(r, c));
 }
 
 // C[M, N] (+)= A[M, K] B[K, N] per group and split (GemmCall), layouts as

@@ -138,9 +138,9 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
 
 
 def tc_gemm_reference(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, splits: int = 1,
-                      rowsum: bool = False, presplit_b: bool = False):
+                      rowsum: bool = False):
     """Plain PyTorch version of `tc_gemm` (torch.matmul plus the epilogue);
-    `splits` and `presplit_b` do not change the function."""
+    neither `splits` nor a pre-split B changes the function."""
     a_k, b_n, *_ = _dims(a, b, layout)
     A = a if a_k else a.T
     c = A @ (b if b_n else b.T)
@@ -149,7 +149,6 @@ def tc_gemm_reference(a, b, layout: str, epilogue: str = "store", bias=None, gat
     elif epilogue == "gate":
         c = torch.where(gate > 0, c, torch.zeros_like(c))
     return (c, A.sum(dim=1)) if rowsum else c
-
 
 
 def presplit_floats(n: int, k: int) -> int:

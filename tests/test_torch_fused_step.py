@@ -1,6 +1,7 @@
 """The fused train step (K1, K2) of the PyTorch port, and the card tests of
-the mask kernels (K3, K4) and of K5 and K6 (the 3xTF32 tensor-core engine;
-the engine alone is tested in tests/test_torch_tc_gemm.py).
+the mask kernels (K3, K4) and of K5 and K6 (K1, K2, K5 and K6 run on the
+3xTF32 tensor-core engine; the engine alone is tested in
+tests/test_torch_tc_gemm.py).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held against
 marf_tpu's `fused_train_kernel_warp` / `fused_train_kernel` (the Pallas
