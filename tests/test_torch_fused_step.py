@@ -220,8 +220,9 @@ def k2_args(g, targets, masks, rng, device):
     """K2's arguments: random warped coordinates over the grid's range."""
     d = lambda x: torch.from_numpy(x).to(device)
     coords = (rng.rand(2, targets.shape[1]) * 2.2 - 1.1).astype(np.float32)
+    inv_sum3 = torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32, device=device)
     return (g.neural_image, d(coords), torch.tensor([1.0, 0.8, 0.3, 0.0], device=device), d(targets), d(masks),
-            torch.tensor(1.7, device=device), torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32, device=device))
+            torch.tensor(1.7, device=device), inv_sum3)
 
 
 @pytest.mark.cuda

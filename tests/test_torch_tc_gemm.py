@@ -229,7 +229,8 @@ def presplit_offsets(N: int, K: int):
                           indexing="ij")
     tile = (n // tg.PRE_BN) * kt + k // tg.BK
     r, kk = n % tg.PRE_BN, k % tg.BK
-    return n, k, p, tile * 2 * tg.PRE_BN * tg.BK + p * tg.PRE_BN * tg.BK + (r // 8) * 256 + (kk // 4) * 32 + (r % 8) * 4 + kk % 4
+    core = (r // 8) * 256 + (kk // 4) * 32 + (r % 8) * 4 + kk % 4  # within the tile's hi or lo part
+    return n, k, p, (2 * tile + p) * tg.PRE_BN * tg.BK + core
 
 
 @pytest.mark.parametrize("rows,cols", PRESPLIT_SHAPES, ids=["34to256", "256to256"])
@@ -257,7 +258,8 @@ def test_presplit_plain_layout(rng, rows, cols):
 
 
 def test_port_tf32_matches_emulation(rng):
-    x = np.concatenate([rng.randn(4096), [1.0 + 2.0**-11, -(1.0 + 2.0**-11), 0.0, -0.0, 3e38, -3e38]]).astype(np.float32)
+    edges = [1.0 + 2.0**-11, -(1.0 + 2.0**-11), 0.0, -0.0, 3e38, -3e38]
+    x = np.concatenate([rng.randn(4096), edges]).astype(np.float32)
     assert np.array_equal(tg.tf32(torch.from_numpy(x)).numpy().view(np.uint32), tf32(x).view(np.uint32))
 
 
