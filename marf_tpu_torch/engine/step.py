@@ -91,7 +91,8 @@ def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
     """Adam with one learning rate per group and torch's default
     hyperparameters (the update optax.adam computes): the neural image at
     optim.lr, the warp at optim.lr_warp, the mask head at optim.lr_mask. The
-    view embedding joins the mask group only when it takes gradients
+    view embedding takes a fourth group, at a constant optim.lr_mask that no schedule moves (the
+    JAX package's "frozen" group), only when it takes gradients
     (optim.train_view_embedding); the reference never optimizes it. Returns
     (optimizer, LR scheduler or None); step the scheduler once per step."""
     lr = float(optim_opt["lr"])
@@ -99,11 +100,14 @@ def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
         {"params": list(graph.neural_image.parameters()), "lr": lr},
         {"params": [graph.warp], "lr": float(optim_opt.get("lr_warp") or lr)},
     ]
+    lambdas = [_lr_lambda(optim_opt, g["lr"], max_iter) for g in groups]
     if hasattr(graph, "implicit_mask"):
-        mask_params = list(graph.implicit_mask.parameters())
+        lr_mask = float(optim_opt.get("lr_mask") or lr)
+        groups.append({"params": list(graph.implicit_mask.parameters()), "lr": lr_mask})
+        lambdas.append(_lr_lambda(optim_opt, lr_mask, max_iter))
         if graph.view_embedding.requires_grad:
-            mask_params.append(graph.view_embedding)
-        groups.append({"params": mask_params, "lr": float(optim_opt.get("lr_mask") or lr)})
+            groups.append({"params": [graph.view_embedding], "lr": lr_mask})
+            lambdas.append(None)
     algo = optim_opt.get("algo", "Adam")
     if algo != "Adam":
         raise NotImplementedError(f"optim.algo={algo!r} is not ported; the port runs Adam (ROADMAP.md)")
@@ -113,10 +117,9 @@ def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
             "optim.sched is configured but inert (reference-faithful: the reference never steps its "
             "scheduler); set optim.apply_sched=true to apply it for real"
         )
-    lambdas = [_lr_lambda(optim_opt, g["lr"], max_iter) for g in groups]
     if all(fn is None for fn in lambdas):
         return opt, None
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambdas)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, [fn or (lambda _: 1.0) for fn in lambdas])
 
 
 def implicit_loss_coeffs(cfg: PlanarConfig, alpha):

@@ -324,7 +324,67 @@ def test_optimizer_groups_implicit():
     _, tv = icfg(train_view_embedding=True)
     gv = tplanar.Graph(tv)
     opt, _ = make_optimizer(gv, OPTIM, tv.max_iter)
-    assert any(p is gv.view_embedding for p in opt.param_groups[2]["params"])
+    # the view embedding trains in a group of its own (marf_tpu's "frozen"),
+    # after the mask head's
+    assert opt.param_groups[2]["params"] == list(gv.implicit_mask.parameters())
+    assert len(opt.param_groups) == 4 and opt.param_groups[3]["params"] == [gv.view_embedding]
+
+
+def _opt_pair(optim: dict, **kw):
+    """The port's optimizer on a small implicit-mask graph and marf_tpu's on
+    zero parameters of the same shapes (the view embedding where it trains),
+    with every parameter the port's optimizer holds set to 0."""
+    _, tcfg = icfg(**kw)
+    g = tplanar.Graph(tcfg)
+    opt, sched = make_optimizer(g, optim, tcfg.max_iter)
+    with torch.no_grad():
+        for grp in opt.param_groups:
+            for p in grp["params"]:
+                p.zero_()
+    named = {"neural_image": g.neural_image.layers[0].weight, "warp": g.warp,
+             "implicit_mask": g.implicit_mask.layers[0].weight}
+    if g.view_embedding.requires_grad:
+        named["view_embedding"] = g.view_embedding
+    jopt = jstep.make_optimizer(optim, tcfg.max_iter)
+    jparams = {k: jnp.zeros(tuple(p.shape), jnp.float32) for k, p in named.items()}
+    return opt, sched, named, jopt, jparams
+
+
+def _unit_steps(opt, sched, named, jopt, jparams, n):
+    """n Adam steps on unit gradients in both packages; yields each step's
+    parameters, {name: (port, marf_tpu)}."""
+    import optax
+
+    state = jopt.init(jparams)
+    ones = jax.tree.map(jnp.ones_like, jparams)
+    for _ in range(n):
+        for grp in opt.param_groups:
+            for p in grp["params"]:
+                p.grad = torch.ones_like(p)
+        opt.step()
+        if sched is not None:
+            sched.step()
+        upd, state = jopt.update(ones, state, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        yield {k: (p.detach().numpy().copy(), np.asarray(jparams[k])) for k, p in named.items()}
+
+
+def test_view_embedding_lr_stays_constant_under_a_schedule():
+    """With optim.train_view_embedding and an applied StepLR (steps=2,
+    gamma=0.1), the view embedding keeps lr_mask on every step while the
+    mask head's decays, as in marf_tpu: 5 Adam steps on unit gradients give
+    optax's parameters."""
+    optim = dict(OPTIM, lr_mask=5e-4, sched={"type": "StepLR", "steps": 2, "gamma": 0.1}, apply_sched=True,
+                 train_view_embedding=True)
+    steps = list(_unit_steps(*_opt_pair(optim, train_view_embedding=True), 5))
+    for params in steps:
+        for ours, theirs in params.values():
+            # float32 rounding of Adam's bias corrections differs between
+            # the two frameworks by up to 6.5e-6 of the step
+            np.testing.assert_allclose(ours, theirs, rtol=2e-5, atol=0)
+    # the embedding moved by lr_mask on each step (Adam's unit-gradient step is lr)
+    emb = [params["view_embedding"][0].ravel()[0] for params in steps]
+    np.testing.assert_allclose(np.diff(emb, prepend=0.0), -5e-4, rtol=1e-4)
 
 
 def test_model_trains_implicit_on_cpu(tmp_path, monkeypatch):
