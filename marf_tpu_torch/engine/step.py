@@ -90,19 +90,20 @@ def _lr_lambda(optim_opt: dict, base_lr: float, max_iter: int):
 def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
     """Adam with one learning rate per group and torch's default
     hyperparameters (the update optax.adam computes): the neural image at
-    optim.lr, the warp at optim.lr_warp, the mask head at optim.lr_mask. The
-    view embedding takes a fourth group, at a constant optim.lr_mask that no schedule moves (the
+    optim.lr, the warp at optim.lr_warp, the mask head at optim.lr_mask (a
+    missing key gives optim.lr; a 0 stays 0). The view embedding takes a
+    fourth group, at a constant optim.lr_mask that no schedule moves (the
     JAX package's "frozen" group), only when it takes gradients
     (optim.train_view_embedding); the reference never optimizes it. Returns
     (optimizer, LR scheduler or None); step the scheduler once per step."""
     lr = float(optim_opt["lr"])
     groups = [
         {"params": list(graph.neural_image.parameters()), "lr": lr},
-        {"params": [graph.warp], "lr": float(optim_opt.get("lr_warp") or lr)},
+        {"params": [graph.warp], "lr": float(optim_opt.get("lr_warp", lr))},
     ]
     lambdas = [_lr_lambda(optim_opt, g["lr"], max_iter) for g in groups]
     if hasattr(graph, "implicit_mask"):
-        lr_mask = float(optim_opt.get("lr_mask") or lr)
+        lr_mask = float(optim_opt.get("lr_mask", lr))
         groups.append({"params": list(graph.implicit_mask.parameters()), "lr": lr_mask})
         lambdas.append(_lr_lambda(optim_opt, lr_mask, max_iter))
         if graph.view_embedding.requires_grad:

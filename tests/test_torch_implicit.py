@@ -387,6 +387,18 @@ def test_view_embedding_lr_stays_constant_under_a_schedule():
     np.testing.assert_allclose(np.diff(emb, prepend=0.0), -5e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("key,group", [("lr_warp", "warp"), ("lr_mask", "implicit_mask")])
+def test_zero_learning_rate_freezes_its_group(key, group):
+    """optim.lr_warp=0 or optim.lr_mask=0 leaves that group's parameters
+    unchanged by a step, as marf_tpu's optimizer does (0 is not replaced by
+    optim.lr); the other groups move as in marf_tpu."""
+    (params,) = _unit_steps(*_opt_pair(dict(OPTIM, **{key: 0.0})), 1)
+    assert not params[group][0].any() and not params[group][1].any()
+    for ours, theirs in params.values():
+        np.testing.assert_allclose(ours, theirs, rtol=2e-5, atol=0)
+    assert params["neural_image"][0].all()
+
+
 def test_model_trains_implicit_on_cpu(tmp_path, monkeypatch):
     from marf_tpu_torch.train import main
     from test_torch_trainer import TINY
