@@ -58,7 +58,7 @@ ImplicitPlan make_implicit_plan(int N, int n_heads, int L, int n_rgb, const int*
                                 const int* mask_dims) {
   ImplicitPlan I{};
   const int nh = n_heads < MAX_GROUP ? n_heads : MAX_GROUP;
-  I.mask = make_mask_plan<TcEngine>(N / n_heads, nh, n_mask, mask_dims, false);
+  I.mask = make_mask_plan(N / n_heads, nh, n_mask, mask_dims, false, false);
   const long long rgb_total = make_plan(N, 0, L, n_rgb, rgb_dims).total;
   Arena a;
   a.take(I.mask.total > rgb_total ? I.mask.total : rgb_total);  // both stages start at offset 0
@@ -102,7 +102,7 @@ int marf_implicit_train(int N, int n_heads, int L, int n_rgb, const int* rgb_dim
     MaskPlan P = I.mask;
     P.nh = n_heads - h0 < P.nh ? n_heads - h0 : P.nh;
     const long long o = (long long)h0 * HW;
-    int rc = hidden_forward<TcEngine>(st, P, N, n_mask, mask_dims, X + o, mW + h0 * n_mask, mb + h0 * n_mask, ws);
+    int rc = hidden_forward(st, P, N, n_mask, mask_dims, X + o, mW + h0 * n_mask, mb + h0 * n_mask, ws);
     if (rc) return rc;
     rc = mask_head_forward(st, P, n_mask, mask_dims, mW + h0 * n_mask, mb + h0 * n_mask, ws, m + o);
     if (rc) return rc;

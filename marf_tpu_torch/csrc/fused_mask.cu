@@ -31,23 +31,28 @@
 // ms, K4 0.347 ms, K6 1.62 ms. Their streamed bytes (X, the [B, HW] or [N]
 // streams) are tens of MB at most.
 //
-// K3 and K4: the hidden layers are the tiled SIMT SGEMMs of mlp_kernels.cuh
-// (SimtEngine, fmaf); the 56-wide first layer reads X channels-first
-// through the GEMM's transposed-A loader (forward) and transposed-B loader
-// (dW), with lda = the row stride of X, so X is never relaid; db is a
-// two-stage column sum of dz.
-// K6: every product on the 3xTF32 tensor-core engine (tc_gemm.cuh,
+// Design: every product on the 3xTF32 tensor-core engine (tc_gemm.cuh,
 // wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32 with A from registers
 // for all of them: the dW products take dz as A and the layer input (or X)
 // as B, both point-major, B transposed into K-major hi/lo tiles by the
 // split pass; the dz products dz K-major and W [out, in] as it lies; the
-// forward recompute activations and weights K-major and X point-major),
-// and all heads in one launch per product: the head is part of the block index (blockIdx.z =
-// head * splits + split, as the TPU grid's g // T), its W, bias and
-// partial buffers come from the GemmCall's pointer table (passed by value),
-// and the dW partials are per head, each head's reduce a fixed-order sum
-// (one launch for all heads). db is folded into the dW product (the row
-// sums of dz over each split, from shared memory), so no column-sum pass
+// forward activations and weights K-major and X point-major). The 56-wide
+// first layer reads X channels-first in place (lda = the row stride of X),
+// in the forward as A and in its dW as B, so X is never relaid.
+// K3 and K4 run one head; the weights of hidden layers 1..3 are the same B
+// for every block and k-tile of their products, so each call splits them
+// into TF32 hi and lo once (presplit_kernel, both orientations, 3 MB) and
+// their forward and ReLU-gated dz products stream each tile by one bulk
+// copy on an mbarrier, as the rgb pipeline does. K4's forward recompute
+// runs the same launches as K3, so its m is bitwise K3's (the Pallas kernel
+// recomputes it too).
+// K6 runs all heads in one launch per product: the head is part of the
+// block index (blockIdx.z = head * splits + split, as the TPU grid's g //
+// T), its W, bias and partial buffers come from the GemmCall's pointer
+// table (passed by value), and the dW partials are per head, each head's
+// reduce a fixed-order sum (one launch for all heads); its products split B
+// in shared memory. db is folded into the dW product (the row sums of dz
+// over each split, from the same fragment reads), so no column-sum pass
 // re-reads dz. The head pass and its reduces run once over all heads too.
 // K6's workspace spans all N columns (up to MAX_GROUP heads at a time):
 // four 256-wide activations and two dz buffers, 6 x 256 x 4 B = 6 KB per
@@ -66,22 +71,21 @@
 // [K, width]; s0map, sq, esq are [B, HW] for K4 and [N] for K6.
 
 #include "mask_head.cuh"
-#include "tc_gemm.cuh"
 
 extern "C" {
 
 // Floats of workspace one call needs (the wrapper allocates it).
 long long marf_mask_forward_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan<SimtEngine>(K, 1, n_layers, dims, false).total;
+  return make_mask_plan(K, 1, n_layers, dims, false, true).total;
 }
 
 long long marf_mask_backward_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan<SimtEngine>(K, 1, n_layers, dims, true).total;
+  return make_mask_plan(K, 1, n_layers, dims, true, true).total;
 }
 
 long long marf_mask_backward_g_workspace(int N, int n_heads, int n_layers, const int* dims) {
   const int nh = n_heads < MAX_GROUP ? n_heads : MAX_GROUP;
-  return make_mask_plan<TcEngine>(N / n_heads, nh, n_layers, dims, true).total;
+  return make_mask_plan(N / n_heads, nh, n_layers, dims, true, false).total;
 }
 
 // K3. Returns 0, or the CUDA error code of the first launch that failed.
@@ -90,8 +94,8 @@ int marf_mask_forward(int K, int n_layers, const int* dims, const float* X, cons
                       const float* const* bias, float* m, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const MaskPlan P = make_mask_plan<SimtEngine>(K, 1, n_layers, dims, false);
-  int rc = hidden_forward<SimtEngine>(st, P, K, n_layers, dims, X, W, bias, ws);
+  const MaskPlan P = make_mask_plan(K, 1, n_layers, dims, false, true);
+  int rc = hidden_forward(st, P, K, n_layers, dims, X, W, bias, ws);
   if (rc) return rc;
   return mask_head_forward(st, P, n_layers, dims, W, bias, ws, m);
 }
@@ -103,9 +107,9 @@ int marf_mask_backward_dedup(int K, int HW, int B, int n_layers, const int* dims
                              const float* cnt, const float* abk, const float* const* W, const float* const* bias,
                              float* const* dW, float* const* db, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims) || HW < 0 || HW > K || B < 1) return (int)cudaErrorInvalidValue;
-  const MaskPlan P = make_mask_plan<SimtEngine>(K, 1, n_layers, dims, true);
-  return mask_backward<SimtEngine>((cudaStream_t)stream, P, K, n_layers, dims, X, W, bias,
-                                   DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
+  const MaskPlan P = make_mask_plan(K, 1, n_layers, dims, true, true);
+  return mask_backward((cudaStream_t)stream, P, K, n_layers, dims, X, W, bias,
+                       DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
 }
 
 // K6. X [dims[0], N] with N = n_heads HW; sq [N], esq [N] (nullptr without
@@ -118,15 +122,15 @@ int marf_mask_backward_g(int N, int n_heads, int n_layers, const int* dims, cons
   if (n_heads < 1 || N % n_heads != 0) return (int)cudaErrorInvalidValue;
   const int HW = N / n_heads;
   if (!valid_mask_dims(HW, n_layers, dims)) return (int)cudaErrorInvalidValue;
-  const MaskPlan P0 = make_mask_plan<TcEngine>(HW, n_heads < MAX_GROUP ? n_heads : MAX_GROUP, n_layers, dims, true);
+  const MaskPlan P0 = make_mask_plan(HW, n_heads < MAX_GROUP ? n_heads : MAX_GROUP, n_layers, dims, true, false);
   for (int h0 = 0; h0 < n_heads; h0 += P0.nh) {  // all heads at once up to MAX_GROUP of them
     MaskPlan P = P0;
     P.nh = n_heads - h0 < P.nh ? n_heads - h0 : P.nh;
     const long long o = (long long)h0 * HW;
     const ColumnCot cot{sq + o, esq ? esq + o : nullptr, cnt ? cnt + o : nullptr, abk, c};
     const int k = h0 * n_layers;
-    int rc = mask_backward<TcEngine>((cudaStream_t)stream, P, N, n_layers, dims, X + o, W + k, bias + k, cot, dW + k,
-                                     db + k, ws);
+    int rc = mask_backward((cudaStream_t)stream, P, N, n_layers, dims, X + o, W + k, bias + k, cot, dW + k, db + k,
+                           ws);
     if (rc) return rc;
   }
   return 0;

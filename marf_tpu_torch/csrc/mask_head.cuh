@@ -1,11 +1,13 @@
 // The factored implicit-mask head's building blocks for Hopper (sm_90a),
 // float32, shared by fused_mask.cu (K3, K4, K6) and fused_implicit.cu (K5),
-// templates over the GEMM engine (SimtEngine for K3/K4, TcEngine for K5/K6)
-// and grouped over heads: one call runs `nh` heads (nh <= MAX_GROUP), head h
-// on the column block [h HW, (h+1) HW) of X, each GEMM launch covering every
-// head's block (the per-head operands in the GemmCall's pointer tables):
+// every product on the 3xTF32 tensor-core engine (tc_gemm.cuh) and grouped
+// over heads: one call runs `nh` heads (nh <= MAX_GROUP), head h on the
+// column block [h HW, (h+1) HW) of X, each GEMM launch covering every head's
+// block (the per-head operands in the GemmCall's pointer tables):
 //   - hidden_forward: the hidden layers' GEMMs over X [56, ldx] read in place
-//     (X points at head 0's block, rows are ldx apart);
+//     (X points at head 0's block, rows are ldx apart), with the weights of
+//     hidden layers 1.. pre-split once per call where the plan asks for it
+//     (MaskPlan::presplit; K3 and K4), for their forward and dz products;
 //   - mask_head_fwd_kernel: the 256 -> 1 sigmoid layer, one warp per column;
 //   - mask_backward: forward recompute, the head pass with the in-kernel
 //     cotangent (a functor: DedupCot for K4, ColumnCot for K6) and the
@@ -16,7 +18,7 @@
 
 #pragma once
 
-#include "mlp_kernels.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -153,19 +155,23 @@ mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, Group
 
 // Offsets (floats) into the workspace of one call on nh heads of HW columns;
 // dw_gs, col_gs, head_gs: one head's share of dw_part, col_part, head_part.
+// With presplit, wsplit[h][l] holds head h's hidden layer l (l >= 1) as the
+// pre-split B of its forward [0] and dz [1] products.
 struct MaskPlan {
-  int nh, HW, head_blocks, head_chunk, head_stride, colsum_chunk;
+  int nh, HW, head_blocks, head_chunk, head_stride;
+  bool presplit;
   long long acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dw_gs, col_gs, head_gs, total;
+  long long wsplit[MAX_GROUP][MAX_LAYERS][2];
 };
 
 // dims[0..n_layers]: effective layer widths, dims[0] = X rows, dims[n_layers]
-// = 1. col_part holds the engine's db partials: the folded row sums per head
-// and partial (TcEngine), or colsum's (SimtEngine, one head).
-template <class E>
-MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool backward) {
+// = 1. col_part holds the db partials, the folded row sums per head and
+// partial.
+MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool backward, bool presplit) {
   MaskPlan P{};
   P.nh = nh;
   P.HW = HW;
+  P.presplit = presplit;
   Arena a;
   const long long cols = (long long)nh * HW;
   int widest = 1;
@@ -173,23 +179,28 @@ MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool back
     P.acts[l] = a.take(cols * dims[l + 1]);
     widest = dims[l + 1] > widest ? dims[l + 1] : widest;
   }
+  for (int h = 0; presplit && h < nh; ++h) {
+    for (int l = 1; l + 1 < n_layers; ++l) {
+      P.wsplit[h][l][0] = a.take(presplit_floats(dims[l + 1], dims[l]));
+      P.wsplit[h][l][1] = a.take(presplit_floats(dims[l], dims[l + 1]));
+    }
+  }
   if (backward) {
     P.dz[0] = a.take(cols * widest);
     P.dz[1] = a.take(cols * widest);
     long long dw_max = 0, db_max = 0;
     for (int l = 0; l + 1 < n_layers; ++l) {
       int splits, chunk;
-      E::dw_split(HW, dims[l + 1], dims[l], nh, splits, chunk);
-      const long long parts = E::dw_parts(splits, chunk);
+      TcEngine::dw_split(HW, dims[l + 1], dims[l], nh, splits, chunk);
+      const long long parts = TcEngine::dw_parts(splits, chunk);
       const long long n = parts * dims[l + 1] * dims[l];
       dw_max = n > dw_max ? n : dw_max;
       db_max = parts * dims[l + 1] > db_max ? parts * dims[l + 1] : db_max;
     }
     P.dw_gs = (dw_max + 3) / 4 * 4;
     P.dw_part = a.take(nh * P.dw_gs);
-    P.colsum_chunk = cdiv(HW, COLSUM_SPLITS);
-    P.col_gs = E::kFoldDb ? (db_max + 3) / 4 * 4 : 0;
-    P.col_part = a.take(E::kFoldDb ? nh * P.col_gs : (long long)COLSUM_SPLITS * widest);
+    P.col_gs = (db_max + 3) / 4 * 4;
+    P.col_part = a.take(nh * P.col_gs);
     P.head_blocks = cdiv(HW, 64) < 1024 ? cdiv(HW, 64) : 1024;
     P.head_chunk = cdiv(cdiv(HW, P.head_blocks), HEAD_POINTS) * HEAD_POINTS;
     P.head_blocks = cdiv(HW, P.head_chunk);
@@ -216,23 +227,34 @@ Ptrs layer_ptrs(int nh, int n_layers, int l, T* const* table) {
 
 // The hidden layers' forward on nh heads of HW columns: acts[l] =
 // relu(W_h[l] x + b_h[l]), x = X (channels-first, rows ldx apart, head h at
-// column h HW) for l = 0.
-template <class E>
+// column h HW) for l = 0. With P.presplit, the weights of layers 1.. are
+// first split into wsplit (both orientations, so mask_backward's dz
+// products read them too) and their products read B pre-split; layer 0
+// (A = X point-major) streams its B.
 int hidden_forward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, const int* dims, const float* X,
                    const float* const* W, const float* const* bias, float* ws) {
   const long long HW = P.HW;
+  for (int h = 0; P.presplit && h < P.nh; ++h) {
+    for (int l = 1; l + 1 < n_layers; ++l) {
+      const int rc = TcEngine::presplit(st, W[h * n_layers + l], dims[l + 1], dims[l], ws + P.wsplit[h][l][0],
+                                        ws + P.wsplit[h][l][1]);
+      if (rc) return rc;
+    }
+  }
   for (int l = 0; l + 1 < n_layers; ++l) {
+    const bool pre = P.presplit && l > 0;
     GemmCall c = gemm_call(P.HW, dims[l + 1], dims[l], nullptr, l == 0 ? ldx : dims[l], nullptr, dims[l], nullptr,
                            dims[l + 1]);
     c.groups = P.nh;
     for (int h = 0; h < P.nh; ++h) {
       c.A[h] = l == 0 ? X + h * HW : ws + P.acts[l - 1] + h * HW * dims[l];
-      c.B[h] = W[h * n_layers + l];
+      c.B[h] = pre ? ws + P.wsplit[h][l][0] : W[h * n_layers + l];
       c.C[h] = ws + P.acts[l] + h * HW * dims[l + 1];
       c.bias[h] = bias[h * n_layers + l];
     }
-    const int rc = l == 0 ? E::template run<false, false, EPI_BIAS_RELU>(st, c)
-                          : E::template run<true, false, EPI_BIAS_RELU>(st, c);
+    const int rc = l == 0 ? TcEngine::run<false, false, EPI_BIAS_RELU>(st, c)
+                   : pre  ? TcEngine::run_presplit<EPI_BIAS_RELU>(st, c)
+                          : TcEngine::run<true, false, EPI_BIAS_RELU>(st, c);
     if (rc) return rc;
   }
   return 0;
@@ -252,14 +274,14 @@ int mask_head_forward(cudaStream_t st, const MaskPlan& P, int n_layers, const in
 // The heads' backward on nh heads of HW columns (X as in hidden_forward):
 // the forward recompute, the head pass with the cotangent `cot` (indexed by
 // the column across the heads, h HW + p), then dW/db of every layer
-// through the hidden layers (ReLU-gated dX, split-K dW products with a
-// fixed-order sum, db folded into the dW product or two-stage column sums;
-// no dX for X). dW, db: head-major tables like W, bias.
-template <class E, class Cot>
+// through the hidden layers (ReLU-gated dX, B pre-split with P.presplit;
+// split-K dW products with db folded in and a fixed-order sum; no dX for
+// X). dW, db: head-major tables like W, bias.
+template <class Cot>
 int mask_backward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, const int* dims, const float* X,
                   const float* const* W, const float* const* bias, Cot cot, float* const* dW, float* const* db,
                   float* ws) {
-  int rc = hidden_forward<E>(st, P, ldx, n_layers, dims, X, W, bias, ws);
+  int rc = hidden_forward(st, P, ldx, n_layers, dims, X, W, bias, ws);
   if (rc) return rc;
   const int nh = P.nh;
   const long long HW = P.HW;
@@ -284,41 +306,38 @@ int mask_backward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, con
   for (int l = last - 1; l >= 0; --l) {
     const int out = dims[l + 1], in = dims[l];
     const float* dz_cur = ws + P.dz[cur];
-    // dW[l] = dz^T x_in, split over columns, then a fixed-order sum of the partials
+    // dW[l] = dz^T x_in, split over columns, then a fixed-order sum of the
+    // partials; db, the row sums of dz, folded into the same product
     int splits, chunk;
-    E::dw_split(P.HW, out, in, nh, splits, chunk);
-    const int parts = E::dw_parts(splits, chunk);
+    TcEngine::dw_split(P.HW, out, in, nh, splits, chunk);
+    const int parts = TcEngine::dw_parts(splits, chunk);
     GemmCall c = gemm_call(out, in, P.HW, nullptr, out, nullptr, l == 0 ? ldx : in, nullptr, in);
     c.groups = nh, c.splits = splits, c.k_chunk = chunk, c.c_split_stride = (long long)out * in;
     for (int h = 0; h < nh; ++h) {
       c.A[h] = dz_cur + h * HW * out;
       c.B[h] = l == 0 ? X + h * HW : ws + P.acts[l - 1] + h * HW * in;
       c.C[h] = ws + P.dw_part + h * P.dw_gs;
-      if (E::kFoldDb) c.rsum[h] = ws + P.col_part + h * P.col_gs;
+      c.rsum[h] = ws + P.col_part + h * P.col_gs;
     }
     // x_in = X, channels-first [in, ldx], for l = 0
-    rc = l == 0 ? E::template run<false, false, EPI_STORE>(st, c) : E::template run<false, true, EPI_STORE>(st, c);
+    rc = l == 0 ? TcEngine::run<false, false, EPI_STORE>(st, c) : TcEngine::run<false, true, EPI_STORE>(st, c);
     if (rc) return rc;
-    E::reduce_parts(st, nh, parts, out * in, (long long)out * in, ws + P.dw_part, P.dw_gs,
-                    layer_ptrs<float, GroupPtrs>(nh, n_layers, l, dW));
+    TcEngine::reduce_parts(st, nh, parts, out * in, (long long)out * in, ws + P.dw_part, P.dw_gs,
+                           layer_ptrs<float, GroupPtrs>(nh, n_layers, l, dW));
     MARF_CHECK_LAUNCH();
-    if (E::kFoldDb) {
-      E::reduce_parts(st, nh, parts, out, out, ws + P.col_part, P.col_gs,
-                      layer_ptrs<float, GroupPtrs>(nh, n_layers, l, db));
-    } else {  // SimtEngine: one head
-      colsum(st, P.HW, out, P.colsum_chunk, dz_cur, ws + P.col_part, db[l]);
-    }
+    TcEngine::reduce_parts(st, nh, parts, out, out, ws + P.col_part, P.col_gs,
+                           layer_ptrs<float, GroupPtrs>(nh, n_layers, l, db));
     MARF_CHECK_LAUNCH();
     if (l > 0) {  // dz of the layer below, ReLU-gated by its activation
       GemmCall d = gemm_call(P.HW, in, out, nullptr, out, nullptr, in, nullptr, in);
       d.groups = nh, d.ldg = in;
       for (int h = 0; h < nh; ++h) {
         d.A[h] = dz_cur + h * HW * out;
-        d.B[h] = W[h * n_layers + l];
+        d.B[h] = P.presplit ? ws + P.wsplit[h][l][1] : W[h * n_layers + l];
         d.C[h] = ws + P.dz[cur ^ 1] + h * HW * in;
         d.gate[h] = ws + P.acts[l - 1] + h * HW * in;
       }
-      rc = E::template run<true, true, EPI_GATE>(st, d);
+      rc = P.presplit ? TcEngine::run_presplit<EPI_GATE>(st, d) : TcEngine::run<true, true, EPI_GATE>(st, d);
       if (rc) return rc;
       cur ^= 1;
     }

@@ -1,7 +1,6 @@
 // The 3xTF32 tensor-core GEMM engine for Hopper (sm_90a): float32-accurate
-// products on the tensor cores, the engine of K1 and K2 (fused_step.cu), K5
-// (fused_implicit.cu) and K6 (fused_mask.cu). K3 and K4 keep the SIMT engine
-// of mlp_kernels.cuh.
+// products on the tensor cores, the one GEMM engine of the port: K1 and K2
+// (fused_step.cu), K3, K4 and K6 (fused_mask.cu) and K5 (fused_implicit.cu).
 //
 // Arithmetic. Each float32 operand x is split into hi = tf32(x) and lo =
 // tf32(x - hi), tf32() rounding to nearest with ties away from zero and the
@@ -40,13 +39,14 @@
 //     descriptor's leading byte offset 128 B between k chunks, stride byte
 //     offset 1024 B between row groups), transposing a point-major tile on
 //     the way; it runs while the tensor cores work on the previous tile.
-//   - B pre-split (the template flag B_PRE; the rgb pipeline's forward and
-//     dz products, whose B is a weight matrix, the same for every block and
-//     k-tile of the call): presplit_kernel writes W's hi and lo once per
-//     call into device memory, in both orientations (W for the forward, W^T
-//     for the dz product), laid out as the split pass lays out a tile and
-//     ordered [n-tile][k-tile][hi | lo], so one (n, k) tile is 16 contiguous
-//     KB. A block streams each k-tile's tile into a three-stage ring with one
+//   - B pre-split (the template flag B_PRE; the forward and dz products of
+//     the rgb pipeline and of the dedup mask head (K3, K4), whose B is a
+//     weight matrix, the same for every block and k-tile of the call):
+//     presplit_kernel writes W's hi and lo once per call into device
+//     memory, in both orientations (W for the forward, W^T for the dz
+//     product), laid out as the split pass lays out a tile and ordered
+//     [n-tile][k-tile][hi | lo], so one (n, k) tile is 16 contiguous KB. A
+//     block streams each k-tile's tile into a three-stage ring with one
 //     bulk copy (cp.async.bulk ... mbarrier::complete_tx::bytes), issued by
 //     one thread and waited on with mbarrier.try_wait.parity; there is no
 //     split pass and no raw B tile. The bits the tensor cores read are the
@@ -64,8 +64,8 @@
 // 104 KB with B pre-split) for the others, which stream a K-major A. Blocks
 // are persistent over the (m, n) tiles of their group and split, n fastest,
 // so the blocks that share an A tile run together; a block loads its next
-// tile's first stages before it stores the current one. Epilogues as the
-// SIMT engine's: plain store, bias + ReLU, ReLU gate; split-K partials
+// tile's first stages before it stores the current one. Epilogues: plain
+// store, bias + ReLU, ReLU gate; split-K partials
 // summed in a fixed (pairwise) order; and the folded db: in a dW product (A
 // = dz, point-major) the blocks of the first column tile also sum A's rows
 // from the same fragment reads, per k-tile then per partial, in a fixed
@@ -91,7 +91,6 @@ constexpr int TC_FLUSH = 64;  // k-tiles (2,048 points) per partial of a dW prod
 constexpr int TC_PRE_BN = 64;  // a pre-split B's tile width (the K-major-A products' BN)
 constexpr int TC_PRE_TILE = 2 * TC_PRE_BN * TC_BK;  // floats of one pre-split (n, k) tile: hi | lo
 constexpr int TC_PRE_RING = 3;  // pre-split B tiles in flight per block
-static_assert(TC_BM == BM, "dw_split counts 128-row tiles in both engines");
 
 // floats of one raw tile of `rows` rows: K-major [rows][BK + 4], or
 // MN-major [BK][rows + 8] (8 mod 32 banks per k row)
@@ -342,8 +341,8 @@ __global__ void presplit_kernel(const float* __restrict__ W, int rows, int cols,
   split_store4(v, o, o + TC_PRE_TILE / 2, cm_off(r, c));
 }
 
-// C[M, N] (+)= A[M, K] B[K, N] per group and split (GemmCall), layouts as
-// sgemm_kernel's: A(m, k) = A_K_CONTIG ? A[m*lda + k] : A[k*lda + m],
+// C[M, N] (+)= A[M, K] B[K, N] per group and split (GemmCall):
+// A(m, k) = A_K_CONTIG ? A[m*lda + k] : A[k*lda + m],
 // B(k, n) = B_N_CONTIG ? B[k*ldb + n] : B[n*ldb + k]; with B_PRE, B is a
 // pre-split B (presplit_kernel; B_N_CONTIG and ldb unused). a_vec / b_vec:
 // 16-byte copies allowed for A / B (every group's pointer 16-byte aligned,
@@ -583,7 +582,6 @@ int tc_launch(cudaStream_t st, const GemmCall& c, bool a_vec, bool b_vec) {
 
 // The 3xTF32 tensor-core engine (see the top of this file).
 struct TcEngine {
-  static constexpr bool kFoldDb = true;
   // the block tile's width: 64 where A is K-major or N is narrow, else 128
   static int tile_n(bool a_k_contig, int N) { return a_k_contig || N <= 64 ? 64 : 128; }
   // split-K of `groups` dW products [out, in] over Np points (A point-major):

@@ -1,6 +1,6 @@
 """The fused train step (K1, K2) of the PyTorch port, and the card tests of
-the mask kernels (K3, K4) and of K5 and K6 (K1, K2, K5 and K6 run on the
-3xTF32 tensor-core engine; the engine alone is tested in
+the mask kernels (K3, K4) and of K5 and K6 (all six run on the 3xTF32
+tensor-core engine; the engine alone is tested in
 tests/test_torch_tc_gemm.py).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held against
@@ -269,19 +269,22 @@ def test_kernels_at_eight_images_and_ragged_points_on_card(rng, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("use_edges", [True, False])
-def test_mask_kernels_match_plain_on_card(rng, cuda_device, use_edges):
+@pytest.mark.parametrize("use_edges,HW", [(True, 512), (False, 512), (True, 1541)],
+                         ids=["edges", "no_edges", "edges_odd_K"])
+def test_mask_kernels_match_plain_on_card(rng, cuda_device, use_edges, HW):
     """K3 and K4 against their plain versions on dedup columns with extras:
-    values 1e-5, grads 1e-4, bitwise relaunch."""
+    values 1e-5, grads 1e-4, bitwise relaunch. HW = 1,541 gives K = 2,683
+    columns, odd and not a multiple of 4 as the trainer's are, so X [56, K]
+    takes the engine's 4-byte copies in the layer-0 forward and dW."""
     from marf_tpu_torch.models.implicit_mask import ImplicitMask
     from marf_tpu_torch.ops.cuda import fused_mask as fm
 
-    B, HW = 3, 512
+    B = 3
     combo = np.where(rng.rand(B, HW) > 0.7, rng.randint(0, 8, (B, HW)), 0)
     onehot = np.eye(8, dtype=np.float32)[combo].transpose(0, 2, 1)
     X, s0, _, _, cnt = fm.slot_dedup_inputs(rng.randn(42, HW).astype(np.float32), onehot)
     K = X.shape[1]
-    assert K > HW
+    assert K > HW and (HW == 512 or K % 4 == 3)
     d = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda_device)
     gen = torch.Generator().manual_seed(0)
     stack = fm.mask_w_stack(ImplicitMask(gen).to(cuda_device), d(rng.randn(8, 384)))

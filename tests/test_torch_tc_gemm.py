@@ -1,4 +1,4 @@
-"""The 3xTF32 tensor-core GEMM engine of K5 and K6 (csrc/tc_gemm.cuh).
+"""The 3xTF32 tensor-core GEMM engine of K1-K6 (csrc/tc_gemm.cuh).
 
 On the CPU: a numpy emulation of the engine's arithmetic (each float32
 operand split into hi = tf32(x) and lo = tf32(x - hi), tf32 rounding to
@@ -6,15 +6,16 @@ nearest with ties away from zero; per k-tile of 32 along K the products
 lo_a hi_b, hi_a lo_b, hi_a hi_b summed into a fresh accumulator, which one
 float32 add takes into the running sum; a partial per 64 k-tiles of each
 split, the partials summed pairwise; the folded row sums in the kernel's
-order) at the engine's shapes, and at K6's real dW split with operands
-shaped as K6's dz and activations: its error against float64 stays within
-twice float32 torch's own, while single-pass TF32 (hi_a hi_b only) does
-not, which is why the engine never uses it. This covers the split
+order) at the engine's shapes, and at K6's and K4's real dW splits with
+operands shaped as their dz, activations and X: its error against float64
+stays within twice float32 torch's own, while single-pass TF32 (hi_a hi_b
+only) does not, which is why the engine never uses it. This covers the split
 arithmetic only: the kernel itself runs on a card.
 
-On the CPU also the weights' pre-split (`presplit`, the B operand of the rgb
-pipeline's forward and dz products, split once per call): its plain version
-against the core-matrix layout formula, written out here, for W and W^T.
+On the CPU also the weights' pre-split (`presplit`, the B operand of the
+forward and dz products of the rgb pipeline and of K3's and K4's hidden
+layers, split once per call): its plain version against the core-matrix
+layout formula, written out here, for W and W^T.
 
 On a card (marker `cuda`): `tc_gemm` against its plain version and float64,
 for every operand layout and epilogue, at ragged sizes and depths, with
@@ -195,6 +196,37 @@ def test_3xtf32_at_k6_dw_split(rng):
     assert rel(emulate(dz.T, x, K6_CHUNK), ref) <= 2.0 * err32
     ref_db = dz.astype(np.float64).sum(0)
     assert rel(emulate_rowsum(dz.T, K6_CHUNK), ref_db) <= 2.0 * rel(torch.from_numpy(dz).sum(0).numpy(), ref_db)
+
+
+# K4's dW products at the main path's shape: one head on the K = 46,271
+# dedup columns of chip_smoke.py's inputs, split as the engine splits them
+K4_POINTS = 46_271
+
+
+def x_operand(rng, points: int = K4_POINTS) -> np.ndarray:
+    """K4's layer-0 input as its dW product reads it, X^T [points, 56]: 42
+    uv embedding rows (sines and cosines), a one-hot of the 8 combos, 6
+    zero rows."""
+    uv = np.sin(rng.rand(points, 42) * 2.0 * np.pi)
+    onehot = np.eye(8)[rng.randint(0, 8, points)]
+    return np.concatenate([uv, onehot, np.zeros((points, 6))], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("inp,chunk,splits", [(256, 1408, 33), (56, 352, 132)], ids=["hidden", "layer0"])
+def test_3xtf32_at_k4_dw_split(rng, inp, chunk, splits):
+    """dW and the folded db of K4's [256, 256] hidden layers (33 splits of
+    1,408 points) and of its [256, 56] first layer (132 splits of 352),
+    from K4-like operands: the emulated engine within twice float32 torch's
+    distance from float64."""
+    assert dw_chunk(K4_POINTS, 256, inp) == chunk and -(-K4_POINTS // chunk) == splits
+    dz, x = k6_operands(rng, K4_POINTS, 256, inp)
+    if inp == 56:
+        x = x_operand(rng)
+    ref = dz.T.astype(np.float64) @ x.astype(np.float64)
+    err32 = rel((torch.from_numpy(dz).T @ torch.from_numpy(x)).numpy(), ref)
+    assert rel(emulate(dz.T, x, chunk), ref) <= 2.0 * err32
+    ref_db = dz.astype(np.float64).sum(0)
+    assert rel(emulate_rowsum(dz.T, chunk), ref_db) <= 2.0 * rel(torch.from_numpy(dz).sum(0).numpy(), ref_db)
 
 
 def test_pairwise_sum_order():
