@@ -12,8 +12,8 @@ Phases, one result line each; any failure exits non-zero:
      values), with a bitwise-equal relaunch, its time per call beside the
      plain version's and the least time the card could take (FLOPs at the
      card's float32-accurate tensor-core rate, 165 TFLOP/s, or bytes at 3.35
-     TB/s), and the GEMM engine it runs on (K3 and K4 SIMT; K1, K2, K5 and K6
-     3xTF32 tensor cores):
+     TB/s), and the GEMM engine it runs on (every kernel on the 3xTF32
+     tensor cores):
      - K1 (fused_train_kernel_warp) and K2 (fused_train_kernel) at the
        canonical shape (N = 216,000 points, B = 5, L = 8, c2f mid-schedule,
        synthetic masks, a nonzero warp);
@@ -75,20 +75,17 @@ POINT_TOL = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet). The bound takes the card's
 # float32-accurate rate on the tensor cores: 3xTF32 does three TF32 products
 # per float32 product (hi*hi + hi*lo + lo*hi of the split operands), so 495
-# TFLOP/s dense TF32 gives 165 TFLOP/s of float32 products. (The SIMT float32
-# rate outside the tensor cores, 67 TFLOP/s, is what K3's and K4's engine is
-# held to; PERF.md keeps those bounds in a note.) HBM3 at 3.35 TB/s.
+# TFLOP/s dense TF32 gives 165 TFLOP/s of float32 products. HBM3 at 3.35 TB/s.
 PEAK_FP32_ACCURATE_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 # saturated pixels in the K3/K4 inputs: each channel is set to 1.0 with this
 # probability, which gives some 1.3k extra columns beside the 43,200 of slot0
 SATURATED = 0.002
-# the GEMM engine of each kernel (csrc/mlp_kernels.cuh, csrc/tc_gemm.cuh)
+# the GEMM engine of each kernel (csrc/tc_gemm.cuh)
 ENGINES = {
-    "simt": "simt (mlp_kernels.cuh sgemm_kernel, fmaf)",
     "3xtf32": "3xtf32 (tc_gemm.cuh, wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32, A from registers, 3 per "
-              "k8 step; the rgb pipeline's weights (K1, K2, K5) split once per call and their B tiles loaded by "
-              "cp.async.bulk on mbarriers)",
+              "k8 step; the rgb pipeline's weights (K1, K2, K5) and the dedup mask head's hidden weights (K3, K4) "
+              "split once per call and their B tiles loaded by cp.async.bulk on mbarriers)",
 }
 
 
@@ -176,8 +173,11 @@ def factored_batch(cfg, data, device, n_heads=1):
 
 
 def mask_inputs(cfg, data, device):
-    """K3's and K4's inputs: the dedup columns of the synthetic batch with a
-    few saturated pixels, a seeded mask head, and per-position streams."""
+    """K3's and K4's inputs: the K dedup columns of the synthetic batch with
+    a few saturated pixels, padded as the trainer pads them (zero columns to
+    a multiple of DEDUP_COLUMN_MULTIPLE), a seeded mask head, and
+    per-position streams. Returns (K, inputs)."""
+    from marf_tpu_torch.engine.step import DEDUP_COLUMN_MULTIPLE
     from marf_tpu_torch.ops.cuda import fused_mask as fm
 
     rng, (head,), uv, onehot, table = factored_batch(cfg, data, device)
@@ -185,12 +185,13 @@ def mask_inputs(cfg, data, device):
     B, HW = s0map.shape
     K = X.shape[1]
     d = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    dp = lambda a: d(np.pad(a, ((0, 0), (0, -K % DEDUP_COLUMN_MULTIPLE))))
     layers = fm.mask_w_stack(head, table)
     # a plausible cotangent: sq, esq of a half-fitted image, c = 2 C_m / N
     sq_b, esq_b = d(rng.rand(B, HW) * 0.05), d(rng.rand(B, HW) * 0.5)
-    base = d(cnt * (2.0 * 0.5 / (B * HW)) + np.pad(rng.rand(1, K - HW) * 1e-5, ((0, 0), (HW, 0))))
+    base = cnt * (2.0 * 0.5 / (B * HW)) + np.pad(rng.rand(1, K - HW) * 1e-5, ((0, 0), (HW, 0)))
     abk = d([2.0 / (3 * 0.7 * B * HW), 1e-6, -1e-5])
-    return layers, d(X), d(s0map), sq_b, esq_b, base, d(cnt), abk
+    return K, (layers, dp(X), d(s0map), sq_b, esq_b, dp(base), dp(cnt), abk)
 
 
 def heads_inputs(cfg, data, device, n_heads):
@@ -272,11 +273,14 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def mask_grads_rounded_forward(stacks64, X64, sq64, esq64, abk64, c, seed=0):
-    """K6's plain version in float64 with each pre-activation of the forward
-    multiplied by (1 + u 2^-23), u uniform in [-1, 1]: how far the gradients
-    move when the forward is rounded as float32 rounds it (a ReLU flips on
-    an activation near 0), with no error in any sum."""
+def mask_grads_rounded_forward(stacks64, X64, cot, seed=0, terms=False):
+    """The mask heads' gradients in float64 (head h on its column block of
+    X64, cotangent cot(cols, m) of dL/dm) with each pre-activation z of the
+    forward moved by u 2^-23 times |z| (or, with terms, times the sum of
+    its terms' magnitudes, |W| |x| + |b|: the scale of float32's rounding
+    of that sum), u uniform in [-1, 1]: how far the gradients move when the
+    forward is rounded as float32 rounds it (a ReLU flips on an activation
+    near 0), with no error in any sum."""
     gen = torch.Generator(device=X64.device).manual_seed(seed)
     HW = X64.shape[1] // len(stacks64)
     out = []
@@ -286,11 +290,16 @@ def mask_grads_rounded_forward(stacks64, X64, sq64, esq64, abk64, c, seed=0):
             params = [(w.detach().requires_grad_(True), b.detach().requires_grad_(True)) for w, b in layers]
             z = X64[:, cols]
             for li, (w, b) in enumerate(params):
-                z = torch.addmm(b[:, None], w, z)
-                z = z * (1.0 + 2.0**-23 * (2.0 * torch.rand(z.shape, generator=gen, device=z.device, dtype=z.dtype) - 1.0))
+                u = 2.0**-23 * (2.0 * torch.rand((w.shape[0], z.shape[1]), generator=gen, device=z.device,
+                                                 dtype=z.dtype) - 1.0)
+                if terms:
+                    with torch.no_grad():
+                        size = torch.addmm(b.abs()[:, None], w.abs(), z.abs())
+                    z = torch.addmm(b[:, None], w, z) + u * size
+                else:
+                    z = torch.addmm(b[:, None], w, z) * (1.0 + u)
                 z = torch.relu(z) if li + 1 < len(params) else torch.sigmoid(z)
-            g = (abk64[0] * sq64[:, cols] + abk64[1] * esq64[:, cols] + c) * z.detach() + abk64[2]
-            grads = torch.autograd.grad(z, [t for wb in params for t in wb], g)
+            grads = torch.autograd.grad(z, [t for wb in params for t in wb], cot(cols, z.detach()))
         out.append(list(zip(grads[0::2], grads[1::2])))
     return out
 
@@ -408,9 +417,10 @@ def phase_kernels(device):
         per_point={"dcoords": lambda r64: dcoords_error_scale(net64, *k2_64[:4], 2.0 * k2_64[4] * k2_64[5])},
     )
 
-    layers, X, s0map, sq_b, esq_b, base, cnt, abk = mask_inputs(cfg, data, device)
-    K, HW = X.shape[1], s0map.shape[1]
-    print(f"[kernel] mask-head dedup columns: K={K} (HW={HW}, E={K - HW}) for N={N} positions", flush=True)
+    K, (layers, X, s0map, sq_b, esq_b, base, cnt, abk) = mask_inputs(cfg, data, device)
+    Kp, HW = X.shape[1], s0map.shape[1]
+    print(f"[kernel] mask-head dedup columns: K={K} (HW={HW}, E={K - HW}; padded to {Kp}) for N={N} positions",
+          flush=True)
     if K <= HW:
         fail("the K3/K4 inputs have no extra dedup columns")
     layers64 = [(w.double(), b.double()) for w, b in layers]
@@ -421,7 +431,7 @@ def phase_kernels(device):
         lambda: {"m": fm.fused_mask_forward(layers, X)},
         lambda: {"m": fm.fused_mask_forward_reference(layers, X)},
         lambda: {"m": fm.fused_mask_forward_reference(layers64, X.double())},
-        ("m",), 2 * K * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])), _nbytes(X, *mweights) + K * 4, "simt",
+        ("m",), 2 * K * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])), _nbytes(X, *mweights) + K * 4, "3xtf32",
     )
     k4 = (X, s0map, sq_b, esq_b, base, cnt, abk)
     k4_64 = tuple(t.double() for t in k4)
@@ -434,8 +444,34 @@ def phase_kernels(device):
         lambda: named4(fm.fused_mask_backward_dedup(layers, *k4)),
         lambda: named4(fm.fused_mask_backward_dedup_reference(layers, *k4)),
         lambda: named4(fm.fused_mask_backward_dedup_reference(layers64, *k4_64)),
-        (), _mlp_flops(K, mdims, len(mdims) - 2), _nbytes(*k4, *mweights) + _nbytes(*mweights), "simt",
+        (), _mlp_flops(K, mdims, len(mdims) - 2), _nbytes(*k4, *mweights) + _nbytes(*mweights), "3xtf32",
     )
+
+    # what float32 can determine of K4's gradients (as K6's, below), with the
+    # forward rounded at 2^-23 of each pre-activation and of its sum of terms
+    X64, s0map64, sq64, esq64, base64, cnt64, abk64 = k4_64
+    seg = base64 + torch.nn.functional.pad(
+        (abk64[0] * (s0map64 * sq64).sum(0) + abk64[1] * (s0map64 * esq64).sum(0))[None], (0, Kp - HW))
+    ref64 = named4(fm.fused_mask_backward_dedup_reference(layers64, *k4_64))
+    for terms, how in ((False, "each pre-activation"), (True, "each pre-activation's sum of |terms|")):
+        (rounded,) = mask_grads_rounded_forward([layers64], X64, lambda cols, m: seg * m + abk64[2] * cnt64,
+                                                terms=terms)
+        print(f"[kernel] K4 fused_mask_backward_dedup K={K} float64 with the forward rounded at 2^-23 of {how} "
+              "vs float64: " + " ".join(f"{k}={_rel(v, ref64[k]):.2e}" for k, v in named4(rounded).items()),
+              flush=True)
+
+    # the same calls on X read in place at its K columns (a row stride that
+    # is no multiple of 4): the engine's layer-0 forward (A = X) and dW (B =
+    # X) then take its 4-byte copies, the padded X its 16-byte ones
+    if Kp != K:
+        cut = lambda t: t[:, :K].contiguous()
+        k4k = (cut(X), s0map, sq_b, esq_b, cut(base), cut(cnt), abk)
+        t = [_time_ms(lambda: fm.fused_mask_forward(layers, k4k[0])),
+             _time_ms(lambda: fm.fused_mask_forward(layers, X)),
+             _time_ms(lambda: fm.fused_mask_backward_dedup(layers, *k4k)),
+             _time_ms(lambda: fm.fused_mask_backward_dedup(layers, *k4))]
+        print(f"[kernel] X in place (K={K}, 4-byte copies) vs padded (K={Kp}, 16-byte copies), ms/call: K3 "
+              f"{t[0]:.3f} vs {t[1]:.3f}, K4 {t[2]:.3f} vs {t[3]:.3f}", flush=True)
 
     # K5 and K6 on all N columns: per-image heads (the JSON line's numbers), then the shared head
     for n_heads, tag in ((cfg.batch_size, ""), (1, " shared")):
@@ -481,7 +517,9 @@ def phase_kernels(device):
         # what float32 can determine of K6's gradients: float64 with the
         # forward rounded to float32's size, against float64
         ref64 = named6(fm.fused_mask_backward_g_reference(stacks64, *k6_64, c))
-        moved = {k: _rel(v, ref64[k]) for k, v in named6(mask_grads_rounded_forward(stacks64, *k6_64, c)).items()}
+        sq64, esq64, abk64 = k6_64[1:]
+        cot6 = lambda cols, m: (abk64[0] * sq64[:, cols] + abk64[1] * esq64[:, cols] + c) * m + abk64[2]
+        moved = {k: _rel(v, ref64[k]) for k, v in named6(mask_grads_rounded_forward(stacks64, k6_64[0], cot6)).items()}
         print(f"[kernel] K6 fused_mask_backward_g N={N} heads={n_heads} float64 with the forward rounded at 2^-23 "
               "vs float64: " + " ".join(f"{k}={v:.2e}" for k, v in moved.items()), flush=True)
     return results

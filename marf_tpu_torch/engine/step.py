@@ -152,16 +152,27 @@ def mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, use_edges)
     return a_s, b_s, c_s, k_s
 
 
+# The dedup columns are padded to a multiple of this: X [56, K] is read in
+# place by K3's and K4's layer-0 products, and the tensor-core engine copies
+# an operand 16 bytes at a time only when its row stride is a multiple of 4
+# floats (4 bytes at a time otherwise).
+DEDUP_COLUMN_MULTIPLE = 4
+
+
 def stage_mask_inputs(graph: Graph, images: torch.Tensor) -> tuple:
     """The fused implicit step's constant inputs, built once on the host
     (factoring and slot0+extras dedup, ops/cuda/fused_mask.py) and moved to
-    the graph's device: (X_all [56, K], slot0map [B, HW], ext_pix [E] int64,
-    extmap [B, E], cnt_all [1, K], table [8, 384])."""
+    the graph's device: (X_all [56, Kp], slot0map [B, HW], ext_pix [E] int64,
+    extmap [B, E], cnt_all [1, Kp], table [8, 384]). The K = HW + E dedup
+    columns are padded with inert zero columns (X = 0, cnt = 0) to Kp, a
+    multiple of DEDUP_COLUMN_MULTIPLE."""
     from marf_tpu_torch.ops.cuda.fused_mask import factor_mask_inputs, slot_dedup_inputs
 
     with torch.no_grad():
         uv, onehot, table = factor_mask_inputs(graph.view_embedding.cpu(), images.cpu(), graph.grid.cpu())
     X_all, slot0map, ext_pix, extmap, cnt_all = slot_dedup_inputs(uv.numpy(), onehot.numpy())
+    pad = -X_all.shape[1] % DEDUP_COLUMN_MULTIPLE
+    X_all, cnt_all = (np.pad(a, ((0, 0), (0, pad))) for a in (X_all, cnt_all))
     dev = graph.warp.device
     arrays = (X_all, slot0map, ext_pix.astype(np.int64), extmap, cnt_all)
     return (*(torch.from_numpy(a).to(dev) for a in arrays), table.to(dev))
@@ -265,7 +276,9 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     if dedup:
         X_all, slot0map, ext_pix, extmap, cnt_all, table = stage_mask_inputs(graph, data["rgb"])
         E = ext_pix.shape[0]  # known at setup: the extras' index ops run only when E > 0
-        log.info(f"mask-head dedup: K = {HW + E} columns (HW = {HW}, E = {E}) for N = {N} positions")
+        K = HW + E
+        log.info(f"mask-head dedup: K = {K} columns (HW = {HW}, E = {E}; padded to {X_all.shape[1]}) for N = {N} "
+                 "positions")
     elif fused_implicit:
         X_flat, table = stage_mask_x(graph, data["rgb"], cfg.build_single_masks)
         heads = list(graph.implicit_mask) if cfg.build_single_masks else [graph.implicit_mask]
@@ -332,12 +345,12 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         # ---- mask forward on the K dedup columns, expanded to positions:
         # m[b, p] = slot0map[b, p] m[p] + the one extra column that covers (b, p)
         stack = mask_w_stack(graph.implicit_mask, table)
-        m_all = fused_mask_forward(stack, X_all)  # [1, K]
+        m_all = fused_mask_forward(stack, X_all)[:, :K]  # [1, K]: the pad columns cut
         m_pos = slot0map * m_all[:, :HW]  # [B, HW]
         if E:
             m_pos = m_pos.index_add(1, ext_pix, extmap * m_all[:, HW:])
         m_flat = m_pos.reshape(1, N)
-        inv_sum3 = 1.0 / (torch.dot(cnt_all[0], m_all[0]) * 3.0)
+        inv_sum3 = 1.0 / (torch.dot(cnt_all[0, :K], m_all[0]) * 3.0)
         # ---- the rgb kernel, masked by the predicted m
         rgb_cf, rgb_loss, sq = rgb_kernel_grads(step, m_flat, C_r, inv_sum3)
         # ---- the gradient-blocked edge term, per position [B, HW]
@@ -348,7 +361,8 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             esq_b = None
             edge_loss = zero
         mask_loss = torch.mean((1.0 - m_flat) ** 2)
-        # ---- K4: the extras' segment sums go in `base`, slot0's in the kernel
+        # ---- K4: the extras' segment sums go in `base`, slot0's in the
+        # kernel; base and cnt are 0 on the pad columns, so is their cotangent
         a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
         sq_b = sq.reshape(B, HW)
         base = c_s * cnt_all
@@ -356,7 +370,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             tail = a_s * torch.sum(extmap * sq_b[:, ext_pix], dim=0)
             if esq_b is not None:
                 tail = tail + b_s * torch.sum(extmap * esq_b[:, ext_pix], dim=0)
-            base = base + torch.nn.functional.pad(tail[None], (HW, 0))
+            base = base + torch.nn.functional.pad(tail[None], (HW, cnt_all.shape[1] - K))
         dstack = fused_mask_backward_dedup(stack, X_all, slot0map, sq_b, esq_b, base, cnt_all, torch.stack([a_s, b_s, k_s]))
         set_grads(graph.implicit_mask.layers, unfactor_mask_grads(dstack, table))
         return implicit_loss(rgb_loss, edge_loss, mask_loss, alpha), m_flat

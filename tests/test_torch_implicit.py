@@ -3,8 +3,9 @@ the CPU: the Ha-NeRF uv embedding, the mask head and its inputs, the
 factoring and the slot0+extras dedup, the parameter carry, graph_loss, the
 plain versions of K3 and K4 against the Pallas kernels in interpret mode,
 3-step trajectories of the fused dedup step against marf_tpu's dedup step and
-against the port's own autograd step, Mask_Error, the gating, and a tiny
-`Model` run through the CLI.
+against the port's own autograd step, the inert pad columns of the dedup
+inputs, Mask_Error, the gating, the optimizer's groups and learning rates
+against marf_tpu's optax optimizer, and a tiny `Model` run through the CLI.
 
 Small shapes as in tests/test_fused_mask.py: 16x32 patches, B=3, N_vocab=8,
 the 64-wide MLP, and a saturated-pixel mix so that all 8 RGB combos and some
@@ -278,6 +279,50 @@ def test_dedup_trajectory_matches_port_autograd(rng, use_edges):
     g_off, m_off = port_trajectory(off, jp, data, 3)
     p_off = params_to_jax(g_off.state_dict())
     assert_same_trajectory(m_on, m_off, params_to_jax(g_on.state_dict()), p_off, use_edges)
+
+
+def one_step_grads(tcfg, jp, data):
+    """One fused step of the port: its metrics and the gradients the
+    optimizer stepped on."""
+    g = port_graph(tcfg, jp)
+    opt, _ = make_optimizer(g, OPTIM, tcfg.max_iter)
+    grads, adam_step = {}, opt.step
+
+    def step(*args, **kwargs):
+        grads.update({n: p.grad.clone() for n, p in g.named_parameters() if p.grad is not None})
+        return adam_step(*args, **kwargs)
+
+    opt.step = step
+    return make_train_step(tcfg, g, opt, to_torch(data))(0), grads
+
+
+@pytest.mark.parametrize("use_edges", [True, False])
+def test_padded_dedup_columns_are_inert(rng, monkeypatch, use_edges):
+    """The dedup columns padded with zero columns (X = 0, cnt = 0, so base
+    = 0) to a multiple of 4, K3's m cut back to K: the fused dedup step's
+    losses and gradients equal the unpadded step's, to the rounding of the
+    plain version's sums (a matrix product over 1,348 columns is blocked
+    otherwise than one over 1,346: 2e-11 at most on dW0 here, relative to
+    the max-abs <= 1e-6)."""
+    from marf_tpu_torch.engine import step as tstep
+
+    jcfg, tcfg = icfg(use_edges=use_edges, alpha_initial=0.3, fused_step="on")
+    jp = jax_params(jcfg)
+    data = implicit_data(jcfg, rng)
+    if not use_edges:
+        data["edges"] = None
+    X_all = tstep.stage_mask_inputs(port_graph(tcfg, jp), torch.from_numpy(data["rgb"]))[0]
+    m_pad, g_pad = one_step_grads(tcfg, jp, data)
+    monkeypatch.setattr(tstep, "DEDUP_COLUMN_MULTIPLE", 1)
+    X = tstep.stage_mask_inputs(port_graph(tcfg, jp), torch.from_numpy(data["rgb"]))[0]
+    assert X.shape[1] % 4 and X_all.shape[1] == X.shape[1] + (-X.shape[1] % 4)
+    assert not X_all[:, X.shape[1]:].any() and torch.equal(X_all[:, : X.shape[1]], X)
+    m, g = one_step_grads(tcfg, jp, data)
+    for k in ("all", "loss_rgb", "loss_mask", "loss_render", "loss_edge"):
+        np.testing.assert_allclose(m_pad[k].numpy(), m[k].numpy(), rtol=1e-6, atol=0, err_msg=k)
+    assert set(g_pad) == set(g) and any(k.startswith("implicit_mask") for k in g)
+    for k in g:
+        assert rel_err(g_pad[k].numpy(), g[k].numpy()) <= 1e-6, k
 
 
 @pytest.mark.parametrize("mode", ["on", "off"])
