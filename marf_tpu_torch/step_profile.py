@@ -12,10 +12,13 @@ step once, and then, on one CUDA card:
   - times 100 steps ended by torch.cuda.synchronize() (steps/s);
   - times 20 steps without a sync (host enqueue ms/step);
   - traces 20 steps with torch.profiler: device ms/step of each hand-written
-    kernel (K1-K6, the device time of the launches inside each wrapper) and
-    of all device work, and the device kernels that take the most of it, by
-    name (the GEMM engines' template instances among them); the busy share
-    is that device time over the step time of the untraced steps.
+    kernel (K1-K6: the device kernels inside each wrapper's range on the
+    device timeline) and of all device work (kernels only: no range that
+    a record_function, the optimizer's step among them, draws on the
+    device timeline), the device kernels that take the most of it, by name
+    (the GEMM engine's template instances among them), and each wrapper's
+    own kernels by name; the busy share is that device time over the step
+    time of the untraced steps.
 Metric-only work follows the trainer's cadence: the last step of every 20 is
 the chunk-final one. Prints one line per part and the card's nvidia-smi name
 and power limit; it raises without a card.
@@ -102,16 +105,28 @@ def main(argv: list[str]) -> dict:
         run(CHUNK)
         torch.cuda.synchronize()
     events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
     tags = {tag for tag, _, _ in WRAPPERS}
-    # the record_function ranges also appear on the device timeline, spanning
-    # their kernels: count kernels only
-    device_ms = sum(
-        e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in tags
-    ) / 1e3 / CHUNK
-    parts = {tag: sum(e.device_time_total for e in events if e.key == tag) / 1e3 / CHUNK for tag in sorted(tags)}
-    parts = {k: v for k, v in parts.items() if v > 0}
+    # record_function ranges (the wrappers' tags, the optimizer's step) also
+    # appear on the device timeline, spanning their kernels and the idle gaps
+    # between them: count kernels only
+    ranges = {e.key for e in events if e.device_type != cuda}
     by_kernel = sorted(((e.self_device_time_total / 1e3 / CHUNK, _short(e.key)) for e in events
-                        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in tags), reverse=True)
+                        if e.device_type == cuda and e.key not in ranges), reverse=True)
+    device_ms = sum(ms for ms, _ in by_kernel)
+    # each wrapper's kernels: the device kernels inside its range on the device timeline
+    dev = [e for e in prof.events() if e.device_type == cuda]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in dev if e.name in tags]
+    per_wrapper: dict[str, dict[str, float]] = {}
+    for e in dev:
+        if e.name in ranges:
+            continue
+        for t0, t1, tag in spans:
+            if t0 <= e.time_range.start and e.time_range.end <= t1:
+                names = per_wrapper.setdefault(tag, {})
+                names[_short(e.name)] = names.get(_short(e.name), 0.0) + e.time_range.elapsed_us() / 1e3 / CHUNK
+                break
+    parts = {tag: sum(names.values()) for tag, names in sorted(per_wrapper.items())}
     result = {
         "options": argv,
         "steps_per_sec": steps_per_sec,
@@ -121,6 +136,7 @@ def main(argv: list[str]) -> dict:
         "other_device_ms_per_step": device_ms - sum(parts.values()),
         "device_busy_share": device_ms * steps_per_sec / 1e3,
         "top_device_kernels_ms_per_step": {name: ms for ms, name in by_kernel[:TOP_KERNELS]},
+        "wrapper_kernels_ms_per_step": per_wrapper,
     }
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -130,6 +146,9 @@ def main(argv: list[str]) -> dict:
           + f" other={result['other_device_ms_per_step']:.3f}, busy share {result['device_busy_share']:.3f}; {smi}",
           flush=True)
     print("[kernels] " + "; ".join(f"{name} {ms:.3f}" for ms, name in by_kernel[:TOP_KERNELS]), flush=True)
+    for tag, names in sorted(per_wrapper.items()):
+        print(f"[kernels {tag}] " + "; ".join(f"{name} {ms:.3f}" for name, ms in
+                                             sorted(names.items(), key=lambda kv: -kv[1])), flush=True)
     print(json.dumps(result), flush=True)
     return result
 
