@@ -81,12 +81,11 @@ PEAK_BYTES_PER_S = 3.35e12
 # saturated pixels in the K3/K4 inputs: each channel is set to 1.0 with this
 # probability, which gives some 1.3k extra columns beside the 43,200 of slot0
 SATURATED = 0.002
-# the GEMM engine of each kernel (csrc/tc_gemm.cuh)
-ENGINES = {
-    "3xtf32": "3xtf32 (tc_gemm.cuh, wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32, A from registers, 3 per "
-              "k8 step; the rgb pipeline's weights (K1, K2, K5) and the dedup mask head's hidden weights (K3, K4) "
-              "split once per call and their B tiles loaded by cp.async.bulk on mbarriers)",
-}
+# the GEMM engine every kernel runs on (csrc/tc_gemm.cuh)
+ENGINE = "3xtf32"
+ENGINE_NOTE = ("3xtf32 (tc_gemm.cuh, wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32, A from registers, 3 per k8 "
+               "step; the rgb pipeline's weights (K1, K2, K5) and the dedup mask head's hidden weights (K3, K4) split "
+               "once per call and their B tiles loaded by cp.async.bulk on mbarriers)")
 
 
 def fail(msg: str):
@@ -304,7 +303,7 @@ def mask_grads_rounded_forward(stacks64, X64, cot, seed=0, terms=False):
     return out
 
 
-def check_kernel(tag, launch, plain, plain64, value_keys, flops, nbytes, engine, per_point=None):
+def check_kernel(tag, launch, plain, plain64, value_keys, flops, nbytes, per_point=None):
     """Hold a kernel (launch() -> {name: tensor}) against its plain version
     and a float64 run of it; a relaunch must be bitwise equal. Time both and
     compute the bound: the larger of flops over the float32-accurate
@@ -358,9 +357,9 @@ def check_kernel(tag, launch, plain, plain64, value_keys, flops, nbytes, engine,
     print(f"[kernel] {tag} bitwise equal across two launches: True; {ms:.3f} ms/call kernel, {plain_ms:.3f} ms/call "
           f"plain (TF32 off); bound {bound_ms:.3f} ms ({flops / 1e9:.1f} GFLOP at "
           f"{PEAK_FP32_ACCURATE_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB, {bound_by}); max abs err "
-          f"{max_abs:.3e}; engine {ENGINES[engine]}", flush=True)
+          f"{max_abs:.3e}; engine {ENGINE_NOTE}", flush=True)
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "engine": engine, "bound_flops_per_s": PEAK_FP32_ACCURATE_FLOPS}
+            "engine": ENGINE, "bound_flops_per_s": PEAK_FP32_ACCURATE_FLOPS}
 
 
 def _named(rgb, loss, dparams, dgeo, sq, geo_name):
@@ -400,7 +399,6 @@ def phase_kernels(device):
         lambda: _named(*fs.fused_train_kernel_warp_reference(net, *k1), "dH"),
         lambda: _named(*fs.fused_train_kernel_warp_reference(net64, *k1_64), "dH"),
         ("rgb", "sq", "loss"), rgb_flops, _nbytes(grid_b, H, cw, targets, masks, *weights) + out_bytes + _nbytes(H),
-        "3xtf32",
     )
     k2 = (coords, cw, targets, masks, g, inv_sum3)
     k2_64 = tuple(t.double() for t in k2)
@@ -410,7 +408,6 @@ def phase_kernels(device):
         lambda: _named(*fs.fused_train_kernel_reference(net, *k2), "dcoords"),
         lambda: _named(*fs.fused_train_kernel_reference(net64, *k2_64), "dcoords"),
         ("rgb", "sq", "loss"), rgb_flops, _nbytes(coords, cw, targets, masks, *weights) + out_bytes + _nbytes(coords),
-        "3xtf32",
         # float32 determines dcoords only to ~4e-2 of their max-abs at a few
         # points, and the tensor cores and cuBLAS lose it differently: held
         # point by point, as K5's (below)
@@ -431,7 +428,7 @@ def phase_kernels(device):
         lambda: {"m": fm.fused_mask_forward(layers, X)},
         lambda: {"m": fm.fused_mask_forward_reference(layers, X)},
         lambda: {"m": fm.fused_mask_forward_reference(layers64, X.double())},
-        ("m",), 2 * K * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])), _nbytes(X, *mweights) + K * 4, "3xtf32",
+        ("m",), 2 * K * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])), _nbytes(X, *mweights) + K * 4,
     )
     k4 = (X, s0map, sq_b, esq_b, base, cnt, abk)
     k4_64 = tuple(t.double() for t in k4)
@@ -444,7 +441,7 @@ def phase_kernels(device):
         lambda: named4(fm.fused_mask_backward_dedup(layers, *k4)),
         lambda: named4(fm.fused_mask_backward_dedup_reference(layers, *k4)),
         lambda: named4(fm.fused_mask_backward_dedup_reference(layers64, *k4_64)),
-        (), _mlp_flops(K, mdims, len(mdims) - 2), _nbytes(*k4, *mweights) + _nbytes(*mweights), "3xtf32",
+        (), _mlp_flops(K, mdims, len(mdims) - 2), _nbytes(*k4, *mweights) + _nbytes(*mweights),
     )
 
     # what float32 can determine of K4's gradients (as K6's, below), with the
@@ -498,7 +495,6 @@ def phase_kernels(device):
             lambda: named5(fi.fused_implicit_train_kernel_reference(net64, stacks64, *k5_64, g2C)),
             ("rgb", "sq", "loss", "m", "msum"), rgb_flops + 2 * N * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])),
             _nbytes(*k5, *weights, *hweights) + out_bytes + N * 4 * (1 + 2) + 8,  # + m, dcoords, msum, loss
-            "3xtf32",
             per_point={"dcoords": lambda r64: dcoords_error_scale(net64, k5_64[0], k5_64[2], k5_64[3], r64["m"], g2C)},
         )
         k6 = (Xn, sq, esq, abk)
@@ -512,7 +508,7 @@ def phase_kernels(device):
             lambda: named6(fm.fused_mask_backward_g(stacks, *k6, c)),
             lambda: named6(fm.fused_mask_backward_g_reference(stacks, *k6, c)),
             lambda: named6(fm.fused_mask_backward_g_reference(stacks64, *k6_64, c)),
-            (), _mlp_flops(N, mdims, len(mdims) - 2), _nbytes(*k6, *hweights) + _nbytes(*hweights), "3xtf32",
+            (), _mlp_flops(N, mdims, len(mdims) - 2), _nbytes(*k6, *hweights) + _nbytes(*hweights),
         )
         # what float32 can determine of K6's gradients: float64 with the
         # forward rounded to float32's size, against float64
