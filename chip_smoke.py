@@ -22,7 +22,12 @@ Phases, one result line each; any failure exits non-zero:
        so that extra columns occur (E > 0);
      - K5 (fused_implicit_train_kernel) and K6 (fused_mask_backward_g) on all
        N = 216,000 columns of that batch, with 5 per-image heads and with
-       one shared head.
+       one shared head;
+     - K1-K4 at compute_dtype = bfloat16 (their bf16 entry points, on the
+       bf16 tensor-core engine) on the same inputs, each against its bf16
+       plain version and a float64 run that rounds to bf16 at the same cast
+       points, by the same rule with the bf16 tolerances below, and bounded
+       at the card's dense bf16 rate (989 TFLOP/s).
   4. main path: the port's trainer (`marf_tpu_torch.engine.trainer.Model`),
      synthetic data, seed 3, each run with the launch counts set to 0 just
      before it and read just after:
@@ -38,7 +43,15 @@ Phases, one result line each; any failure exits non-zero:
        K6 once per step, K1-K4 never) then autograd, per-step rgb and mask
        losses within 1e-3 over the first 10 steps;
      - `implicit` with fused_dedup=off (K5, K6 once per step), per-step rgb
-       and mask losses within 1e-3 of the dedup K1 run's.
+       and mask losses within 1e-3 of the dedup K1 run's;
+     - canonical and `implicit` at --tpu.compute_dtype=bfloat16, fused (the
+       bf16 K1, and K3, K1, K4, once per step) and autograd, and `implicit`
+       fused with fused_warp=off (the bf16 K3, K2, K4): finite, falling
+       losses, each fused run's first-step loss within 2e-2 of its float32
+       twin's (the JAX suite's bound), the K2 run's per-step losses within
+       1e-3 of the K1 run's over the first 10 steps; the fused and autograd
+       bf16 paths round differently (PERF.md), so their gap is printed, not
+       held.
 Then a JSON line with each kernel's numbers, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
@@ -72,20 +85,42 @@ TRAJ_TOL = 1e-3
 # in PERF.md): a product kept to ~3 decimal digits (single-pass TF32, 2^-11)
 # would not pass
 POINT_TOL = 1e-4
+# bf16 (compute_dtype = bfloat16) tolerances, relative to the max-abs of the
+# bf16 plain version's output. Products are exact in float32 on both sides;
+# a float32 sum taken in another order can land on the other side of a bf16
+# rounding boundary, and that activation or dz then differs by one bf16 ulp
+# (2^-8 of itself) and carries the difference on. Measured on an H100 at
+# these shapes: rgb and m within 1.6e-4, gradients and dH within 2.3e-4.
+# K2's bf16 dcoords per point are held to float32's POINT_TOL (measured
+# 1.7e-5 against the plain version, 3.0e-5 against float64).
+BF16_VALUE_TOL = 1e-3
+BF16_GRAD_TOL = 1e-3
+# the first-step loss of a fused bf16 run against the fused float32 run's
+# (marf_tpu's tests/test_fused_step.py test_fused_step_bfloat16)
+BF16_LOSS_RTOL = 2e-2
 # H100 SXM peaks (NVIDIA's data sheet). The bound takes the card's
 # float32-accurate rate on the tensor cores: 3xTF32 does three TF32 products
 # per float32 product (hi*hi + hi*lo + lo*hi of the split operands), so 495
-# TFLOP/s dense TF32 gives 165 TFLOP/s of float32 products. HBM3 at 3.35 TB/s.
+# TFLOP/s dense TF32 gives 165 TFLOP/s of float32 products; a bf16 kernel's
+# products run at the dense bf16 rate. HBM3 at 3.35 TB/s.
 PEAK_FP32_ACCURATE_FLOPS = 495e12 / 3
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # saturated pixels in the K3/K4 inputs: each channel is set to 1.0 with this
 # probability, which gives some 1.3k extra columns beside the 43,200 of slot0
 SATURATED = 0.002
-# the GEMM engine every kernel runs on (csrc/tc_gemm.cuh)
+# the GEMM engines the kernels run on (csrc/tc_gemm.cuh): float32 on 3xTF32,
+# compute_dtype = bfloat16 on the bf16 engine
 ENGINE = "3xtf32"
 ENGINE_NOTE = ("3xtf32 (tc_gemm.cuh, wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32, A from registers, 3 per k8 "
                "step; the rgb pipeline's weights (K1, K2, K5) and the dedup mask head's hidden weights (K3, K4) split "
                "once per call and their B tiles loaded by cp.async.bulk on mbarriers)")
+ENGINE_BF16 = "bf16"
+ENGINE_BF16_NOTE = ("bf16 (tc_gemm.cuh TbEngine, wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16, A from registers, "
+                    "1 per k16 step, B tiles landed by cp.async in core matrices, K- or MN-major; the hidden weights "
+                    "converted to bf16 once per call and loaded by cp.async.bulk on mbarriers)")
+BF16 = {"tols": (BF16_VALUE_TOL, BF16_GRAD_TOL, POINT_TOL), "peak": PEAK_BF16_FLOPS,
+        "engine": (ENGINE_BF16, ENGINE_BF16_NOTE)}
 
 
 def fail(msg: str):
@@ -303,15 +338,18 @@ def mask_grads_rounded_forward(stacks64, X64, cot, seed=0, terms=False):
     return out
 
 
-def check_kernel(tag, launch, plain, plain64, value_keys, flops, nbytes, per_point=None):
+def check_kernel(tag, launch, plain, plain64, value_keys, flops, nbytes, per_point=None,
+                 tols=(VALUE_TOL, GRAD_TOL, POINT_TOL), peak=PEAK_FP32_ACCURATE_FLOPS, engine=(ENGINE, ENGINE_NOTE)):
     """Hold a kernel (launch() -> {name: tensor}) against its plain version
     and a float64 run of it; a relaunch must be bitwise equal. Time both and
-    compute the bound: the larger of flops over the float32-accurate
-    tensor-core rate and bytes over the memory rate. per_point: {name:
-    fn(float64 outputs) -> per-point scale}: that output is held against the
-    plain version point by point over the scale (to POINT_TOL, as against
-    float64), in place of the max-abs error."""
+    compute the bound: the larger of flops over `peak` (the float32-accurate
+    tensor-core rate, or the bf16 rate for a bf16 kernel) and bytes over the
+    memory rate. per_point: {name: fn(float64 outputs) -> per-point scale}:
+    that output is held against the plain version point by point over the
+    scale (to the point tolerance, as against float64), in place of the
+    max-abs error. tols: (values, gradients, per point)."""
     per_point = per_point or {}
+    value_tol, grad_tol, point_tol = tols
     out, out2, ref, ref64 = launch(), launch(), plain(), plain64()
     torch.cuda.synchronize()
     for k in out:
@@ -321,20 +359,20 @@ def check_kernel(tag, launch, plain, plain64, value_keys, flops, nbytes, per_poi
     errs64 = {k: _rel(out[k], ref64[k]) for k in out}
     plain_errs64 = {k: _rel(ref[k], ref64[k]) for k in out}
     fmt = lambda e: " ".join(f"{k}={v:.2e}" for k, v in e.items())
-    print(f"[kernel] {tag} rel err vs plain (tol values {VALUE_TOL:.0e}, grads {GRAD_TOL:.0e}): {fmt(errs)}", flush=True)
+    print(f"[kernel] {tag} rel err vs plain (tol values {value_tol:.0e}, grads {grad_tol:.0e}): {fmt(errs)}", flush=True)
     print(f"[kernel] {tag} kernel vs float64: {fmt(errs64)}", flush=True)
     print(f"[kernel] {tag} plain float32 vs float64: {fmt(plain_errs64)}", flush=True)
     for k in out:
-        tol = VALUE_TOL if k in value_keys else GRAD_TOL
+        tol = value_tol if k in value_keys else grad_tol
         if k in per_point:
             scale = per_point[k](ref64)
             pt = {"kernel vs plain": _rel_pt(out[k], ref[k], scale), "kernel vs float64": _rel_pt(out[k], ref64[k], scale),
                   "plain vs float64": _rel_pt(ref[k], ref64[k], scale)}
-            print(f"[kernel] {tag} {k} per point over its float32 error scale (tol {POINT_TOL:.0e}): "
+            print(f"[kernel] {tag} {k} per point over its float32 error scale (tol {point_tol:.1e}): "
                   + ", ".join(f"{n} {v:.2e}" for n, v in pt.items()), flush=True)
             for n in ("kernel vs plain", "kernel vs float64"):
-                if not pt[n] <= POINT_TOL:
-                    fail(f"{tag} {n}: {k} per-point error {pt[n]:.3e} > {POINT_TOL:.0e}")
+                if not pt[n] <= point_tol:
+                    fail(f"{tag} {n}: {k} per-point error {pt[n]:.3e} > {point_tol:.1e}")
         elif not errs[k] <= tol:
             fail(f"{tag} kernel vs plain: {k} relative error {errs[k]:.3e} > {tol:.0e}")
         # against float64, the kernel may be as far off as twice the plain
@@ -351,15 +389,14 @@ def check_kernel(tag, launch, plain, plain64, value_keys, flops, nbytes, per_poi
     max_abs = max((out[k] - ref[k]).abs().max().item() for k in out)
     ms = _time_ms(launch)
     plain_ms = _time_ms(plain)
-    t_ops = flops / PEAK_FP32_ACCURATE_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     print(f"[kernel] {tag} bitwise equal across two launches: True; {ms:.3f} ms/call kernel, {plain_ms:.3f} ms/call "
-          f"plain (TF32 off); bound {bound_ms:.3f} ms ({flops / 1e9:.1f} GFLOP at "
-          f"{PEAK_FP32_ACCURATE_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB, {bound_by}); max abs err "
-          f"{max_abs:.3e}; engine {ENGINE_NOTE}", flush=True)
+          f"plain (TF32 off); bound {bound_ms:.3f} ms ({flops / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s, "
+          f"{nbytes / 1e6:.1f} MB, {bound_by}); max abs err {max_abs:.3e}; engine {engine[1]}", flush=True)
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "engine": ENGINE, "bound_flops_per_s": PEAK_FP32_ACCURATE_FLOPS}
+            "engine": engine[0], "bound_flops_per_s": peak}
 
 
 def _named(rgb, loss, dparams, dgeo, sq, geo_name):
@@ -469,6 +506,41 @@ def phase_kernels(device):
              _time_ms(lambda: fm.fused_mask_backward_dedup(layers, *k4))]
         print(f"[kernel] X in place (K={K}, 4-byte copies) vs padded (K={Kp}, 16-byte copies), ms/call: K3 "
               f"{t[0]:.3f} vs {t[1]:.3f}, K4 {t[2]:.3f} vs {t[3]:.3f}", flush=True)
+
+    # K1-K4 at compute_dtype = bfloat16 on the same inputs: each against its
+    # bf16 plain version and a float64 run that rounds to bf16 where they do
+    bf = "bfloat16"
+    results["K1 bf16"] = check_kernel(
+        f"K1 bf16 fused_train_kernel_warp N={N}",
+        lambda: _named(*fs.fused_train_kernel_warp(net, *k1, compute_dtype=bf), "dH"),
+        lambda: _named(*fs.fused_train_kernel_warp_reference(net, *k1, bf), "dH"),
+        lambda: _named(*fs.fused_train_kernel_warp_reference(net64, *k1_64, bf), "dH"),
+        ("rgb", "sq", "loss"), rgb_flops, _nbytes(grid_b, H, cw, targets, masks, *weights) + out_bytes + _nbytes(H),
+        **BF16,
+    )
+    results["K2 bf16"] = check_kernel(
+        f"K2 bf16 fused_train_kernel N={N}",
+        lambda: _named(*fs.fused_train_kernel(net, *k2, compute_dtype=bf), "dcoords"),
+        lambda: _named(*fs.fused_train_kernel_reference(net, *k2, bf), "dcoords"),
+        lambda: _named(*fs.fused_train_kernel_reference(net64, *k2_64, bf), "dcoords"),
+        ("rgb", "sq", "loss"), rgb_flops, _nbytes(coords, cw, targets, masks, *weights) + out_bytes + _nbytes(coords),
+        per_point={"dcoords": lambda r64: dcoords_error_scale(net64, *k2_64[:4], 2.0 * k2_64[4] * k2_64[5])},
+        **BF16,
+    )
+    results["K3 bf16"] = check_kernel(
+        f"K3 bf16 fused_mask_forward K={K}",
+        lambda: {"m": fm.fused_mask_forward(layers, X, bf)},
+        lambda: {"m": fm.fused_mask_forward_reference(layers, X, bf)},
+        lambda: {"m": fm.fused_mask_forward_reference(layers64, X.double(), bf)},
+        ("m",), 2 * K * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])), _nbytes(X, *mweights) + K * 4, **BF16,
+    )
+    results["K4 bf16"] = check_kernel(
+        f"K4 bf16 fused_mask_backward_dedup K={K}",
+        lambda: named4(fm.fused_mask_backward_dedup(layers, *k4, compute_dtype=bf)),
+        lambda: named4(fm.fused_mask_backward_dedup_reference(layers, *k4, compute_dtype=bf)),
+        lambda: named4(fm.fused_mask_backward_dedup_reference(layers64, *k4_64, compute_dtype=bf)),
+        (), _mlp_flops(K, mdims, len(mdims) - 2), _nbytes(*k4, *mweights) + _nbytes(*mweights), **BF16,
+    )
 
     # K5 and K6 on all N columns: per-image heads (the JSON line's numbers), then the shared head
     for n_heads, tag in ((cfg.batch_size, ""), (1, " shared")):
@@ -648,6 +720,42 @@ def phase_main_path(out_root: str):
              f"(tol {TRAJ_TOL:.0e})")
     print(f"[main] implicit: first-10-step loss rel diff fused_dedup=off (K5, K6) vs dedup (K3, K1, K4) "
           + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
+
+    # compute_dtype = bfloat16: the bf16 kernels on the fused path (K2's
+    # under fused_warp=off), the neural image's bf16 casts on the autograd path
+    bf16 = "--tpu.compute_dtype=bfloat16"
+    dedup = {"fused_mask_forward_bf16": ITERS, "fused_mask_backward_dedup_bf16": ITERS}
+    h_bf16 = {}
+    for name, extra, h32, expect, autograd in (
+        ("canonical", (), h_f, {"fused_train_kernel_warp_bf16": ITERS}, True),
+        ("implicit", implicit, h_i, {**dedup, "fused_train_kernel_warp_bf16": ITERS}, True),
+        ("implicit_warp_off", (*implicit, "--tpu.fused_warp=off"), h_k2, {**dedup, "fused_train_kernel_bf16": ITERS},
+         False),
+    ):
+        m_b, h_b, c = run_model(options(out_root, f"{name}_fused_bf16", ITERS, "--tpu.fused_step=on", bf16, *extra),
+                                expect)
+        add(c)
+        h_bf16[name] = h_b
+        first = abs(h_b["all"][0] - h32["all"][0]).item() / abs(h32["all"][0]).item()
+        if not first <= BF16_LOSS_RTOL:
+            fail(f"{name}: the fused bf16 run's first-step loss is {first:.2e} from the float32 run's "
+                 f"(tol {BF16_LOSS_RTOL:.0e})")
+        if extra:
+            check_outputs(m_b)
+        line = (f"[main] {name} bf16: first-step loss rel diff bf16 vs float32 (fused) {first:.2e} "
+                f"(tol {BF16_LOSS_RTOL:.0e})")
+        if autograd:
+            _, h_ba, _ = run_model(options(out_root, f"{name}_autograd_bf16", ITERS, "--tpu.fused_step=off", bf16,
+                                           *extra), {})
+            gap = {k: _traj(h_b, h_ba, k) for k in ("loss_rgb", "loss_mask")}
+            line += ("; first-10-step loss rel diff fused vs autograd (not held: they round differently) "
+                     + " ".join(f"{k}={v:.2e}" for k, v in gap.items()))
+        print(line, flush=True)
+    trajs = {k: _traj(h_bf16["implicit_warp_off"], h_bf16["implicit"], k) for k in ("loss_rgb", "loss_mask")}
+    if not max(trajs.values()) <= TRAJ_TOL:
+        fail(f"implicit bf16: the K2 and K1 runs' losses differ over the first 10 steps: {trajs} (tol {TRAJ_TOL:.0e})")
+    print(f"[main] implicit bf16: first-10-step loss rel diff K2 vs K1 "
+          + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
     return total
 
 
@@ -658,19 +766,30 @@ KERNELS = [
     ("K4", "fused_mask_backward_dedup", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:837"),
     ("K5", "fused_implicit_train_kernel", "marf_tpu_torch/csrc/fused_implicit.cu", "marf_tpu/ops/pallas/fused_mask.py:434"),
     ("K6", "fused_mask_backward_g", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:510"),
+    # the same Pallas kernels' bodies at cdtype = bfloat16
+    ("K1 bf16", "fused_train_kernel_warp_bf16", "marf_tpu_torch/csrc/fused_step.cu",
+     "marf_tpu/ops/pallas/fused_step.py:272"),
+    ("K2 bf16", "fused_train_kernel_bf16", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:208"),
+    ("K3 bf16", "fused_mask_forward_bf16", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:252"),
+    ("K4 bf16", "fused_mask_backward_dedup_bf16", "marf_tpu_torch/csrc/fused_mask.cu",
+     "marf_tpu/ops/pallas/fused_mask.py:837"),
 ]
 
 
 def main():
+    t0 = time.perf_counter()
     smi = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
     results = phase_kernels(device)
     torch.cuda.synchronize()
+    t_kernels = time.perf_counter() - t0
     out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output")
     os.makedirs(out_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_root) as tmp:
         launches = phase_main_path(tmp)
+    print(f"[time] build and kernels {t_kernels:.1f} s, main path {time.perf_counter() - t0 - t_kernels:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
          **results[kid], "library_ms": None}

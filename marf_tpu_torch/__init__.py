@@ -14,7 +14,7 @@ Mirrors marf_tpu's layout so each module's counterpart is easy to find:
                            five-phase trainer
 
 The package imports torch and never jax, and imports no module of marf_tpu;
-it reads marf_tpu/configs/*.yaml as data.
+its yaml files (marf_tpu_torch/configs) are byte-equal copies of marf_tpu's.
 """
 
 __version__ = "0.1.0"

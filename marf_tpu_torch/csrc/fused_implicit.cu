@@ -58,8 +58,8 @@ ImplicitPlan make_implicit_plan(int N, int n_heads, int L, int n_rgb, const int*
                                 const int* mask_dims) {
   ImplicitPlan I{};
   const int nh = n_heads < MAX_GROUP ? n_heads : MAX_GROUP;
-  I.mask = make_mask_plan(N / n_heads, nh, n_mask, mask_dims, false, false);
-  const long long rgb_total = make_plan(N, 0, L, n_rgb, rgb_dims).total;
+  I.mask = make_mask_plan<float>(N / n_heads, nh, n_mask, mask_dims, false, false);
+  const long long rgb_total = make_plan<float>(N, 0, L, n_rgb, rgb_dims).total;
   Arena a;
   a.take(I.mask.total > rgb_total ? I.mask.total : rgb_total);  // both stages start at offset 0
   I.msum_part = a.take(COLSUM_SPLITS);
@@ -102,9 +102,9 @@ int marf_implicit_train(int N, int n_heads, int L, int n_rgb, const int* rgb_dim
     MaskPlan P = I.mask;
     P.nh = n_heads - h0 < P.nh ? n_heads - h0 : P.nh;
     const long long o = (long long)h0 * HW;
-    int rc = hidden_forward(st, P, N, n_mask, mask_dims, X + o, mW + h0 * n_mask, mb + h0 * n_mask, ws);
+    int rc = hidden_forward<float>(st, P, N, n_mask, mask_dims, X + o, mW + h0 * n_mask, mb + h0 * n_mask, ws);
     if (rc) return rc;
-    rc = mask_head_forward(st, P, n_mask, mask_dims, mW + h0 * n_mask, mb + h0 * n_mask, ws, m + o);
+    rc = mask_head_forward<float>(st, P, n_mask, mask_dims, mW + h0 * n_mask, mb + h0 * n_mask, ws, m + o);
     if (rc) return rc;
   }
 
@@ -113,8 +113,8 @@ int marf_implicit_train(int N, int n_heads, int L, int n_rgb, const int* rgb_dim
   MARF_CHECK_LAUNCH();
 
   // ---- 3. K2's pipeline masked by m with the unnormalized scalars, on the tensor cores
-  return fused_step(N, 0, L, n_rgb, rgb_dims, nullptr, nullptr, coords, cw, tgt, m, scal, W, bias, rgb, sq, loss,
-                    dW, db, nullptr, dcoords, ws, st);
+  return fused_step<float>(N, 0, L, n_rgb, rgb_dims, nullptr, nullptr, coords, cw, tgt, m, scal, W, bias, rgb, sq,
+                           loss, dW, db, nullptr, dcoords, ws, st);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Implicit-mask head kernels for Hopper (sm_90a), float32.
+// Implicit-mask head kernels for Hopper (sm_90a), float32, and K3 and K4
+// also in bf16.
 //
 // marf_mask_forward replaces marf_tpu/ops/pallas/fused_mask.py:
 // _mask_fwd_only_kernel (K3, wrapper fused_mask_forward): the factored mask
@@ -66,6 +67,15 @@
 // stages: no float atomics, bitwise-equal relaunches. The slot0 segment sum
 // over b runs in a fixed order inside the head pass.
 //
+// marf_mask_forward_bf16 and marf_mask_backward_dedup_bf16 are K3's and
+// K4's bodies at cdtype = bfloat16 (compute_dtype, marf_tpu/engine/
+// step.py:611, 629, 724): X converted to bf16 once per call (56 x K, rows
+// padded to 16 bytes) with the first layer's weights, the hidden weights
+// converted to bf16 tiles once per call (both orientations), every product
+// on the bf16 tensor-core engine (tc_gemm.cuh TbEngine; at 989 TFLOP/s
+// K3's 19.5 GFLOP bound 0.020 ms and K4's 57 GFLOP 0.058 ms). K4's forward
+// recompute runs K3's launches, so its m is bitwise K3's here too.
+//
 // Layouts: weights are nn.Linear's [out, in], row-major; X is [56, K] or
 // [56, N] channels-first; activations are column-major over points
 // [K, width]; s0map, sq, esq are [B, HW] for K4 and [N] for K6.
@@ -76,16 +86,16 @@ extern "C" {
 
 // Floats of workspace one call needs (the wrapper allocates it).
 long long marf_mask_forward_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan(K, 1, n_layers, dims, false, true).total;
+  return make_mask_plan<float>(K, 1, n_layers, dims, false, true).total;
 }
 
 long long marf_mask_backward_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan(K, 1, n_layers, dims, true, true).total;
+  return make_mask_plan<float>(K, 1, n_layers, dims, true, true).total;
 }
 
 long long marf_mask_backward_g_workspace(int N, int n_heads, int n_layers, const int* dims) {
   const int nh = n_heads < MAX_GROUP ? n_heads : MAX_GROUP;
-  return make_mask_plan(N / n_heads, nh, n_layers, dims, true, false).total;
+  return make_mask_plan<float>(N / n_heads, nh, n_layers, dims, true, false).total;
 }
 
 // K3. Returns 0, or the CUDA error code of the first launch that failed.
@@ -94,10 +104,10 @@ int marf_mask_forward(int K, int n_layers, const int* dims, const float* X, cons
                       const float* const* bias, float* m, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const MaskPlan P = make_mask_plan(K, 1, n_layers, dims, false, true);
-  int rc = hidden_forward(st, P, K, n_layers, dims, X, W, bias, ws);
+  const MaskPlan P = make_mask_plan<float>(K, 1, n_layers, dims, false, true);
+  int rc = hidden_forward<float>(st, P, K, n_layers, dims, X, W, bias, ws);
   if (rc) return rc;
-  return mask_head_forward(st, P, n_layers, dims, W, bias, ws, m);
+  return mask_head_forward<float>(st, P, n_layers, dims, W, bias, ws, m);
 }
 
 // K4. s0map, sq [B, HW] and esq [B, HW] (nullptr without edges) are the
@@ -107,9 +117,9 @@ int marf_mask_backward_dedup(int K, int HW, int B, int n_layers, const int* dims
                              const float* cnt, const float* abk, const float* const* W, const float* const* bias,
                              float* const* dW, float* const* db, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims) || HW < 0 || HW > K || B < 1) return (int)cudaErrorInvalidValue;
-  const MaskPlan P = make_mask_plan(K, 1, n_layers, dims, true, true);
-  return mask_backward((cudaStream_t)stream, P, K, n_layers, dims, X, W, bias,
-                       DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
+  const MaskPlan P = make_mask_plan<float>(K, 1, n_layers, dims, true, true);
+  return mask_backward<float>((cudaStream_t)stream, P, K, n_layers, dims, X, W, bias,
+                              DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
 }
 
 // K6. X [dims[0], N] with N = n_heads HW; sq [N], esq [N] (nullptr without
@@ -122,18 +132,50 @@ int marf_mask_backward_g(int N, int n_heads, int n_layers, const int* dims, cons
   if (n_heads < 1 || N % n_heads != 0) return (int)cudaErrorInvalidValue;
   const int HW = N / n_heads;
   if (!valid_mask_dims(HW, n_layers, dims)) return (int)cudaErrorInvalidValue;
-  const MaskPlan P0 = make_mask_plan(HW, n_heads < MAX_GROUP ? n_heads : MAX_GROUP, n_layers, dims, true, false);
+  const MaskPlan P0 =
+      make_mask_plan<float>(HW, n_heads < MAX_GROUP ? n_heads : MAX_GROUP, n_layers, dims, true, false);
   for (int h0 = 0; h0 < n_heads; h0 += P0.nh) {  // all heads at once up to MAX_GROUP of them
     MaskPlan P = P0;
     P.nh = n_heads - h0 < P.nh ? n_heads - h0 : P.nh;
     const long long o = (long long)h0 * HW;
     const ColumnCot cot{sq + o, esq ? esq + o : nullptr, cnt ? cnt + o : nullptr, abk, c};
     const int k = h0 * n_layers;
-    int rc = mask_backward((cudaStream_t)stream, P, N, n_layers, dims, X + o, W + k, bias + k, cot, dW + k, db + k,
-                           ws);
+    int rc = mask_backward<float>((cudaStream_t)stream, P, N, n_layers, dims, X + o, W + k, bias + k, cot, dW + k,
+                                  db + k, ws);
     if (rc) return rc;
   }
   return 0;
+}
+
+// K3 and K4 at compute_dtype = bfloat16: the arguments, layouts and
+// outputs of marf_mask_forward and marf_mask_backward_dedup (X and the
+// weights float32, as the wrapper keeps them; converted to bf16 in the call).
+long long marf_mask_forward_bf16_workspace(int K, int n_layers, const int* dims) {
+  return make_mask_plan<bf16>(K, 1, n_layers, dims, false, true).total;
+}
+
+long long marf_mask_backward_bf16_workspace(int K, int n_layers, const int* dims) {
+  return make_mask_plan<bf16>(K, 1, n_layers, dims, true, true).total;
+}
+
+int marf_mask_forward_bf16(int K, int n_layers, const int* dims, const float* X, const float* const* W,
+                           const float* const* bias, float* m, float* ws, void* stream) {
+  if (!valid_mask_dims(K, n_layers, dims)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const MaskPlan P = make_mask_plan<bf16>(K, 1, n_layers, dims, false, true);
+  int rc = hidden_forward<bf16>(st, P, K, n_layers, dims, X, W, bias, ws);
+  if (rc) return rc;
+  return mask_head_forward<bf16>(st, P, n_layers, dims, W, bias, ws, m);
+}
+
+int marf_mask_backward_dedup_bf16(int K, int HW, int B, int n_layers, const int* dims, const float* X,
+                                  const float* s0map, const float* sq, const float* esq, const float* base,
+                                  const float* cnt, const float* abk, const float* const* W, const float* const* bias,
+                                  float* const* dW, float* const* db, float* ws, void* stream) {
+  if (!valid_mask_dims(K, n_layers, dims) || HW < 0 || HW > K || B < 1) return (int)cudaErrorInvalidValue;
+  const MaskPlan P = make_mask_plan<bf16>(K, 1, n_layers, dims, true, true);
+  return mask_backward<bf16>((cudaStream_t)stream, P, K, n_layers, dims, X, W, bias,
+                             DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
 }
 
 }  // extern "C"

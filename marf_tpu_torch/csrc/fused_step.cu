@@ -1,11 +1,17 @@
-// Fused planar train step for Hopper (sm_90a), float32: two entry points
-// over one pipeline.
+// Fused planar train step for Hopper (sm_90a): two entry points over one
+// pipeline, each in float32 and in bf16.
 //
 // marf_fused_step_warp replaces marf_tpu/ops/pallas/fused_step.py:_kernel_warp
 // (K1, wrapper fused_train_kernel_warp); marf_fused_step_coords replaces
 // fused_step.py:_kernel (K2, wrapper fused_train_kernel), which is K1 given
 // the warped coordinates. The pipeline itself (what one call computes) is
 // `fused_step` in fused_step.cuh, which K5 (fused_implicit.cu) runs too.
+// marf_fused_step_warp_bf16 and marf_fused_step_coords_bf16 are the same
+// kernels' bodies at cdtype = bfloat16 (compute_dtype, fused_step.py:405,
+// 547): the encoding and activations stored in bf16, the weights read as
+// bf16, every product on the bf16 tensor-core engine (tc_gemm.cuh
+// TbEngine: 989 TFLOP/s dense, so the canonical step's 267 GFLOP bound
+// 0.27 ms, and half the activation bytes).
 //
 // What bounds it: float32 FLOPs. The canonical step (N = 216,000, MLP
 // 34->256x4->3) needs about 267 GFLOP (forward, dX and dW products) against
@@ -41,7 +47,7 @@ extern "C" {
 
 // Floats of workspace one call needs (the wrapper allocates it).
 long long marf_fused_step_warp_workspace(int Np, int B, int L, int n_layers, const int* dims) {
-  return make_plan(Np, B, L, n_layers, dims).total;
+  return make_plan<float>(Np, B, L, n_layers, dims).total;
 }
 
 // K1. Returns 0, or the CUDA error code of the first launch that failed.
@@ -54,12 +60,12 @@ int marf_fused_step_warp(int Np, int B, int L, int n_layers, const int* dims, co
                          const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
                          float* const* dW, float* const* db, float* dH, float* ws, void* stream) {
   if (B < 1 || B > MAX_IMAGES) return (int)cudaErrorInvalidValue;
-  return fused_step(Np, B, L, n_layers, dims, grid, H, nullptr, cw, tgt, msk, scal, W, bias, rgb, sq, loss, dW, db,
-                    dH, nullptr, ws, (cudaStream_t)stream);
+  return fused_step<float>(Np, B, L, n_layers, dims, grid, H, nullptr, cw, tgt, msk, scal, W, bias, rgb, sq, loss, dW,
+                           db, dH, nullptr, ws, (cudaStream_t)stream);
 }
 
 long long marf_fused_step_coords_workspace(int Np, int L, int n_layers, const int* dims) {
-  return make_plan(Np, 0, L, n_layers, dims).total;
+  return make_plan<float>(Np, 0, L, n_layers, dims).total;
 }
 
 // K2: as K1 with coords [2, Np] (warped coordinates) in place of grid and H,
@@ -68,8 +74,36 @@ int marf_fused_step_coords(int Np, int L, int n_layers, const int* dims, const f
                            const float* tgt, const float* msk, const float* scal, const float* const* W,
                            const float* const* bias, float* rgb, float* sq, float* loss, float* const* dW,
                            float* const* db, float* dcoords, float* ws, void* stream) {
-  return fused_step(Np, 0, L, n_layers, dims, nullptr, nullptr, coords, cw, tgt, msk, scal, W, bias, rgb, sq, loss,
-                    dW, db, nullptr, dcoords, ws, (cudaStream_t)stream);
+  return fused_step<float>(Np, 0, L, n_layers, dims, nullptr, nullptr, coords, cw, tgt, msk, scal, W, bias, rgb, sq,
+                           loss, dW, db, nullptr, dcoords, ws, (cudaStream_t)stream);
+}
+
+// K1 and K2 at compute_dtype = bfloat16: the arguments, layouts and
+// outputs of marf_fused_step_warp and marf_fused_step_coords (the weights
+// float32, as the wrapper keeps them; converted to bf16 in the call).
+long long marf_fused_step_warp_bf16_workspace(int Np, int B, int L, int n_layers, const int* dims) {
+  return make_plan<bf16>(Np, B, L, n_layers, dims).total;
+}
+
+int marf_fused_step_warp_bf16(int Np, int B, int L, int n_layers, const int* dims, const float* grid, const float* H,
+                              const float* cw, const float* tgt, const float* msk, const float* scal,
+                              const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
+                              float* const* dW, float* const* db, float* dH, float* ws, void* stream) {
+  if (B < 1 || B > MAX_IMAGES) return (int)cudaErrorInvalidValue;
+  return fused_step<bf16>(Np, B, L, n_layers, dims, grid, H, nullptr, cw, tgt, msk, scal, W, bias, rgb, sq, loss, dW,
+                          db, dH, nullptr, ws, (cudaStream_t)stream);
+}
+
+long long marf_fused_step_coords_bf16_workspace(int Np, int L, int n_layers, const int* dims) {
+  return make_plan<bf16>(Np, 0, L, n_layers, dims).total;
+}
+
+int marf_fused_step_coords_bf16(int Np, int L, int n_layers, const int* dims, const float* coords, const float* cw,
+                                const float* tgt, const float* msk, const float* scal, const float* const* W,
+                                const float* const* bias, float* rgb, float* sq, float* loss, float* const* dW,
+                                float* const* db, float* dcoords, float* ws, void* stream) {
+  return fused_step<bf16>(Np, 0, L, n_layers, dims, nullptr, nullptr, coords, cw, tgt, msk, scal, W, bias, rgb, sq,
+                          loss, dW, db, nullptr, dcoords, ws, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-// The fused rgb train-step pipeline for Hopper (sm_90a), float32, shared by
+// The fused rgb train-step pipeline for Hopper (sm_90a), shared by
 // fused_step.cu (K1, K2) and fused_implicit.cu (K5, which runs it with the
-// predicted mask as `msk`). `fused_step` computes, for Np points:
+// predicted mask as `msk`). `fused_step<T>` computes, for Np points:
 //   K1: the per-point homography warp of the constant (u, v, b) grid with
 //       H[b] and the +1e-8 perspective divide; K2: reads coords [2, Np];
 //   the BARF posenc with c2f band weights;
@@ -10,8 +10,16 @@
 //   the full backward (dW, db of every layer);
 //   the analytic posenc VJP, then K1: the warp VJP reduced to dH[b] per
 //   image; K2: dcoords [2, Np] per point (no limit on the number of images).
-// Every product runs on the 3xTF32 tensor-core engine (tc_gemm.cuh), which
-// folds each db into its dW product.
+// T is the storage type of the encoding and the activations: float32 (every
+// product on the 3xTF32 tensor-core engine) or bf16 (compute_dtype =
+// bfloat16, every product on the bf16 engine; tc_gemm.cuh's EngineOf). In
+// bf16 the pipeline rounds where the Pallas kernels' cdtype does
+// (marf_tpu/ops/pallas/fused_step.py _stack_fwd, _stack_bwd): the encoding
+// (x and y among it) and every hidden activation are stored in bf16, every
+// weight is read as bf16, the output cotangent through the sigmoid and each
+// ReLU-gated dz are rounded to bf16 before they feed a product; the bias,
+// the loss, d(encoding), the posenc and warp VJPs and every sum (dW, db)
+// stay float32. The engine folds each db into its dW product.
 // Design, bound and layouts: see fused_step.cu and fused_implicit.cu.
 
 #pragma once
@@ -55,29 +63,32 @@ __device__ __forceinline__ void point_xy(const float* __restrict__ grid, const f
 }
 
 // enc[p] = [x, y, sin(x f_k) w_k, cos(x f_k) w_k, sin(y f_k) w_k,
-// cos(y f_k) w_k] (the reference row order, 2 + 4L wide).
-__global__ void encode_kernel(int Np, int B, int L, const float* __restrict__ grid, const float* __restrict__ H,
-                              const float* __restrict__ coords, const float* __restrict__ cw,
-                              float* __restrict__ enc) {
+// cos(y f_k) w_k] (the reference row order, 2 + 4L wide), stored as T in
+// rows of ldE (zeros past 2 + 4L).
+template <class T>
+__global__ void encode_kernel(int Np, int B, int L, int ldE, const float* __restrict__ grid,
+                              const float* __restrict__ H, const float* __restrict__ coords,
+                              const float* __restrict__ cw, T* __restrict__ enc) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= Np) return;
   const int E = 2 + 4 * L;
   float x, y;
   point_xy(grid, H, coords, B, Np, p, x, y);
-  float* e = enc + (long long)p * E;
-  e[0] = x;
-  e[1] = y;
+  T* e = enc + (long long)p * ldE;
+  e[0] = from_f<T>(x);
+  e[1] = from_f<T>(y);
   for (int k = 0; k < L; ++k) {
     const float f = ldexpf(PI_F, k);
     const float w = cw[k];
     float sx, cx, sy, cy;
     sincosf(x * f, &sx, &cx);
     sincosf(y * f, &sy, &cy);
-    e[2 + k] = sx * w;
-    e[2 + L + k] = cx * w;
-    e[2 + 2 * L + k] = sy * w;
-    e[2 + 3 * L + k] = cy * w;
+    e[2 + k] = from_f<T>(sx * w);
+    e[2 + L + k] = from_f<T>(cx * w);
+    e[2 + 2 * L + k] = from_f<T>(sy * w);
+    e[2 + 3 * L + k] = from_f<T>(cy * w);
   }
+  for (int k = E; k < ldE; ++k) e[k] = from_f<T>(0.0f);
 }
 
 // Posenc VJP of one point: d = d(encoding) row, returns dx, dy:
@@ -105,18 +116,21 @@ __device__ __forceinline__ void posenc_vjp(float x, float y, int L, const float*
 //   dz = dscale (rgb - t) m m rgb (1 - rgb);
 //   dX[p, f] = (sum_c dz_c W[c, f]) * (X[p, f] > 0)  (the previous layer's ReLU gate);
 //   dW partial [3, K] = sum_p dz X, db partial [3] = sum_p dz.
+// With T = bf16, W is read as bf16 and dz and dX are rounded to bf16 (the
+// Pallas kernel's cdtype), sums and the loss float32.
+template <class T>
 __global__ void __launch_bounds__(ELEM_THREADS)
-head_kernel(int Np, int K, int chunk, const float* __restrict__ X, const float* __restrict__ W,
+head_kernel(int Np, int K, int chunk, const T* __restrict__ X, const float* __restrict__ W,
             const float* __restrict__ bias, const float* __restrict__ tgt, const float* __restrict__ msk,
             const float* __restrict__ scal, float* __restrict__ rgb, float* __restrict__ sq,
-            float* __restrict__ dX, float* __restrict__ part, int part_stride) {
+            T* __restrict__ dX, float* __restrict__ part, int part_stride) {
   __shared__ float Ws[3][HEAD_MAX_K];
   __shared__ float dzs[HEAD_POINTS][3];
   __shared__ float warp_loss[HEAD_POINTS];
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int wid = tid / 32;
-  for (int i = tid; i < 3 * K; i += ELEM_THREADS) Ws[i / K][i % K] = W[i];
+  for (int i = tid; i < 3 * K; i += ELEM_THREADS) Ws[i / K][i % K] = round_to<T>(W[i]);
   const float b0 = bias[0], b1 = bias[1], b2 = bias[2];
   const float dscale = scal[0], lscale = scal[1];
   const int p_begin = blockIdx.x * chunk;
@@ -134,10 +148,10 @@ head_kernel(int Np, int K, int chunk, const float* __restrict__ X, const float* 
     // forward + loss + output cotangent: one warp per point
     const int p = t0 + wid;
     if (p < p_end) {
-      const float* xr = X + (long long)p * K;
+      const T* xr = X + (long long)p * K;
       float z0 = 0.0f, z1 = 0.0f, z2 = 0.0f;
       for (int f = lane; f < K; f += 32) {
-        const float xv = xr[f];
+        const float xv = to_f(xr[f]);
         z0 = fmaf(xv, Ws[0][f], z0);
         z1 = fmaf(xv, Ws[1][f], z1);
         z2 = fmaf(xv, Ws[2][f], z2);
@@ -160,7 +174,7 @@ head_kernel(int Np, int K, int chunk, const float* __restrict__ X, const float* 
           s += diff * diff;
           const float dm = diff * m;
           lacc += dm * dm;
-          dzs[wid][c] = dscale * dm * m * (r * (1.0f - r));
+          dzs[wid][c] = round_to<T>(dscale * dm * m * (r * (1.0f - r)));
         }
         sq[p] = s;
       }
@@ -177,10 +191,10 @@ head_kernel(int Np, int K, int chunk, const float* __restrict__ X, const float* 
         const float w0 = Ws[0][f], w1 = Ws[1][f], w2 = Ws[2][f];
         for (int q = 0; q < np; ++q) {
           const long long idx = (long long)(t0 + q) * K + f;
-          const float xv = X[idx];
+          const float xv = to_f(X[idx]);
           const float d0 = dzs[q][0], d1 = dzs[q][1], d2 = dzs[q][2];
           const float g = d0 * w0 + d1 * w1 + d2 * w2;
-          dX[idx] = xv > 0.0f ? g : 0.0f;
+          dX[idx] = from_f<T>(xv > 0.0f ? g : 0.0f);
           acc[j][0] = fmaf(xv, d0, acc[j][0]);
           acc[j][1] = fmaf(xv, d1, acc[j][1]);
           acc[j][2] = fmaf(xv, d2, acc[j][2]);
@@ -285,32 +299,38 @@ __global__ void coords_bwd_kernel(int Np, int L, const float* __restrict__ coord
 }
 
 struct Plan {
-  int E, widest, head_blocks, head_chunk, head_stride, bwd_blocks, bwd_chunk;
+  int E, ldE, widest, head_blocks, head_chunk, head_stride, bwd_blocks, bwd_chunk;
   long long enc, acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dh_part, total;
   long long wsplit[MAX_LAYERS][2];  // hidden layer l's weights pre-split for its forward [0] and dz [1] products
 };
 
 // B = 0 for K2 and K5 (no dH partials). col_part holds the db partials,
-// the dW products' row sums.
+// the dW products' row sums. T: the storage type of the encoding and the
+// activations (the encoding's rows padded to 16 bytes in bf16, as the bf16
+// engine reads them); d(encoding), float32, takes the dz buffer not in use.
+template <class T>
 Plan make_plan(int Np, int B, int L, int n_layers, const int* dims) {
+  using Eng = typename EngineOf<T>::type;
   Plan P{};
   P.E = 2 + 4 * L;
+  P.ldE = sizeof(T) == 2 ? round8(P.E) : P.E;
   P.widest = P.E;
   for (int l = 1; l <= n_layers; ++l) P.widest = dims[l] > P.widest ? dims[l] : P.widest;
   Arena a;
-  P.enc = a.take((long long)Np * P.E);
+  P.enc = a.take_of<T>((long long)Np * P.ldE);
   for (int l = 0; l + 1 < n_layers; ++l) {
-    P.acts[l] = a.take((long long)Np * dims[l + 1]);
-    P.wsplit[l][0] = a.take(presplit_floats(dims[l + 1], dims[l]));
-    P.wsplit[l][1] = a.take(presplit_floats(dims[l], dims[l + 1]));
+    P.acts[l] = a.take_of<T>((long long)Np * dims[l + 1]);
+    P.wsplit[l][0] = a.take(Eng::weight_floats(dims[l + 1], dims[l]));
+    P.wsplit[l][1] = a.take(Eng::weight_floats(dims[l], dims[l + 1]));
   }
-  P.dz[0] = a.take((long long)Np * P.widest);
-  P.dz[1] = a.take((long long)Np * P.widest);
+  const long long dz_n = (long long)Np * P.widest * (long long)sizeof(T) / 4;
+  P.dz[0] = a.take(dz_n > (long long)Np * P.E ? dz_n : (long long)Np * P.E);
+  P.dz[1] = a.take(dz_n > (long long)Np * P.E ? dz_n : (long long)Np * P.E);
   long long dw_max = 0, db_max = 0;
   for (int l = 0; l + 1 < n_layers; ++l) {
     int splits, chunk;
-    TcEngine::dw_split(Np, dims[l + 1], dims[l], 1, splits, chunk);
-    const long long parts = TcEngine::dw_parts(splits, chunk);
+    Eng::dw_split(Np, dims[l + 1], dims[l], 1, splits, chunk);
+    const long long parts = Eng::dw_parts(splits, chunk);
     const long long n = parts * dims[l + 1] * dims[l];
     dw_max = n > dw_max ? n : dw_max;
     db_max = parts * dims[l + 1] > db_max ? parts * dims[l + 1] : db_max;
@@ -338,39 +358,45 @@ bool valid_rgb_dims(int L, int n_layers, const int* dims) {
 }
 
 // The shared pipeline. K1: grid/H given, coords == nullptr, writes dH.
-// K2 and K5: coords given, grid/H unused, writes dcoords.
+// K2 and K5: coords given, grid/H unused, writes dcoords. T: the storage
+// type (float32, or bf16 under compute_dtype = bfloat16).
+template <class T>
 int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float* grid, const float* H,
                const float* coords, const float* cw, const float* tgt, const float* msk, const float* scal,
                const float* const* W, const float* const* bias, float* rgb, float* sq, float* loss,
                float* const* dW, float* const* db, float* dH, float* dcoords, float* ws, cudaStream_t st) {
+  using Eng = typename EngineOf<T>::type;
   if (!valid_rgb_dims(L, n_layers, dims)) return (int)cudaErrorInvalidValue;
-  const Plan P = make_plan(Np, B, L, n_layers, dims);
+  const Plan P = make_plan<T>(Np, B, L, n_layers, dims);
   const int last = n_layers - 1;
+  T* enc = reinterpret_cast<T*>(ws + P.enc);
+  auto act = [&](int l) { return reinterpret_cast<T*>(ws + P.acts[l]); };
 
-  // ---- the hidden layers' weights, split into TF32 hi and lo once for
-  // every block of their forward and dz products
+  // ---- the hidden layers' weights, split into TF32 hi and lo (or
+  // converted to bf16) once for every block of their forward and dz products
   for (int l = 0; l < last; ++l) {
-    const int rc = TcEngine::presplit(st, W[l], dims[l + 1], dims[l], ws + P.wsplit[l][0], ws + P.wsplit[l][1]);
+    const int rc = Eng::presplit(st, W[l], dims[l + 1], dims[l], ws + P.wsplit[l][0], ws + P.wsplit[l][1]);
     if (rc) return rc;
   }
 
   // ---- forward
-  encode_kernel<<<cdiv(Np, ELEM_THREADS), ELEM_THREADS, 0, st>>>(Np, B, L, grid, H, coords, cw, ws + P.enc);
+  encode_kernel<T><<<cdiv(Np, ELEM_THREADS), ELEM_THREADS, 0, st>>>(Np, B, L, P.ldE, grid, H, coords, cw, enc);
   MARF_CHECK_LAUNCH();
   for (int l = 0; l < last; ++l) {
-    const float* in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
-    GemmCall c = gemm_call(Np, dims[l + 1], dims[l], in, dims[l], ws + P.wsplit[l][0], 0, ws + P.acts[l], dims[l + 1]);
+    const T* in = l == 0 ? enc : act(l - 1);
+    GemmCall c = gemm_call(Np, dims[l + 1], dims[l], in, l == 0 ? P.ldE : dims[l], ws + P.wsplit[l][0], 0, act(l),
+                           dims[l + 1]);
     c.bias[0] = bias[l];
-    const int rc = TcEngine::run_presplit<EPI_BIAS_RELU>(st, c);
+    const int rc = Eng::template run_presplit<EPI_BIAS_RELU>(st, c);
     if (rc) return rc;
   }
 
   // ---- head: rgb, sq, loss, dz of the last hidden layer, dW/db of the last layer
   const int K = dims[last];
-  float* dz_cur = ws + P.dz[0];
-  head_kernel<<<P.head_blocks, ELEM_THREADS, 0, st>>>(Np, K, P.head_chunk, ws + P.acts[last - 1], W[last],
-                                                       bias[last], tgt, msk, scal, rgb, sq, dz_cur,
-                                                       ws + P.head_part, P.head_stride);
+  T* dz_cur = reinterpret_cast<T*>(ws + P.dz[0]);
+  head_kernel<T><<<P.head_blocks, ELEM_THREADS, 0, st>>>(Np, K, P.head_chunk, act(last - 1), W[last], bias[last],
+                                                          tgt, msk, scal, rgb, sq, dz_cur, ws + P.head_part,
+                                                          P.head_stride);
   MARF_CHECK_LAUNCH();
   reduce(st, P.head_blocks, 3 * K, P.head_stride, ws + P.head_part, dW[last]);
   MARF_CHECK_LAUNCH();
@@ -383,30 +409,31 @@ int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float*
   int cur = 0;
   for (int l = last - 1; l >= 0; --l) {
     const int out = dims[l + 1], in = dims[l];
-    const float* x_in = l == 0 ? ws + P.enc : ws + P.acts[l - 1];
-    dz_cur = ws + P.dz[cur];
+    const T* x_in = l == 0 ? enc : act(l - 1);
+    dz_cur = reinterpret_cast<T*>(ws + P.dz[cur]);
     // dW[l] = dz^T x_in, split over points, then a fixed-order sum of the
     // partials (db: the row sums of dz folded into this product)
     int splits, chunk;
-    TcEngine::dw_split(Np, out, in, 1, splits, chunk);
-    const int parts = TcEngine::dw_parts(splits, chunk);
-    GemmCall c = gemm_call(out, in, Np, dz_cur, out, x_in, in, ws + P.dw_part, in);
+    Eng::dw_split(Np, out, in, 1, splits, chunk);
+    const int parts = Eng::dw_parts(splits, chunk);
+    GemmCall c = gemm_call(out, in, Np, dz_cur, out, x_in, l == 0 ? P.ldE : in, ws + P.dw_part, in);
     c.splits = splits, c.k_chunk = chunk, c.c_split_stride = (long long)out * in;
     c.rsum[0] = ws + P.col_part;
-    int rc = TcEngine::run<false, true, EPI_STORE>(st, c);
+    int rc = Eng::template run<false, true, EPI_STORE>(st, c);
     if (rc) return rc;
-    TcEngine::reduce_parts(st, 1, parts, out * in, (long long)out * in, ws + P.dw_part, 0, one_ptr(dW[l]));
+    Eng::reduce_parts(st, 1, parts, out * in, (long long)out * in, ws + P.dw_part, 0, one_ptr(dW[l]));
     MARF_CHECK_LAUNCH();
-    TcEngine::reduce_parts(st, 1, parts, out, out, ws + P.col_part, 0, one_ptr(db[l]));
+    Eng::reduce_parts(st, 1, parts, out, out, ws + P.col_part, 0, one_ptr(db[l]));
     MARF_CHECK_LAUNCH();
-    // dz of the layer below (ReLU-gated by its activation), or d(encoding)
-    float* dz_next = ws + P.dz[cur ^ 1];
+    // dz of the layer below (ReLU-gated by its activation, stored as T), or
+    // d(encoding) (float32)
+    void* dz_next = ws + P.dz[cur ^ 1];
     GemmCall d = gemm_call(Np, in, out, dz_cur, out, ws + P.wsplit[l][1], 0, dz_next, in);
     if (l > 0) {
-      d.gate[0] = ws + P.acts[l - 1], d.ldg = in;
-      rc = TcEngine::run_presplit<EPI_GATE>(st, d);
+      d.gate[0] = act(l - 1), d.ldg = in;
+      rc = Eng::template run_presplit<EPI_GATE>(st, d);
     } else {
-      rc = TcEngine::run_presplit<EPI_STORE>(st, d);
+      rc = Eng::template run_presplit<EPI_STORE>(st, d);
     }
     if (rc) return rc;
     cur ^= 1;

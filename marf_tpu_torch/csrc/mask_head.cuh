@@ -1,9 +1,17 @@
 // The factored implicit-mask head's building blocks for Hopper (sm_90a),
-// float32, shared by fused_mask.cu (K3, K4, K6) and fused_implicit.cu (K5),
-// every product on the 3xTF32 tensor-core engine (tc_gemm.cuh) and grouped
-// over heads: one call runs `nh` heads (nh <= MAX_GROUP), head h on the
-// column block [h HW, (h+1) HW) of X, each GEMM launch covering every head's
-// block (the per-head operands in the GemmCall's pointer tables):
+// shared by fused_mask.cu (K3, K4, K6) and fused_implicit.cu (K5), every
+// product on a tensor-core engine (tc_gemm.cuh) and grouped over heads.
+// T is the storage type of the activations: float32 on the 3xTF32 engine,
+// or bf16 on the bf16 engine (compute_dtype = bfloat16; K3 and K4, one
+// head), which rounds where the Pallas kernels' cdtype does
+// (marf_tpu/ops/pallas/fused_mask.py _mask_fwd_tile, _mask_bwd_dedup_kernel):
+// X and every hidden activation stored in bf16 (X converted once per
+// call), every weight read as bf16, the cotangent through the sigmoid and
+// each ReLU-gated dz rounded to bf16; the bias, the cotangent's own
+// arithmetic and every sum float32. One call runs `nh` heads (nh <=
+// MAX_GROUP), head h on the column block [h HW, (h+1) HW) of X, each GEMM
+// launch covering every head's block (the per-head operands in the
+// GemmCall's pointer tables):
 //   - hidden_forward: the hidden layers' GEMMs over X [56, ldx] read in place
 //     (X points at head 0's block, rows are ldx apart), with the weights of
 //     hidden layers 1.. pre-split once per call where the plan asks for it
@@ -23,14 +31,15 @@
 namespace {
 
 // m[h HW + p] = sigmoid(W_h X[h HW + p] + b_h) for the last layer (F -> 1),
-// one warp per point, head h = blockIdx.y.
+// one warp per point, head h = blockIdx.y; W read as T.
+template <class T>
 __global__ void __launch_bounds__(ELEM_THREADS)
-mask_head_fwd_kernel(int K, int F, const float* __restrict__ X, GroupConstPtrs W, GroupConstPtrs bias,
+mask_head_fwd_kernel(int K, int F, const T* __restrict__ X, GroupConstPtrs W, GroupConstPtrs bias,
                      float* __restrict__ m) {
   __shared__ float Ws[HEAD_MAX_K];
   const int h = blockIdx.y;
   const float* __restrict__ Wh = pick(W, h);
-  for (int i = threadIdx.x; i < F; i += ELEM_THREADS) Ws[i] = Wh[i];
+  for (int i = threadIdx.x; i < F; i += ELEM_THREADS) Ws[i] = round_to<T>(Wh[i]);
   __syncthreads();
   const int lane = threadIdx.x % 32;
   const int p = blockIdx.x * HEAD_POINTS + threadIdx.x / 32;
@@ -84,10 +93,11 @@ struct ColumnCot {
 //   d = cot(q, m) m (1 - m);
 //   dX[q, f] = d W_h[f] (X[q, f] > 0);
 //   partial [dW (F) | db (1)] of head h = sum_p d X[q], sum_p d.
-template <class Cot>
+// With T = bf16, W is read as bf16 and d and dX are rounded to bf16.
+template <class T, class Cot>
 __global__ void __launch_bounds__(ELEM_THREADS)
-mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, GroupConstPtrs W, GroupConstPtrs bias,
-                     Cot cot, float* __restrict__ dX, float* __restrict__ part, int part_stride,
+mask_head_bwd_kernel(int K, int F, int chunk, const T* __restrict__ X, GroupConstPtrs W, GroupConstPtrs bias,
+                     Cot cot, T* __restrict__ dX, float* __restrict__ part, int part_stride,
                      long long part_gstride) {
   __shared__ float Ws[HEAD_MAX_K];
   __shared__ float ds[HEAD_POINTS];
@@ -96,7 +106,7 @@ mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, Group
   const int wid = tid / 32;
   const int h = blockIdx.y;
   const float* __restrict__ Wh = pick(W, h);
-  for (int i = tid; i < F; i += ELEM_THREADS) Ws[i] = Wh[i];
+  for (int i = tid; i < F; i += ELEM_THREADS) Ws[i] = round_to<T>(Wh[i]);
   const float b0 = pick(bias, h)[0];
   const long long q0 = (long long)h * K;
   X += q0 * F;
@@ -117,7 +127,7 @@ mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, Group
       const float z = row_dot(X + (long long)p * F, Ws, F, lane);
       if (lane == 0) {
         const float m = sigmoidf_(z + b0);
-        ds[wid] = cot(q0 + p, m) * m * (1.0f - m);
+        ds[wid] = round_to<T>(cot(q0 + p, m) * m * (1.0f - m));
       }
     } else if (lane == 0) {
       ds[wid] = 0.0f;
@@ -132,8 +142,8 @@ mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, Group
         const float w = Ws[f];
         for (int q = 0; q < np; ++q) {
           const long long idx = (long long)(t0 + q) * F + f;
-          const float xv = X[idx];
-          dX[idx] = xv > 0.0f ? ds[q] * w : 0.0f;
+          const float xv = to_f(X[idx]);
+          dX[idx] = from_f<T>(xv > 0.0f ? ds[q] * w : 0.0f);
           acc[j] = fmaf(xv, ds[q], acc[j]);
         }
       }
@@ -156,18 +166,23 @@ mask_head_bwd_kernel(int K, int F, int chunk, const float* __restrict__ X, Group
 // Offsets (floats) into the workspace of one call on nh heads of HW columns;
 // dw_gs, col_gs, head_gs: one head's share of dw_part, col_part, head_part.
 // With presplit, wsplit[h][l] holds head h's hidden layer l (l >= 1) as the
-// pre-split B of its forward [0] and dz [1] products.
+// pre-split B of its forward [0] and dz [1] products. In bf16 (one head),
+// xb holds X [dims[0], ldxb] and w0b the first layer's W [dims[1], ldw0b]
+// converted to bf16, rows padded to 16 bytes.
 struct MaskPlan {
-  int nh, HW, head_blocks, head_chunk, head_stride;
+  int nh, HW, head_blocks, head_chunk, head_stride, ldxb, ldw0b;
   bool presplit;
-  long long acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dw_gs, col_gs, head_gs, total;
+  long long acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dw_gs, col_gs, head_gs, xb, w0b, total;
   long long wsplit[MAX_GROUP][MAX_LAYERS][2];
 };
 
 // dims[0..n_layers]: effective layer widths, dims[0] = X rows, dims[n_layers]
 // = 1. col_part holds the db partials, the folded row sums per head and
-// partial.
+// partial. T: the activations' storage type.
+template <class T>
 MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool backward, bool presplit) {
+  using Eng = typename EngineOf<T>::type;
+  constexpr bool BF16 = sizeof(T) == 2;
   MaskPlan P{};
   P.nh = nh;
   P.HW = HW;
@@ -176,23 +191,29 @@ MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool back
   const long long cols = (long long)nh * HW;
   int widest = 1;
   for (int l = 0; l + 1 < n_layers; ++l) {
-    P.acts[l] = a.take(cols * dims[l + 1]);
+    P.acts[l] = a.take_of<T>(cols * dims[l + 1]);
     widest = dims[l + 1] > widest ? dims[l + 1] : widest;
   }
   for (int h = 0; presplit && h < nh; ++h) {
     for (int l = 1; l + 1 < n_layers; ++l) {
-      P.wsplit[h][l][0] = a.take(presplit_floats(dims[l + 1], dims[l]));
-      P.wsplit[h][l][1] = a.take(presplit_floats(dims[l], dims[l + 1]));
+      P.wsplit[h][l][0] = a.take(Eng::weight_floats(dims[l + 1], dims[l]));
+      P.wsplit[h][l][1] = a.take(Eng::weight_floats(dims[l], dims[l + 1]));
     }
   }
+  if (BF16) {
+    P.ldxb = round8((int)cols);
+    P.ldw0b = round8(dims[0]);
+    P.xb = a.take_of<T>((long long)dims[0] * P.ldxb);
+    P.w0b = a.take_of<T>((long long)dims[1] * P.ldw0b);
+  }
   if (backward) {
-    P.dz[0] = a.take(cols * widest);
-    P.dz[1] = a.take(cols * widest);
+    P.dz[0] = a.take_of<T>(cols * widest);
+    P.dz[1] = a.take_of<T>(cols * widest);
     long long dw_max = 0, db_max = 0;
     for (int l = 0; l + 1 < n_layers; ++l) {
       int splits, chunk;
-      TcEngine::dw_split(HW, dims[l + 1], dims[l], nh, splits, chunk);
-      const long long parts = TcEngine::dw_parts(splits, chunk);
+      Eng::dw_split(HW, dims[l + 1], dims[l], nh, splits, chunk);
+      const long long parts = Eng::dw_parts(splits, chunk);
       const long long n = parts * dims[l + 1] * dims[l];
       dw_max = n > dw_max ? n : dw_max;
       db_max = parts * dims[l + 1] > db_max ? parts * dims[l + 1] : db_max;
@@ -225,47 +246,68 @@ Ptrs layer_ptrs(int nh, int n_layers, int l, T* const* table) {
   return out;
 }
 
+// Head h's activations of layer l (nh HW rows of dims[l + 1])
+template <class T>
+T* mask_act(const MaskPlan& P, float* ws, int l, const int* dims, int h) {
+  return reinterpret_cast<T*>(ws + P.acts[l]) + (long long)h * P.HW * dims[l + 1];
+}
+
 // The hidden layers' forward on nh heads of HW columns: acts[l] =
 // relu(W_h[l] x + b_h[l]), x = X (channels-first, rows ldx apart, head h at
 // column h HW) for l = 0. With P.presplit, the weights of layers 1.. are
 // first split into wsplit (both orientations, so mask_backward's dz
 // products read them too) and their products read B pre-split; layer 0
-// (A = X point-major) streams its B.
+// (A = X point-major) streams its B. In bf16 (one head), X and the first
+// layer's W are first converted into xb and w0b, and layer 0 reads those.
+template <class T>
 int hidden_forward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, const int* dims, const float* X,
                    const float* const* W, const float* const* bias, float* ws) {
+  using Eng = typename EngineOf<T>::type;
+  constexpr bool BF16 = sizeof(T) == 2;
   const long long HW = P.HW;
+  if (BF16) {
+    if (P.nh != 1 || !P.presplit) return (int)cudaErrorInvalidValue;
+    cast_bf16(st, X, dims[0], P.HW, ldx, reinterpret_cast<bf16*>(ws + P.xb), P.ldxb);
+    MARF_CHECK_LAUNCH();
+    cast_bf16(st, W[0], dims[1], dims[0], dims[0], reinterpret_cast<bf16*>(ws + P.w0b), P.ldw0b);
+    MARF_CHECK_LAUNCH();
+  }
   for (int h = 0; P.presplit && h < P.nh; ++h) {
     for (int l = 1; l + 1 < n_layers; ++l) {
-      const int rc = TcEngine::presplit(st, W[h * n_layers + l], dims[l + 1], dims[l], ws + P.wsplit[h][l][0],
-                                        ws + P.wsplit[h][l][1]);
+      const int rc = Eng::presplit(st, W[h * n_layers + l], dims[l + 1], dims[l], ws + P.wsplit[h][l][0],
+                                   ws + P.wsplit[h][l][1]);
       if (rc) return rc;
     }
   }
   for (int l = 0; l + 1 < n_layers; ++l) {
     const bool pre = P.presplit && l > 0;
-    GemmCall c = gemm_call(P.HW, dims[l + 1], dims[l], nullptr, l == 0 ? ldx : dims[l], nullptr, dims[l], nullptr,
-                           dims[l + 1]);
+    GemmCall c = gemm_call(P.HW, dims[l + 1], dims[l], nullptr, l == 0 ? (BF16 ? P.ldxb : ldx) : dims[l], nullptr,
+                           l == 0 && BF16 ? P.ldw0b : dims[l], nullptr, dims[l + 1]);
     c.groups = P.nh;
     for (int h = 0; h < P.nh; ++h) {
-      c.A[h] = l == 0 ? X + h * HW : ws + P.acts[l - 1] + h * HW * dims[l];
-      c.B[h] = pre ? ws + P.wsplit[h][l][0] : W[h * n_layers + l];
-      c.C[h] = ws + P.acts[l] + h * HW * dims[l + 1];
+      if (l > 0) c.A[h] = mask_act<T>(P, ws, l - 1, dims, h);
+      else if (BF16) c.A[h] = ws + P.xb;
+      else c.A[h] = X + h * HW;
+      c.B[h] = pre ? ws + P.wsplit[h][l][0] : l == 0 && BF16 ? ws + P.w0b : (const void*)W[h * n_layers + l];
+      c.C[h] = mask_act<T>(P, ws, l, dims, h);
       c.bias[h] = bias[h * n_layers + l];
     }
-    const int rc = l == 0 ? TcEngine::run<false, false, EPI_BIAS_RELU>(st, c)
-                   : pre  ? TcEngine::run_presplit<EPI_BIAS_RELU>(st, c)
-                          : TcEngine::run<true, false, EPI_BIAS_RELU>(st, c);
+    const int rc = l == 0 ? Eng::template run<false, false, EPI_BIAS_RELU>(st, c)
+                   : pre  ? Eng::template run_presplit<EPI_BIAS_RELU>(st, c)
+                          : Eng::template run<true, false, EPI_BIAS_RELU>(st, c);
     if (rc) return rc;
   }
   return 0;
 }
 
 // The last layer's forward on the heads: m [nh HW] (head h at h HW).
+template <class T>
 int mask_head_forward(cudaStream_t st, const MaskPlan& P, int n_layers, const int* dims, const float* const* W,
                       const float* const* bias, float* ws, float* m) {
   const int last = n_layers - 1;
-  mask_head_fwd_kernel<<<dim3(cdiv(P.HW, HEAD_POINTS), P.nh), ELEM_THREADS, 0, st>>>(
-      P.HW, dims[last], ws + P.acts[last - 1], layer_ptrs<const float, GroupConstPtrs>(P.nh, n_layers, last, W),
+  mask_head_fwd_kernel<T><<<dim3(cdiv(P.HW, HEAD_POINTS), P.nh), ELEM_THREADS, 0, st>>>(
+      P.HW, dims[last], mask_act<T>(P, ws, last - 1, dims, 0),
+      layer_ptrs<const float, GroupConstPtrs>(P.nh, n_layers, last, W),
       layer_ptrs<const float, GroupConstPtrs>(P.nh, n_layers, last, bias), m);
   MARF_CHECK_LAUNCH();
   return 0;
@@ -277,21 +319,25 @@ int mask_head_forward(cudaStream_t st, const MaskPlan& P, int n_layers, const in
 // through the hidden layers (ReLU-gated dX, B pre-split with P.presplit;
 // split-K dW products with db folded in and a fixed-order sum; no dX for
 // X). dW, db: head-major tables like W, bias.
-template <class Cot>
+template <class T, class Cot>
 int mask_backward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, const int* dims, const float* X,
                   const float* const* W, const float* const* bias, Cot cot, float* const* dW, float* const* db,
                   float* ws) {
-  int rc = hidden_forward(st, P, ldx, n_layers, dims, X, W, bias, ws);
+  using Eng = typename EngineOf<T>::type;
+  constexpr bool BF16 = sizeof(T) == 2;
+  int rc = hidden_forward<T>(st, P, ldx, n_layers, dims, X, W, bias, ws);
   if (rc) return rc;
   const int nh = P.nh;
   const long long HW = P.HW;
+  auto dz = [&](int i, int h, int width) { return reinterpret_cast<T*>(ws + P.dz[i]) + h * HW * width; };
 
   // ---- head: cotangent, dz of the last hidden layer, dW/db of the last layer
   const int last = n_layers - 1;
   const int F = dims[last];
-  mask_head_bwd_kernel<Cot><<<dim3(P.head_blocks, nh), ELEM_THREADS, 0, st>>>(
-      P.HW, F, P.head_chunk, ws + P.acts[last - 1], layer_ptrs<const float, GroupConstPtrs>(nh, n_layers, last, W),
-      layer_ptrs<const float, GroupConstPtrs>(nh, n_layers, last, bias), cot, ws + P.dz[0], ws + P.head_part,
+  mask_head_bwd_kernel<T, Cot><<<dim3(P.head_blocks, nh), ELEM_THREADS, 0, st>>>(
+      P.HW, F, P.head_chunk, mask_act<T>(P, ws, last - 1, dims, 0),
+      layer_ptrs<const float, GroupConstPtrs>(nh, n_layers, last, W),
+      layer_ptrs<const float, GroupConstPtrs>(nh, n_layers, last, bias), cot, dz(0, 0, F), ws + P.head_part,
       P.head_stride, P.head_gs);
   MARF_CHECK_LAUNCH();
   reduce_group(st, nh, P.head_blocks, F, P.head_stride, ws + P.head_part, P.head_gs,
@@ -305,39 +351,40 @@ int mask_backward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, con
   int cur = 0;
   for (int l = last - 1; l >= 0; --l) {
     const int out = dims[l + 1], in = dims[l];
-    const float* dz_cur = ws + P.dz[cur];
     // dW[l] = dz^T x_in, split over columns, then a fixed-order sum of the
     // partials; db, the row sums of dz, folded into the same product
     int splits, chunk;
-    TcEngine::dw_split(P.HW, out, in, nh, splits, chunk);
-    const int parts = TcEngine::dw_parts(splits, chunk);
-    GemmCall c = gemm_call(out, in, P.HW, nullptr, out, nullptr, l == 0 ? ldx : in, nullptr, in);
+    Eng::dw_split(P.HW, out, in, nh, splits, chunk);
+    const int parts = Eng::dw_parts(splits, chunk);
+    GemmCall c = gemm_call(out, in, P.HW, nullptr, out, nullptr, l == 0 ? (BF16 ? P.ldxb : ldx) : in, nullptr, in);
     c.groups = nh, c.splits = splits, c.k_chunk = chunk, c.c_split_stride = (long long)out * in;
     for (int h = 0; h < nh; ++h) {
-      c.A[h] = dz_cur + h * HW * out;
-      c.B[h] = l == 0 ? X + h * HW : ws + P.acts[l - 1] + h * HW * in;
+      c.A[h] = dz(cur, h, out);
+      if (l > 0) c.B[h] = mask_act<T>(P, ws, l - 1, dims, h);
+      else if (BF16) c.B[h] = ws + P.xb;
+      else c.B[h] = X + h * HW;
       c.C[h] = ws + P.dw_part + h * P.dw_gs;
       c.rsum[h] = ws + P.col_part + h * P.col_gs;
     }
     // x_in = X, channels-first [in, ldx], for l = 0
-    rc = l == 0 ? TcEngine::run<false, false, EPI_STORE>(st, c) : TcEngine::run<false, true, EPI_STORE>(st, c);
+    rc = l == 0 ? Eng::template run<false, false, EPI_STORE>(st, c) : Eng::template run<false, true, EPI_STORE>(st, c);
     if (rc) return rc;
-    TcEngine::reduce_parts(st, nh, parts, out * in, (long long)out * in, ws + P.dw_part, P.dw_gs,
-                           layer_ptrs<float, GroupPtrs>(nh, n_layers, l, dW));
+    Eng::reduce_parts(st, nh, parts, out * in, (long long)out * in, ws + P.dw_part, P.dw_gs,
+                      layer_ptrs<float, GroupPtrs>(nh, n_layers, l, dW));
     MARF_CHECK_LAUNCH();
-    TcEngine::reduce_parts(st, nh, parts, out, out, ws + P.col_part, P.col_gs,
-                           layer_ptrs<float, GroupPtrs>(nh, n_layers, l, db));
+    Eng::reduce_parts(st, nh, parts, out, out, ws + P.col_part, P.col_gs,
+                      layer_ptrs<float, GroupPtrs>(nh, n_layers, l, db));
     MARF_CHECK_LAUNCH();
     if (l > 0) {  // dz of the layer below, ReLU-gated by its activation
       GemmCall d = gemm_call(P.HW, in, out, nullptr, out, nullptr, in, nullptr, in);
       d.groups = nh, d.ldg = in;
       for (int h = 0; h < nh; ++h) {
-        d.A[h] = dz_cur + h * HW * out;
-        d.B[h] = P.presplit ? ws + P.wsplit[h][l][1] : W[h * n_layers + l];
-        d.C[h] = ws + P.dz[cur ^ 1] + h * HW * in;
-        d.gate[h] = ws + P.acts[l - 1] + h * HW * in;
+        d.A[h] = dz(cur, h, out);
+        d.B[h] = P.presplit ? ws + P.wsplit[h][l][1] : (const void*)W[h * n_layers + l];
+        d.C[h] = dz(cur ^ 1, h, in);
+        d.gate[h] = mask_act<T>(P, ws, l - 1, dims, h);
       }
-      rc = P.presplit ? TcEngine::run_presplit<EPI_GATE>(st, d) : TcEngine::run<true, true, EPI_GATE>(st, d);
+      rc = P.presplit ? Eng::template run_presplit<EPI_GATE>(st, d) : Eng::template run<true, true, EPI_GATE>(st, d);
       if (rc) return rc;
       cur ^= 1;
     }

@@ -1,6 +1,6 @@
 // Building blocks shared by the port's MLP kernels (fused_step.cu,
-// fused_mask.cu, fused_implicit.cu), float32, sm_90a, beside the GEMM
-// engine of tc_gemm.cuh:
+// fused_mask.cu, fused_implicit.cu), sm_90a, beside the GEMM engines of
+// tc_gemm.cuh:
 //   - GemmCall: one product shape over up to MAX_GROUP operand sets (one per
 //     mask head), the argument of the engine's `run`;
 //   - colsum_kernel, reduce_kernel, reduce_group_kernel and
@@ -11,14 +11,19 @@
 //     bitwise-equal outputs;
 //   - row_dot: one warp's dot product of a point's row with a weight row,
 //     reduced by a fixed shuffle tree (the 256->1 and 256->3 head layers,
-//     which would waste a 128-wide GEMM tile).
+//     which would waste a 128-wide GEMM tile);
+//   - the storage types: activations are float32, or bf16 under
+//     compute_dtype = bfloat16 (to_f, from_f, round_to); every sum is float32.
 // Layouts: weights are nn.Linear's [out, in], row-major; activations are
 // point-major [N, width] unless a GEMM's layout flags say otherwise.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
 
 namespace {
 
@@ -120,11 +125,26 @@ __global__ void reduce_tree_group_kernel(int S, int count, long long stride, con
   pick(out, blockIdx.y)[i] = s;
 }
 
+// A stored value as float32, and a float32 value stored as T (bf16: round to
+// nearest even, as JAX's astype and torch's .to(torch.bfloat16)).
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <class T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+// x rounded to T, as a float (a float32 weight as a T-typed product reads it)
+template <class T>
+__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
 // One warp: dot(x[0:F], w[0:F]) with lane-strided partial sums and a fixed
 // xor-shuffle tree; lane 0's value is the one callers use.
-__device__ __forceinline__ float row_dot(const float* __restrict__ x, const float* w, int F, int lane) {
+template <class T>
+__device__ __forceinline__ float row_dot(const T* __restrict__ x, const float* w, int F, int lane) {
   float z = 0.0f;
-  for (int f = lane; f < F; f += 32) z = fmaf(x[f], w[f], z);
+  for (int f = lane; f < F; f += 32) z = fmaf(to_f(x[f]), w[f], z);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) z += __shfl_xor_sync(0xffffffffu, z, off);
   return z;
@@ -134,7 +154,7 @@ __device__ __forceinline__ float sigmoidf_(float z) { return 1.0f / (1.0f + expf
 
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// float offsets of one call's workspace, each aligned to 4 floats
+// float offsets of one call's workspace, each aligned to 4 floats (16 bytes)
 struct Arena {
   long long off = 0;
   long long take(long long n) {
@@ -142,10 +162,21 @@ struct Arena {
     off += (n + 3) / 4 * 4;
     return o;
   }
+  // room for n values of type T
+  template <class T>
+  long long take_of(long long n) {
+    return take((n * (long long)sizeof(T) + 3) / 4);
+  }
 };
 
+// n rounded up to a multiple of 8: the row stride of a bf16 operand (16 bytes)
+inline int round8(int n) { return (n + 7) / 8 * 8; }
+
 // One product shape C[M, N] (+)= A[M, K] B[K, N] for `groups` operand sets
-// (the layouts are the engine's template flags, tc_gemm_kernel's). Split z
+// (the layouts are the engine's template flags, tc_gemm_kernel's). A, B,
+// C and gate lie as the engine reads them: float32 on the 3xTF32 engine; on
+// the bf16 engine A, B and gate bf16, C float32 for a plain store and bf16
+// after bias + ReLU or the gate. Split z
 // of K (length k_chunk) writes its partials from C[g] + z*c_split_stride on
 // (TcEngine::dw_parts(splits, k_chunk) / splits of them); rsum[g], where
 // set, gets the row sums of A likewise, M apart (the db of a dW product,
@@ -153,16 +184,16 @@ struct Arena {
 struct GemmCall {
   int groups, M, N, K, lda, ldb, ldc, ldg, splits, k_chunk;
   long long c_split_stride;
-  const float* A[MAX_GROUP];
-  const float* B[MAX_GROUP];
-  float* C[MAX_GROUP];
+  const void* A[MAX_GROUP];
+  const void* B[MAX_GROUP];
+  void* C[MAX_GROUP];
   const float* bias[MAX_GROUP];
-  const float* gate[MAX_GROUP];
+  const void* gate[MAX_GROUP];
   float* rsum[MAX_GROUP];
 };
 
 // A one-group call, no split; the caller fills in what else it needs.
-inline GemmCall gemm_call(int M, int N, int K, const float* A, int lda, const float* B, int ldb, float* C, int ldc) {
+inline GemmCall gemm_call(int M, int N, int K, const void* A, int lda, const void* B, int ldb, void* C, int ldc) {
   GemmCall c{};
   c.groups = 1;
   c.M = M, c.N = N, c.K = K, c.lda = lda, c.ldb = ldb, c.ldc = ldc;

@@ -1,48 +1,90 @@
-// A C entry point to the 3xTF32 tensor-core GEMM engine (tc_gemm.cuh), so
-// that every operand layout and epilogue, and the weights' pre-split, can be
-// held to their plain versions on the card (tests/test_torch_tc_gemm.py)
-// apart from the kernels that use them. No kernel of the train step calls it.
+// C entry points to the tensor-core GEMM engines (tc_gemm.cuh), the 3xTF32
+// one (marf_tc_*) and the bf16 one (marf_tb_*), so that every operand
+// layout and epilogue, and the weights' pre-split, can be held to their
+// plain versions on the card (tests/test_torch_tc_gemm.py) apart from the
+// kernels that use them. No kernel of the train step calls them.
 
 #include "tc_gemm.cuh"
 
 namespace {
 
-template <bool AK, bool BNC>
+template <class Eng, bool AK, bool BNC>
 int run_epi(cudaStream_t st, int epi, const GemmCall& c) {
   switch (epi) {
-    case EPI_STORE: return TcEngine::run<AK, BNC, EPI_STORE>(st, c);
-    case EPI_BIAS_RELU: return TcEngine::run<AK, BNC, EPI_BIAS_RELU>(st, c);
-    case EPI_GATE: return TcEngine::run<AK, BNC, EPI_GATE>(st, c);
+    case EPI_STORE: return Eng::template run<AK, BNC, EPI_STORE>(st, c);
+    case EPI_BIAS_RELU: return Eng::template run<AK, BNC, EPI_BIAS_RELU>(st, c);
+    case EPI_GATE: return Eng::template run<AK, BNC, EPI_GATE>(st, c);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <class Eng>
 int run_presplit_epi(cudaStream_t st, int epi, const GemmCall& c) {
   switch (epi) {
-    case EPI_STORE: return TcEngine::run_presplit<EPI_STORE>(st, c);
-    case EPI_BIAS_RELU: return TcEngine::run_presplit<EPI_BIAS_RELU>(st, c);
-    case EPI_GATE: return TcEngine::run_presplit<EPI_GATE>(st, c);
+    case EPI_STORE: return Eng::template run_presplit<EPI_STORE>(st, c);
+    case EPI_BIAS_RELU: return Eng::template run_presplit<EPI_BIAS_RELU>(st, c);
+    case EPI_GATE: return Eng::template run_presplit<EPI_GATE>(st, c);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The split-K layout of K into `splits` (at most) chunks aligned to Eng's k-tile.
+template <class Eng>
+void split_k(int K, int splits, int& n, int& chunk) {
+  chunk = cdiv(cdiv(K, splits), Eng::k_tile) * Eng::k_tile;
+  n = cdiv(K, chunk);
+}
+
+// Floats of workspace a product needs on engine Eng: the partials and their
+// row sums (0 when the product writes C directly).
+template <class Eng>
+long long gemm_workspace(int M, int N, int K, int splits, int rowsum) {
+  int n, chunk;
+  split_k<Eng>(K, splits, n, chunk);
+  const long long parts = Eng::dw_parts(n, chunk);
+  return parts > 1 || rowsum ? parts * M * N + parts * M : 0;
+}
+
+// One product on engine Eng (marf_tc_gemm's contract; C float32 where the
+// product is staged, else Eng's output type for the epilogue).
+template <class Eng>
+int gemm(int a_k_contig, int b_n_contig, int b_split, int epi, int M, int N, int K, const void* A, int lda,
+         const void* B, int ldb, void* C, int ldc, const float* bias, const void* gate, int ldg, int splits,
+         float* rsum, float* ws, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || (rsum && a_k_contig)) return (int)cudaErrorInvalidValue;
+  if (b_split && (!a_k_contig || splits > 1 || rsum)) return (int)cudaErrorInvalidValue;
+  int n, chunk;
+  split_k<Eng>(K, splits, n, chunk);
+  const int parts = Eng::dw_parts(n, chunk);
+  const bool staged = parts > 1 || rsum;
+  if (staged && (epi != EPI_STORE || ldc != N)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  GemmCall c = gemm_call(M, N, K, A, lda, B, ldb, staged ? ws : C, ldc);
+  c.bias[0] = bias, c.gate[0] = gate, c.ldg = ldg;
+  if (staged) {
+    c.splits = n, c.k_chunk = chunk;
+    c.c_split_stride = (long long)M * N;
+    if (rsum) c.rsum[0] = ws + (long long)parts * M * N;
+  }
+  int rc = b_split      ? run_presplit_epi<Eng>(st, epi, c)
+           : a_k_contig ? (b_n_contig ? run_epi<Eng, true, true>(st, epi, c) : run_epi<Eng, true, false>(st, epi, c))
+                        : (b_n_contig ? run_epi<Eng, false, true>(st, epi, c) : run_epi<Eng, false, false>(st, epi, c));
+  if (rc || !staged) return rc;
+  Eng::reduce_parts(st, 1, parts, M * N, (long long)M * N, ws, 0, one_ptr(static_cast<float*>(C)));  // fixed order
+  MARF_CHECK_LAUNCH();
+  if (rsum) {
+    Eng::reduce_parts(st, 1, parts, M, M, c.rsum[0], 0, one_ptr(rsum));
+    MARF_CHECK_LAUNCH();
+  }
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The split-K layout of K into `splits` (at most) 32-deep-aligned chunks.
-static void split_k(int K, int splits, int& n, int& chunk) {
-  chunk = cdiv(cdiv(K, splits), TC_BK) * TC_BK;
-  n = cdiv(K, chunk);
-}
-
-// Floats of workspace marf_tc_gemm needs: the partials and their row sums
-// (0 when the product writes C directly).
 long long marf_tc_gemm_workspace(int M, int N, int K, int splits, int rowsum) {
-  int n, chunk;
-  split_k(K, splits, n, chunk);
-  const long long parts = TcEngine::dw_parts(n, chunk);
-  return parts > 1 || rowsum ? parts * M * N + parts * M : 0;
+  return gemm_workspace<TcEngine>(M, N, K, splits, rowsum);
 }
 
 // C[M, N] = epi(A B) on the tensor cores; A(m, k) = a_k_contig ? A[m*lda + k]
@@ -58,32 +100,8 @@ long long marf_tc_gemm_workspace(int M, int N, int K, int splits, int rowsum) {
 int marf_tc_gemm(int a_k_contig, int b_n_contig, int b_split, int epi, int M, int N, int K, const float* A, int lda,
                  const float* B, int ldb, float* C, int ldc, const float* bias, const float* gate, int ldg, int splits,
                  float* rsum, float* ws, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || splits < 1 || (rsum && a_k_contig)) return (int)cudaErrorInvalidValue;
-  if (b_split && (!a_k_contig || splits > 1 || rsum)) return (int)cudaErrorInvalidValue;
-  int n, chunk;
-  split_k(K, splits, n, chunk);
-  const int parts = TcEngine::dw_parts(n, chunk);
-  const bool staged = parts > 1 || rsum;
-  if (staged && (epi != EPI_STORE || ldc != N)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  GemmCall c = gemm_call(M, N, K, A, lda, B, ldb, staged ? ws : C, ldc);
-  c.bias[0] = bias, c.gate[0] = gate, c.ldg = ldg;
-  if (staged) {
-    c.splits = n, c.k_chunk = chunk;
-    c.c_split_stride = (long long)M * N;
-    if (rsum) c.rsum[0] = ws + (long long)parts * M * N;
-  }
-  int rc = b_split      ? run_presplit_epi(st, epi, c)
-           : a_k_contig ? (b_n_contig ? run_epi<true, true>(st, epi, c) : run_epi<true, false>(st, epi, c))
-                        : (b_n_contig ? run_epi<false, true>(st, epi, c) : run_epi<false, false>(st, epi, c));
-  if (rc || !staged) return rc;
-  TcEngine::reduce_parts(st, 1, parts, M * N, (long long)M * N, ws, 0, one_ptr(C));  // the fixed-order sums
-  MARF_CHECK_LAUNCH();
-  if (rsum) {
-    TcEngine::reduce_parts(st, 1, parts, M, M, c.rsum[0], 0, one_ptr(rsum));
-    MARF_CHECK_LAUNCH();
-  }
-  return 0;
+  return gemm<TcEngine>(a_k_contig, b_n_contig, b_split, epi, M, N, K, A, lda, B, ldb, C, ldc, bias, gate, ldg, splits,
+                        rsum, ws, stream);
 }
 
 // Floats of the pre-split B of a product of N columns and depth K.
@@ -95,6 +113,31 @@ long long marf_tc_presplit_floats(int N, int K) { return presplit_floats(N, K); 
 int marf_tc_presplit(const float* W, int rows, int cols, float* fwd, float* dz, void* stream) {
   if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
   return TcEngine::presplit((cudaStream_t)stream, W, rows, cols, fwd, dz);
+}
+
+// The bf16 engine (TbEngine), marf_tc_gemm's contract with A, B and gate
+// bf16 (every row 16-byte aligned: leading dimensions multiples of 8) and C
+// float32 for the store epilogue (and every staged product), bf16 after
+// bias + ReLU or the gate; b_split: B is marf_tb_presplit's output.
+long long marf_tb_gemm_workspace(int M, int N, int K, int splits, int rowsum) {
+  return gemm_workspace<TbEngine>(M, N, K, splits, rowsum);
+}
+
+int marf_tb_gemm(int a_k_contig, int b_n_contig, int b_split, int epi, int M, int N, int K, const void* A, int lda,
+                 const void* B, int ldb, void* C, int ldc, const float* bias, const void* gate, int ldg, int splits,
+                 float* rsum, float* ws, void* stream) {
+  return gemm<TbEngine>(a_k_contig, b_n_contig, b_split, epi, M, N, K, A, lda, B, ldb, C, ldc, bias, gate, ldg, splits,
+                        rsum, ws, stream);
+}
+
+// Floats of the bf16 pre-converted B of a product of N columns and depth K.
+long long marf_tb_presplit_floats(int N, int K) { return presplit_bf16_floats(N, K); }
+
+// W [rows, cols] (row-major float32) converted to bf16 tiles as the B of
+// its forward product into fwd and of its dz product into dz.
+int marf_tb_presplit(const float* W, int rows, int cols, float* fwd, float* dz, void* stream) {
+  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  return TbEngine::presplit((cudaStream_t)stream, W, rows, cols, fwd, dz);
 }
 
 }  // extern "C"

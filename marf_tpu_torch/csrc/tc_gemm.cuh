@@ -1,6 +1,10 @@
-// The 3xTF32 tensor-core GEMM engine for Hopper (sm_90a): float32-accurate
-// products on the tensor cores, the one GEMM engine of the port: K1 and K2
-// (fused_step.cu), K3, K4 and K6 (fused_mask.cu) and K5 (fused_implicit.cu).
+// The tensor-core GEMM engines for Hopper (sm_90a). The 3xTF32 engine
+// (TcEngine, described first): float32-accurate products, the float32 GEMM
+// engine of K1 and K2 (fused_step.cu), K3, K4 and K6 (fused_mask.cu) and K5
+// (fused_implicit.cu). The bf16 engine (TbEngine, below TB_BK): bf16
+// operands with float32 products and sums, the GEMM engine of K1-K4 at
+// compute_dtype = bfloat16. EngineOf<T> names a pipeline's engine by the
+// storage type of its activations.
 //
 // Arithmetic. Each float32 operand x is split into hi = tf32(x) and lo =
 // tf32(x - hi), tf32() rounding to nearest with ties away from zero and the
@@ -98,7 +102,7 @@ __host__ __device__ constexpr int tc_tile_floats(bool kmajor, int rows) {
   return kmajor ? rows * TC_K_STRIDE : TC_BK * (rows + 8);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
 }
@@ -141,7 +145,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from device to
 // shared memory, completed on `bar`
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes, uint64_t* bar) {
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
                :
                : "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
@@ -374,10 +378,10 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
   const int tid = threadIdx.x;
   const int g = blockIdx.z / c.splits;
   const int z = blockIdx.z % c.splits;
-  const float* __restrict__ A = pick(c.A, g);
-  const float* __restrict__ B = pick(c.B, g);
+  const float* __restrict__ A = static_cast<const float*>(pick(c.A, g));
+  const float* __restrict__ B = static_cast<const float*>(pick(c.B, g));
   const float* __restrict__ bias = pick(c.bias, g);
-  const float* __restrict__ gate = pick(c.gate, g);
+  const float* __restrict__ gate = static_cast<const float*>(pick(c.gate, g));
   const int k0 = z * c.k_chunk;
   const int k1 = min(c.K, k0 + c.k_chunk);
   const int ktiles = k1 > k0 ? (k1 - k0 + TC_BK - 1) / TC_BK : 0;
@@ -448,7 +452,7 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
     // acc (and the row sums) -> partial s of this split, then zeroed
     auto store = [&](int s) {
       const long long slot = (long long)z * subs + s;
-      float* C = pick(c.C, g) + slot * c.c_split_stride;
+      float* C = static_cast<float*>(pick(c.C, g)) + slot * c.c_split_stride;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + mr + h * 8;
@@ -580,8 +584,12 @@ int tc_launch(cudaStream_t st, const GemmCall& c, bool a_vec, bool b_vec) {
   return (int)cudaGetLastError();
 }
 
-// The 3xTF32 tensor-core engine (see the top of this file).
-struct TcEngine {
+// What both engines share: the block tile's width, the split-K of the dW
+// products over points and their partials, for a k-tile BK deep and a
+// partial per FLUSH k-tiles (2,048 points for both engines).
+template <int BK, int FLUSH>
+struct EngineShape {
+  static constexpr int k_tile = BK;
   // the block tile's width: 64 where A is K-major or N is narrow, else 128
   static int tile_n(bool a_k_contig, int N) { return a_k_contig || N <= 64 ? 64 : 128; }
   // split-K of `groups` dW products [out, in] over Np points (A point-major):
@@ -592,25 +600,35 @@ struct TcEngine {
     const int tiles = groups * cdiv(out, TC_BM) * cdiv(in, bn);
     const int wave = TC_WAVE_BLOCKS * (bn == 64 ? 2 : 1);
     const int s = wave / tiles > 1 ? wave / tiles : 1;
-    chunk = cdiv(cdiv(Np, s), TC_BK) * TC_BK;
+    chunk = cdiv(cdiv(Np, s), BK) * BK;
     splits = cdiv(Np, chunk);
   }
-  // partials a dW product writes per group: one per TC_FLUSH k-tiles of
-  // each split, so no serial float32 sum in the kernel runs over more than
+  // partials a dW product writes per group: one per FLUSH k-tiles of each
+  // split, so no serial float32 sum in the kernel runs over more than
   // 2,048 points
-  static int dw_parts(int splits, int chunk) { return splits * cdiv(cdiv(chunk, TC_BK), TC_FLUSH); }
+  static int dw_parts(int splits, int chunk) { return splits * cdiv(cdiv(chunk, BK), FLUSH); }
   // their sum, pairwise (reduce_tree_group_kernel)
   static void reduce_parts(cudaStream_t st, int groups, int S, int count, long long stride, const float* part,
                            long long gstride, const GroupPtrs& out) {
     reduce_tree_group_kernel<<<dim3(cdiv(count, ELEM_THREADS), groups), ELEM_THREADS, 0, st>>>(S, count, stride,
                                                                                               part, gstride, out);
   }
+  // the GemmCall checks both engines make: groups, split alignment, and more
+  // than one partial per split only for dW products (A point-major, plain
+  // store, split stride set)
+  static bool valid_call(const GemmCall& c, bool a_k_contig, int epi) {
+    return c.groups >= 1 && c.groups <= MAX_GROUP && (c.splits <= 1 || c.k_chunk % BK == 0) &&
+           !(dw_parts(c.splits, c.k_chunk) > c.splits && (a_k_contig || epi != EPI_STORE || c.c_split_stride == 0));
+  }
+};
+
+// The 3xTF32 tensor-core engine (see the top of this file).
+struct TcEngine : EngineShape<TC_BK, TC_FLUSH> {
+  // floats of a weight's pre-split for a product of N columns and depth K
+  static long long weight_floats(int N, int K) { return presplit_floats(N, K); }
   template <bool AK, bool BNC, int EPI>
   static int run(cudaStream_t st, const GemmCall& c) {
-    if (c.groups < 1 || c.groups > MAX_GROUP || (c.splits > 1 && c.k_chunk % TC_BK != 0) ||
-        (dw_parts(c.splits, c.k_chunk) > c.splits && (AK || EPI != EPI_STORE || c.c_split_stride == 0))) {
-      return (int)cudaErrorInvalidValue;  // more than one partial per split: dW products only
-    }
+    if (!valid_call(c, AK, EPI)) return (int)cudaErrorInvalidValue;
     bool a_vec = c.lda % 4 == 0, b_vec = c.ldb % 4 == 0;
     for (int g = 0; g < c.groups; ++g) {
       a_vec = a_vec && (uintptr_t)c.A[g] % 16 == 0;
@@ -635,10 +653,7 @@ struct TcEngine {
   // for this product); ldb unused
   template <int EPI>
   static int run_presplit(cudaStream_t st, const GemmCall& c) {
-    if (c.groups < 1 || c.groups > MAX_GROUP || (c.splits > 1 && c.k_chunk % TC_BK != 0) ||
-        dw_parts(c.splits, c.k_chunk) > c.splits) {
-      return (int)cudaErrorInvalidValue;
-    }
+    if (!valid_call(c, true, EPI)) return (int)cudaErrorInvalidValue;
     bool a_vec = c.lda % 4 == 0;
     for (int g = 0; g < c.groups; ++g) {
       a_vec = a_vec && (uintptr_t)c.A[g] % 16 == 0;
@@ -646,6 +661,480 @@ struct TcEngine {
     }
     return tc_launch<true, false, EPI, TC_PRE_BN, true>(st, c, a_vec, false);
   }
+};
+
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core engine (TbEngine), for compute_dtype = bfloat16: the
+// Pallas kernels' mxu_dot, bf16 operands with float32 products and sums.
+// Every bf16 x bf16 product is exact in float32, so only the order of the
+// float32 sums differs from the TPU's. Design, as the 3xTF32 engine's above
+// where nothing is said:
+//   - instruction: wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16 (N =
+//     128 or 64), one per k16 step, A from registers (the m16n8k16 fragment
+//     of each warp, read from the landed tile: 32-bit loads from a K-major
+//     tile, two 16-bit loads packed from a point-major one), B from shared
+//     memory. No split: a third of the 3xTF32 engine's instructions and
+//     half its operand bytes;
+//   - 16-bit wgmma reads a shared-memory operand K-major or MN-major
+//     (imm-trans-b), so every B tile lands by cp.async directly in wgmma's
+//     core matrices (8 rows of 16 bytes, 128 contiguous bytes, no swizzle),
+//     as it lies in device memory: no split or transpose pass. K-major
+//     (B(k, n) = B[n ldb + k]): leading byte offset 128 (k groups), stride
+//     byte offset 1024 (8-row groups of n); MN-major (B(k, n) = B[k ldb +
+//     n]): core matrices of 8 k rows of 8 n, leading byte offset 16 BN (k
+//     groups), stride byte offset 128 (n groups);
+//   - k-tiles 64 deep (128 bytes a row, as the 3xTF32 engine's 32 floats),
+//     A and B in one three-stage cp.async ring, two stages in flight, one
+//     barrier per k-tile; each k-tile's four k16 products go into a fresh
+//     accumulator that one float32 add takes into the running sum (the
+//     tensor cores truncate as they accumulate); a dW product writes a
+//     partial per 32 k-tiles (2,048 points), summed pairwise;
+//   - B pre-converted (the template flag B_PRE; the hidden weights of the
+//     rgb pipeline and of the dedup mask head): presplit_bf16_kernel writes
+//     W and W^T once per call as bf16 tiles of 64 n by 64 k in the K-major
+//     core-matrix layout, ordered [n-tile][k-tile], 8 KB a tile, each
+//     loaded by one cp.async.bulk on an mbarrier;
+//   - operands: bf16, every row 16-byte aligned (leading dimensions that
+//     are multiples of 8; copies of 16 bytes, zero fill past the edges);
+//     C float32 for a plain store (dW partials, d(encoding)), bf16 after
+//     bias + ReLU and after the gate (the activations and the ReLU-gated dz,
+//     which the Pallas kernels store in cdtype); bias, row sums and the
+//     epilogue's arithmetic float32.
+
+constexpr int TB_BK = 64;                    // k-tile depth (bf16)
+constexpr int TB_K_STRIDE = TB_BK + 8;       // K-major raw A tile [rows][BK + 8]: 144 bytes a row
+constexpr int TB_STAGES = 3;                 // A and B tiles in the ring
+constexpr int TB_FLUSH = 32;                 // k-tiles (2,048 points) per partial of a dW product
+constexpr int TB_PRE_TILE = TC_PRE_BN * TB_BK;  // bf16 values of one pre-converted (n, k) weight tile
+
+template <bool F>
+struct TbOut {
+  using type = bf16;
+};
+template <>
+struct TbOut<true> {
+  using type = float;
+};
+
+__device__ __forceinline__ uint32_t ld_b32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+// two bf16 in one 32-bit register, lo in the low half (the lower k)
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// element offset of B(k, n) in a landed B tile of BN columns, wgmma's core
+// matrices without swizzle: K-major (n / 8) 512 + (k / 8) 64 + (n % 8) 8 +
+// k % 8; MN-major (k / 8) 8 BN + (n / 8) 64 + (k % 8) 8 + n % 8
+template <bool KMAJOR, int BN>
+__device__ __forceinline__ int tb_core_off(int n, int k) {
+  return KMAJOR ? (n >> 3) * 512 + (k >> 3) * 64 + (n & 7) * 8 + (k & 7)
+                : (k >> 3) * 8 * BN + (n >> 3) * 64 + (k & 7) * 8 + (n & 7);
+}
+
+// Copy one bf16 operand tile (ROWS rows from r0, depth TB_BK from k0) into
+// shared memory with 16-byte cp.async, zeros at r >= r_lim and k >= k_lim.
+// CORE = false (A): as it lies, KMAJOR g[r ld + k] -> s[r TB_K_STRIDE + k],
+// else g[k ld + r] -> s[k (ROWS + 8) + r]; eight consecutive threads copy a
+// row's 128 contiguous bytes. CORE = true (B, ROWS = BN): into
+// tb_core_off's core matrices; eight consecutive threads copy one 16-byte
+// chunk of eight rows (eight k of a point-major B), the 128 bytes of one
+// core matrix, so no two of them write the same banks.
+template <bool KMAJOR, int ROWS, bool CORE>
+__device__ __forceinline__ void tb_load_tile(bf16* s, const bf16* __restrict__ g, int ld, int r0, int r_lim, int k0,
+                                             int k_lim) {
+  constexpr int RC = ROWS / 8, KC = TB_BK / 8;  // 16-byte chunks across the rows, along k
+#pragma unroll
+  for (int i = 0; i < ROWS * KC / TC_THREADS; ++i) {
+    const int e = threadIdx.x + i * TC_THREADS;
+    int r, k;
+    if (!CORE) {
+      if (KMAJOR) r = e / KC, k = e % KC * 8;
+      else k = e / RC, r = e % RC * 8;
+    } else {
+      if (KMAJOR) r = (e >> 6) * 8 + (e & 7), k = ((e >> 3) & 7) * 8;  // 8 rows, then 8 k chunks
+      else k = (e >> 3) / RC * 8 + (e & 7), r = (e >> 3) % RC * 8;     // 8 k, then the n chunks
+    }
+    int n;
+    const bf16* src;
+    if (KMAJOR) {
+      n = r0 + r < r_lim ? min(8, max(0, k_lim - (k0 + k))) : 0;
+      src = g + (long long)(r0 + r) * ld + (k0 + k);
+    } else {
+      n = k0 + k < k_lim ? min(8, max(0, r_lim - (r0 + r))) : 0;
+      src = g + (long long)(k0 + k) * ld + (r0 + r);
+    }
+    bf16* dst = CORE ? s + tb_core_off<KMAJOR, ROWS>(r, k) : KMAJOR ? s + r * TB_K_STRIDE + k : s + k * (ROWS + 8) + r;
+    cp_async16(dst, n > 0 ? src : g, 2 * n);
+  }
+}
+
+// shared-memory matrix descriptor, no swizzle: leading and stride byte offsets
+__device__ __forceinline__ uint64_t tb_desc(const bf16* p, unsigned lbo, unsigned sbo) {
+  const uint32_t a = smem_u32(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (+)= A B for one m64n128k16 bf16 step, A from registers (this thread's
+// four registers of its warp's 16 x 16 slice, as mma.m16n8k16 holds them),
+// B from shared memory, MN-major when TNSP_B; scale_d = 0 gives d = A B.
+template <int TNSP_B>
+__device__ __forceinline__ void wgmma_bf16_m64n128k16(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TNSP_B));
+}
+
+// as wgmma_bf16_m64n128k16, 64 columns
+template <int TNSP_B>
+__device__ __forceinline__ void wgmma_bf16_m64n64k16(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TNSP_B));
+}
+
+// floats of the pre-converted bf16 B of N columns and depth K
+inline long long presplit_bf16_floats(int N, int K) {
+  return (long long)cdiv(N, TC_PRE_BN) * cdiv(K, TB_BK) * (TB_PRE_TILE / 2);
+}
+
+// W [rows, cols] float32 (row-major, nn.Linear's [out, in]) as the bf16 B of
+// the two products that read it, blockIdx.y = 0: B(k, n) = W[n, k] (the
+// forward) into fwd; 1: B(k, n) = W[k, n] (the dz product) into dz. Tile
+// (n / 64, k / 64) starts at ((n / 64) ktiles + k / 64) TB_PRE_TILE, in
+// tb_core_off's K-major layout, zeros past N and K. One thread per row and
+// 8-k chunk, 16 bytes written.
+__global__ void presplit_bf16_kernel(const float* __restrict__ W, int rows, int cols, bf16* __restrict__ fwd,
+                                     bf16* __restrict__ dz) {
+  const bool t = blockIdx.y == 1;
+  const int N = t ? cols : rows, K = t ? rows : cols;
+  const int ktiles = (K + TB_BK - 1) / TB_BK;
+  constexpr int UNITS = TC_PRE_BN * (TB_BK / 8);  // per tile
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= (long long)((N + TC_PRE_BN - 1) / TC_PRE_BN) * ktiles * UNITS) return;
+  const int tile = (int)(u / UNITS), r = (int)(u % TC_PRE_BN), c = (int)(u % UNITS / TC_PRE_BN);
+  const int n = tile / ktiles * TC_PRE_BN + r, k0 = tile % ktiles * TB_BK + 8 * c;
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float x[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 2 * j + h;
+      x[h] = n < N && k < K ? (t ? W[(long long)k * cols + n] : W[(long long)n * cols + k]) : 0.0f;
+    }
+    v[j] = pack_bf16(__float2bfloat16_rn(x[0]), __float2bfloat16_rn(x[1]));
+  }
+  bf16* o = (t ? dz : fwd) + (long long)tile * TB_PRE_TILE + tb_core_off<true, TC_PRE_BN>(r, 8 * c);
+  *reinterpret_cast<uint4*>(o) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// dst [rows, ldd] = bf16(src [rows, lds]) on the first cols columns, zeros
+// past them (a float32 operand as the bf16 engine reads it: X, the first
+// layer's weights of the mask head)
+__global__ void cast_bf16_kernel(const float* __restrict__ src, int rows, int cols, int lds, bf16* __restrict__ dst,
+                                 int ldd) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)rows * ldd) return;
+  const int r = (int)(i / ldd), col = (int)(i % ldd);
+  dst[i] = __float2bfloat16_rn(col < cols ? src[(long long)r * lds + col] : 0.0f);
+}
+
+void cast_bf16(cudaStream_t st, const float* src, int rows, int cols, int lds, bf16* dst, int ldd) {
+  cast_bf16_kernel<<<cdiv((long long)rows * ldd, ELEM_THREADS), ELEM_THREADS, 0, st>>>(src, rows, cols, lds, dst,
+                                                                                      ldd);
+}
+
+// C[M, N] (+)= A[M, K] B[K, N] in bf16 per group and split (GemmCall), the
+// layouts as tc_gemm_kernel's; with B_PRE, B is presplit_bf16_kernel's
+// output (ldb unused). The design is above TB_BK.
+template <bool A_K_CONTIG, bool B_N_CONTIG, int EPI, int BN, bool B_PRE>
+__global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tb_gemm_kernel(const GemmCall c) {
+  static_assert(!B_PRE || (A_K_CONTIG && BN == TC_PRE_BN), "a pre-converted B: the K-major-A products, 64 wide");
+  using OutT = typename TbOut<EPI == EPI_STORE>::type;
+  constexpr int A_EL = A_K_CONTIG ? TC_BM * TB_K_STRIDE : TB_BK * (TC_BM + 8);
+  constexpr int B_EL = BN * TB_BK;
+  constexpr int NACC = BN / 2;
+  constexpr bool PARTS = !A_K_CONTIG && EPI == EPI_STORE;  // a dW product: a partial per TB_FLUSH k-tiles
+  extern __shared__ __align__(128) unsigned char tb_smem[];
+  bf16* sB = reinterpret_cast<bf16*>(tb_smem);  // [TB_STAGES][B_EL], core matrices
+  bf16* sA = sB + TB_STAGES * B_EL;             // [TB_STAGES][A_EL], as A lies
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sA + TB_STAGES * A_EL);  // B_PRE: one per stage
+
+  const int tid = threadIdx.x;
+  const int g = blockIdx.z / c.splits;
+  const int z = blockIdx.z % c.splits;
+  const bf16* __restrict__ A = static_cast<const bf16*>(pick(c.A, g));
+  const bf16* __restrict__ B = static_cast<const bf16*>(pick(c.B, g));
+  const float* __restrict__ bias = pick(c.bias, g);
+  const bf16* __restrict__ gate = static_cast<const bf16*>(pick(c.gate, g));
+  const int k0 = z * c.k_chunk;
+  const int k1 = min(c.K, k0 + c.k_chunk);
+  const int ktiles = k1 > k0 ? (k1 - k0 + TB_BK - 1) / TB_BK : 0;
+  float* rsum = A_K_CONTIG ? nullptr : pick(c.rsum, g);
+  const int subs = PARTS ? ((c.k_chunk + TB_BK - 1) / TB_BK + TB_FLUSH - 1) / TB_FLUSH : 1;
+  const int wg = tid / 128, lane = tid & 31, w = (tid >> 5) & 3, gq = lane >> 2, tq = lane & 3;
+  const int mr = wg * 64 + w * 16 + gq;  // this thread's rows in the block tile: mr, mr + 8
+  const int ntn = (c.N + BN - 1) / BN;
+  const int tiles = (c.M + TC_BM - 1) / TC_BM * ntn;
+  const int kt_all = (c.K + TB_BK - 1) / TB_BK;  // a pre-converted B's k-tiles
+  unsigned phase = 0;  // B_PRE: bit s, the parity of stage s's next fill
+
+  if constexpr (B_PRE) {
+    if (tid == 0) {
+      for (int s = 0; s < TB_STAGES; ++s) mbar_init(&bar[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  auto load_stage = [&](int t, int kt) {
+    const int kb = k0 + kt * TB_BK, s = kt % TB_STAGES;
+    tb_load_tile<A_K_CONTIG, TC_BM, false>(sA + s * A_EL, A, c.lda, t / ntn * TC_BM, c.M, kb, k1);
+    if constexpr (B_PRE) {
+      if (tid == 0) {  // the whole (n, k) tile in one bulk copy
+        mbar_expect_tx(&bar[s], TB_PRE_TILE * sizeof(bf16));
+        bulk_load(sB + s * B_EL, B + ((long long)(t % ntn) * kt_all + kb / TB_BK) * TB_PRE_TILE,
+                  TB_PRE_TILE * sizeof(bf16), &bar[s]);
+      }
+    } else {
+      tb_load_tile<!B_N_CONTIG, BN, true>(sB + s * B_EL, B, c.ldb, t % ntn * BN, c.N, kb, k1);
+    }
+  };
+
+  int t = blockIdx.x;
+  if (t < tiles && ktiles > 0) load_stage(t, 0);
+  cp_async_commit();
+  if (t < tiles && ktiles > 1) load_stage(t, 1);
+  cp_async_commit();
+
+  // persistent: this block's tiles t, t + gridDim.x, ...; the next tile's
+  // first two stages load while this one's epilogue stores
+  for (; t < tiles; t += gridDim.x) {
+    const int m0 = t / ntn * TC_BM, n0 = t % ntn * BN;
+    const bool do_rsum = rsum != nullptr && n0 == 0;
+    float acc[NACC], fr[NACC];
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.0f, fr[i] = 0.0f;
+    float rs0 = 0.0f, rs1 = 0.0f;
+    // acc (and the row sums) -> partial s of this split, then zeroed
+    auto store = [&](int s) {
+      const long long slot = (long long)z * subs + s;
+      OutT* C = static_cast<OutT*>(pick(c.C, g)) + slot * c.c_split_stride;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + mr + h * 8;
+        if (m >= c.M) continue;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int n = n0 + j * 8 + tq * 2;
+          float v[2] = {acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (n + e >= c.N) continue;
+            if (EPI == EPI_BIAS_RELU) v[e] = fmaxf(v[e] + bias[n + e], 0.0f);
+            if (EPI == EPI_GATE) v[e] = to_f(gate[(long long)m * c.ldg + n + e]) > 0.0f ? v[e] : 0.0f;
+          }
+          OutT* o = C + (long long)m * c.ldc + n;
+          if constexpr (EPI == EPI_STORE) {
+            if (n < c.N) o[0] = v[0];
+            if (n + 1 < c.N) o[1] = v[1];
+          } else if (n + 1 < c.N) {
+            *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v[0], v[1]);
+          } else if (n < c.N) {
+            o[0] = __float2bfloat16_rn(v[0]);
+          }
+        }
+      }
+      if (do_rsum) {  // the four lanes of a row, by a fixed xor tree
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+        if (tq == 0 && m0 + mr < c.M) rsum[slot * c.M + m0 + mr] = rs0;
+        if (tq == 0 && m0 + mr + 8 < c.M) rsum[slot * c.M + m0 + mr + 8] = rs1;
+      }
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+      rs0 = 0.0f, rs1 = 0.0f;
+    };
+
+    for (int kt = 0; kt < ktiles; ++kt) {
+      cp_async_wait<1>();  // this thread's copies of stage kt have landed
+      fence_proxy_async();  // ... visible to the tensor cores' (async) reads
+      __syncthreads();      // everyone's; and stage kt - 1 is free
+      if (kt + 2 < ktiles) load_stage(t, kt + 2);
+      cp_async_commit();
+      const int s = kt % TB_STAGES;
+      const bf16* as = sA + s * A_EL;
+      const int nk16 = min(TB_BK / 16, (k1 - (k0 + kt * TB_BK) + 15) / 16);
+      uint32_t af[TB_BK / 16][4];
+      float t0 = 0.0f, t1 = 0.0f;  // this k-tile's row sums
+#pragma unroll
+      for (int q = 0; q < TB_BK / 16; ++q) {
+        const int k = q * 16 + 2 * tq;
+        if constexpr (A_K_CONTIG) {
+          const bf16* p = as + mr * TB_K_STRIDE + k;
+          af[q][0] = ld_b32(p);
+          af[q][1] = ld_b32(p + 8 * TB_K_STRIDE);
+          af[q][2] = ld_b32(p + 8);
+          af[q][3] = ld_b32(p + 8 * TB_K_STRIDE + 8);
+        } else {
+          constexpr int S = TC_BM + 8;
+          const bf16* p = as + k * S + mr;
+          // (mr, k), (mr, k + 1), (mr + 8, k), (mr + 8, k + 1), then k + 8, k + 9
+          const bf16 x0 = p[0], x1 = p[S], x2 = p[8], x3 = p[S + 8];
+          const bf16 y0 = p[8 * S], y1 = p[9 * S], y2 = p[8 * S + 8], y3 = p[9 * S + 8];
+          af[q][0] = pack_bf16(x0, x1);
+          af[q][1] = pack_bf16(x2, x3);
+          af[q][2] = pack_bf16(y0, y1);
+          af[q][3] = pack_bf16(y2, y3);
+          if (do_rsum && q < nk16) {  // past nk16 the tile holds zeros anyway
+            t0 += to_f(x0), t0 += to_f(x1), t0 += to_f(y0), t0 += to_f(y1);
+            t1 += to_f(x2), t1 += to_f(x3), t1 += to_f(y2), t1 += to_f(y3);
+          }
+        }
+      }
+      rs0 += t0, rs1 += t1;
+      const bf16* bs = sB + s * B_EL;
+      if constexpr (B_PRE) {  // stage kt's bulk copy has landed
+        mbar_wait(&bar[s], (phase >> s) & 1u);
+        phase ^= 1u << s;
+      }
+      reg_fence(fr);
+      wg_fence();
+#pragma unroll
+      for (int q = 0; q < TB_BK / 16; ++q) {
+        if (q < nk16) {
+          // k groups 2q and 2q + 1 of the core-matrix tile
+          const uint64_t db = B_N_CONTIG ? tb_desc(bs + q * 16 * BN, 16 * BN, 128) : tb_desc(bs + q * 128, 128, 1024);
+          if constexpr (BN == 128) {
+            wgmma_bf16_m64n128k16<B_N_CONTIG ? 1 : 0>(*reinterpret_cast<float(*)[64]>(fr), af[q], db, q);
+          } else {
+            wgmma_bf16_m64n64k16<B_N_CONTIG ? 1 : 0>(*reinterpret_cast<float(*)[32]>(fr), af[q], db, q);
+          }
+        }
+      }
+      wg_commit();
+      wg_wait0();
+      reg_fence(fr);
+#pragma unroll
+      for (int q = 0; q < TB_BK / 16; ++q) keep_alive(af[q]);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] += fr[i];
+      if constexpr (PARTS) {
+        if ((kt + 1) % TB_FLUSH == 0 && kt + 1 < ktiles) store(kt / TB_FLUSH);
+      }
+    }
+
+    __syncthreads();  // every thread is done with this tile's stages
+    const int tn = t + gridDim.x;  // the next tile's first stages, before this one's stores
+    if (tn < tiles && ktiles > 0) load_stage(tn, 0);
+    cp_async_commit();
+    if (tn < tiles && ktiles > 1) load_stage(tn, 1);
+    cp_async_commit();
+
+    // the last partial, then zeros in those a short (last) split leaves
+    const int done = PARTS && ktiles > 0 ? (ktiles - 1) / TB_FLUSH : 0;
+    for (int s = done; s < subs; ++s) store(s);
+  }
+  cp_async_wait<0>();
+}
+
+template <bool AK, bool BNC, int EPI, int BN, bool B_PRE = false>
+int tb_launch(cudaStream_t st, const GemmCall& c) {
+  constexpr int a_el = AK ? TC_BM * TB_K_STRIDE : TB_BK * (TC_BM + 8);
+  constexpr int smem = TB_STAGES * (BN * TB_BK + a_el) * (int)sizeof(bf16) + TB_STAGES * (int)sizeof(uint64_t);
+  // once per template instance, as tc_launch
+  static const cudaError_t attr = cudaFuncSetAttribute(tb_gemm_kernel<AK, BNC, EPI, BN, B_PRE>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int tiles = cdiv(c.M, TC_BM) * cdiv(c.N, BN), zs = c.groups * c.splits;
+  const int wave = TC_WAVE_BLOCKS * (BN == 64 ? 2 : 1);
+  const int per = wave / zs > 1 ? wave / zs : 1;
+  dim3 grid(tiles < per ? tiles : per, 1, zs);
+  tb_gemm_kernel<AK, BNC, EPI, BN, B_PRE><<<grid, TC_THREADS, smem, st>>>(c);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 tensor-core engine (see above TB_BK), with TcEngine's interface.
+struct TbEngine : EngineShape<TB_BK, TB_FLUSH> {
+  static long long weight_floats(int N, int K) { return presplit_bf16_floats(N, K); }
+  // every operand's rows 16-byte aligned; a bf16 C written in pairs
+  static bool aligned(const GemmCall& c, int epi, bool b_pre) {
+    if (c.lda % 8 != 0 || (!b_pre && c.ldb % 8 != 0) || (epi != EPI_STORE && c.ldc % 2 != 0)) return false;
+    for (int g = 0; g < c.groups; ++g) {
+      if ((uintptr_t)c.A[g] % 16 != 0 || (uintptr_t)c.B[g] % 16 != 0 || (uintptr_t)c.C[g] % 4 != 0) return false;
+    }
+    return true;
+  }
+  template <bool AK, bool BNC, int EPI>
+  static int run(cudaStream_t st, const GemmCall& c) {
+    if (!valid_call(c, AK, EPI) || !aligned(c, EPI, false)) return (int)cudaErrorInvalidValue;
+    for (int g = 0; g < c.groups; ++g) {
+      if (AK && c.rsum[g]) return (int)cudaErrorInvalidValue;  // row sums need A point-major
+    }
+    if constexpr (!AK) {
+      if (tile_n(AK, c.N) == 128) return tb_launch<AK, BNC, EPI, 128>(st, c);
+    }
+    return tb_launch<AK, BNC, EPI, 64>(st, c);
+  }
+  // W [rows, cols] float32 as the bf16 B of its forward product (fwd,
+  // presplit_bf16_floats(rows, cols) floats) and of its dz product (dz,
+  // presplit_bf16_floats(cols, rows)), in one launch: converted, not split
+  static int presplit(cudaStream_t st, const float* W, int rows, int cols, float* fwd, float* dz) {
+    const long long f = presplit_bf16_floats(rows, cols), d = presplit_bf16_floats(cols, rows);
+    const long long units = (f > d ? f : d) / 4;  // a thread per 8 k of a row
+    presplit_bf16_kernel<<<dim3(cdiv(units, ELEM_THREADS), 2), ELEM_THREADS, 0, st>>>(
+        W, rows, cols, reinterpret_cast<bf16*>(fwd), reinterpret_cast<bf16*>(dz));
+    return (int)cudaGetLastError();
+  }
+  // run<true, *, EPI> with every group's B pre-converted (presplit's fwd or
+  // dz for this product); ldb unused
+  template <int EPI>
+  static int run_presplit(cudaStream_t st, const GemmCall& c) {
+    if (!valid_call(c, true, EPI) || !aligned(c, EPI, true)) return (int)cudaErrorInvalidValue;
+    for (int g = 0; g < c.groups; ++g) {
+      if (c.rsum[g]) return (int)cudaErrorInvalidValue;
+    }
+    return tb_launch<true, false, EPI, TC_PRE_BN, true>(st, c);
+  }
+};
+
+// The engine of a pipeline whose activations are stored as T
+template <class T>
+struct EngineOf {
+  using type = TcEngine;
+};
+template <>
+struct EngineOf<bf16> {
+  using type = TbEngine;
 };
 
 }  // namespace

@@ -17,7 +17,10 @@ Four gradient paths; the fused ones compute the autograd path's update:
     K5 (mask forward + the rgb step with the unnormalized cotangent,
     ops/cuda/fused_implicit.py) -> the 1 / (3 sum m) scaling -> the edge term
     -> K6 (head-blocked mask backward, the same cotangent per column).
-Then Adam with per-group learning rates (MLP at optim.lr, warp at
+The fused paths run their kernels at `arch.compute_dtype` (tpu.compute_dtype):
+float32, or bfloat16 for K1-K4; K5 and K6 have no bf16 body yet, so the
+per-image-heads and fused_dedup=off paths refuse bfloat16 when the step is
+made. Then Adam with per-group learning rates (MLP at optim.lr, warp at
 optim.lr_warp, mask head at optim.lr_mask; reference model/planar.py:86-104),
 Homography_Error from the post-update warp, Mask_Error of the pre-update mask
 (implicit masks with premade masks), and the fix_first re-zero of warp 0
@@ -239,7 +242,14 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         path = f"fused ({'K2' if coords_kernel else 'K1'})"
     else:
         path = "autograd"
-    log.info(f"train step: {path} on {device}")
+    cdtype = cfg.arch.compute_dtype
+    if fused_implicit and not dedup and cdtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cdtype!r}: the fused implicit step without dedup (per-image heads or "
+            "fused_dedup=off) runs K5 -> K6 in float32 only; their bf16 bodies are the next slice of "
+            "ROADMAP.md Queue 2 (use --tpu.fused_step=off for the autograd step)"
+        )
+    log.info(f"train step: {path}, {cdtype}, on {device}")
 
     if fused or fused_implicit:
         from marf_tpu_torch.ops.cuda.fused_step import fused_train_kernel, fused_train_kernel_warp
@@ -297,13 +307,13 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         if coords_kernel:
             coords = warp_grid_cf_flat(graph.grid, graph.warp)
             rgb_cf, rgb_loss, dmlp, dcoords, sq = fused_train_kernel(
-                graph.neural_image, coords.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3
+                graph.neural_image, coords.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3, cdtype
             )
             (dwarp,) = torch.autograd.grad(coords, graph.warp, dcoords)
         else:
             H = sl3_to_SL3(graph.warp)
             rgb_cf, rgb_loss, dmlp, dH, sq = fused_train_kernel_warp(
-                graph.neural_image, grid_b, H.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3
+                graph.neural_image, grid_b, H.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3, cdtype
             )
             (dwarp,) = torch.autograd.grad(H, graph.warp, dH)
         set_grads(graph.neural_image.layers, dmlp)
@@ -345,7 +355,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         # ---- mask forward on the K dedup columns, expanded to positions:
         # m[b, p] = slot0map[b, p] m[p] + the one extra column that covers (b, p)
         stack = mask_w_stack(graph.implicit_mask, table)
-        m_all = fused_mask_forward(stack, X_all)[:, :K]  # [1, K]: the pad columns cut
+        m_all = fused_mask_forward(stack, X_all, cdtype)[:, :K]  # [1, K]: the pad columns cut
         m_pos = slot0map * m_all[:, :HW]  # [B, HW]
         if E:
             m_pos = m_pos.index_add(1, ext_pix, extmap * m_all[:, HW:])
@@ -371,7 +381,8 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             if esq_b is not None:
                 tail = tail + b_s * torch.sum(extmap * esq_b[:, ext_pix], dim=0)
             base = base + torch.nn.functional.pad(tail[None], (HW, cnt_all.shape[1] - K))
-        dstack = fused_mask_backward_dedup(stack, X_all, slot0map, sq_b, esq_b, base, cnt_all, torch.stack([a_s, b_s, k_s]))
+        dstack = fused_mask_backward_dedup(stack, X_all, slot0map, sq_b, esq_b, base, cnt_all, torch.stack([a_s, b_s, k_s]),
+                                           cdtype)
         set_grads(graph.implicit_mask.layers, unfactor_mask_grads(dstack, table))
         return implicit_loss(rgb_loss, edge_loss, mask_loss, alpha), m_flat
 

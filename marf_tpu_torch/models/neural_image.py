@@ -6,6 +6,13 @@ with optional skip re-concats, ReLU inner activations, sigmoid output. Under
 barf_c2f the first layer's init is rescaled by sqrt(input_dim/2)
 (model/planar.py:421-426). The forward keeps marf_tpu's channels-first layout
 at its interface: [2, P] coordinates in, [3, P] rgb out.
+
+compute_dtype (marf_tpu's `tpu.compute_dtype`): float32, or bfloat16 with
+marf_tpu's casts (apply_neural_image_cf): the encoding, every weight and every
+hidden activation rounded to bf16, each product taken in float32 on those
+values (exact per term), the bias added in float32, the sigmoid on float32.
+Autograd rounds each cotangent to bf16 where it crosses a rounding, as JAX's
+transpose of `astype(bfloat16)` does. The parameters stay float32.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ from marf_tpu_torch.models.linear import make_linear
 from marf_tpu_torch.ops.posenc import apply_c2f_cf, barf_c2f_weights, barf_posenc_cf
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 @dataclasses.dataclass(frozen=True)
 class NeuralImageConfig:
     """Static architecture config (reference options/planar.yaml:33-39)."""
@@ -31,10 +41,9 @@ class NeuralImageConfig:
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the port runs float32 only; "
-                "bf16 is queued in ROADMAP.md"
+                f"compute_dtype={self.compute_dtype!r}: the port runs {' and '.join(COMPUTE_DTYPES)}"
             )
 
     @property
@@ -87,12 +96,18 @@ class NeuralImage(nn.Module):
         if cfg.posenc_L and cfg.barf_c2f is not None:
             cw = barf_c2f_weights(progress, tuple(cfg.barf_c2f), cfg.posenc_L)
         enc = encode_coords_cf(coord_cf, cfg.posenc_L, cw)
+        bf16 = cfg.compute_dtype == "bfloat16"
+        if bf16:  # the rounding as a bf16 tensor, read back as float32 by each product
+            enc = enc.to(torch.bfloat16)
         feat = enc
         last = len(self.layers) - 1
         for li, layer in enumerate(self.layers):
             if li in self.cfg.skip:
                 feat = torch.cat([feat, enc], dim=0)
-            feat = torch.addmm(layer.bias[:, None], layer.weight, feat)  # W @ x + b, [out, P]
+            w = layer.weight.to(torch.bfloat16).float() if bf16 else layer.weight
+            feat = torch.addmm(layer.bias[:, None], w, feat.float())  # W @ x + b, [out, P]
             if li != last:
                 feat = torch.relu(feat)
+                if bf16:
+                    feat = feat.to(torch.bfloat16)
         return torch.sigmoid(feat)

@@ -32,7 +32,12 @@ the head sees all N columns of X = `build_mask_x`, head h its column block
 dispatches on the device of its inputs: CUDA tensors launch the kernel (or
 raise), CPU tensors run its `*_reference` plain version. Effective layers are
 lists of (W [out, in], b [out]) tensors, nn.Linear's layout; a head-blocked
-kernel takes one such list per head.
+kernel takes one such list per head. K3 and K4 also take compute_dtype =
+"bfloat16" (marf_tpu's arch.compute_dtype): X, the hidden activations and
+the weights of every product in bf16, the cotangent through the sigmoid and
+each ReLU-gated dz rounded to bf16 before they feed a product, every product
+and sum, the bias and the cotangent's own arithmetic float32
+(fused_mask.py _mask_fwd_tile, _mask_bwd_dedup_kernel).
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import numpy as np
 import torch
 
 from marf_tpu_torch.ops.cuda import LAUNCHES
-from marf_tpu_torch.ops.cuda.fused_step import check_tensor, ptr_array
+from marf_tpu_torch.ops.cuda.fused_step import bf16_round, bind_bf16, check_compute_dtype, check_tensor, ptr_array
 from marf_tpu_torch.ops.posenc import hanerf_pos_embedding
 
 N_COMBOS = 8  # {0,1}^3 RGB index combinations (the faithful quantization)
@@ -158,6 +163,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_mask_backward_dedup.restype = ctypes.c_int
     lib.marf_mask_backward_g.argtypes = [i, i, i, pi, p, p, p, p, p, ctypes.c_float, pp, pp, pp, pp, p, p]
     lib.marf_mask_backward_g.restype = ctypes.c_int
+    bind_bf16(lib, ["marf_mask_forward", "marf_mask_forward_workspace", "marf_mask_backward_dedup",
+                    "marf_mask_backward_workspace"])
 
 
 def _library() -> ctypes.CDLL:
@@ -196,27 +203,33 @@ def checked_stacks(fn: str, stacks: list, x_cf: torch.Tensor):
     return HW, dims, c_dims
 
 
-def fused_mask_forward(layers: list, x_cf: torch.Tensor) -> torch.Tensor:
+def fused_mask_forward(layers: list, x_cf: torch.Tensor, compute_dtype: str = "float32") -> torch.Tensor:
     """Mask-head forward on the K factored columns (K3): X [56, K] -> m [1, K]."""
+    fn = "fused_mask_forward"
+    check_compute_dtype(fn, compute_dtype)
     if x_cf.device.type == "cpu":
-        return fused_mask_forward_reference(layers, x_cf)
+        return fused_mask_forward_reference(layers, x_cf, compute_dtype)
     if x_cf.device.type != "cuda":
-        raise ValueError(f"fused_mask_forward: unsupported device {x_cf.device}")
-    dims, c_dims = _checked_layers("fused_mask_forward", layers, x_cf)
+        raise ValueError(f"{fn}: unsupported device {x_cf.device}")
+    dims, c_dims = _checked_layers(fn, layers, x_cf)
     lib = _library()
+    sfx = "_bf16" if compute_dtype == "bfloat16" else ""
     K = x_cf.shape[1]
     m = torch.empty((1, K), dtype=torch.float32, device=x_cf.device)
-    ws = torch.empty(lib.marf_mask_forward_workspace(K, len(layers), c_dims), dtype=torch.float32, device=x_cf.device)
-    rc = lib.marf_mask_forward(K, len(layers), c_dims, x_cf.data_ptr(), ptr_array([w for w, _ in layers]),
-                               ptr_array([b for _, b in layers]), m.data_ptr(), ws.data_ptr(),
-                               torch.cuda.current_stream(x_cf.device).cuda_stream)
+    ws = torch.empty(getattr(lib, f"marf_mask_forward{sfx}_workspace")(K, len(layers), c_dims), dtype=torch.float32,
+                     device=x_cf.device)
+    rc = getattr(lib, f"marf_mask_forward{sfx}")(K, len(layers), c_dims, x_cf.data_ptr(),
+                                                 ptr_array([w for w, _ in layers]), ptr_array([b for _, b in layers]),
+                                                 m.data_ptr(), ws.data_ptr(),
+                                                 torch.cuda.current_stream(x_cf.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_mask_forward kernel launch failed: CUDA error {rc}")
-    LAUNCHES["fused_mask_forward"] += 1
+        raise RuntimeError(f"{fn} ({compute_dtype}) kernel launch failed: CUDA error {rc}")
+    LAUNCHES[fn + sfx] += 1
     return m
 
 
-def fused_mask_backward_dedup(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt, abk) -> list:
+def fused_mask_backward_dedup(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt, abk,
+                              compute_dtype: str = "float32") -> list:
     """Mask-head backward on the K dedup columns with the slot0 segment sum
     and the cotangent in the kernel (K4).
 
@@ -228,15 +241,17 @@ def fused_mask_backward_dedup(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt,
       base: [1, K] c*cnt plus the extras' segment sums a*Ssq + b*Sesq.
       cnt: [1, K] positions per column.
       abk: [3] (a, b, k) of dL/dm = (a Ssq + b Sesq + c cnt) m + k cnt.
+      compute_dtype: "float32" or "bfloat16" (module docstring).
 
     Returns the effective-layer grads [(dW [out, in], db [out])]
     (unfactor_mask_grads maps them back).
     """
-    if x_cf.device.type == "cpu":
-        return fused_mask_backward_dedup_reference(layers, x_cf, s0map, sq_b, esq_b, base, cnt, abk)
-    if x_cf.device.type != "cuda":
-        raise ValueError(f"fused_mask_backward_dedup: unsupported device {x_cf.device}")
     fn = "fused_mask_backward_dedup"
+    check_compute_dtype(fn, compute_dtype)
+    if x_cf.device.type == "cpu":
+        return fused_mask_backward_dedup_reference(layers, x_cf, s0map, sq_b, esq_b, base, cnt, abk, compute_dtype)
+    if x_cf.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {x_cf.device}")
     dims, c_dims = _checked_layers(fn, layers, x_cf)
     device = x_cf.device
     K = x_cf.shape[1]
@@ -248,18 +263,20 @@ def fused_mask_backward_dedup(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt,
         if t is not None:
             check_tensor(fn, name, t, shape, device)
     lib = _library()
+    sfx = "_bf16" if compute_dtype == "bfloat16" else ""
     dws = [torch.empty_like(w) for w, _ in layers]
     dbs = [torch.empty_like(b) for _, b in layers]
-    ws = torch.empty(lib.marf_mask_backward_workspace(K, len(layers), c_dims), dtype=torch.float32, device=device)
-    rc = lib.marf_mask_backward_dedup(
+    ws = torch.empty(getattr(lib, f"marf_mask_backward{sfx}_workspace")(K, len(layers), c_dims), dtype=torch.float32,
+                     device=device)
+    rc = getattr(lib, f"marf_mask_backward_dedup{sfx}")(
         K, HW, B, len(layers), c_dims, x_cf.data_ptr(), s0map.data_ptr(), sq_b.data_ptr(),
         None if esq_b is None else esq_b.data_ptr(), base.data_ptr(), cnt.data_ptr(), abk.data_ptr(),
         ptr_array([w for w, _ in layers]), ptr_array([b for _, b in layers]), ptr_array(dws), ptr_array(dbs),
         ws.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[fn] += 1
+        raise RuntimeError(f"{fn} ({compute_dtype}) kernel launch failed: CUDA error {rc}")
+    LAUNCHES[fn + sfx] += 1
     return list(zip(dws, dbs))
 
 
@@ -320,22 +337,48 @@ def _mask_mlp(layers: list, x_cf: torch.Tensor) -> torch.Tensor:
     return feat
 
 
-def fused_mask_forward_reference(layers: list, x_cf: torch.Tensor) -> torch.Tensor:
+def _mask_mlp_bf16(layers: list, x_cf: torch.Tensor):
+    """`_mask_mlp` at compute_dtype = bfloat16: (m [1, K], the layers' inputs
+    rounded to bf16, X first)."""
+    acts = [bf16_round(x_cf)]
+    last = len(layers) - 1
+    for li, (w, b) in enumerate(layers):
+        z = torch.addmm(b[:, None], bf16_round(w), acts[li])
+        if li != last:
+            acts.append(bf16_round(torch.relu(z)))
+    return torch.sigmoid(z), acts
+
+
+def fused_mask_forward_reference(layers: list, x_cf: torch.Tensor, compute_dtype: str = "float32") -> torch.Tensor:
     """Plain PyTorch version of `fused_mask_forward`."""
+    if compute_dtype == "bfloat16":
+        return _mask_mlp_bf16(layers, x_cf)[0]
     return _mask_mlp(layers, x_cf)
 
 
-def fused_mask_backward_dedup_reference(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt, abk) -> list:
+def fused_mask_backward_dedup_reference(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt, abk,
+                                        compute_dtype: str = "float32") -> list:
     """Plain PyTorch version of `fused_mask_backward_dedup`: the forward under
     autograd, pulled back from m with the cotangent (seg m + k cnt), seg =
-    a Ssq + b Sesq + base with the slot0 sums over B on the first HW columns."""
-    HW = s0map.shape[1]
+    a Ssq + b Sesq + base with the slot0 sums over B on the first HW columns.
+    In bfloat16 the backward is written out as the kernel rounds it (each d
+    rounded to bf16 before it feeds a product)."""
+    seg = _slot0_pad(abk[0] * torch.sum(s0map * sq_b, dim=0), base) + base
+    if esq_b is not None:
+        seg = seg + _slot0_pad(abk[1] * torch.sum(s0map * esq_b, dim=0), base)
+    if compute_dtype == "bfloat16":
+        layers = [(w.detach(), b.detach()) for w, b in layers]
+        m, acts = _mask_mlp_bf16(layers, x_cf)
+        d = bf16_round((seg * m + abk[2] * cnt) * m * (1.0 - m))
+        grads = [None] * len(layers)
+        for li in range(len(layers) - 1, -1, -1):
+            grads[li] = (d @ acts[li].T, torch.sum(d, dim=1))
+            if li > 0:
+                d = bf16_round((bf16_round(layers[li][0]).T @ d) * (acts[li] > 0))
+        return grads
     with torch.enable_grad():
         params = [(w.detach().requires_grad_(True), b.detach().requires_grad_(True)) for w, b in layers]
         m = _mask_mlp(params, x_cf)
-        seg = _slot0_pad(abk[0] * torch.sum(s0map * sq_b, dim=0), base) + base
-        if esq_b is not None:
-            seg = seg + _slot0_pad(abk[1] * torch.sum(s0map * esq_b, dim=0), base)
         g = seg * m.detach() + abk[2] * cnt
         grads = torch.autograd.grad(m, [t for wb in params for t in wb], g)
     return list(zip(grads[0::2], grads[1::2]))

@@ -12,8 +12,16 @@ dscale = 2 * C * inv_sum3, C = d total / d rgb_loss and inv_sum3 = 1 / (3 *
 sum(mask)) (reference model/planar.py:359-390); the caller pulls dH or dcoords
 back to the warp with autograd.
 
-Each wrapper dispatches on the device of its inputs: CUDA tensors launch the
-kernel (or raise), CPU tensors run its `*_reference` plain version.
+Each wrapper takes the compute dtype of marf_tpu's `arch.compute_dtype`
+(float32 or bfloat16; by default the neural image's own) and dispatches on
+the device of its inputs: CUDA tensors launch the kernel of that dtype (or
+raise), CPU tensors run its `*_reference` plain version. In bfloat16 both
+round where the Pallas kernels' cdtype does (marf_tpu/ops/pallas/
+fused_step.py _stack_fwd, _stack_bwd): the encoding, the hidden activations
+and the weights of every product in bf16; the output cotangent through the
+sigmoid and each ReLU-gated dz rounded to bf16 before they feed a product;
+every product and sum, the bias, the loss, d(encoding) and the posenc and
+warp VJPs in float32.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import ctypes
 
 import torch
 
-from marf_tpu_torch.models.neural_image import NeuralImage, encode_coords_cf
+from marf_tpu_torch.models.neural_image import COMPUTE_DTYPES, NeuralImage, encode_coords_cf
 from marf_tpu_torch.ops.cuda import LAUNCHES
 
 # images per K1 call: the kernel keeps one dH accumulator per image in
@@ -40,6 +48,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_fused_step_coords_workspace.restype = ctypes.c_longlong
     lib.marf_fused_step_coords.argtypes = [i, i, i, pi, p, p, p, p, p, pp, pp, p, p, p, pp, pp, p, p, p]
     lib.marf_fused_step_coords.restype = ctypes.c_int
+    bind_bf16(lib, ["marf_fused_step_warp", "marf_fused_step_warp_workspace", "marf_fused_step_coords",
+                    "marf_fused_step_coords_workspace"])
+
+
+def bind_bf16(lib: ctypes.CDLL, names: list) -> None:
+    """Give each float32 entry point's bf16 twin (marf_x -> marf_x_bf16,
+    marf_x_workspace -> marf_x_bf16_workspace) the same C signature."""
+    for name in names:
+        stem, tail = (name[: -len("_workspace")], "_workspace") if name.endswith("_workspace") else (name, "")
+        src, dst = getattr(lib, name), getattr(lib, f"{stem}_bf16{tail}")
+        dst.argtypes, dst.restype = src.argtypes, src.restype
 
 
 SOURCES = ["fused_step.cu"]
@@ -57,6 +76,13 @@ def _scalars(g_loss_scale, inv_sum3: torch.Tensor) -> torch.Tensor:
     return torch.stack([2.0 * g_loss_scale * inv_sum3, inv_sum3])
 
 
+def check_compute_dtype(fn: str, compute_dtype: str) -> str:
+    """Raise unless `compute_dtype` is one the kernels take."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"{fn}: compute_dtype={compute_dtype!r} is not one of {COMPUTE_DTYPES}")
+    return compute_dtype
+
+
 def check_tensor(fn: str, name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
     """Raise unless `t` is a contiguous float32 tensor of `shape` on `device`."""
     if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -71,7 +97,8 @@ def ptr_array(ts) -> ctypes.Array:
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
-def fused_train_kernel_warp(net: NeuralImage, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3):
+def fused_train_kernel_warp(net: NeuralImage, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3,
+                            compute_dtype: str | None = None):
     """One fused train-step pass over N points, warp in the kernel (K1).
 
     Args:
@@ -85,19 +112,23 @@ def fused_train_kernel_warp(net: NeuralImage, grid_b, H, cw, targets, masks, g_l
         predicted occlusion probability of the implicit-mask model).
       g_loss_scale: d total / d rgb_loss (float or 0-d tensor).
       inv_sum3: 0-d tensor 1 / (3 * sum(mask)).
+      compute_dtype: "float32" or "bfloat16" (module docstring); None takes
+        net.cfg.compute_dtype.
 
     Returns:
       (rgb [3, N], rgb_loss 0-d, dparams [(dW [out, in], db [out]) per layer],
        dH [B, 3, 3], sq [1, N] raw per-point squared error).
     """
+    cdt = check_compute_dtype("fused_train_kernel_warp", compute_dtype or net.cfg.compute_dtype)
     if grid_b.device.type == "cpu":
-        return fused_train_kernel_warp_reference(net, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3)
+        return fused_train_kernel_warp_reference(net, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3, cdt)
     if grid_b.device.type != "cuda":
         raise ValueError(f"fused_train_kernel_warp: unsupported device {grid_b.device}")
-    return _launch(net, None, grid_b, H, cw, targets, masks, _scalars(g_loss_scale, inv_sum3))
+    return _launch(net, None, grid_b, H, cw, targets, masks, _scalars(g_loss_scale, inv_sum3), cdt)
 
 
-def fused_train_kernel(net: NeuralImage, coords, cw, targets, masks, g_loss_scale, inv_sum3):
+def fused_train_kernel(net: NeuralImage, coords, cw, targets, masks, g_loss_scale, inv_sum3,
+                       compute_dtype: str | None = None):
     """One fused train-step pass over N given warped coordinates (K2).
 
     Args as `fused_train_kernel_warp`, with coords [2, N] in place of the grid
@@ -107,11 +138,12 @@ def fused_train_kernel(net: NeuralImage, coords, cw, targets, masks, g_loss_scal
       (rgb [3, N], rgb_loss 0-d, dparams [(dW [out, in], db [out]) per layer],
        dcoords [2, N], sq [1, N] raw per-point squared error).
     """
+    cdt = check_compute_dtype("fused_train_kernel", compute_dtype or net.cfg.compute_dtype)
     if coords.device.type == "cpu":
-        return fused_train_kernel_reference(net, coords, cw, targets, masks, g_loss_scale, inv_sum3)
+        return fused_train_kernel_reference(net, coords, cw, targets, masks, g_loss_scale, inv_sum3, cdt)
     if coords.device.type != "cuda":
         raise ValueError(f"fused_train_kernel: unsupported device {coords.device}")
-    return _launch(net, coords, None, None, cw, targets, masks, _scalars(g_loss_scale, inv_sum3))
+    return _launch(net, coords, None, None, cw, targets, masks, _scalars(g_loss_scale, inv_sum3), cdt)
 
 
 def rgb_net_args(fn: str, net: NeuralImage, cw, device: torch.device):
@@ -136,8 +168,9 @@ def rgb_net_args(fn: str, net: NeuralImage, cw, device: torch.device):
     return L, dims, (ctypes.c_int * len(dims))(*dims), weights, biases, cw
 
 
-def _launch(net, coords, grid_b, H, cw, targets, masks, scal):
-    """K2 when `coords` is given, else K1."""
+def _launch(net, coords, grid_b, H, cw, targets, masks, scal, compute_dtype):
+    """K2 when `coords` is given, else K1; the bf16 entry points under
+    compute_dtype = bfloat16."""
     fn = "fused_train_kernel" if coords is not None else "fused_train_kernel_warp"
     stream_in = coords if coords is not None else grid_b
     device = stream_in.device
@@ -157,6 +190,7 @@ def _launch(net, coords, grid_b, H, cw, targets, masks, scal):
     check("scalars", scal, (2,))
 
     lib = _library()
+    sfx = "_bf16" if compute_dtype == "bfloat16" else ""
     n_layers = len(weights)
     rgb = torch.empty((3, N), dtype=torch.float32, device=device)
     sq = torch.empty((1, N), dtype=torch.float32, device=device)
@@ -168,17 +202,19 @@ def _launch(net, coords, grid_b, H, cw, targets, masks, scal):
               rgb.data_ptr(), sq.data_ptr(), loss.data_ptr(), ptr_array(dws), ptr_array(dbs))
     if coords is not None:
         dout = torch.empty((2, N), dtype=torch.float32, device=device)
-        ws = torch.empty(lib.marf_fused_step_coords_workspace(N, L, n_layers, c_dims), dtype=torch.float32, device=device)
-        rc = lib.marf_fused_step_coords(N, L, n_layers, c_dims, coords.data_ptr(), cw.data_ptr(), *common,
-                                        dout.data_ptr(), ws.data_ptr(), stream)
+        n_ws = getattr(lib, f"marf_fused_step_coords{sfx}_workspace")(N, L, n_layers, c_dims)
+        ws = torch.empty(n_ws, dtype=torch.float32, device=device)
+        rc = getattr(lib, f"marf_fused_step_coords{sfx}")(N, L, n_layers, c_dims, coords.data_ptr(), cw.data_ptr(),
+                                                          *common, dout.data_ptr(), ws.data_ptr(), stream)
     else:
         dout = torch.empty((B, 3, 3), dtype=torch.float32, device=device)
-        ws = torch.empty(lib.marf_fused_step_warp_workspace(N, B, L, n_layers, c_dims), dtype=torch.float32, device=device)
-        rc = lib.marf_fused_step_warp(N, B, L, n_layers, c_dims, grid_b.data_ptr(), H.data_ptr(), cw.data_ptr(),
-                                      *common, dout.data_ptr(), ws.data_ptr(), stream)
+        n_ws = getattr(lib, f"marf_fused_step_warp{sfx}_workspace")(N, B, L, n_layers, c_dims)
+        ws = torch.empty(n_ws, dtype=torch.float32, device=device)
+        rc = getattr(lib, f"marf_fused_step_warp{sfx}")(N, B, L, n_layers, c_dims, grid_b.data_ptr(), H.data_ptr(),
+                                                        cw.data_ptr(), *common, dout.data_ptr(), ws.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[fn] += 1
+        raise RuntimeError(f"{fn} ({compute_dtype}) kernel launch failed: CUDA error {rc}")
+    LAUNCHES[fn + sfx] += 1
     return rgb, loss, list(zip(dws, dbs)), dout, sq
 
 
@@ -204,9 +240,52 @@ def _mlp_loss_and_grads(net, coords, cw, targets, masks, scal, extra):
     return rgb.detach(), loss.detach(), list(zip(grads[:n], grads[n : 2 * n])), grads[-1], sq.detach()
 
 
-def fused_train_kernel_warp_reference(net: NeuralImage, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3):
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest even), in t's own dtype: a float64
+    run of a bf16 plain version rounds where the kernel does and nowhere else."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _mlp_loss_and_grads_bf16(net, coords, cw, targets, masks, scal, extra):
+    """`_mlp_loss_and_grads` at compute_dtype = bfloat16, with the Pallas
+    kernels' rounding (module docstring) written out: the backward is the
+    kernels' (each d rounded before it feeds a product, dW and db summed from
+    the rounded values), not autograd's. Only d(encoding) is pulled back to
+    `extra` by autograd, through the posenc (and the warp)."""
+    weights = [bf16_round(layer.weight.detach()) for layer in net.layers]
+    biases = [layer.bias.detach() for layer in net.layers]
+    enc = encode_coords_cf(coords, net.cfg.posenc_L, cw)
+    acts = [bf16_round(enc.detach())]
+    last = len(weights) - 1
+    for li, (w, b) in enumerate(zip(weights, biases)):
+        z = torch.addmm(b[:, None], w, acts[li])
+        if li != last:
+            acts.append(bf16_round(torch.relu(z)))
+    rgb = torch.sigmoid(z)
+    diff = rgb - targets
+    diff_m = diff * masks
+    loss = torch.sum(diff_m * diff_m) * scal[1]
+    d = bf16_round(scal[0] * diff_m * masks * rgb * (1.0 - rgb))
+    grads = [None] * len(weights)
+    for li in range(last, -1, -1):
+        grads[li] = (d @ acts[li].T, torch.sum(d, dim=1))
+        da = weights[li].T @ d
+        if li > 0:
+            d = bf16_round(da * (acts[li] > 0))
+    (dextra,) = torch.autograd.grad(enc, extra, da)
+    sq = torch.sum(diff * diff, dim=0, keepdim=True)
+    return rgb, loss, grads, dextra, sq
+
+
+def _loss_and_grads(compute_dtype: str):
+    return _mlp_loss_and_grads_bf16 if compute_dtype == "bfloat16" else _mlp_loss_and_grads
+
+
+def fused_train_kernel_warp_reference(net: NeuralImage, grid_b, H, cw, targets, masks, g_loss_scale, inv_sum3,
+                                      compute_dtype: str | None = None):
     """Plain PyTorch version of `fused_train_kernel_warp`: same arguments and
-    returns. The warp, posenc, MLP and loss partial run under autograd."""
+    returns. The warp, posenc, MLP and loss partial run under autograd (in
+    bfloat16, the MLP's backward as the kernel rounds it)."""
     B = H.shape[0]
     scal = _scalars(g_loss_scale, inv_sum3)
     with torch.enable_grad():
@@ -217,13 +296,16 @@ def fused_train_kernel_warp_reference(net: NeuralImage, grid_b, H, cw, targets, 
         rden = 1.0 / (hp[:, 8] + hp[:, 6] * u + hp[:, 7] * v + 1e-8)
         x = (hp[:, 0] * u + hp[:, 1] * v + hp[:, 2]) * rden
         y = (hp[:, 3] * u + hp[:, 4] * v + hp[:, 5]) * rden
-        return _mlp_loss_and_grads(net, torch.stack([x, y]), cw, targets, masks, scal, Hd)
+        loss_and_grads = _loss_and_grads(compute_dtype or net.cfg.compute_dtype)
+        return loss_and_grads(net, torch.stack([x, y]), cw, targets, masks, scal, Hd)
 
 
-def fused_train_kernel_reference(net: NeuralImage, coords, cw, targets, masks, g_loss_scale, inv_sum3):
+def fused_train_kernel_reference(net: NeuralImage, coords, cw, targets, masks, g_loss_scale, inv_sum3,
+                                 compute_dtype: str | None = None):
     """Plain PyTorch version of `fused_train_kernel`: same arguments and
-    returns. Posenc, MLP and loss partial run under autograd."""
+    returns. Posenc, MLP and loss partial run under autograd (in bfloat16,
+    the MLP's backward as the kernel rounds it)."""
     scal = _scalars(g_loss_scale, inv_sum3)
     with torch.enable_grad():
         c = coords.detach().requires_grad_(True)
-        return _mlp_loss_and_grads(net, c, cw, targets, masks, scal, c)
+        return _loss_and_grads(compute_dtype or net.cfg.compute_dtype)(net, c, cw, targets, masks, scal, c)

@@ -1,6 +1,7 @@
-"""The 3xTF32 tensor-core GEMM engine of K1, K2, K5 and K6 (csrc/tc_gemm.cuh),
-through its own C entry point (csrc/tc_gemm.cu), beside its plain PyTorch
-versions.
+"""The tensor-core GEMM engines of K1-K6 (csrc/tc_gemm.cuh), through their own
+C entry points (csrc/tc_gemm.cu), beside their plain PyTorch versions: the
+3xTF32 engine (float32 operands) and the bf16 engine (bfloat16 operands,
+float32 products and sums; compute_dtype = bfloat16).
 
 It exists so that each operand layout and epilogue of the engine, and the
 weights' pre-split, can be held to their plain versions on the card apart
@@ -17,6 +18,13 @@ tiles ordered [n-tile][k-tile][hi | lo], zeros past the edges; once as the B
 of the forward product ("mk,nk": B(k, n) = W[n, k]) and once as the B of the
 dz product ("mk,kn": B(k, n) = W[k, n]). The rgb pipeline (K1, K2, K5) writes
 it once per call and streams each tile into shared memory with one bulk copy.
+
+The bf16 engine's pre-split (`presplit_bf16`) converts W to bf16 and lays it
+out in tiles of 64 columns by 64 deep, K-major 8 x 8 core matrices of 128
+bytes (element (n, k) of a tile at (n // 8) 512 + (k // 8) 64 + (n % 8) 8 +
+k % 8), tiles ordered [n-tile][k-tile], zeros past the edges: nothing is
+split. `tc_gemm` takes bf16 operands on the bf16 engine; every bf16 row must
+start on 16 bytes (a leading dimension that is a multiple of 8).
 
 Layouts name how A [M, K] and B [K, N] lie in memory, as the kernels' products
 do: "mk" / "km" for A, "kn" / "nk" for B:
@@ -37,6 +45,7 @@ from marf_tpu_torch.ops.cuda.fused_step import check_tensor
 
 SOURCES = ["tc_gemm.cu"]
 PRE_BN, BK = 64, 32  # a pre-split tile's width and depth (TC_PRE_BN, TC_BK in csrc/tc_gemm.cuh)
+BK_BF16 = 64  # the bf16 engine's k-tile depth (TB_BK)
 LAYOUTS = {"mk,nk": (True, False), "mk,kn": (True, True), "km,kn": (False, True), "km,nk": (False, False)}
 EPILOGUES = {"store": 0, "bias_relu": 1, "gate": 2}
 
@@ -51,6 +60,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_tc_presplit_floats.restype = ctypes.c_longlong
     lib.marf_tc_presplit.argtypes = [p, i, i, p, p, p]
     lib.marf_tc_presplit.restype = ctypes.c_int
+    lib.marf_tb_gemm_workspace.argtypes = [i, i, i, i, i]
+    lib.marf_tb_gemm_workspace.restype = ctypes.c_longlong
+    lib.marf_tb_gemm.argtypes = [i, i, i, i, i, i, i, p, i, p, i, p, i, p, p, i, i, p, p, p]
+    lib.marf_tb_gemm.restype = ctypes.c_int
+    lib.marf_tb_presplit_floats.argtypes = [i, i]
+    lib.marf_tb_presplit_floats.restype = ctypes.c_longlong
+    lib.marf_tb_presplit.argtypes = [p, i, i, p, p, p]
+    lib.marf_tb_presplit.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
@@ -73,12 +90,14 @@ def _dims(a: torch.Tensor, b: torch.Tensor, layout: str):
 
 def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, splits: int = 1, rowsum: bool = False,
             presplit_b: bool = False):
-    """C = epilogue(A B) on the tensor cores in 3xTF32.
+    """C = epilogue(A B) on the tensor cores: in 3xTF32 for float32 operands,
+    on the bf16 engine for bfloat16 ones.
 
     Args:
       a: A as it lies: [M, K] ("mk") or [K, M] ("km"); b: [K, N] ("kn") or
-        [N, K] ("nk"). 2-d float32 with unit stride in the last dimension;
-        the row stride may be larger (a view of a wider tensor).
+        [N, K] ("nk"). 2-d float32 (or both bfloat16, row strides multiples
+        of 8, 16-byte aligned) with unit stride in the last dimension; the
+        row stride may be larger (a view of a wider tensor).
       layout: "<A>,<B>" (module docstring).
       epilogue: "store", "bias_relu" (bias [N]) or "gate" (C zeroed where
         gate [M, N] <= 0).
@@ -88,11 +107,12 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
       rowsum: also return A's row sums over k (A "km" only), folded into the
         product as the dW products fold db.
       presplit_b: B (contiguous, depth at most 2,048) pre-split by
-        `presplit` and streamed by bulk copies, as the rgb pipeline's
-        forward ("mk,nk") and dz ("mk,kn") products read their weights; no
-        splits, no rowsum.
+        `presplit` (bf16: converted by `presplit_bf16`, B given as float32)
+        and streamed by bulk copies, as the rgb pipeline's forward ("mk,nk")
+        and dz ("mk,kn") products read their weights; no splits, no rowsum.
 
-    Returns C [M, N] (and the row sums [M] when rowsum). CPU tensors run
+    Returns C [M, N] (and the row sums [M] when rowsum): float32, or on the
+    bf16 engine bfloat16 after bias_relu and gate. CPU tensors run
     `tc_gemm_reference`.
     """
     if a.device.type == "cpu":
@@ -101,9 +121,14 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
         raise ValueError(f"tc_gemm: unsupported device {a.device}")
     a_k, b_n, M, N, K = _dims(a, b, layout)
     device = a.device
+    bf16 = a.dtype == torch.bfloat16
     for name, t in (("a", a), ("b", b)):
-        if t.device != device or t.dtype != torch.float32 or t.dim() != 2 or t.stride(1) != 1:
-            raise ValueError(f"tc_gemm: {name} must be a 2-d float32 tensor on {device} with unit column stride")
+        # a pre-split B is the float32 weight as the wrapper keeps it
+        dtype = torch.bfloat16 if bf16 and not (presplit_b and name == "b") else torch.float32
+        if t.device != device or t.dtype != dtype or t.dim() != 2 or t.stride(1) != 1:
+            raise ValueError(f"tc_gemm: {name} must be a 2-d {dtype} tensor on {device} with unit column stride")
+        if dtype == torch.bfloat16 and (t.stride(0) % 8 or t.data_ptr() % 16):
+            raise ValueError(f"tc_gemm: bf16 {name} needs a row stride that is a multiple of 8 and 16-byte alignment")
     if (epilogue not in EPILOGUES or (epilogue == "bias_relu") != (bias is not None)
             or (epilogue == "gate") != (gate is not None)):
         raise ValueError(f"tc_gemm: epilogue {epilogue!r} with bias={bias is not None}, gate={gate is not None}")
@@ -115,39 +140,50 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
                          f"2,048, no splits and no rowsum (got {layout}, {tuple(b.shape)}, splits={splits})")
     if bias is not None:
         check_tensor("tc_gemm", "bias", bias, (N,), device)
-    if gate is not None:
+    if gate is not None and bf16:
+        if gate.dtype != torch.bfloat16 or tuple(gate.shape) != (M, N) or not gate.is_contiguous():
+            raise ValueError(f"tc_gemm: gate must be a contiguous bfloat16 {(M, N)} tensor")
+    elif gate is not None:
         check_tensor("tc_gemm", "gate", gate, (M, N), device)
     lib = _library()
-    c = torch.empty((M, N), dtype=torch.float32, device=device)
+    out_dtype = torch.bfloat16 if bf16 and epilogue != "store" else torch.float32
+    c = torch.empty((M, N), dtype=out_dtype, device=device)
     rs = torch.empty((M,), dtype=torch.float32, device=device) if rowsum else None
-    ws = torch.empty(max(1, lib.marf_tc_gemm_workspace(M, N, K, splits, int(rowsum))), dtype=torch.float32,
-                     device=device)
+    workspace = lib.marf_tb_gemm_workspace if bf16 else lib.marf_tc_gemm_workspace
+    ws = torch.empty(max(1, workspace(M, N, K, splits, int(rowsum))), dtype=torch.float32, device=device)
     b_ptr, ldb = b.data_ptr(), b.stride(0)
     if presplit_b:
-        fwd, dz = presplit(b)
+        fwd, dz = (presplit_bf16 if bf16 else presplit)(b)
         b_ptr, ldb = (fwd if layout == "mk,nk" else dz).data_ptr(), 0
-    rc = lib.marf_tc_gemm(
+    rc = (lib.marf_tb_gemm if bf16 else lib.marf_tc_gemm)(
         int(a_k), int(b_n), int(presplit_b), EPILOGUES[epilogue], M, N, K, a.data_ptr(), a.stride(0), b_ptr, ldb,
         c.data_ptr(), N, None if bias is None else bias.data_ptr(), None if gate is None else gate.data_ptr(), N,
         splits, None if rs is None else rs.data_ptr(), ws.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"tc_gemm kernel launch failed: CUDA error {rc}")
-    LAUNCHES["tc_gemm"] += 1
+    LAUNCHES["tc_gemm_bf16" if bf16 else "tc_gemm"] += 1
     return (c, rs) if rowsum else c
 
 
 def tc_gemm_reference(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, splits: int = 1,
                       rowsum: bool = False):
     """Plain PyTorch version of `tc_gemm` (torch.matmul plus the epilogue);
-    neither `splits` nor a pre-split B changes the function."""
+    neither `splits` nor a pre-split B changes the function. bfloat16
+    operands: the product of their float32 values (exact per term), a
+    pre-split B rounded to bf16, and a bfloat16 C after bias_relu or gate."""
     a_k, b_n, *_ = _dims(a, b, layout)
-    A = a if a_k else a.T
-    c = A @ (b if b_n else b.T)
+    bf16 = a.dtype == torch.bfloat16
+    A, Bm = (a if a_k else a.T), (b if b_n else b.T)
+    if bf16:
+        A, Bm = A.float(), Bm.to(torch.bfloat16).float()
+    c = A @ Bm
     if epilogue == "bias_relu":
         c = torch.relu(c + bias)
     elif epilogue == "gate":
-        c = torch.where(gate > 0, c, torch.zeros_like(c))
+        c = torch.where(gate.float() > 0, c, torch.zeros_like(c))
+    if bf16 and epilogue != "store":
+        c = c.to(torch.bfloat16)
     return (c, A.sum(dim=1)) if rowsum else c
 
 
@@ -202,3 +238,47 @@ def _presplit_one(bt: torch.Tensor) -> torch.Tensor:
 def presplit_reference(w: torch.Tensor):
     """Plain PyTorch version of `presplit`: (fwd, dz)."""
     return _presplit_one(w), _presplit_one(w.T)
+
+
+def presplit_bf16_floats(n: int, k: int) -> int:
+    """Floats of the bf16 engine's pre-converted B of n columns and depth k."""
+    return -(-n // PRE_BN) * -(-k // BK_BF16) * PRE_BN * BK_BF16 // 2
+
+
+def presplit_bf16(w: torch.Tensor):
+    """W [rows, cols] (contiguous float32) converted to bf16 tiles as the B of
+    its forward and of its dz product (module docstring): (fwd, dz), float32
+    tensors of presplit_bf16_floats(rows, cols) and (cols, rows) floats
+    holding the bf16 values. CPU tensors run `presplit_bf16_reference`."""
+    if w.device.type == "cpu":
+        return presplit_bf16_reference(w)
+    if w.device.type != "cuda":
+        raise ValueError(f"presplit_bf16: unsupported device {w.device}")
+    if w.dtype != torch.float32 or w.dim() != 2 or not w.is_contiguous():
+        raise ValueError(f"presplit_bf16: W must be a contiguous 2-d float32 tensor, got {w.dtype} {tuple(w.shape)}")
+    lib = _library()
+    rows, cols = w.shape
+    fwd = torch.empty(lib.marf_tb_presplit_floats(rows, cols), dtype=torch.float32, device=w.device)
+    dz = torch.empty(lib.marf_tb_presplit_floats(cols, rows), dtype=torch.float32, device=w.device)
+    rc = lib.marf_tb_presplit(w.data_ptr(), rows, cols, fwd.data_ptr(), dz.data_ptr(),
+                              torch.cuda.current_stream(w.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"presplit_bf16 kernel launch failed: CUDA error {rc}")
+    LAUNCHES["tc_presplit_bf16"] += 1
+    return fwd, dz
+
+
+def _presplit_bf16_one(bt: torch.Tensor) -> torch.Tensor:
+    """Bt [N, K] (Bt[n, k] = B(k, n)) -> its bf16 tiles, flat, as float32 words."""
+    N, K = bt.shape
+    nt, kt = -(-N // PRE_BN), -(-K // BK_BF16)
+    x = torch.zeros(nt * PRE_BN, kt * BK_BF16, dtype=torch.bfloat16, device=bt.device)
+    x[:N, :K] = bt
+    # [n-tile, n // 8, n % 8, k-tile, k // 8, k % 8] -> [n-tile, k-tile, n // 8, k // 8, n % 8, k % 8]
+    t = x.reshape(nt, PRE_BN // 8, 8, kt, BK_BF16 // 8, 8).permute(0, 3, 1, 4, 2, 5)
+    return t.contiguous().reshape(-1).view(torch.float32)
+
+
+def presplit_bf16_reference(w: torch.Tensor):
+    """Plain PyTorch version of `presplit_bf16`: (fwd, dz)."""
+    return _presplit_bf16_one(w), _presplit_bf16_one(w.T)

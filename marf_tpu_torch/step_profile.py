@@ -4,6 +4,7 @@
     python -m marf_tpu_torch.step_profile --use_implicit_mask --use_masks=false
     python -m marf_tpu_torch.step_profile --tpu.fused_step=off  # the autograd step
     python -m marf_tpu_torch.step_profile --use_implicit_mask --use_masks=false --build_single_masks
+    python -m marf_tpu_torch.step_profile --tpu.compute_dtype=bfloat16  # K1-K4's bf16 kernels
 
 Takes the options of `python -m marf_tpu_torch.train` on top of planar.yaml,
 --barf_c2f=[0,0.4], --dataset=synthetic and --seed=3, builds the trainer's
@@ -12,8 +13,8 @@ step once, and then, on one CUDA card:
   - times 100 steps ended by torch.cuda.synchronize() (steps/s);
   - times 20 steps without a sync (host enqueue ms/step);
   - traces 20 steps with torch.profiler: device ms/step of each hand-written
-    kernel (K1-K6: the device kernels inside each wrapper's range on the
-    device timeline) and of all device work (kernels only: no range that
+    kernel (K1-K6, in float32 or bfloat16: the device kernels inside each
+    wrapper's range on the device timeline) and of all device work (kernels only: no range that
     a record_function, the optimizer's step among them, draws on the
     device timeline), the device kernels that take the most of it, by name
     (the GEMM engine's template instances among them), and each wrapper's

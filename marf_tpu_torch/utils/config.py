@@ -8,10 +8,12 @@ options.py), with torch-native device and seed handling.
 
 Yaml base files inherit through `_parent_`; CLI overrides merge on top with
 an unknown-key guard that auto-accepts in non-interactive runs (MARF_YES=1 or
-no tty). The yaml files are the planar.yaml family in marf_tpu/configs, read
-as data. `--cpu` selects the CPU; otherwise the device is CUDA, and without a
-card `resolve_device` raises instead of carrying on on the CPU. PyYAML is
-imported where a file or value is parsed.
+no tty). The yaml files are the port's own copy of marf_tpu's planar.yaml
+family, in marf_tpu_torch/configs (tests/test_torch_trainer.py holds each
+byte-equal to its marf_tpu/configs original). `--cpu` selects the CPU;
+otherwise the device is CUDA, and without a card `resolve_device` raises
+instead of carrying on on the CPU. PyYAML is imported where a file or value
+is parsed.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from marf_tpu_torch.utils.attrdict import AttrDict, to_plain_dict
 from marf_tpu_torch.utils.console import log
 
-_CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "marf_tpu", "configs")
+_CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 
 
 def _interactive(interactive) -> bool:
@@ -47,7 +49,7 @@ def _confirm(question: str) -> None:
 
 def resolve_yaml_path(name_or_path: str) -> str:
     """`--yaml=` value -> file: as given, options/<name>.yaml, or the
-    planar.yaml family in marf_tpu/configs."""
+    planar.yaml family in marf_tpu_torch/configs."""
     candidates = [name_or_path, f"options/{name_or_path}.yaml", os.path.join(_CONFIG_DIR, f"{name_or_path}.yaml")]
     for cand in candidates:
         if os.path.isfile(cand):
@@ -94,7 +96,7 @@ def parse_arguments(args: list[str]) -> AttrDict:
 def load_options(fname: str) -> AttrDict:
     """A yaml options file with its `_parent_` bases merged underneath
     (reference options.py:59-73). A parent path is tried relative to the
-    child's directory, then as given, then in marf_tpu/configs."""
+    child's directory, then as given, then in marf_tpu_torch/configs."""
     import yaml
 
     with open(fname, encoding="utf-8") as file:

@@ -197,21 +197,22 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def hold_to_plain_on_card(kernel, plain, args, name):
+def hold_to_plain_on_card(kernel, plain, args, name, value_tol=1e-5, grad_tol=1e-4, geo_tol=1e-4):
     """A K1 or K2 wrapper against its plain version on the card: values
-    (rgb, loss, sq) 1e-5, dH or dcoords and every dW, db 1e-4 of the max-abs,
-    one count per launch, bitwise-equal relaunch."""
+    (rgb, loss, sq) 1e-5, dH or dcoords and every dW, db 1e-4 of the max-abs
+    (unless given), one count per launch, bitwise-equal relaunch."""
     before = LAUNCHES[name]
     out = kernel(*args)
     out2 = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
     assert LAUNCHES[name] == before + 2
-    for a, b, tol in [(out[0], ref[0], 1e-5), (out[1], ref[1], 1e-5), (out[4], ref[4], 1e-5), (out[3], ref[3], 1e-4)]:
+    for a, b, tol in [(out[0], ref[0], value_tol), (out[1], ref[1], value_tol), (out[4], ref[4], value_tol),
+                      (out[3], ref[3], geo_tol)]:
         assert rel_err(a.cpu().numpy(), b.cpu().numpy()) <= tol
     for (dw, db), (rw, rb) in zip(out[2], ref[2]):
-        assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= 1e-4
-        assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= 1e-4
+        assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= grad_tol
+        assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= grad_tol
     # no float atomics: two launches on the same inputs are bitwise equal
     assert torch.equal(out[3], out2[3]) and all(torch.equal(a[0], b[0]) for a, b in zip(out[2], out2[2]))
 
@@ -349,3 +350,74 @@ def test_heads_kernels_match_plain_on_card(rng, cuda_device, n_heads, cols):
         for (dw, db), (dw2, _), (rw, rb) in zip(grads, grads2, refs):
             assert rel_err(c(dw), c(rw)) <= 1e-4 and rel_err(c(db), c(rb)) <= 1e-4
             assert torch.equal(dw, dw2)
+
+
+# bf16 (compute_dtype = bfloat16) kernels against their bf16 plain versions.
+# Products are exact in float32 on both sides; a float32 sum taken in another
+# order can land on the other side of a bf16 rounding boundary, and that one
+# activation or dz then differs by a bf16 ulp (2^-8 of itself). Measured on
+# an H100 at the main path's shapes (PERF.md): rgb and m within 1.6e-4 of
+# their max-abs, gradients and dH within 2.3e-4. Hence values and gradients
+# 1e-3, and K2's dcoords (a difference of posenc terms up to 2^k pi larger
+# than itself: float32 alone loses ~4e-2 of its max-abs at a few points of
+# the main path) 1e-2 at these sizes.
+BF16_TOL = dict(value_tol=1e-3, grad_tol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("images", ["canonical", "eight"], ids=["B3", "B8_N3360"])
+def test_bf16_rgb_kernels_match_plain_on_card(rng, cuda_device, images):
+    """K1 and K2 at compute_dtype = bfloat16 against their bf16 plain
+    versions, also at B = 8 images of 14 x 30 points (N = 3,360, a multiple
+    of no tile): tolerances above, bitwise relaunch, the bf16 counts."""
+    kw = {"batch_size": 8, "patch_H": 14, "patch_W": 30} if images == "eight" else {}
+    jcfg, tcfg = cfg_pair(arch={"compute_dtype": "bfloat16"}, **kw)
+    jp, grid_b, H, targets, masks = k1_inputs(jcfg, rng)
+    g = port_graph(tcfg, jp).to(cuda_device)
+    d = lambda x: torch.from_numpy(x).to(cuda_device)
+    args = (g.neural_image, d(grid_b), d(H), torch.tensor([1.0, 0.8, 0.3, 0.0], device=cuda_device), d(targets),
+            d(masks), torch.tensor(1.7, device=cuda_device),
+            torch.tensor(1.0 / (masks.sum() * 3.0), dtype=torch.float32, device=cuda_device))
+    hold_to_plain_on_card(fs.fused_train_kernel_warp, fs.fused_train_kernel_warp_reference, args,
+                          "fused_train_kernel_warp_bf16", geo_tol=1e-3, **BF16_TOL)
+    hold_to_plain_on_card(fs.fused_train_kernel, fs.fused_train_kernel_reference,
+                          k2_args(g, targets, masks, rng, cuda_device), "fused_train_kernel_bf16", geo_tol=1e-2,
+                          **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("HW", [512, 1541], ids=["K_even", "K_odd_2683"])
+def test_bf16_mask_kernels_match_plain_on_card(rng, cuda_device, HW):
+    """K3 and K4 at compute_dtype = bfloat16 against their bf16 plain
+    versions on dedup columns with extras, also at an odd K = 2,683 (X
+    [56, K] converted to bf16 rows padded to 16 bytes in the call):
+    tolerances above, bitwise relaunch, the bf16 counts."""
+    from marf_tpu_torch.models.implicit_mask import ImplicitMask
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+
+    B = 3
+    combo = np.where(rng.rand(B, HW) > 0.7, rng.randint(0, 8, (B, HW)), 0)
+    onehot = np.eye(8, dtype=np.float32)[combo].transpose(0, 2, 1)
+    X, s0, _, _, cnt = fm.slot_dedup_inputs(rng.randn(42, HW).astype(np.float32), onehot)
+    K = X.shape[1]
+    assert K > HW and (HW == 512 or K == 2683)
+    d = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    stack = fm.mask_w_stack(ImplicitMask(gen).to(cuda_device), d(rng.randn(8, 384)))
+    args = (stack, d(X), d(s0), d(np.abs(rng.randn(B, HW))), d(np.abs(rng.randn(B, HW))),
+            d(0.01 * cnt + rng.rand(1, K) * 0.1), d(cnt), d([0.7, 0.3, -0.05]))
+    before = dict(LAUNCHES)
+    fwd = lambda f: f(stack, args[1], "bfloat16")
+    m, m2, m_ref = fwd(fm.fused_mask_forward), fwd(fm.fused_mask_forward), fwd(fm.fused_mask_forward_reference)
+    bwd = lambda f: f(*args, compute_dtype="bfloat16")
+    g, g2 = bwd(fm.fused_mask_backward_dedup), bwd(fm.fused_mask_backward_dedup)
+    g_ref = bwd(fm.fused_mask_backward_dedup_reference)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_mask_forward_bf16"] == before["fused_mask_forward_bf16"] + 2
+    assert LAUNCHES["fused_mask_backward_dedup_bf16"] == before["fused_mask_backward_dedup_bf16"] + 2
+    assert LAUNCHES["fused_mask_forward"] == before["fused_mask_forward"]
+    assert rel_err(m.cpu().numpy(), m_ref.cpu().numpy()) <= BF16_TOL["value_tol"] and torch.equal(m, m2)
+    for (dw, db), (rw, rb), (dw2, _) in zip(g, g_ref, g2):
+        assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= BF16_TOL["grad_tol"]
+        assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= BF16_TOL["grad_tol"]
+        assert torch.equal(dw, dw2)

@@ -102,8 +102,10 @@ def test_neural_image_init_distribution():
     assert w1.max() <= 1.0 / np.sqrt(4096)
     again = tni.NeuralImage(cfg, generator=torch.Generator().manual_seed(0))
     assert torch.equal(again.layers[0].weight, net.layers[0].weight)
-    with pytest.raises(NotImplementedError):
-        tni.NeuralImageConfig(compute_dtype="bfloat16")
+    # float32 and bfloat16 (marf_tpu's tpu.compute_dtype) are taken; any other dtype is refused
+    with pytest.raises(NotImplementedError, match="float16"):
+        tni.NeuralImageConfig(compute_dtype="float16")
+    assert tni.NeuralImageConfig(compute_dtype="bfloat16").compute_dtype == "bfloat16"
 
 
 @pytest.mark.parametrize(

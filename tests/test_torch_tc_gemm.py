@@ -17,6 +17,11 @@ forward and dz products of the rgb pipeline and of K3's and K4's hidden
 layers, split once per call): its plain version against the core-matrix
 layout formula, written out here, for W and W^T.
 
+The bf16 engine (compute_dtype = bfloat16; bf16 operands, float32 products
+and sums): on the CPU its weight conversion's plain version against the
+core-matrix layout formula; on a card every operand layout and epilogue,
+depths, split-K with the row sums and the pre-converted B, as below.
+
 On a card (marker `cuda`): `tc_gemm` against its plain version and float64,
 for every operand layout and epilogue, at ragged sizes and depths, with
 split-K and the folded row sums, from misaligned views (4-byte copies), and
@@ -289,6 +294,36 @@ def test_presplit_plain_layout(rng, rows, cols):
         assert not buf[off[..., 0][~inside[..., 0]]].any() and not buf[off[..., 1][~inside[..., 0]]].any()
 
 
+def presplit_bf16_offsets(N: int, K: int):
+    """The bf16 core-matrix layout, written out: the bf16 offset of (n, k) in
+    a pre-converted B of N columns and depth K, for every n and k of the
+    padded tiles (64 x 64, 8 x 8 core matrices of 128 bytes, K-major)."""
+    kt = -(-K // tg.BK_BF16)
+    n, k = np.meshgrid(np.arange(-(-N // tg.PRE_BN) * tg.PRE_BN), np.arange(kt * tg.BK_BF16), indexing="ij")
+    tile = (n // tg.PRE_BN) * kt + k // tg.BK_BF16
+    r, kk = n % tg.PRE_BN, k % tg.BK_BF16
+    return n, k, tile * tg.PRE_BN * tg.BK_BF16 + (r // 8) * 512 + (kk // 8) * 64 + (r % 8) * 8 + kk % 8
+
+
+@pytest.mark.parametrize("rows,cols", PRESPLIT_SHAPES, ids=["34to256", "256to256"])
+def test_presplit_bf16_plain_layout(rng, rows, cols):
+    """The bf16 engine's plain weight conversion of W [rows, cols], for the
+    forward and the dz product: every bf16 of the buffer is one (n, k) of
+    the layout formula, bf16(B) rounded to nearest even, zeros past the
+    edges."""
+    w = (rng.randn(rows, cols) * 10.0 ** rng.randint(-3, 3, (rows, cols))).astype(np.float32)
+    for buf, bt in zip(tg.presplit_bf16_reference(torch.from_numpy(w)), (w, w.T)):
+        N, K = bt.shape
+        assert buf.dtype == torch.float32 and buf.shape == (tg.presplit_bf16_floats(N, K),)
+        vals = buf.view(torch.bfloat16).float().numpy()
+        n, k, off = presplit_bf16_offsets(N, K)
+        assert np.array_equal(np.sort(off.ravel()), np.arange(vals.size))  # a permutation
+        inside = (n < N) & (k < K)
+        x = torch.from_numpy(np.where(inside, bt[np.minimum(n, N - 1), np.minimum(k, K - 1)], np.float32(0)))
+        assert np.array_equal(vals[off], x.to(torch.bfloat16).float().numpy())
+        assert not vals[off[~inside]].any()
+
+
 def test_port_tf32_matches_emulation(rng):
     edges = [1.0 + 2.0**-11, -(1.0 + 2.0**-11), 0.0, -0.0, 3e38, -3e38]
     x = np.concatenate([rng.randn(4096), edges]).astype(np.float32)
@@ -452,4 +487,144 @@ def test_tc_gemm_presplit_on_card(rng, cuda_device, rows, cols, layout, epilogue
                                  **{k: v.double() for k, v in kw.items()}).cpu().numpy()
     torch.cuda.synchronize()
     _check(out, ref, ref64)
+    assert torch.equal(out, streamed)
+
+
+# ---- the bf16 engine on a card. bf16 operands are given as views whose rows
+# start on 16 bytes (a row stride that is a multiple of 8, as the kernels
+# lay their operands out). A float32 output (the store epilogue) is held as
+# the 3xTF32 engine's (_check): the products are exact, only the sums'
+# order differs. A bf16 output (bias + ReLU, gate) is held element by
+# element to the plain version's bf16 or a neighbour of it: the two float32
+# sums may round to either side of a bf16 rounding boundary.
+
+
+def _bf16_view(x: np.ndarray, device) -> torch.Tensor:
+    """x [r, c] as a bf16 view of rows padded to a multiple of 8."""
+    r, c = x.shape
+    buf = torch.zeros(r, -(-c // 8) * 8, dtype=torch.bfloat16, device=device)
+    buf[:, :c] = torch.from_numpy(x.astype(np.float32)).to(device)
+    return buf[:, :c]
+
+
+def _bf16_operands(rng, layout, M, N, K, device):
+    a_k, b_n = tg.LAYOUTS[layout]
+    return (_bf16_view(rng.randn(*((M, K) if a_k else (K, M))), device),
+            _bf16_view(rng.randn(*((K, N) if b_n else (N, K))), device))
+
+
+def _check_bf16(out, ref, ref64):
+    if out.dtype == torch.float32:
+        return _check(out, ref, ref64)
+    assert out.dtype == torch.bfloat16 and ref.dtype == torch.bfloat16
+    o, r = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    assert np.all(np.abs(o - r) <= 2.0**-7 * np.abs(r) + 1e-6 * np.abs(r).max()), np.abs(o - r).max()
+
+
+def _bf16_case(rng, layout, epilogue, M, N, K, device):
+    a, b = _bf16_operands(rng, layout, M, N, K, device)
+    kw = {}
+    if epilogue == "bias_relu":
+        kw["bias"] = torch.from_numpy(rng.randn(N).astype(np.float32)).to(device)
+    if epilogue == "gate":
+        kw["gate"] = torch.from_numpy(rng.randn(M, N).astype(np.float32)).to(device).to(torch.bfloat16)
+    out, out2 = tg.tc_gemm(a, b, layout, epilogue, **kw), tg.tc_gemm(a, b, layout, epilogue, **kw)
+    ref = tg.tc_gemm_reference(a, b, layout, epilogue, **kw)
+    ref64 = tg.tc_gemm_reference(a.double(), b.double(), layout, epilogue,
+                                 **{k: v.double() for k, v in kw.items()}).cpu().numpy()
+    torch.cuda.synchronize()
+    _check_bf16(out, ref, ref64)
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["store", "bias_relu", "gate"])
+@pytest.mark.parametrize("layout", sorted(tg.LAYOUTS))
+def test_bf16_gemm_matches_plain_on_card(rng, cuda_device, layout, epilogue):
+    """The bf16 engine, every layout and epilogue at ragged M, N, K (a
+    multiple of no tile): as held above, bitwise-equal relaunch, counted as
+    the bf16 engine's launches."""
+    before = dict(LAUNCHES)
+    _bf16_case(rng, layout, epilogue, 1544, 200, 72, cuda_device)
+    assert LAUNCHES["tc_gemm_bf16"] == before["tc_gemm_bf16"] + 2 and LAUNCHES["tc_gemm"] == before["tc_gemm"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 64, 256, 264])
+@pytest.mark.parametrize("layout", ["mk,kn", "mk,nk", "km,nk"])
+def test_bf16_gemm_depths_on_card(rng, cuda_device, layout, K):
+    """The forward and dz layouts, and the mask head's first layer, at
+    depths of part of one 64-deep k-tile, one whole, the hidden layers' four
+    and a ragged fifth, with the ReLU gate."""
+    _bf16_case(rng, layout, "gate", 1544, 136, K, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["km,kn", "km,nk"])
+def test_bf16_gemm_split_k_and_row_sums_on_card(rng, cuda_device, layout):
+    """The dW products' form in bf16: K = 4,104 points split 9 ways (a
+    partial per 2,048 points of a split), the fixed-order sum, and the
+    folded row sums of A (db)."""
+    M, N, K = 256, 56, 4104
+    a, b = _bf16_operands(rng, layout, M, N, K, cuda_device)
+    out, rs = tg.tc_gemm(a, b, layout, splits=9, rowsum=True)
+    out2, rs2 = tg.tc_gemm(a, b, layout, splits=9, rowsum=True)
+    ref, rs_ref = tg.tc_gemm_reference(a, b, layout, rowsum=True)
+    ref64, rs64 = tg.tc_gemm_reference(a.double(), b.double(), layout, rowsum=True)
+    torch.cuda.synchronize()
+    _check(out, ref, ref64.cpu().numpy())
+    _check(rs, rs_ref, rs64.cpu().numpy())
+    assert torch.equal(out, out2) and torch.equal(rs, rs2)
+
+
+@pytest.mark.cuda
+def test_bf16_gemm_refuses_unaligned_rows(rng, cuda_device):
+    """A bf16 operand whose rows do not start on 16 bytes is refused (the
+    engine copies 16 bytes at a time), not read wrong."""
+    a = torch.zeros(64, 30, dtype=torch.bfloat16, device=cuda_device)
+    b = torch.zeros(30, 64, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tg.tc_gemm(a, b, "mk,kn")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", PRESPLIT_SHAPES, ids=["34to256", "256to256"])
+def test_presplit_bf16_matches_plain_on_card(rng, cuda_device, rows, cols):
+    """The bf16 weight conversion's buffers, for W and W^T, bitwise equal to
+    the plain version's."""
+    w = torch.from_numpy(rng.randn(rows, cols).astype(np.float32)).to(cuda_device)
+    before = LAUNCHES["tc_presplit_bf16"]
+    out = tg.presplit_bf16(w)
+    ref = tg.presplit_bf16_reference(w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tc_presplit_bf16"] == before + 1
+    for o, r in zip(out, ref):
+        assert torch.equal(o.view(torch.int32), r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", PRESPLIT_SHAPES, ids=["34to256", "256to256"])
+@pytest.mark.parametrize("layout,epilogue", [("mk,nk", "bias_relu"), ("mk,kn", "gate"), ("mk,kn", "store")],
+                         ids=["forward", "dz_gated", "dz_store"])
+def test_bf16_gemm_presplit_on_card(rng, cuda_device, rows, cols, layout, epilogue):
+    """The forward and dz products in bf16 with the float32 weight W [rows,
+    cols] converted once and streamed by bulk copies (M = 1,537): as held
+    above, and bitwise equal to the same product with bf16(W) streamed by
+    cp.async."""
+    M = 1537
+    w = torch.from_numpy(rng.randn(rows, cols).astype(np.float32)).to(cuda_device)
+    N, K = (rows, cols) if layout == "mk,nk" else (cols, rows)
+    a = _bf16_view(rng.randn(M, K), cuda_device)
+    kw = {}
+    if epilogue == "bias_relu":
+        kw["bias"] = torch.from_numpy(rng.randn(N).astype(np.float32)).to(cuda_device)
+    if epilogue == "gate":
+        kw["gate"] = torch.from_numpy(rng.randn(M, N).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+    out = tg.tc_gemm(a, w, layout, epilogue, presplit_b=True, **kw)
+    streamed = tg.tc_gemm(a, _bf16_view(w.cpu().numpy(), cuda_device), layout, epilogue, **kw)
+    ref = tg.tc_gemm_reference(a, w, layout, epilogue, **kw)
+    ref64 = tg.tc_gemm_reference(a.double(), w.to(torch.bfloat16).double(), layout, epilogue,
+                                 **{k: v.double() for k, v in kw.items()}).cpu().numpy()
+    torch.cuda.synchronize()
+    _check_bf16(out, ref, ref64)
     assert torch.equal(out, streamed)

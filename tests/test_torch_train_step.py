@@ -59,7 +59,12 @@ def test_trajectory_matches_jax(rng, mode, use_masks):
     jcfg, tcfg, jp, data = setup(mode, rng, use_masks=use_masks)
     if not use_masks:
         data.update(masks=None, masks_eroded=None)
-    n = 5
+    assert_trajectory_matches_jax(jcfg, tcfg, jp, data)
+
+
+def assert_trajectory_matches_jax(jcfg, tcfg, jp, data, n=5):
+    """n steps of both packages from the same init and data: per-step losses
+    and the parameters' updates agree (tolerances in the module docstring)."""
     tx = jstep.make_optimizer(OPTIM, jcfg.max_iter)
     state = jstep.init_train_state(jax.tree.map(jnp.asarray, jp), tx)
     jstate, jm = jstep.make_train_chunk(jstep.make_train_step(jcfg, tx), n, donate=False)(state, to_jax(data))

@@ -152,6 +152,19 @@ def test_tb_scalars(tmp_path):
     assert [(e.step, e.value) for e in ea.Scalars("train/PSNR")] == [(5, 15.0), (10, 20.0)]
 
 
+def test_config_copies_equal_marf_tpu():
+    """The port reads its own copy of the planar.yaml family
+    (marf_tpu_torch/configs); each file stays byte-equal to its marf_tpu
+    original, so a drift of either shows here."""
+    ours, theirs = (os.path.join(REPO, pkg, "configs") for pkg in ("marf_tpu_torch", "marf_tpu"))
+    names = sorted(f for f in os.listdir(theirs) if f.endswith(".yaml"))
+    assert names and sorted(f for f in os.listdir(ours) if f.endswith(".yaml")) == names
+    for name in names:
+        with open(os.path.join(ours, name), "rb") as a, open(os.path.join(theirs, name), "rb") as b:
+            assert a.read() == b.read(), name
+    assert os.path.dirname(resolve_yaml_path("planar")) == ours
+
+
 def test_device_resolution_without_cuda(monkeypatch, tmp_path):
     """No silent CPU fallback: without --cpu the port needs a card."""
     from marf_tpu_torch.engine.trainer import Model
