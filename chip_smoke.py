@@ -23,11 +23,13 @@ Phases, one result line each; any failure exits non-zero:
      - K5 (fused_implicit_train_kernel) and K6 (fused_mask_backward_g) on all
        N = 216,000 columns of that batch, with 5 per-image heads and with
        one shared head;
-     - K1-K4 at compute_dtype = bfloat16 (their bf16 entry points, on the
+     - K1-K6 at compute_dtype = bfloat16 (their bf16 entry points, on the
        bf16 tensor-core engine) on the same inputs, each against its bf16
        plain version and a float64 run that rounds to bf16 at the same cast
        points, by the same rule with the bf16 tolerances below, and bounded
-       at the card's dense bf16 rate (989 TFLOP/s).
+       at the card's dense bf16 rate (989 TFLOP/s); K5 and K6 with 5
+       per-image heads (the JSON line's numbers), then with the shared head
+       on all N columns, the shape fused_dedup=off gives them.
   4. main path: the port's trainer (`marf_tpu_torch.engine.trainer.Model`),
      synthetic data, seed 3, each run with the launch counts set to 0 just
      before it and read just after:
@@ -44,12 +46,15 @@ Phases, one result line each; any failure exits non-zero:
        losses within 1e-3 over the first 10 steps;
      - `implicit` with fused_dedup=off (K5, K6 once per step), per-step rgb
        and mask losses within 1e-3 of the dedup K1 run's;
-     - canonical and `implicit` at --tpu.compute_dtype=bfloat16, fused (the
-       bf16 K1, and K3, K1, K4, once per step) and autograd, and `implicit`
-       fused with fused_warp=off (the bf16 K3, K2, K4): finite, falling
-       losses, each fused run's first-step loss within 2e-2 of its float32
-       twin's (the JAX suite's bound), the K2 run's per-step losses within
-       1e-3 of the K1 run's over the first 10 steps; the fused and autograd
+     - canonical, `implicit` and `implicit_single` at
+       --tpu.compute_dtype=bfloat16, fused (the bf16 K1; K3, K1, K4; K5, K6;
+       each once per step) and autograd, and `implicit` fused with
+       fused_warp=off (the bf16 K3, K2, K4) and with fused_dedup=off (the
+       bf16 K5, K6): finite, falling losses, each fused run's first-step
+       loss within 2e-2 of its float32 twin's (the JAX suite's bound), the
+       K2 run's per-step losses within 1e-3 of the K1 run's over the first
+       10 steps, the fused_dedup=off run's first-step losses within 1e-3 of
+       the dedup run's (its 10-step gap printed); the fused and autograd
        bf16 paths round differently (PERF.md), so their gap is printed, not
        held.
 Then a JSON line with each kernel's numbers, the nvidia-smi line, and last
@@ -582,6 +587,24 @@ def phase_kernels(device):
             lambda: named6(fm.fused_mask_backward_g_reference(stacks64, *k6_64, c)),
             (), _mlp_flops(N, mdims, len(mdims) - 2), _nbytes(*k6, *hweights) + _nbytes(*hweights),
         )
+        # K5 and K6 at compute_dtype = bfloat16 on the same inputs, as K1-K4's
+        results["K5 bf16" + tag] = check_kernel(
+            f"K5 bf16 fused_implicit_train_kernel N={N} heads={n_heads}",
+            lambda: named5(fi.fused_implicit_train_kernel(net, stacks, *k5, g2C, bf)),
+            lambda: named5(fi.fused_implicit_train_kernel_reference(net, stacks, *k5, g2C, bf)),
+            lambda: named5(fi.fused_implicit_train_kernel_reference(net64, stacks64, *k5_64, g2C, bf)),
+            ("rgb", "sq", "loss", "m", "msum"), rgb_flops + 2 * N * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])),
+            _nbytes(*k5, *weights, *hweights) + out_bytes + N * 4 * (1 + 2) + 8,
+            per_point={"dcoords": lambda r64: dcoords_error_scale(net64, k5_64[0], k5_64[2], k5_64[3], r64["m"], g2C)},
+            **BF16,
+        )
+        results["K6 bf16" + tag] = check_kernel(
+            f"K6 bf16 fused_mask_backward_g N={N} heads={n_heads}",
+            lambda: named6(fm.fused_mask_backward_g(stacks, *k6, c, compute_dtype=bf)),
+            lambda: named6(fm.fused_mask_backward_g_reference(stacks, *k6, c, compute_dtype=bf)),
+            lambda: named6(fm.fused_mask_backward_g_reference(stacks64, *k6_64, c, compute_dtype=bf)),
+            (), _mlp_flops(N, mdims, len(mdims) - 2), _nbytes(*k6, *hweights) + _nbytes(*hweights), **BF16,
+        )
         # what float32 can determine of K6's gradients: float64 with the
         # forward rounded to float32's size, against float64
         ref64 = named6(fm.fused_mask_backward_g_reference(stacks64, *k6_64, c))
@@ -725,12 +748,15 @@ def phase_main_path(out_root: str):
     # under fused_warp=off), the neural image's bf16 casts on the autograd path
     bf16 = "--tpu.compute_dtype=bfloat16"
     dedup = {"fused_mask_forward_bf16": ITERS, "fused_mask_backward_dedup_bf16": ITERS}
+    heads_bf16 = {"fused_implicit_train_kernel_bf16": ITERS, "fused_mask_backward_g_bf16": ITERS}
     h_bf16 = {}
     for name, extra, h32, expect, autograd in (
         ("canonical", (), h_f, {"fused_train_kernel_warp_bf16": ITERS}, True),
         ("implicit", implicit, h_i, {**dedup, "fused_train_kernel_warp_bf16": ITERS}, True),
         ("implicit_warp_off", (*implicit, "--tpu.fused_warp=off"), h_k2, {**dedup, "fused_train_kernel_bf16": ITERS},
          False),
+        ("implicit_single", single, h_s, heads_bf16, True),
+        ("implicit_dedup_off", (*implicit, "--tpu.fused_dedup=off"), h_nd, heads_bf16, False),
     ):
         m_b, h_b, c = run_model(options(out_root, f"{name}_fused_bf16", ITERS, "--tpu.fused_step=on", bf16, *extra),
                                 expect)
@@ -756,6 +782,14 @@ def phase_main_path(out_root: str):
         fail(f"implicit bf16: the K2 and K1 runs' losses differ over the first 10 steps: {trajs} (tol {TRAJ_TOL:.0e})")
     print(f"[main] implicit bf16: first-10-step loss rel diff K2 vs K1 "
           + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
+    h_nd16, h_i16 = h_bf16["implicit_dedup_off"], h_bf16["implicit"]
+    first = {k: abs(h_nd16[k][0] - h_i16[k][0]).item() / abs(h_i16[k][0]).item() for k in ("loss_rgb", "loss_mask")}
+    if not max(first.values()) <= TRAJ_TOL:
+        fail(f"implicit bf16: the fused_dedup=off and dedup runs' first-step losses differ: {first} (tol {TRAJ_TOL:.0e})")
+    trajs = {k: _traj(h_nd16, h_i16, k) for k in ("loss_rgb", "loss_mask")}
+    print(f"[main] implicit bf16: first-step loss rel diff fused_dedup=off (K5, K6) vs dedup (K3, K1, K4) "
+          + " ".join(f"{k}={v:.2e}" for k, v in first.items()) + f" (tol {TRAJ_TOL:.0e}); first-10-step (not held) "
+          + " ".join(f"{k}={v:.2e}" for k, v in trajs.items()), flush=True)
     return total
 
 
@@ -773,6 +807,9 @@ KERNELS = [
     ("K3 bf16", "fused_mask_forward_bf16", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:252"),
     ("K4 bf16", "fused_mask_backward_dedup_bf16", "marf_tpu_torch/csrc/fused_mask.cu",
      "marf_tpu/ops/pallas/fused_mask.py:837"),
+    ("K5 bf16", "fused_implicit_train_kernel_bf16", "marf_tpu_torch/csrc/fused_implicit.cu",
+     "marf_tpu/ops/pallas/fused_mask.py:434"),
+    ("K6 bf16", "fused_mask_backward_g_bf16", "marf_tpu_torch/csrc/fused_mask.cu", "marf_tpu/ops/pallas/fused_mask.py:510"),
 ]
 
 

@@ -1,5 +1,5 @@
-// Implicit-mask head kernels for Hopper (sm_90a), float32, and K3 and K4
-// also in bf16.
+// Implicit-mask head kernels for Hopper (sm_90a), K3, K4 and K6, each in
+// float32 and in bf16.
 //
 // marf_mask_forward replaces marf_tpu/ops/pallas/fused_mask.py:
 // _mask_fwd_only_kernel (K3, wrapper fused_mask_forward): the factored mask
@@ -24,13 +24,14 @@
 // per column from the [N] streams:
 //   g = (a sq + b esq + c cnt) m + k cnt   (cnt = 1 when absent).
 //
-// What bounds them: float32 FLOPs. K3 needs 2 K (56*256 + 3*256*256 + 256)
+// What bounds them: their FLOPs. K3 needs 2 K (56*256 + 3*256*256 + 256)
 // = 2 K 211,200 FLOP (19.5 GFLOP at K = 46,271); K4 recomputes that and adds
 // the dW and dX products, about 2 K (211,200 + 211,200 + 196,864) FLOP (57
 // GFLOP); K6 the same over N = 216,000 columns (267.5 GFLOP). At 165 TFLOP/s,
 // the card's float32-accurate tensor-core rate (3xTF32, 495 / 3): K3 0.118
-// ms, K4 0.347 ms, K6 1.62 ms. Their streamed bytes (X, the [B, HW] or [N]
-// streams) are tens of MB at most.
+// ms, K4 0.347 ms, K6 1.62 ms; in bf16 at 989 TFLOP/s, the dense bf16 rate:
+// K3 0.020 ms, K4 0.058 ms, K6 0.270 ms. Their streamed bytes (X, the
+// [B, HW] or [N] streams) are tens of MB at most.
 //
 // Design: every product on the 3xTF32 tensor-core engine (tc_gemm.cuh,
 // wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32 with A from registers
@@ -51,13 +52,15 @@
 // block index (blockIdx.z = head * splits + split, as the TPU grid's g //
 // T), its W, bias and partial buffers come from the GemmCall's pointer
 // table (passed by value), and the dW partials are per head, each head's
-// reduce a fixed-order sum (one launch for all heads); its products split B
-// in shared memory. db is folded into the dW product (the row sums of dz
+// reduce a fixed-order sum (one launch for all heads); in float32 its
+// products split B in shared memory, in bf16 they read every head's hidden
+// weights as bf16 tiles converted once per call. db is folded into the dW product (the row sums of dz
 // over each split, from the same fragment reads), so no column-sum pass
 // re-reads dz. The head pass and its reduces run once over all heads too.
 // K6's workspace spans all N columns (up to MAX_GROUP heads at a time):
 // four 256-wide activations and two dz buffers, 6 x 256 x 4 B = 6 KB per
-// column, 1.33 GB at N = 216,000 (the head-by-head design this replaces
+// column, 1.33 GB at N = 216,000 in float32, half that in bf16 (the
+// head-by-head design this replaces
 // reused one head's 177 MB in turn, at the cost of five launches of every
 // product).
 // The 256 -> 1 head would waste a 128-wide GEMM tile, so it runs as a
@@ -67,13 +70,17 @@
 // stages: no float atomics, bitwise-equal relaunches. The slot0 segment sum
 // over b runs in a fixed order inside the head pass.
 //
-// marf_mask_forward_bf16 and marf_mask_backward_dedup_bf16 are K3's and
-// K4's bodies at cdtype = bfloat16 (compute_dtype, marf_tpu/engine/
-// step.py:611, 629, 724): X converted to bf16 once per call (56 x K, rows
-// padded to 16 bytes) with the first layer's weights, the hidden weights
-// converted to bf16 tiles once per call (both orientations), every product
-// on the bf16 tensor-core engine (tc_gemm.cuh TbEngine; at 989 TFLOP/s
-// K3's 19.5 GFLOP bound 0.020 ms and K4's 57 GFLOP 0.058 ms). K4's forward
+// marf_mask_forward_bf16, marf_mask_backward_dedup_bf16 and
+// marf_mask_backward_g_bf16 are K3's, K4's and K6's bodies at cdtype =
+// bfloat16 (compute_dtype, marf_tpu/engine/step.py:555, 611, 629, 724): X
+// converted to bf16 once per call (56 x K, or each head's 56 x HW block,
+// rows padded to 16 bytes and every head's block starting on 16 bytes)
+// with each head's first-layer weights, the hidden weights converted to
+// bf16 tiles once per call (both orientations, every head), every product
+// on the bf16 tensor-core engine (tc_gemm.cuh TbEngine). K6 in bf16 rounds
+// where _mask_bwd_g_kernel does (fused_mask.py:558, 570, 575, 778-785): d =
+// g m (1 - m) in bf16, db the float32 sum of that rounded d, each
+// ReLU-gated dz in bf16, the weights of the dz products bf16. K4's forward
 // recompute runs K3's launches, so its m is bitwise K3's here too.
 //
 // Layouts: weights are nn.Linear's [out, in], row-major; X is [56, K] or
@@ -81,6 +88,39 @@
 // [K, width]; s0map, sq, esq are [B, HW] for K4 and [N] for K6.
 
 #include "mask_head.cuh"
+
+namespace {
+
+// K6's plan: the workspace of up to MAX_GROUP heads, reused by each group;
+// in bf16 the hidden weights converted to bf16 tiles (pre-split)
+template <class T>
+MaskPlan g_plan(int HW, int n_heads, int n_layers, const int* dims) {
+  return make_mask_plan<T>(HW, n_heads < MAX_GROUP ? n_heads : MAX_GROUP, n_layers, dims, true, sizeof(T) == 2);
+}
+
+// K6 at storage type T (the entry points below): the heads in groups of up
+// to MAX_GROUP, each group's backward in one launch per product
+template <class T>
+int mask_backward_g(int N, int n_heads, int n_layers, const int* dims, const float* X, const float* sq,
+                    const float* esq, const float* cnt, const float* abk, float c, const float* const* W,
+                    const float* const* bias, float* const* dW, float* const* db, float* ws, cudaStream_t st) {
+  if (n_heads < 1 || N % n_heads != 0) return (int)cudaErrorInvalidValue;
+  const int HW = N / n_heads;
+  if (!valid_mask_dims(HW, n_layers, dims)) return (int)cudaErrorInvalidValue;
+  const MaskPlan P0 = g_plan<T>(HW, n_heads, n_layers, dims);
+  for (int h0 = 0; h0 < n_heads; h0 += P0.nh) {  // all heads at once up to MAX_GROUP of them
+    MaskPlan P = P0;
+    P.nh = n_heads - h0 < P.nh ? n_heads - h0 : P.nh;
+    const long long o = (long long)h0 * HW;
+    const ColumnCot cot{sq + o, esq ? esq + o : nullptr, cnt ? cnt + o : nullptr, abk, c};
+    const int k = h0 * n_layers;
+    int rc = mask_backward<T>(st, P, N, n_layers, dims, X + o, W + k, bias + k, cot, dW + k, db + k, ws);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -94,8 +134,7 @@ long long marf_mask_backward_workspace(int K, int n_layers, const int* dims) {
 }
 
 long long marf_mask_backward_g_workspace(int N, int n_heads, int n_layers, const int* dims) {
-  const int nh = n_heads < MAX_GROUP ? n_heads : MAX_GROUP;
-  return make_mask_plan<float>(N / n_heads, nh, n_layers, dims, true, false).total;
+  return g_plan<float>(N / n_heads, n_heads, n_layers, dims).total;
 }
 
 // K3. Returns 0, or the CUDA error code of the first launch that failed.
@@ -129,27 +168,14 @@ int marf_mask_backward_dedup(int K, int HW, int B, int n_layers, const int* dims
 int marf_mask_backward_g(int N, int n_heads, int n_layers, const int* dims, const float* X, const float* sq,
                          const float* esq, const float* cnt, const float* abk, float c, const float* const* W,
                          const float* const* bias, float* const* dW, float* const* db, float* ws, void* stream) {
-  if (n_heads < 1 || N % n_heads != 0) return (int)cudaErrorInvalidValue;
-  const int HW = N / n_heads;
-  if (!valid_mask_dims(HW, n_layers, dims)) return (int)cudaErrorInvalidValue;
-  const MaskPlan P0 =
-      make_mask_plan<float>(HW, n_heads < MAX_GROUP ? n_heads : MAX_GROUP, n_layers, dims, true, false);
-  for (int h0 = 0; h0 < n_heads; h0 += P0.nh) {  // all heads at once up to MAX_GROUP of them
-    MaskPlan P = P0;
-    P.nh = n_heads - h0 < P.nh ? n_heads - h0 : P.nh;
-    const long long o = (long long)h0 * HW;
-    const ColumnCot cot{sq + o, esq ? esq + o : nullptr, cnt ? cnt + o : nullptr, abk, c};
-    const int k = h0 * n_layers;
-    int rc = mask_backward<float>((cudaStream_t)stream, P, N, n_layers, dims, X + o, W + k, bias + k, cot, dW + k,
-                                  db + k, ws);
-    if (rc) return rc;
-  }
-  return 0;
+  return mask_backward_g<float>(N, n_heads, n_layers, dims, X, sq, esq, cnt, abk, c, W, bias, dW, db, ws,
+                                (cudaStream_t)stream);
 }
 
-// K3 and K4 at compute_dtype = bfloat16: the arguments, layouts and
-// outputs of marf_mask_forward and marf_mask_backward_dedup (X and the
-// weights float32, as the wrapper keeps them; converted to bf16 in the call).
+// K3, K4 and K6 at compute_dtype = bfloat16: the arguments, layouts and
+// outputs of marf_mask_forward, marf_mask_backward_dedup and
+// marf_mask_backward_g (X and the weights float32, as the wrapper keeps
+// them; converted to bf16 in the call).
 long long marf_mask_forward_bf16_workspace(int K, int n_layers, const int* dims) {
   return make_mask_plan<bf16>(K, 1, n_layers, dims, false, true).total;
 }
@@ -176,6 +202,17 @@ int marf_mask_backward_dedup_bf16(int K, int HW, int B, int n_layers, const int*
   const MaskPlan P = make_mask_plan<bf16>(K, 1, n_layers, dims, true, true);
   return mask_backward<bf16>((cudaStream_t)stream, P, K, n_layers, dims, X, W, bias,
                              DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
+}
+
+long long marf_mask_backward_g_bf16_workspace(int N, int n_heads, int n_layers, const int* dims) {
+  return g_plan<bf16>(N / n_heads, n_heads, n_layers, dims).total;
+}
+
+int marf_mask_backward_g_bf16(int N, int n_heads, int n_layers, const int* dims, const float* X, const float* sq,
+                              const float* esq, const float* cnt, const float* abk, float c, const float* const* W,
+                              const float* const* bias, float* const* dW, float* const* db, float* ws, void* stream) {
+  return mask_backward_g<bf16>(N, n_heads, n_layers, dims, X, sq, esq, cnt, abk, c, W, bias, dW, db, ws,
+                               (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -2,20 +2,22 @@
 // shared by fused_mask.cu (K3, K4, K6) and fused_implicit.cu (K5), every
 // product on a tensor-core engine (tc_gemm.cuh) and grouped over heads.
 // T is the storage type of the activations: float32 on the 3xTF32 engine,
-// or bf16 on the bf16 engine (compute_dtype = bfloat16; K3 and K4, one
-// head), which rounds where the Pallas kernels' cdtype does
-// (marf_tpu/ops/pallas/fused_mask.py _mask_fwd_tile, _mask_bwd_dedup_kernel):
+// or bf16 on the bf16 engine (compute_dtype = bfloat16; K3-K6), which
+// rounds where the Pallas kernels' cdtype does (marf_tpu/ops/pallas/
+// fused_mask.py _mask_fwd_tile, _mask_bwd_dedup_kernel, _mask_bwd_g_kernel):
 // X and every hidden activation stored in bf16 (X converted once per
-// call), every weight read as bf16, the cotangent through the sigmoid and
-// each ReLU-gated dz rounded to bf16; the bias, the cotangent's own
-// arithmetic and every sum float32. One call runs `nh` heads (nh <=
+// call, each head's block on its own 16-byte boundary), every weight read
+// as bf16, the cotangent through the sigmoid and each ReLU-gated dz
+// rounded to bf16; the bias, the cotangent's own arithmetic and every sum
+// float32. One call runs `nh` heads (nh <=
 // MAX_GROUP), head h on the column block [h HW, (h+1) HW) of X, each GEMM
 // launch covering every head's block (the per-head operands in the
 // GemmCall's pointer tables):
 //   - hidden_forward: the hidden layers' GEMMs over X [56, ldx] read in place
 //     (X points at head 0's block, rows are ldx apart), with the weights of
 //     hidden layers 1.. pre-split once per call where the plan asks for it
-//     (MaskPlan::presplit; K3 and K4), for their forward and dz products;
+//     (MaskPlan::presplit: K3 and K4, and every bf16 call), for their
+//     forward and dz products;
 //   - mask_head_fwd_kernel: the 256 -> 1 sigmoid layer, one warp per column;
 //   - mask_backward: forward recompute, the head pass with the in-kernel
 //     cotangent (a functor: DedupCot for K4, ColumnCot for K6) and the
@@ -166,13 +168,15 @@ mask_head_bwd_kernel(int K, int F, int chunk, const T* __restrict__ X, GroupCons
 // Offsets (floats) into the workspace of one call on nh heads of HW columns;
 // dw_gs, col_gs, head_gs: one head's share of dw_part, col_part, head_part.
 // With presplit, wsplit[h][l] holds head h's hidden layer l (l >= 1) as the
-// pre-split B of its forward [0] and dz [1] products. In bf16 (one head),
-// xb holds X [dims[0], ldxb] and w0b the first layer's W [dims[1], ldw0b]
-// converted to bf16, rows padded to 16 bytes.
+// pre-split B of its forward [0] and dz [1] products. In bf16, xb holds X
+// [dims[0], ldxb] converted to bf16, head h's columns from h xhs on (xhs =
+// round8(HW), so every head's block starts on 16 bytes whatever HW), and
+// w0b each head's first-layer W [dims[1], ldw0b], rows padded to 16 bytes,
+// head h's from h w0hs on (xhs, w0hs in bf16 values).
 struct MaskPlan {
-  int nh, HW, head_blocks, head_chunk, head_stride, ldxb, ldw0b;
+  int nh, HW, head_blocks, head_chunk, head_stride, ldxb, xhs, ldw0b;
   bool presplit;
-  long long acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dw_gs, col_gs, head_gs, xb, w0b, total;
+  long long acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dw_gs, col_gs, head_gs, xb, w0b, w0hs, total;
   long long wsplit[MAX_GROUP][MAX_LAYERS][2];
 };
 
@@ -201,10 +205,12 @@ MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool back
     }
   }
   if (BF16) {
-    P.ldxb = round8((int)cols);
+    P.xhs = round8(HW);
+    P.ldxb = nh * P.xhs;
     P.ldw0b = round8(dims[0]);
+    P.w0hs = (long long)dims[1] * P.ldw0b;
     P.xb = a.take_of<T>((long long)dims[0] * P.ldxb);
-    P.w0b = a.take_of<T>((long long)dims[1] * P.ldw0b);
+    P.w0b = a.take_of<T>(nh * P.w0hs);
   }
   if (backward) {
     P.dz[0] = a.take_of<T>(cols * widest);
@@ -252,24 +258,35 @@ T* mask_act(const MaskPlan& P, float* ws, int l, const int* dims, int h) {
   return reinterpret_cast<T*>(ws + P.acts[l]) + (long long)h * P.HW * dims[l + 1];
 }
 
+// Head h's block of X as layer 0 reads it: float32 in place (rows ldx
+// apart), or its bf16 copy in xb (rows P.ldxb apart)
+template <class T>
+const void* mask_x(const MaskPlan& P, float* ws, const float* X, int h) {
+  if (sizeof(T) == 2) return reinterpret_cast<const bf16*>(ws + P.xb) + (long long)h * P.xhs;
+  return X + (long long)h * P.HW;
+}
+
 // The hidden layers' forward on nh heads of HW columns: acts[l] =
 // relu(W_h[l] x + b_h[l]), x = X (channels-first, rows ldx apart, head h at
 // column h HW) for l = 0. With P.presplit, the weights of layers 1.. are
 // first split into wsplit (both orientations, so mask_backward's dz
 // products read them too) and their products read B pre-split; layer 0
-// (A = X point-major) streams its B. In bf16 (one head), X and the first
-// layer's W are first converted into xb and w0b, and layer 0 reads those.
+// (A = X point-major) streams its B. In bf16, every head's block of X and
+// its first layer's W are first converted into xb and w0b (one launch
+// each), and layer 0 reads those; the hidden weights are then pre-split
+// (converted to bf16 tiles) for every head, as the bf16 engine reads them.
 template <class T>
 int hidden_forward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, const int* dims, const float* X,
                    const float* const* W, const float* const* bias, float* ws) {
   using Eng = typename EngineOf<T>::type;
   constexpr bool BF16 = sizeof(T) == 2;
-  const long long HW = P.HW;
   if (BF16) {
-    if (P.nh != 1 || !P.presplit) return (int)cudaErrorInvalidValue;
-    cast_bf16(st, X, dims[0], P.HW, ldx, reinterpret_cast<bf16*>(ws + P.xb), P.ldxb);
+    if (!P.presplit) return (int)cudaErrorInvalidValue;
+    GroupConstPtrs xs{}, w0s{};
+    for (int h = 0; h < P.nh; ++h) xs.p[h] = X + (long long)h * P.HW, w0s.p[h] = W[h * n_layers];
+    cast_bf16(st, P.nh, xs, dims[0], P.HW, ldx, reinterpret_cast<bf16*>(ws + P.xb), P.ldxb, P.xhs);
     MARF_CHECK_LAUNCH();
-    cast_bf16(st, W[0], dims[1], dims[0], dims[0], reinterpret_cast<bf16*>(ws + P.w0b), P.ldw0b);
+    cast_bf16(st, P.nh, w0s, dims[1], dims[0], dims[0], reinterpret_cast<bf16*>(ws + P.w0b), P.ldw0b, P.w0hs);
     MARF_CHECK_LAUNCH();
   }
   for (int h = 0; P.presplit && h < P.nh; ++h) {
@@ -285,10 +302,10 @@ int hidden_forward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, co
                            l == 0 && BF16 ? P.ldw0b : dims[l], nullptr, dims[l + 1]);
     c.groups = P.nh;
     for (int h = 0; h < P.nh; ++h) {
-      if (l > 0) c.A[h] = mask_act<T>(P, ws, l - 1, dims, h);
-      else if (BF16) c.A[h] = ws + P.xb;
-      else c.A[h] = X + h * HW;
-      c.B[h] = pre ? ws + P.wsplit[h][l][0] : l == 0 && BF16 ? ws + P.w0b : (const void*)W[h * n_layers + l];
+      c.A[h] = l > 0 ? mask_act<T>(P, ws, l - 1, dims, h) : mask_x<T>(P, ws, X, h);
+      if (pre) c.B[h] = ws + P.wsplit[h][l][0];
+      else if (l == 0 && BF16) c.B[h] = reinterpret_cast<const bf16*>(ws + P.w0b) + h * P.w0hs;
+      else c.B[h] = W[h * n_layers + l];
       c.C[h] = mask_act<T>(P, ws, l, dims, h);
       c.bias[h] = bias[h * n_layers + l];
     }
@@ -360,9 +377,7 @@ int mask_backward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, con
     c.groups = nh, c.splits = splits, c.k_chunk = chunk, c.c_split_stride = (long long)out * in;
     for (int h = 0; h < nh; ++h) {
       c.A[h] = dz(cur, h, out);
-      if (l > 0) c.B[h] = mask_act<T>(P, ws, l - 1, dims, h);
-      else if (BF16) c.B[h] = ws + P.xb;
-      else c.B[h] = X + h * HW;
+      c.B[h] = l > 0 ? mask_act<T>(P, ws, l - 1, dims, h) : mask_x<T>(P, ws, X, h);
       c.C[h] = ws + P.dw_part + h * P.dw_gs;
       c.rsum[h] = ws + P.col_part + h * P.col_gs;
     }

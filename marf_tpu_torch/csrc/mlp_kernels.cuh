@@ -170,7 +170,7 @@ struct Arena {
 };
 
 // n rounded up to a multiple of 8: the row stride of a bf16 operand (16 bytes)
-inline int round8(int n) { return (n + 7) / 8 * 8; }
+__host__ __device__ inline int round8(int n) { return (n + 7) / 8 * 8; }
 
 // One product shape C[M, N] (+)= A[M, K] B[K, N] for `groups` operand sets
 // (the layouts are the engine's template flags, tc_gemm_kernel's). A, B,

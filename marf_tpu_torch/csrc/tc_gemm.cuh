@@ -855,20 +855,33 @@ __global__ void presplit_bf16_kernel(const float* __restrict__ W, int rows, int 
   *reinterpret_cast<uint4*>(o) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// dst [rows, ldd] = bf16(src [rows, lds]) on the first cols columns, zeros
-// past them (a float32 operand as the bf16 engine reads it: X, the first
-// layer's weights of the mask head)
-__global__ void cast_bf16_kernel(const float* __restrict__ src, int rows, int cols, int lds, bf16* __restrict__ dst,
-                                 int ldd) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)rows * ldd) return;
-  const int r = (int)(i / ldd), col = (int)(i % ldd);
-  dst[i] = __float2bfloat16_rn(col < cols ? src[(long long)r * lds + col] : 0.0f);
+// Per group h = blockIdx.y: dst + h dhs [rows, ldd] = bf16(src.p[h] [rows,
+// lds]) on the first cols columns, zeros from there to round8(cols) (a
+// float32 operand as the bf16 engine reads it: the mask heads' X, each
+// head's block starting on 16 bytes, and their first layers' weights). One
+// thread per row and 8 columns, one 16-byte store (ldd and dhs multiples
+// of 8, dst 16-byte aligned).
+__global__ void cast_bf16_kernel(GroupConstPtrs src, int rows, int cols, int lds, bf16* __restrict__ dst, int ldd,
+                                 long long dhs) {
+  const int chunks = round8(cols) / 8;
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= rows * chunks) return;
+  const int r = u / chunks, c0 = u % chunks * 8;
+  const float* __restrict__ s = pick(src, blockIdx.y) + (long long)r * lds;
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = c0 + 2 * j;
+    const float lo = c < cols ? s[c] : 0.0f, hi = c + 1 < cols ? s[c + 1] : 0.0f;
+    v[j] = pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+  }
+  *reinterpret_cast<uint4*>(dst + blockIdx.y * dhs + (long long)r * ldd + c0) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-void cast_bf16(cudaStream_t st, const float* src, int rows, int cols, int lds, bf16* dst, int ldd) {
-  cast_bf16_kernel<<<cdiv((long long)rows * ldd, ELEM_THREADS), ELEM_THREADS, 0, st>>>(src, rows, cols, lds, dst,
-                                                                                      ldd);
+void cast_bf16(cudaStream_t st, int groups, const GroupConstPtrs& src, int rows, int cols, int lds, bf16* dst, int ldd,
+               long long dhs) {
+  cast_bf16_kernel<<<dim3(cdiv((long long)rows * (round8(cols) / 8), ELEM_THREADS), groups), ELEM_THREADS, 0, st>>>(
+      src, rows, cols, lds, dst, ldd, dhs);
 }
 
 // C[M, N] (+)= A[M, K] B[K, N] in bf16 per group and split (GemmCall), the

@@ -18,9 +18,8 @@ Four gradient paths; the fused ones compute the autograd path's update:
     ops/cuda/fused_implicit.py) -> the 1 / (3 sum m) scaling -> the edge term
     -> K6 (head-blocked mask backward, the same cotangent per column).
 The fused paths run their kernels at `arch.compute_dtype` (tpu.compute_dtype):
-float32, or bfloat16 for K1-K4; K5 and K6 have no bf16 body yet, so the
-per-image-heads and fused_dedup=off paths refuse bfloat16 when the step is
-made. Then Adam with per-group learning rates (MLP at optim.lr, warp at
+float32 or bfloat16, K1-K6 each through the entry point of that dtype. Then
+Adam with per-group learning rates (MLP at optim.lr, warp at
 optim.lr_warp, mask head at optim.lr_mask; reference model/planar.py:86-104),
 Homography_Error from the post-update warp, Mask_Error of the pre-update mask
 (implicit masks with premade masks), and the fix_first re-zero of warp 0
@@ -243,12 +242,6 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     else:
         path = "autograd"
     cdtype = cfg.arch.compute_dtype
-    if fused_implicit and not dedup and cdtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cdtype!r}: the fused implicit step without dedup (per-image heads or "
-            "fused_dedup=off) runs K5 -> K6 in float32 only; their bf16 bodies are the next slice of "
-            "ROADMAP.md Queue 2 (use --tpu.fused_step=off for the autograd step)"
-        )
     log.info(f"train step: {path}, {cdtype}, on {device}")
 
     if fused or fused_implicit:
@@ -394,7 +387,8 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         # step masked by m with the unnormalized cotangent 2 C_r (rgb - t) m^2
         coords = warp_grid_cf_flat(graph.grid, graph.warp)
         rgb_cf, m_flat, sq, dcoords_u, msum, loss_u, dmlp_u = fused_implicit_train_kernel(
-            graph.neural_image, stacks, coords.detach(), X_flat, None if cws is None else cws[step], targets_cf, 2.0 * C_r
+            graph.neural_image, stacks, coords.detach(), X_flat, None if cws is None else cws[step], targets_cf, 2.0 * C_r,
+            cdtype,
         )
         # the masked-MSE normalization 1 / (3 sum m): K5's outputs are linear in it
         inv_sum3 = 1.0 / (msum * 3.0)
@@ -412,7 +406,8 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         mask_loss = torch.mean((1.0 - m_flat) ** 2)
         # ---- K6: each head's backward on its block with the per-column cotangent
         a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
-        dstacks = fused_mask_backward_g(stacks, X_flat, sq, esq, torch.stack([a_s, b_s, k_s]), c_s)
+        dstacks = fused_mask_backward_g(stacks, X_flat, sq, esq, torch.stack([a_s, b_s, k_s]), c_s,
+                                        compute_dtype=cdtype)
         for head, dstack in zip(heads, dstacks):
             set_grads(head.layers, unfactor_mask_grads(dstack, table))
         return implicit_loss(rgb_loss, edge_loss, mask_loss, alpha), m_flat

@@ -13,11 +13,13 @@ LAUNCHES = {
     "fused_mask_backward_dedup": 0,  # K4, fused_mask.py
     "fused_implicit_train_kernel": 0,  # K5, fused_implicit.py
     "fused_mask_backward_g": 0,  # K6, fused_mask.py
-    # K1-K4 at compute_dtype = bfloat16 (their bf16 entry points)
+    # K1-K6 at compute_dtype = bfloat16 (their bf16 entry points)
     "fused_train_kernel_warp_bf16": 0,
     "fused_train_kernel_bf16": 0,
     "fused_mask_forward_bf16": 0,
     "fused_mask_backward_dedup_bf16": 0,
+    "fused_implicit_train_kernel_bf16": 0,
+    "fused_mask_backward_g_bf16": 0,
     "tc_gemm": 0,  # the 3xTF32 GEMM engine alone, tc_gemm.py (tests only, never on the train step)
     "tc_presplit": 0,  # the weights' pre-split alone, tc_gemm.py (tests only)
     "tc_gemm_bf16": 0,  # the bf16 GEMM engine alone, tc_gemm.py (tests only)

@@ -9,7 +9,12 @@ K2 masked by the predicted m, with the UNNORMALIZED rgb cotangent
 outputs; the caller scales dcoords, the MLP gradients and the loss by
 1 / (3 sum(m)) afterwards (the rgb backward is linear in its cotangent
 scale). CUDA tensors launch the kernel (or raise), CPU tensors run
-`fused_implicit_train_kernel_reference`.
+`fused_implicit_train_kernel_reference`. Both take the compute dtype of
+marf_tpu's `arch.compute_dtype` (float32 or bfloat16; by default the neural
+image's own); in bfloat16 they round where `_implicit_kernel` does: X, the
+mask heads' hidden activations and the weights of every product in bf16, m
+the float32 sigmoid, and the rgb step as K2's bf16 body rounds it
+(fused_step.py's docstring).
 """
 
 from __future__ import annotations
@@ -21,7 +26,14 @@ import torch
 from marf_tpu_torch.models.neural_image import NeuralImage
 from marf_tpu_torch.ops.cuda import LAUNCHES
 from marf_tpu_torch.ops.cuda.fused_mask import checked_stacks, fused_mask_forward_reference
-from marf_tpu_torch.ops.cuda.fused_step import check_tensor, fused_train_kernel_reference, ptr_array, rgb_net_args
+from marf_tpu_torch.ops.cuda.fused_step import (
+    bind_bf16,
+    check_compute_dtype,
+    check_tensor,
+    fused_train_kernel_reference,
+    ptr_array,
+    rgb_net_args,
+)
 
 SOURCES = ["fused_implicit.cu"]
 
@@ -33,6 +45,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_implicit_train.argtypes = [i, i, i, i, pi, i, pi, p, p, p, p, p, pp, pp, pp, pp,
                                         p, p, p, p, p, p, pp, pp, p, p]
     lib.marf_implicit_train.restype = ctypes.c_int
+    bind_bf16(lib, ["marf_implicit_train", "marf_implicit_train_workspace"])
 
 
 def _library() -> ctypes.CDLL:
@@ -42,7 +55,8 @@ def _library() -> ctypes.CDLL:
     return load_library("fused_implicit", SOURCES, _bind)
 
 
-def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw, targets, g2C):
+def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw, targets, g2C,
+                                compute_dtype: str | None = None):
     """One fused implicit-mask pass over N points (K5).
 
     Args:
@@ -56,17 +70,20 @@ def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw
       targets: [3, N].
       g2C: 2 * C_r, the unnormalized rgb-loss cotangent scale (float or 0-d
         tensor).
+      compute_dtype: "float32" or "bfloat16" (module docstring); None takes
+        net.cfg.compute_dtype.
 
     Returns:
       (rgb [3, N], m [1, N], sq [1, N], dcoords [2, N], msum 0-d,
        loss_unnorm 0-d = sum(m^2 sq), dmlp [(dW [out, in], db [out])]);
       dcoords and dmlp unnormalized.
     """
-    if coords.device.type == "cpu":
-        return fused_implicit_train_kernel_reference(net, stacks, coords, x_cf, cw, targets, g2C)
-    if coords.device.type != "cuda":
-        raise ValueError(f"fused_implicit_train_kernel: unsupported device {coords.device}")
     fn = "fused_implicit_train_kernel"
+    cdt = check_compute_dtype(fn, compute_dtype or net.cfg.compute_dtype)
+    if coords.device.type == "cpu":
+        return fused_implicit_train_kernel_reference(net, stacks, coords, x_cf, cw, targets, g2C, cdt)
+    if coords.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {coords.device}")
     device = coords.device
     N = coords.shape[1]
     L, _, c_dims, weights, biases, cw = rgb_net_args(fn, net, cw, device)
@@ -78,6 +95,7 @@ def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw
                         torch.ones((), dtype=torch.float32, device=device)])
 
     lib = _library()
+    sfx = "_bf16" if cdt == "bfloat16" else ""
     n_heads, n_rgb, n_mask = len(stacks), len(weights), len(stacks[0])
     rgb = torch.empty((3, N), dtype=torch.float32, device=device)
     m = torch.empty((1, N), dtype=torch.float32, device=device)
@@ -87,10 +105,10 @@ def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw
     loss = torch.empty((), dtype=torch.float32, device=device)
     dws = [torch.empty_like(w) for w in weights]
     dbs = [torch.empty_like(b) for b in biases]
-    ws = torch.empty(lib.marf_implicit_train_workspace(N, n_heads, L, n_rgb, c_dims, n_mask, c_mdims),
+    ws = torch.empty(getattr(lib, f"marf_implicit_train{sfx}_workspace")(N, n_heads, L, n_rgb, c_dims, n_mask, c_mdims),
                      dtype=torch.float32, device=device)
     flat = [wb for layers in stacks for wb in layers]
-    rc = lib.marf_implicit_train(
+    rc = getattr(lib, f"marf_implicit_train{sfx}")(
         N, n_heads, L, n_rgb, c_dims, n_mask, c_mdims, coords.data_ptr(), x_cf.data_ptr(), cw.data_ptr(),
         targets.data_ptr(), scal.data_ptr(), ptr_array([w for w, _ in flat]), ptr_array([b for _, b in flat]),
         ptr_array(weights), ptr_array(biases), rgb.data_ptr(), m.data_ptr(), sq.data_ptr(), dcoords.data_ptr(),
@@ -98,19 +116,22 @@ def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[fn] += 1
+        raise RuntimeError(f"{fn} ({cdt}) kernel launch failed: CUDA error {rc}")
+    LAUNCHES[fn + sfx] += 1
     return rgb, m, sq, dcoords, msum, loss, list(zip(dws, dbs))
 
 
-def fused_implicit_train_kernel_reference(net: NeuralImage, stacks: list, coords, x_cf, cw, targets, g2C):
+def fused_implicit_train_kernel_reference(net: NeuralImage, stacks: list, coords, x_cf, cw, targets, g2C,
+                                           compute_dtype: str | None = None):
     """Plain PyTorch version of `fused_implicit_train_kernel`: same arguments
     and returns. Each head's forward on its column block, then K2's plain
-    version masked by m with dscale = 2 C_r and no normalization."""
+    version masked by m with dscale = 2 C_r and no normalization, both at
+    the compute dtype."""
+    cdt = compute_dtype or net.cfg.compute_dtype
     HW = x_cf.shape[1] // len(stacks)
-    m = torch.cat([fused_mask_forward_reference(layers, x_cf[:, h * HW : (h + 1) * HW])
+    m = torch.cat([fused_mask_forward_reference(layers, x_cf[:, h * HW : (h + 1) * HW], cdt)
                    for h, layers in enumerate(stacks)], dim=1)
     one = torch.ones((), dtype=m.dtype, device=m.device)
     # K2's scalars are (2 g inv_sum3, inv_sum3): g = g2C / 2 and inv_sum3 = 1 give (g2C, 1) exactly
-    rgb, loss, dmlp, dcoords, sq = fused_train_kernel_reference(net, coords, cw, targets, m, 0.5 * g2C, one)
+    rgb, loss, dmlp, dcoords, sq = fused_train_kernel_reference(net, coords, cw, targets, m, 0.5 * g2C, one, cdt)
     return rgb, m, sq, dcoords, torch.sum(m), loss, dmlp

@@ -32,12 +32,12 @@ the head sees all N columns of X = `build_mask_x`, head h its column block
 dispatches on the device of its inputs: CUDA tensors launch the kernel (or
 raise), CPU tensors run its `*_reference` plain version. Effective layers are
 lists of (W [out, in], b [out]) tensors, nn.Linear's layout; a head-blocked
-kernel takes one such list per head. K3 and K4 also take compute_dtype =
+kernel takes one such list per head. Each also takes compute_dtype =
 "bfloat16" (marf_tpu's arch.compute_dtype): X, the hidden activations and
 the weights of every product in bf16, the cotangent through the sigmoid and
 each ReLU-gated dz rounded to bf16 before they feed a product, every product
 and sum, the bias and the cotangent's own arithmetic float32
-(fused_mask.py _mask_fwd_tile, _mask_bwd_dedup_kernel).
+(fused_mask.py _mask_fwd_tile, _mask_bwd_dedup_kernel, _mask_bwd_g_kernel).
 """
 
 from __future__ import annotations
@@ -164,7 +164,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_mask_backward_g.argtypes = [i, i, i, pi, p, p, p, p, p, ctypes.c_float, pp, pp, pp, pp, p, p]
     lib.marf_mask_backward_g.restype = ctypes.c_int
     bind_bf16(lib, ["marf_mask_forward", "marf_mask_forward_workspace", "marf_mask_backward_dedup",
-                    "marf_mask_backward_workspace"])
+                    "marf_mask_backward_workspace", "marf_mask_backward_g", "marf_mask_backward_g_workspace"])
 
 
 def _library() -> ctypes.CDLL:
@@ -280,7 +280,8 @@ def fused_mask_backward_dedup(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt,
     return list(zip(dws, dbs))
 
 
-def fused_mask_backward_g(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None) -> list:
+def fused_mask_backward_g(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None,
+                          compute_dtype: str = "float32") -> list:
     """Head-blocked mask-head backward with the cotangent in the kernel (K6).
 
     Args:
@@ -293,15 +294,17 @@ def fused_mask_backward_g(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None) 
       abk: [3] (a, b, k) on the device; c: float; of the cotangent
         dL/dm = (a sq + b esq + c cnt) m + k cnt.
       cnt: [1, N] column counts, or None (ones).
+      compute_dtype: "float32" or "bfloat16" (module docstring).
 
     Returns, per head, the effective-layer grads [(dW [out, in], db [out])]
     (unfactor_mask_grads maps them back).
     """
-    if x_cf.device.type == "cpu":
-        return fused_mask_backward_g_reference(stacks, x_cf, sq, esq, abk, c, cnt)
-    if x_cf.device.type != "cuda":
-        raise ValueError(f"fused_mask_backward_g: unsupported device {x_cf.device}")
     fn = "fused_mask_backward_g"
+    check_compute_dtype(fn, compute_dtype)
+    if x_cf.device.type == "cpu":
+        return fused_mask_backward_g_reference(stacks, x_cf, sq, esq, abk, c, cnt, compute_dtype)
+    if x_cf.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {x_cf.device}")
     device = x_cf.device
     n_heads, N = len(stacks), x_cf.shape[1]
     _, _, c_dims = checked_stacks(fn, stacks, x_cf)
@@ -309,21 +312,22 @@ def fused_mask_backward_g(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None) 
         if t is not None:
             check_tensor(fn, name, t, shape, device)
     lib = _library()
+    sfx = "_bf16" if compute_dtype == "bfloat16" else ""
     flat = [wb for layers in stacks for wb in layers]
     dws = [torch.empty_like(w) for w, _ in flat]
     dbs = [torch.empty_like(b) for _, b in flat]
     # the workspace spans all N columns (every head's activations at once, up to 16 heads)
-    ws = torch.empty(lib.marf_mask_backward_g_workspace(N, n_heads, len(stacks[0]), c_dims), dtype=torch.float32,
-                     device=device)
-    rc = lib.marf_mask_backward_g(
+    ws = torch.empty(getattr(lib, f"marf_mask_backward_g{sfx}_workspace")(N, n_heads, len(stacks[0]), c_dims),
+                     dtype=torch.float32, device=device)
+    rc = getattr(lib, f"marf_mask_backward_g{sfx}")(
         N, n_heads, len(stacks[0]), c_dims, x_cf.data_ptr(), sq.data_ptr(), None if esq is None else esq.data_ptr(),
         None if cnt is None else cnt.data_ptr(), abk.data_ptr(), float(c), ptr_array([w for w, _ in flat]),
         ptr_array([b for _, b in flat]), ptr_array(dws), ptr_array(dbs), ws.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[fn] += 1
+        raise RuntimeError(f"{fn} ({compute_dtype}) kernel launch failed: CUDA error {rc}")
+    LAUNCHES[fn + sfx] += 1
     n = len(stacks[0])
     return [list(zip(dws[h * n : (h + 1) * n], dbs[h * n : (h + 1) * n])) for h in range(n_heads)]
 
@@ -367,15 +371,7 @@ def fused_mask_backward_dedup_reference(layers: list, x_cf, s0map, sq_b, esq_b, 
     if esq_b is not None:
         seg = seg + _slot0_pad(abk[1] * torch.sum(s0map * esq_b, dim=0), base)
     if compute_dtype == "bfloat16":
-        layers = [(w.detach(), b.detach()) for w, b in layers]
-        m, acts = _mask_mlp_bf16(layers, x_cf)
-        d = bf16_round((seg * m + abk[2] * cnt) * m * (1.0 - m))
-        grads = [None] * len(layers)
-        for li in range(len(layers) - 1, -1, -1):
-            grads[li] = (d @ acts[li].T, torch.sum(d, dim=1))
-            if li > 0:
-                d = bf16_round((bf16_round(layers[li][0]).T @ d) * (acts[li] > 0))
-        return grads
+        return _mask_backward_bf16(layers, x_cf, lambda m: seg * m + abk[2] * cnt)
     with torch.enable_grad():
         params = [(w.detach().requires_grad_(True), b.detach().requires_grad_(True)) for w, b in layers]
         m = _mask_mlp(params, x_cf)
@@ -384,27 +380,48 @@ def fused_mask_backward_dedup_reference(layers: list, x_cf, s0map, sq_b, esq_b, 
     return list(zip(grads[0::2], grads[1::2]))
 
 
+def _mask_backward_bf16(layers: list, x_cf, cot) -> list:
+    """The mask head's backward as the bf16 kernels round it, from the
+    cotangent cot(m) of dL/dm: d = g m (1 - m) rounded to bf16, dW and db
+    summed from the rounded d, each ReLU-gated dz rounded to bf16 before it
+    feeds a product."""
+    layers = [(w.detach(), b.detach()) for w, b in layers]
+    m, acts = _mask_mlp_bf16(layers, x_cf)
+    d = bf16_round(cot(m) * m * (1.0 - m))
+    grads = [None] * len(layers)
+    for li in range(len(layers) - 1, -1, -1):
+        grads[li] = (d @ acts[li].T, torch.sum(d, dim=1))
+        if li > 0:
+            d = bf16_round((bf16_round(layers[li][0]).T @ d) * (acts[li] > 0))
+    return grads
+
+
 def _slot0_pad(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """[HW] -> [1, K] with zeros past the slot0 block."""
     return torch.nn.functional.pad(v[None], (0, like.shape[1] - v.shape[0]))
 
 
-def fused_mask_backward_g_reference(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None) -> list:
+def fused_mask_backward_g_reference(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None,
+                                    compute_dtype: str = "float32") -> list:
     """Plain PyTorch version of `fused_mask_backward_g`: per head, the
     forward on its column block under autograd, pulled back from m with the
-    cotangent (a sq + b esq + c cnt) m + k cnt."""
+    cotangent (a sq + b esq + c cnt) m + k cnt. In bfloat16 the backward is
+    written out as the kernel rounds it (`_mask_backward_bf16`)."""
     HW = x_cf.shape[1] // len(stacks)
     out = []
     for h, layers in enumerate(stacks):
         cols = slice(h * HW, (h + 1) * HW)
+        n = 1.0 if cnt is None else cnt[:, cols]
+        s = abk[0] * sq[:, cols]
+        if esq is not None:
+            s = s + abk[1] * esq[:, cols]
+        cot = lambda m: (s + c * n) * m + abk[2] * n
+        if compute_dtype == "bfloat16":
+            out.append(_mask_backward_bf16(layers, x_cf[:, cols], cot))
+            continue
         with torch.enable_grad():
             params = [(w.detach().requires_grad_(True), b.detach().requires_grad_(True)) for w, b in layers]
             m = _mask_mlp(params, x_cf[:, cols])
-            n = 1.0 if cnt is None else cnt[:, cols]
-            s = abk[0] * sq[:, cols]
-            if esq is not None:
-                s = s + abk[1] * esq[:, cols]
-            g = (s + c * n) * m.detach() + abk[2] * n
-            grads = torch.autograd.grad(m, [t for wb in params for t in wb], g)
+            grads = torch.autograd.grad(m, [t for wb in params for t in wb], cot(m.detach()))
         out.append(list(zip(grads[0::2], grads[1::2])))
     return out

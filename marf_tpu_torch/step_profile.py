@@ -4,7 +4,7 @@
     python -m marf_tpu_torch.step_profile --use_implicit_mask --use_masks=false
     python -m marf_tpu_torch.step_profile --tpu.fused_step=off  # the autograd step
     python -m marf_tpu_torch.step_profile --use_implicit_mask --use_masks=false --build_single_masks
-    python -m marf_tpu_torch.step_profile --tpu.compute_dtype=bfloat16  # K1-K4's bf16 kernels
+    python -m marf_tpu_torch.step_profile --tpu.compute_dtype=bfloat16  # the bf16 kernels (K1-K6)
 
 Takes the options of `python -m marf_tpu_torch.train` on top of planar.yaml,
 --barf_c2f=[0,0.4], --dataset=synthetic and --seed=3, builds the trainer's

@@ -24,21 +24,24 @@ import torch
 
 from marf_tpu.models import neural_image as jni
 from marf_tpu.ops.pallas import fused_mask as jfm
+from marf_tpu.ops.warp import warp_grid_cf_flat as jwarp
 from marf_tpu.ops.pallas.fused_step import fused_train_kernel as jax_kernel_coords
 from marf_tpu.ops.pallas.fused_step import fused_train_kernel_warp as jax_kernel
-from marf_tpu_torch.engine.step import make_optimizer, make_train_step
 from marf_tpu_torch.ops.cuda import LAUNCHES
+from marf_tpu_torch.ops.cuda import fused_implicit as tfi
 from marf_tpu_torch.ops.cuda import fused_mask as tfm
 from marf_tpu_torch.ops.cuda import fused_step as fs
 from marf_tpu_torch.utils.params import params_to_jax
 from test_torch_fused_step import compare, compare_coords, k1_inputs
 from test_torch_implicit import (
     dedup_inputs,
+    grid_of,
     icfg,
     implicit_data,
     jax_trajectory,
     port_trajectory,
 )
+from test_torch_implicit_heads import CW, DATA_SEED, G2C, head_inputs
 from test_torch_models import cfg_pair, jax_params, port_graph, rel_err
 from test_torch_train_step import assert_trajectory_matches_jax, setup
 
@@ -187,6 +190,11 @@ def test_dedup_trajectory_matches_jax_in_bfloat16(rng, fused_warp):
     data = implicit_data(jcfg, rng)
     jstate, jm = jax_trajectory(jcfg, jp, data, 5)
     g, tm = port_trajectory(tcfg, jp, data, 5)
+    assert_bf16_trajectory(tm, jm, g, jstate, jp)
+
+
+def assert_bf16_trajectory(tm, jm, g, jstate, jp):
+    """The bf16 trajectories' tolerances (test_dedup_trajectory_matches_jax_in_bfloat16)."""
     assert tm["finite"].all()
     for k in ("all", "loss_rgb", "loss_mask", "loss_render", "loss_edge", "PSNR"):
         np.testing.assert_allclose(np.asarray(tm[k]), np.asarray(jm[k]), rtol=1e-3, atol=1e-7, err_msg=k)
@@ -197,17 +205,73 @@ def test_dedup_trajectory_matches_jax_in_bfloat16(rng, fused_warp):
 
 
 @pytest.mark.parametrize("kw", [{"build_single_masks": True}, {"fused_dedup": "off"}], ids=["single", "dedup_off"])
-def test_heads_path_refuses_bfloat16(kw):
-    """K5 and K6 have no bf16 body yet: their path raises when the step is
-    made, naming ROADMAP.md; it does not fall back to float32."""
-    _, tcfg = icfg(arch=BF16, fused_step="on", **kw)
-    jcfg, _ = icfg(**kw)
-    g = port_graph(tcfg, jax_params(jcfg))
-    opt, _ = make_optimizer(g, {"lr": 1e-3, "algo": "Adam"}, tcfg.max_iter)
-    data = {k: None if v is None else torch.from_numpy(np.array(v)) for k, v in
-            implicit_data(jcfg, np.random.RandomState(0)).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(tcfg, g, opt, data)
+def test_heads_trajectory_matches_jax_in_bfloat16(kw, capsys):
+    """5 fused K5 -> K6 steps at bf16 (their plain versions), per-image heads
+    and the shared head without dedup, against marf_tpu's
+    `_fused_implicit_grads` at compute_dtype = bfloat16 (its Pallas kernels
+    in interpret mode), with the dedup bf16 trajectory's tolerances. The
+    step is made at bf16 and says so; it does not fall back to float32."""
+    jcfg, tcfg = icfg(arch=BF16, use_edges=True, alpha_initial=0.3, fused_step="on", **kw)
+    jp = jax_params(jcfg)
+    data = implicit_data(jcfg, np.random.RandomState(DATA_SEED))
+    jstate, jm = jax_trajectory(jcfg, jp, data, 5, dedup=False)
+    g, tm = port_trajectory(tcfg, jp, data, 5)
+    out = capsys.readouterr().out
+    assert "(K5 -> K6), bfloat16" in out
+    assert_bf16_trajectory(tm, jm, g, jstate, jp)
+
+
+@pytest.mark.parametrize("n_heads", [1, 3], ids=["shared", "per_image"])
+def test_implicit_train_plain_matches_pallas_in_bfloat16(rng, n_heads):
+    """K5's bf16 plain version against marf_tpu's fused_implicit_train_kernel
+    at compute_dtype = bfloat16 (interpret mode), all seven outputs, with
+    test_torch_implicit_heads.py's float32 tolerances."""
+    jcfg, jp, g, jstacks, stacks, X, data = head_inputs(n_heads, rng, arch=BF16)
+    N = X.shape[1]
+    coords = np.asarray(jwarp(grid_of(jcfg), jnp.asarray(jp["warp"])))
+    targets = np.ascontiguousarray(data["rgb"].transpose(1, 0, 2, 3).reshape(3, N))
+    ref = jfm.fused_implicit_train_kernel(
+        jax.tree.map(jnp.asarray, jp["neural_image"]), jstacks, jnp.asarray(coords), jnp.asarray(X), jnp.asarray(CW),
+        jnp.asarray(targets), jnp.float32(G2C), jcfg.arch, n_heads,
+    )
+    t = torch.from_numpy
+    rgb, m, sq, dcoords, msum, loss, dmlp = tfi.fused_implicit_train_kernel(  # the net's own dtype: bfloat16
+        g.neural_image, stacks, t(coords), t(X), t(CW), t(targets), torch.tensor(G2C)
+    )
+    for name, ours, r in (("rgb", rgb, ref[0]), ("m", m, ref[1]), ("sq", sq, ref[2])):
+        assert tuple(ours.shape) == np.shape(r), name
+        np.testing.assert_allclose(ours.numpy(), np.asarray(r), rtol=1e-5, atol=1e-7, err_msg=name)
+    np.testing.assert_allclose(msum.numpy(), np.asarray(ref[4]), rtol=1e-5)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref[5]), rtol=1e-4)
+    assert rel_err(dcoords.numpy(), ref[3]) <= 1e-3
+    for (dw, db), jl in zip(dmlp, ref[6]["mlp"]):
+        assert rel_err(dw.numpy().T, jl["w"]) <= 1e-4
+        assert rel_err(db.numpy(), jl["b"]) <= 1e-4
+
+
+@pytest.mark.parametrize("n_heads", [1, 3], ids=["shared", "per_image"])
+@pytest.mark.parametrize("streams", [True, False], ids=["esq_cnt", "no_esq_ones"])
+def test_mask_backward_g_plain_matches_pallas_in_bfloat16(rng, n_heads, streams):
+    """K6's bf16 plain version against marf_tpu's fused_mask_backward_g(...,
+    "bfloat16", n_heads) (interpret mode), with esq and cnt and without
+    either: every head's dW/db of every effective layer."""
+    _, _, _, jstacks, stacks, X, _ = head_inputs(n_heads, rng, arch=BF16)
+    N = X.shape[1]
+    sq = np.abs(rng.randn(1, N)).astype(np.float32)
+    esq = np.abs(rng.randn(1, N)).astype(np.float32) if streams else None
+    cnt = rng.randint(1, 5, (1, N)).astype(np.float32) if streams else None
+    a, b, c, k = 0.7, 0.3, -0.2, 0.05
+    ref = jfm.fused_mask_backward_g(
+        jstacks, jnp.asarray(X), jnp.asarray(sq), None if esq is None else jnp.asarray(esq),
+        jnp.asarray([a, b, c, k], jnp.float32), "bfloat16", n_heads, cnt_cf=None if cnt is None else jnp.asarray(cnt),
+    )
+    t = lambda x: None if x is None else torch.from_numpy(x)
+    ours = tfm.fused_mask_backward_g(stacks, t(X), t(sq), t(esq), torch.tensor([a, b, k]), c, t(cnt), "bfloat16")
+    assert len(ours) == n_heads
+    for h, grads in enumerate(ours):
+        for li, ((dw, db), jl) in enumerate(zip(grads, ref)):
+            assert rel_err(dw.numpy().T, np.asarray(jl["w"])[h]) <= 1e-4, (h, li)
+            assert rel_err(db.numpy(), np.asarray(jl["b"])[h]) <= 1e-4, (h, li)
 
 
 def test_wrappers_refuse_other_dtypes_and_do_not_count_on_cpu(rng):
@@ -236,3 +300,28 @@ def test_wrappers_refuse_other_dtypes_and_do_not_count_on_cpu(rng):
     with pytest.raises(ValueError, match="float16"):
         tfm.fused_mask_backward_dedup(layers, X, torch.ones(1, 40), torch.ones(1, 40), None, torch.ones(1, 40),
                                       torch.ones(1, 40), torch.ones(3), compute_dtype="float16")
+
+
+def test_heads_wrappers_refuse_float16_and_do_not_count_on_cpu(rng):
+    """K5's and K6's wrappers take float32 and bfloat16 only; on CPU tensors
+    they run the bf16 plain version, without counting a launch."""
+    jcfg, jp, g, _, stacks, X, data = head_inputs(3, rng, arch=BF16)
+    N = X.shape[1]
+    t = torch.from_numpy
+    coords = t(np.asarray(jwarp(grid_of(jcfg), jnp.asarray(jp["warp"]))))
+    targets = t(np.ascontiguousarray(data["rgb"].transpose(1, 0, 2, 3).reshape(3, N)))
+    k5 = (g.neural_image, stacks, coords, t(X), t(CW), targets, 2.0)
+    sq = t(np.abs(rng.randn(1, N)).astype(np.float32))
+    k6 = (stacks, t(X), sq, None, torch.tensor([0.7, 0.3, 0.05]), -0.2)
+    before = dict(LAUNCHES)
+    a, b = tfi.fused_implicit_train_kernel(*k5), tfi.fused_implicit_train_kernel_reference(*k5, "bfloat16")
+    a32 = tfi.fused_implicit_train_kernel(*k5, "float32")
+    c, d = tfm.fused_mask_backward_g(*k6, compute_dtype="bfloat16"), tfm.fused_mask_backward_g_reference(*k6, None, "bfloat16")
+    c32 = tfm.fused_mask_backward_g(*k6)
+    assert LAUNCHES == before
+    assert all(torch.equal(x, y) for x, y in zip(a[:6], b[:6])) and not torch.equal(a[0], a32[0])
+    assert all(torch.equal(x[0][0], y[0][0]) for x, y in zip(c, d)) and not torch.equal(c[0][0][0], c32[0][0][0])
+    with pytest.raises(ValueError, match="float16"):
+        tfi.fused_implicit_train_kernel(*k5, "float16")
+    with pytest.raises(ValueError, match="float16"):
+        tfm.fused_mask_backward_g(*k6, compute_dtype="float16")

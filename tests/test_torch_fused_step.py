@@ -1,7 +1,7 @@
 """The fused train step (K1, K2) of the PyTorch port, and the card tests of
-the mask kernels (K3, K4) and of K5 and K6 (all six run on the 3xTF32
-tensor-core engine; the engine alone is tested in
-tests/test_torch_tc_gemm.py).
+the mask kernels (K3, K4) and of K5 and K6, each at float32 (on the 3xTF32
+tensor-core engine) and at bfloat16 (on the bf16 engine; the engines alone
+are tested in tests/test_torch_tc_gemm.py).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held against
 marf_tpu's `fused_train_kernel_warp` / `fused_train_kernel` (the Pallas
@@ -362,6 +362,14 @@ def test_heads_kernels_match_plain_on_card(rng, cuda_device, n_heads, cols):
 # than itself: float32 alone loses ~4e-2 of its max-abs at a few points of
 # the main path) 1e-2 at these sizes.
 BF16_TOL = dict(value_tol=1e-3, grad_tol=1e-3)
+# K6's bf16 gradients at these sizes: the uv rows of X are drawn from a
+# normal distribution, so the first layer's dW is a sum with much
+# cancellation over a few thousand columns, where the flips of a sum
+# order weigh more than over the main path's 216,000 (4.4e-5 there).
+# Measured on an H100 over two seeds and five shapes (1 to 17 heads, 1,536
+# to 20,000 columns): at most 2.0e-3, while the float32 plain version is
+# 1.4e-2 or more from the bf16 one.
+K6_BF16_GRAD_TOL = 5e-3
 
 
 @pytest.mark.cuda
@@ -421,3 +429,79 @@ def test_bf16_mask_kernels_match_plain_on_card(rng, cuda_device, HW):
         assert rel_err(dw.cpu().numpy(), rw.cpu().numpy()) <= BF16_TOL["grad_tol"]
         assert rel_err(db.cpu().numpy(), rb.cpu().numpy()) <= BF16_TOL["grad_tol"]
         assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_heads,cols", [(1, None), (3, 1117), (17, 203)],
+                         ids=["shared", "per_image_3x1117", "heads_17x203"])
+def test_bf16_heads_kernels_match_plain_on_card(rng, cuda_device, n_heads, cols):
+    """K5 and K6 at compute_dtype = bfloat16 against their bf16 plain
+    versions on head-blocked columns, each head with its own weights and uv
+    block: 3 heads of 1,117 columns (no multiple of 8, so each head's bf16
+    X block starts on its own 16-byte boundary) and 17 heads of 203 (more
+    than MAX_GROUP = 16, so the heads run in two groups). Tolerances above
+    (K5's dcoords as K2's, K6's gradients K6_BF16_GRAD_TOL), bitwise
+    relaunch, the bf16 counts and no float32 launch."""
+    from marf_tpu_torch.models.implicit_mask import ImplicitMask
+    from marf_tpu_torch.ops.cuda import fused_implicit as fi
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+
+    jcfg, tcfg = cfg_pair(arch={"compute_dtype": "bfloat16"})
+    jp, _, _, targets, _ = k1_inputs(jcfg, rng)
+    g = port_graph(tcfg, jp).to(cuda_device)
+    if cols is not None:
+        targets = rng.rand(3, n_heads * cols).astype(np.float32)
+    N = targets.shape[1]
+    d = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda_device)
+    X = np.concatenate([rng.randn(42, N), np.eye(8)[rng.randint(0, 8, N)].T, np.zeros((6, N))])
+    gen = torch.Generator().manual_seed(0)
+    stacks = [fm.mask_w_stack(ImplicitMask(gen).to(cuda_device), d(rng.randn(8, 384))) for _ in range(n_heads)]
+    k5 = (g.neural_image, stacks, d(rng.rand(2, N) * 2.2 - 1.1), d(X), torch.tensor([1.0, 0.8, 0.3, 0.0], device=cuda_device),
+          d(targets), torch.tensor(1.7, device=cuda_device))
+    k6 = (stacks, d(X), d(np.abs(rng.randn(1, N))), d(np.abs(rng.randn(1, N))), d([0.7, 0.3, 0.05]), -0.2,
+          d(rng.randint(1, 5, (1, N))))
+    before = dict(LAUNCHES)
+    out, out2, ref = fi.fused_implicit_train_kernel(*k5), fi.fused_implicit_train_kernel(*k5), fi.fused_implicit_train_kernel_reference(*k5)
+    bwd = lambda f: f(*k6, compute_dtype="bfloat16")
+    gk, gk2, gref = bwd(fm.fused_mask_backward_g), bwd(fm.fused_mask_backward_g), bwd(fm.fused_mask_backward_g_reference)
+    torch.cuda.synchronize()
+    for name in ("fused_implicit_train_kernel", "fused_mask_backward_g"):
+        assert LAUNCHES[name + "_bf16"] == before[name + "_bf16"] + 2 and LAUNCHES[name] == before[name]
+    c = lambda x: x.cpu().numpy()
+    for i in (0, 1, 2, 4, 5):  # rgb, m, sq, msum, loss
+        assert rel_err(c(out[i]), c(ref[i])) <= BF16_TOL["value_tol"], i
+    assert rel_err(c(out[3]), c(ref[3])) <= 1e-2
+    for (dw, db), (rw, rb) in zip(out[6], ref[6]):
+        assert rel_err(c(dw), c(rw)) <= BF16_TOL["grad_tol"] and rel_err(c(db), c(rb)) <= BF16_TOL["grad_tol"]
+    assert all(torch.equal(a, b) for a, b in zip(out[:6], out2[:6]))
+    assert len(gk) == n_heads
+    for grads, grads2, refs in zip(gk, gk2, gref):
+        for (dw, db), (dw2, _), (rw, rb) in zip(grads, grads2, refs):
+            assert rel_err(c(dw), c(rw)) <= K6_BF16_GRAD_TOL and rel_err(c(db), c(rb)) <= K6_BF16_GRAD_TOL
+            assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("HW", [512, 1541], ids=["K_even", "K_odd_2683"])
+def test_bf16_mask_plan_of_one_head_is_k3s_on_card(rng, cuda_device, HW):
+    """The bf16 mask plan over nh heads leaves the one-head plan as K3 and
+    K4 run it: K5 at one head runs K3's forward launches on the same plan,
+    so its m is bitwise K3's bf16 m, also at an odd column count."""
+    from marf_tpu_torch.models.implicit_mask import ImplicitMask
+    from marf_tpu_torch.ops.cuda import fused_implicit as fi
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+
+    jcfg, tcfg = cfg_pair(arch={"compute_dtype": "bfloat16"})
+    g = port_graph(tcfg, jax_params(jcfg)).to(cuda_device)
+    B = 3
+    combo = np.where(rng.rand(B, HW) > 0.7, rng.randint(0, 8, (B, HW)), 0)
+    onehot = np.eye(8, dtype=np.float32)[combo].transpose(0, 2, 1)
+    X = fm.slot_dedup_inputs(rng.randn(42, HW).astype(np.float32), onehot)[0]
+    K = X.shape[1]
+    d = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda_device)
+    stack = fm.mask_w_stack(ImplicitMask(torch.Generator().manual_seed(0)).to(cuda_device), d(rng.randn(8, 384)))
+    m3 = fm.fused_mask_forward(stack, d(X), "bfloat16")
+    m5 = fi.fused_implicit_train_kernel(g.neural_image, [stack], d(rng.rand(2, K) * 2.2 - 1.1), d(X), None,
+                                        d(rng.rand(3, K)), 1.7)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(m3, m5)

@@ -59,10 +59,11 @@ def factored(jcfg, jp, data):
     return np.array(uv), np.array(onehot), np.array(table)
 
 
-def head_inputs(n_heads, rng, device=None):
+def head_inputs(n_heads, rng, device=None, **kw):
     """Both packages' head-blocked inputs for n_heads 1 (shared) or B:
-    (jcfg, jp, port graph, JAX stacks, port stacks, X [56, N] numpy, data)."""
-    jcfg, tcfg = icfg(build_single_masks=n_heads > 1)
+    (jcfg, jp, port graph, JAX stacks, port stacks, X [56, N] numpy, data);
+    kw: further config (icfg)."""
+    jcfg, tcfg = icfg(build_single_masks=n_heads > 1, **kw)
     jp = jax_params(jcfg)
     g = port_graph(tcfg, jp).to(device)
     data = implicit_data(jcfg, rng)
