@@ -57,8 +57,26 @@ Phases, one result line each; any failure exits non-zero:
        the dedup run's (its 10-step gap printed); the fused and autograd
        bf16 paths round differently (PERF.md), so their gap is printed, not
        held.
-Then a JSON line with each kernel's numbers, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`.
+  5. lifecycle, through `marf_tpu_torch.train.main` on an on-disk fixture
+     (the port's synthetic scene at 360x480, 5 photos, written in the
+     `data/planar/<set>` layout by `save_planar_dataset`), each run with the
+     launch counts set to 0 just before it and read just after:
+     - canonical, 60 fused steps with --freq.vis=20 --freq.ckpt=30 and
+       TensorBoard on: K1 60 times, frames 0.png-3.png, the TB image panels
+       (input images and masks at step 1, the predicted image at 1, 20, 40,
+       60) beside the scalar tags, vis.mp4 with 4 frames (read back with
+       cv2), ckpt/30 and ckpt/60; then the same config on the synthetic
+       scene, for its steps/s beside the fixture run's;
+     - a copy of that run resumed from ckpt/30 (--resume=30): K1 30 times,
+       its ckpt/60 (parameters and Adam state) and its last 30 steps'
+       metrics bitwise the unbroken run's;
+     - the shared-head implicit config, 20 steps with --freq.vis=20: K3, K1
+       and K4 20 times each, the train/implicit_masks panel at 1 and 20;
+     - 10 fused canonical steps each with --optim.algo=AdamW, SGD and
+       RMSprop: finite losses, K1 10 times each;
+     and the host ms of each vis frame, checkpoint save and restore.
+Then a JSON line with each kernel's numbers (launches: phases 4 and 5), the
+nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 """
 
 import copy
@@ -793,6 +811,217 @@ def phase_main_path(out_root: str):
     return total
 
 
+LIFE_ITERS = 60
+
+
+def _launch_counts(fn):
+    """Run fn with every launch count set to 0 just before; its result and
+    the counts just after."""
+    from marf_tpu_torch.ops.cuda import LAUNCHES
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in LAUNCHES.items() if v}
+
+
+def _train_cli(out_root: str, name: str, iters: int, *extra):
+    """A run through the user's entry point, `marf_tpu_torch.train.main`."""
+    from marf_tpu_torch.train import main as train_main
+
+    args = ["--model=planar", "--yaml=planar", "--group=life", f"--name={name}", "--seed=3", "--barf_c2f=[0,0.4]",
+            f"--max_iter={iters}", f"--output_root={out_root}", "--tpu.fused_step=on", *extra]
+    return train_main(args)
+
+
+def _expect(name, m, counts, expect, iters):
+    if counts != expect or m.it != iters:
+        fail(f"{name}: launches {counts} in {m.it} steps, expected {expect} in {iters}")
+    hist = {k: np.concatenate([h[k] for h in m.history]) for k in m.history[0]}
+    if not (np.isfinite(hist["all"]).all() and (hist["finite"] == 1).all()):
+        fail(f"{name}: non-finite loss")
+    return hist
+
+
+def _image_steps(run_dir: str) -> tuple:
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    ea = EventAccumulator(run_dir, size_guidance={"images": 0, "scalars": 0})
+    ea.Reload()
+    return {t: [e.step for e in ea.Images(t)] for t in ea.Tags()["images"]}, set(ea.Tags()["scalars"])
+
+
+def _state_diff(a_dir: str, b_dir: str) -> tuple:
+    """(bitwise equal, max-abs difference) of two checkpoints' parameters and
+    optimizer state tensors."""
+    a, b = (torch.load(os.path.join(d, "state.pt"), map_location="cpu", weights_only=True) for d in (a_dir, b_dir))
+    pairs = [(a["graph"][k], b["graph"][k]) for k in a["graph"]]
+    pairs += [(v, b["optimizer"]["state"][i][k]) for i, st in a["optimizer"]["state"].items() for k, v in st.items()]
+    equal = a["step"] == b["step"] and a["graph"].keys() == b["graph"].keys() and all(torch.equal(x, y) for x, y in pairs)
+    return equal, max((x.double() - y.double()).abs().max().item() for x, y in pairs)
+
+
+def _vis_breakdown(m, reps: int = 5) -> dict:
+    """Median host ms of the pieces of one `visualize` call on a trained
+    model: the render with its copy to the host, the PNG frame, the
+    predicted_image panel (grid and PNG encode into a TB event)."""
+    from PIL import Image
+
+    from marf_tpu_torch.utils import vis as vis_lib
+    from marf_tpu_torch.utils.tb import SummaryWriter
+
+    def clock(fn):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return out, float(np.median(times))
+
+    ms = {}
+    frame, ms["render"] = clock(m.predict_entire_image)
+    u8 = (np.clip(frame, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)
+    with tempfile.TemporaryDirectory() as d:
+        _, ms["frame PNG"] = clock(lambda: Image.fromarray(u8).save(os.path.join(d, "frame.png")))
+        writer = SummaryWriter(d)
+        _, ms["predicted_image panel"] = clock(
+            lambda: vis_lib.tb_image(m.opt, writer, 1, "train", "predicted_image", frame[None]))
+        writer.close()
+    return ms
+
+
+def phase_lifecycle(out_root: str):
+    """The single-card lifecycle through `marf_tpu_torch.train.main` on an
+    on-disk fixture (the port's synthetic scene at the canonical size, 5
+    photos of 360x480, written by `save_planar_dataset`): frames, TB image
+    panels, vis.mp4, checkpoints, a resume from the middle checkpoint held
+    bitwise to the unbroken run, the shared-head implicit config, and AdamW,
+    SGD and RMSprop. Returns the launch counts of its runs."""
+    import shutil
+
+    import cv2
+
+    from marf_tpu_torch.data.planar import save_planar_dataset, synthesize_planar_dataset
+    from marf_tpu_torch.engine import trainer
+    from marf_tpu_torch.models.planar import PlanarConfig
+
+    t0 = time.perf_counter()
+    os.environ["MARF_YES"] = "1"
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    full = PlanarConfig(use_cropped_images=False)
+    data_root = os.path.join(out_root, "planar")
+    save_planar_dataset(synthesize_planar_dataset(full, seed=3), os.path.join(data_root, "fixture"), full.H, full.W)
+    fixture = ("--dataset=fixture", f"--data.root={data_root}")
+    k1 = "fused_train_kernel_warp"
+    cadence = ("--freq.scalar=20", "--freq.vis=20", "--freq.ckpt=30")
+
+    # the host time of each vis frame, checkpoint save and restore, timed in
+    # the runs below (each call ends in a host copy or a file write)
+    times = {"visualize": [], "save_checkpoint": [], "restore_checkpoint": []}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    originals = (trainer.Model.visualize, trainer.Model.save_checkpoint, trainer.restore_checkpoint)
+    trainer.Model.visualize = timed("visualize", trainer.Model.visualize)
+    trainer.Model.save_checkpoint = timed("save_checkpoint", trainer.Model.save_checkpoint)
+    trainer.restore_checkpoint = timed("restore_checkpoint", trainer.restore_checkpoint)
+    try:
+        m, c = _launch_counts(lambda: _train_cli(out_root, "canonical", LIFE_ITERS, *fixture, *cadence))
+        add(c)
+        _expect("lifecycle canonical", m, c, {k1: LIFE_ITERS}, LIFE_ITERS)
+        vis_ms, save_ms = list(times["visualize"]), list(times["save_checkpoint"])
+        run = m.opt.output_path
+        frames = sorted(os.listdir(os.path.join(run, "vis")), key=lambda f: int(f.split(".")[0]))
+        if frames != [f"{i}.png" for i in range(4)]:
+            fail(f"lifecycle canonical: frames {frames}, expected 0.png to 3.png")
+        images, scalars = _image_steps(run)
+        want = {"train/input_images": [1], "train/input_masks": [1], "train/predicted_image": [1, 20, 40, 60]}
+        if images != want or not {"train/PSNR", "train/loss_render", "train/Homography_Error"} <= scalars:
+            fail(f"lifecycle canonical: TB images {images}, scalars {sorted(scalars)}; expected images {want}")
+        cap = cv2.VideoCapture(os.path.join(run, "vis.mp4"))
+        n_frames = 0
+        while cap.read()[0]:
+            n_frames += 1
+        cap.release()
+        if n_frames != len(frames):
+            fail(f"lifecycle canonical: vis.mp4 holds {n_frames} frames, expected {len(frames)}")
+        ckpts = sorted(os.listdir(os.path.join(run, "ckpt")), key=int)
+        if ckpts != ["30", "60"]:
+            fail(f"lifecycle canonical: checkpoints {ckpts}, expected 30 and 60")
+        print(f"[life] canonical on the fixture: {m.steps_per_sec:.2f} steps/s, launches {c}, frames {len(frames)}, "
+              f"vis.mp4 {n_frames} frames, TB images {images}, checkpoints {ckpts}", flush=True)
+        vis_parts = _vis_breakdown(m)
+
+        # the same config on the synthetic scene, for the steps/s beside the fixture run's
+        m_s, c = _launch_counts(lambda: _train_cli(out_root, "canonical_synthetic", LIFE_ITERS, "--dataset=synthetic",
+                                                   *cadence))
+        add(c)
+        _expect("lifecycle canonical synthetic", m_s, c, {k1: LIFE_ITERS}, LIFE_ITERS)
+        print(f"[life] steps/s on the fixture {m.steps_per_sec:.2f}, on the synthetic scene {m_s.steps_per_sec:.2f} "
+              f"(same config, same call)", flush=True)
+
+        # resume a copy of the run from ckpt/30 for the last 30 steps
+        resumed_dir = os.path.join(os.path.dirname(run), "canonical_resume_seed3")
+        shutil.copytree(run, resumed_dir)
+        shutil.rmtree(os.path.join(resumed_dir, "ckpt", "60"))
+        m_r, c = _launch_counts(lambda: _train_cli(out_root, "canonical_resume", LIFE_ITERS, *fixture, *cadence,
+                                                   "--resume=30"))
+        add(c)
+        _expect("lifecycle resume", m_r, c, {k1: LIFE_ITERS // 2}, LIFE_ITERS)
+        equal, diff = _state_diff(os.path.join(run, "ckpt", "60"), os.path.join(resumed_dir, "ckpt", "60"))
+        losses_equal = all(np.array_equal(a[k], b[k]) for a, b in zip(m_r.history, m.history[-len(m_r.history):])
+                           for k in a)
+        print(f"[life] resume from ckpt/30: launches {c}, step-60 parameters and Adam state bitwise equal to the "
+              f"unbroken run's: {equal} (max-abs difference {diff:.3e}); last 30 steps' metrics bitwise: "
+              f"{losses_equal}", flush=True)
+        if not equal or not losses_equal:
+            fail("lifecycle resume: the resumed run is not bitwise the unbroken run")
+        restore_ms = list(times["restore_checkpoint"])
+
+        # the shared-head implicit config on the fixture: K3 -> K1 -> K4
+        m_i, c = _launch_counts(lambda: _train_cli(out_root, "implicit", 20, *fixture, "--freq.scalar=20", "--freq.vis=20",
+                                                   "--use_implicit_mask", "--use_masks=false"))
+        add(c)
+        _expect("lifecycle implicit", m_i, c,
+                {"fused_mask_forward": 20, k1: 20, "fused_mask_backward_dedup": 20}, 20)
+        images, _ = _image_steps(m_i.opt.output_path)
+        if images.get("train/implicit_masks") != [1, 20]:
+            fail(f"lifecycle implicit: TB images {images}, expected train/implicit_masks at steps 1 and 20")
+        print(f"[life] implicit on the fixture: launches {c}, TB images {images}", flush=True)
+
+        # the other optimizers, 10 fused canonical steps each
+        for algo in ("AdamW", "SGD", "RMSprop"):
+            m_o, c = _launch_counts(lambda: _train_cli(out_root, f"canonical_{algo}", 10, *fixture, "--freq.scalar=10",
+                                                       "--freq.vis=10", "--tb=", f"--optim.algo={algo}"))
+            add(c)
+            hist = _expect(f"lifecycle {algo}", m_o, c, {k1: 10}, 10)
+            print(f"[life] {algo} ({type(m_o.optimizer).__name__}): launches {c}, rgb loss "
+                  f"{hist['loss_rgb'][0]:.5f} -> {hist['loss_rgb'][-1]:.5f}", flush=True)
+    finally:
+        trainer.Model.visualize, trainer.Model.save_checkpoint, trainer.restore_checkpoint = originals
+    print(f"[life] visualize ms per call (canonical, 360x480 render, PNG frame and TB panels; the first with the "
+          f"input panels): {' '.join(f'{t:.2f}' for t in vis_ms)}; its parts, median of 5: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in vis_parts.items()), flush=True)
+    print(f"[life] save_checkpoint ms per call (canonical): {' '.join(f'{t:.2f}' for t in save_ms)}; "
+          f"restore ms: {' '.join(f'{t:.2f}' for t in restore_ms)}", flush=True)
+    print(f"[life] lifecycle phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 KERNELS = [
     ("K1", "fused_train_kernel_warp", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:272"),
     ("K2", "fused_train_kernel", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:208"),
@@ -825,8 +1054,11 @@ def main():
     os.makedirs(out_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_root) as tmp:
         launches = phase_main_path(tmp)
-    print(f"[time] build and kernels {t_kernels:.1f} s, main path {time.perf_counter() - t0 - t_kernels:.1f} s",
-          flush=True)
+        t_main = time.perf_counter() - t0 - t_kernels
+        for k, v in phase_lifecycle(tmp).items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"[time] build and kernels {t_kernels:.1f} s, main path {t_main:.1f} s, lifecycle "
+          f"{time.perf_counter() - t0 - t_kernels - t_main:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
          **results[kid], "library_ms": None}

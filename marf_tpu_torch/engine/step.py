@@ -19,7 +19,7 @@ Four gradient paths; the fused ones compute the autograd path's update:
     -> K6 (head-blocked mask backward, the same cotangent per column).
 The fused paths run their kernels at `arch.compute_dtype` (tpu.compute_dtype):
 float32 or bfloat16, K1-K6 each through the entry point of that dtype. Then
-Adam with per-group learning rates (MLP at optim.lr, warp at
+the optimizer (optim.algo) with per-group learning rates (MLP at optim.lr, warp at
 optim.lr_warp, mask head at optim.lr_mask; reference model/planar.py:86-104),
 Homography_Error from the post-update warp, Mask_Error of the pre-update mask
 (implicit masks with premade masks), and the fix_first re-zero of warp 0
@@ -89,15 +89,53 @@ def _lr_lambda(optim_opt: dict, base_lr: float, max_iter: int):
     raise ValueError(f"unsupported scheduler type: {stype}")
 
 
+class OptaxRMSprop(torch.optim.Optimizer):
+    """RMSprop with optax.rmsprop's update: nu = decay nu + (1 - decay) g^2,
+    p -= lr g / sqrt(nu + eps), eps inside the root. torch.optim.RMSprop
+    divides by sqrt(nu) + eps, which at this model's gradient sizes moves the
+    first steps by up to an order of magnitude."""
+
+    def __init__(self, params, lr: float, decay: float = 0.99, eps: float = 1e-8):
+        super().__init__(params, {"lr": lr, "decay": decay, "eps": eps})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.mul_(group["decay"]).addcmul_(p.grad, p.grad, value=1.0 - group["decay"])
+                p.addcdiv_(p.grad, (nu + group["eps"]).sqrt(), value=-group["lr"])
+
+
+def _algo(name: str, groups: list) -> torch.optim.Optimizer:
+    """The reference's `optim.algo` (torch optimizer names,
+    options/planar.yaml:78) with marf_tpu's hyperparameters (engine/step.py
+    `_algo`): torch's defaults, optax's RMSprop update."""
+    if name == "Adam":
+        return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    if name == "AdamW":
+        return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    if name == "SGD":
+        return torch.optim.SGD(groups, lr=groups[0]["lr"])
+    if name == "RMSprop":
+        return OptaxRMSprop(groups, lr=groups[0]["lr"], decay=0.99, eps=1e-8)
+    raise ValueError(f"unsupported optimizer: {name}")
+
+
 def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
-    """Adam with one learning rate per group and torch's default
-    hyperparameters (the update optax.adam computes): the neural image at
-    optim.lr, the warp at optim.lr_warp, the mask head at optim.lr_mask (a
-    missing key gives optim.lr; a 0 stays 0). The view embedding takes a
-    fourth group, at a constant optim.lr_mask that no schedule moves (the
-    JAX package's "frozen" group), only when it takes gradients
-    (optim.train_view_embedding); the reference never optimizes it. Returns
-    (optimizer, LR scheduler or None); step the scheduler once per step."""
+    """`optim.algo` (Adam, AdamW, SGD or RMSprop) with one learning rate per
+    group: the neural image at optim.lr, the warp at optim.lr_warp, the mask
+    head at optim.lr_mask (a missing key gives optim.lr; a 0 stays 0). The
+    view embedding takes a fourth group, at a constant optim.lr_mask that no
+    schedule moves (the JAX package's "frozen" group), only when it takes
+    gradients (optim.train_view_embedding); the reference never optimizes
+    it. Returns (optimizer, LR scheduler or None); step the scheduler once
+    per step."""
     lr = float(optim_opt["lr"])
     groups = [
         {"params": list(graph.neural_image.parameters()), "lr": lr},
@@ -111,10 +149,7 @@ def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
         if graph.view_embedding.requires_grad:
             groups.append({"params": [graph.view_embedding], "lr": lr_mask})
             lambdas.append(None)
-    algo = optim_opt.get("algo", "Adam")
-    if algo != "Adam":
-        raise NotImplementedError(f"optim.algo={algo!r} is not ported; the port runs Adam (ROADMAP.md)")
-    opt = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    opt = _algo(optim_opt.get("algo", "Adam"), groups)
     if (optim_opt.get("sched") or {}).get("type") and not optim_opt.get("apply_sched"):
         log.warn(
             "optim.sched is configured but inert (reference-faithful: the reference never steps its "

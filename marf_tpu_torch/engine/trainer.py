@@ -2,31 +2,41 @@
 
 Same five phases as the reference `Model` (reference train.py:24-31,
 model/planar.py:31-292): load_dataset -> build_networks -> setup_optimizer ->
-setup_visualizer -> train. The loop runs `gcd(freq.scalar, freq.vis)` steps
-per chunk and reads each chunk's metrics (every step's finite flag, the
+setup_visualizer -> train. The data is the on-disk `data/planar/<set>`
+layout or `--dataset=synthetic`; `load_torch_init` copies a reference init
+into the graph; `load` / `resume` restore a checkpoint (engine/checkpoint.py)
+and carry its step. The loop runs `gcd(freq.scalar, freq.vis, freq.ckpt)`
+steps per chunk and reads each chunk's metrics (every step's finite flag, the
 chunk-final scalars) back in one copy; TensorBoard gets the reference's
 scalar tags `train/loss_*`, `train/PSNR`, `train/Homography_Error` and, for
-implicit masks with premade masks, `train/Mask_Error` at `freq.scalar`. The
-step's constants (the flat streams, the mask-head inputs and their dedup
-structures) are built once when `train` makes the step.
-
-Not ported yet (each logs one line when its config asks for it): vis frames
-and the mp4, checkpoint save/resume, `load_torch_init`.
+implicit masks with premade masks, `train/Mask_Error` at `freq.scalar`. At
+step 0 and every `freq.vis` boundary a full-canvas render is written to
+`vis/<n>.png` with the image panels; a checkpoint at every `freq.ckpt`
+boundary and at the end (unless `save_checkpoint: false`); `vis.mp4` from the
+frames at the end. The step's constants (the flat streams, the mask-head
+inputs and their dedup structures) are built once when `train` makes the
+step.
 """
 
 from __future__ import annotations
 
 import os
-import time
+import shutil
+import subprocess
 
 import numpy as np
 import torch
+import tqdm
 
-from marf_tpu_torch.data.planar import synthesize_planar_dataset, to_device
+from marf_tpu_torch.data.planar import load_planar_dataset, synthesize_planar_dataset, to_device
+from marf_tpu_torch.engine.checkpoint import resolve_restore_path, restore_checkpoint, save_checkpoint
 from marf_tpu_torch.engine.step import chunk_schedule, make_optimizer, make_train_step, run_chunk
-from marf_tpu_torch.models.planar import Graph, PlanarConfig
+from marf_tpu_torch.models.planar import Graph, PlanarConfig, graph_forward
+from marf_tpu_torch.ops.grid import crop_corners, normalized_pixel_grid
+from marf_tpu_torch.ops.warp import warp_corners
+from marf_tpu_torch.utils import vis as vis_lib
 from marf_tpu_torch.utils.config import resolve_device
-from marf_tpu_torch.utils.console import log
+from marf_tpu_torch.utils.console import IterTimer, colorcode_to_number, log
 
 
 class Model:
@@ -47,23 +57,36 @@ class Model:
         self.optimizer = None
         self.scheduler = None
         self.tb = None
+        self.box_colors = None
+        self.vis_path = None
+        self.video_fname = None
+        self.timer = None
         self.it = 0
+        self.vis_it = 0
+        self._saved_at = None  # the step of the last checkpoint this run wrote
+        self._full_grid = None
         self.chunk_times = []  # (steps, seconds) per chunk, device work included
         self.history = []  # per chunk: {metric: [steps] array}
 
     # ---------------------------------------------------------------- phases
 
     def load_dataset(self):
-        """Phase 1: build the dataset on the host once and move it to the device."""
+        """Phase 1: load or synthesize the dataset on the host once and move
+        it to the device (reference model/planar.py:59-78)."""
         log.info("loading dataset...")
-        if self.dataset != "synthetic":
-            raise NotImplementedError(
-                f"dataset {self.dataset!r}: the port loads --dataset=synthetic only; the on-disk loader "
-                "is queued in ROADMAP.md"
+        if self.dataset == "synthetic":
+            raw = synthesize_planar_dataset(self.cfg, seed=int(self.opt.get("seed") or 0))
+            if not self.cfg.use_masks:
+                raw = dict(raw, masks=None, masks_eroded=None)
+        else:
+            raw = load_planar_dataset(
+                self.cfg,
+                self.dataset,
+                root=(self.opt.get("data") or {}).get("root"),
+                use_masks=self.cfg.use_masks or self.cfg.use_implicit_mask,
+                use_homographies=self.use_homographies,
+                use_edges=self.cfg.use_edges,
             )
-        raw = synthesize_planar_dataset(self.cfg, seed=int(self.opt.get("seed") or 0))
-        if not self.cfg.use_masks:
-            raw = dict(raw, masks=None, masks_eroded=None)
         if raw.get("gt_hom") is None:
             self.use_homographies = False
         self.data = to_device(raw, self.device)
@@ -71,65 +94,102 @@ class Model:
     def build_networks(self):
         """Phase 2: init parameters from an explicit generator seeded by --seed."""
         log.info("building networks...")
-        if self.opt.get("load_torch_init"):
-            log.warn("load_torch_init is not ported yet (ROADMAP.md); using the seeded init")
         gen = torch.Generator().manual_seed(int(self.opt.get("seed") or 0))
         self.graph = Graph(self.cfg, generator=gen).to(self.device)
+        torch_init = self.opt.get("load_torch_init")
+        if torch_init:
+            from marf_tpu_torch.utils.torch_init import load_torch_init
+
+            load_torch_init(self.graph, torch_init)
 
     def setup_optimizer(self):
-        """Phase 3: per-group optimizer (reference model/planar.py:86-104)."""
+        """Phase 3: per-group optimizer (reference model/planar.py:86-104),
+        then the checkpoint that `load` or `resume` names, whose step the run
+        continues from. A requested restore that finds nothing raises."""
         log.info("setting up optimizers...")
         self.optimizer, self.scheduler = make_optimizer(self.graph, dict(self.opt.optim), self.cfg.max_iter)
-        if self.opt.get("load") or self.opt.get("resume"):
-            log.warn("checkpoint load/resume is not ported yet (ROADMAP.md); starting from step 0")
+        load, resume = self.opt.get("load"), self.opt.get("resume")
+        restore = resolve_restore_path(self.opt.output_path, load, resume)
+        if restore is None and (load or resume):
+            raise FileNotFoundError(f"no checkpoint to restore (load={load!r}, resume={resume!r}) "
+                                    f"under {self.opt.output_path}")
+        if restore:
+            log.info(f"restoring checkpoint from {restore}")
+            self.it = restore_checkpoint(restore, self.graph, self.optimizer, self.scheduler, self.device)
 
     def setup_visualizer(self):
-        """Phase 4: the TensorBoard writer when `tb` is configured."""
+        """Phase 4: the TensorBoard writer when `tb` is configured, the vis
+        directory and the per-image border colors (reference
+        model/planar.py:106-134)."""
         log.info("setting up visualizers...")
         if self.opt.get("tb") is not None:
             from marf_tpu_torch.utils.tb import SummaryWriter
 
             self.tb = SummaryWriter(log_dir=self.opt.output_path, flush_secs=10)
+        colors = [colorcode_to_number(c) for c in vis_lib.BOX_COLORS[: self.cfg.batch_size]]
+        self.box_colors = np.array(colors).astype(int)
+        self.vis_path = f"{self.opt.output_path}/vis"
+        os.makedirs(self.vis_path, exist_ok=True)
+        self.video_fname = f"{self.opt.output_path}/vis.mp4"
 
     # ------------------------------------------------------------------ train
 
     def train(self):
         """Phase 5: the chunked training loop (reference model/planar.py:136-170)."""
         log.title("TRAINING START")
+        self.timer = IterTimer()
         freq = self.opt.freq
-        if freq.get("vis"):
-            log.info("vis frames and the vis.mp4 are not ported yet (ROADMAP.md); skipping them")
-        if freq.get("ckpt") or self.opt.get("save_checkpoint", True):
-            log.info("checkpoints are not ported yet (ROADMAP.md); no checkpoint is written")
         step_fn = make_train_step(
             self.cfg, self.graph, self.optimizer, self.data, self.scheduler, use_homographies=self.use_homographies
         )
         max_iter = int(self.cfg.max_iter)
-        c = chunk_schedule(max_iter, freq.scalar, freq.vis, freq.get("ckpt"))
-        while self.it < max_iter:
-            n = min(c, max_iter - self.it)
-            t0 = time.perf_counter()
-            md = run_chunk(step_fn, self.it, n)  # returns after the chunk's device work
-            self.chunk_times.append((n, time.perf_counter() - t0))
-            self.it += n
-            self.history.append(md)
-            finite = md["finite"]
-            if not finite.all():
-                first_bad = self.it - n + int(np.argmin(finite)) + 1
-                raise FloatingPointError(f"non-finite loss at iteration {first_bad}")
-            if self.it % freq.scalar == 0:
-                row = {k: float(v[-1]) for k, v in md.items() if k != "finite"}
-                if self.tb:
-                    self.log_scalars(row, step=self.it)
-                log.info(
-                    f"it {self.it}/{max_iter}  loss {row['all']:.5f}  PSNR {row['PSNR']:.3f}"
-                    f"  {self.steps_per_sec:.1f} steps/s"
-                )
+        ckpt_freq = freq.get("ckpt")
+        c = chunk_schedule(max_iter, freq.scalar, freq.vis, ckpt_freq)
+        self.visualize(step=0)  # reference model/planar.py:152-153
+        pbar = tqdm.tqdm(total=max_iter, desc="Training", leave=False, initial=self.it)
+        postfix = {}
+        try:
+            while self.it < max_iter:
+                n = min(c, max_iter - self.it)
+                self.timer.tic()
+                md = run_chunk(step_fn, self.it, n)  # returns after the chunk's device work
+                self.chunk_times.append((n, self.timer.toc(n) * n))
+                self.it += n
+                self.history.append(md)
+                finite = md["finite"]
+                if not finite.all():
+                    first_bad = self.it - n + int(np.argmin(finite)) + 1
+                    raise FloatingPointError(f"non-finite loss at iteration {first_bad}")
+                if self.it % freq.scalar == 0:
+                    row = {k: float(v[-1]) for k, v in md.items() if k != "finite"}
+                    if self.tb:
+                        self.log_scalars(row, step=self.it)
+                    postfix = dict(it=self.it, loss=f"{row['all']:.3f}", it_per_sec=f"{self.timer.steps_per_sec:.1f}")
+                    log.info(
+                        f"it {self.it}/{max_iter}  loss {row['all']:.5f}  PSNR {row['PSNR']:.3f}"
+                        f"  {self.steps_per_sec:.1f} steps/s"
+                    )
+                pbar.update(n)
+                pbar.set_postfix(**postfix)
+                if self.it % freq.vis == 0:
+                    self.visualize(step=self.it)
+                if ckpt_freq and self.it % ckpt_freq == 0:
+                    self.save_checkpoint()
+        finally:
+            pbar.close()
+        if self.opt.get("save_checkpoint", True) and self._saved_at != self.it:
+            self.save_checkpoint()
+        self._mux_video()
         if self.tb:
             self.tb.flush()
             self.tb.close()
         log.info(f"mean steps/sec: {self.steps_per_sec:.2f}")
         log.title("TRAINING DONE")
+
+    def save_checkpoint(self) -> str:
+        """The training state at `self.it` under `<output_path>/ckpt/<it>`."""
+        self._saved_at = self.it
+        return save_checkpoint(self.opt.output_path, self.it, self.graph, self.optimizer, self.scheduler)
 
     @property
     def steps_per_sec(self) -> float:
@@ -150,3 +210,111 @@ class Model:
             if key in row:
                 self.tb.add_scalar(f"{split}/{key}", row[key], step)
         self.tb.add_scalar(f"{split}/PSNR", row["PSNR"], step)
+
+    def predict_entire_image(self) -> np.ndarray:
+        """[3, H, W] full-canvas render of the neural image at progress
+        max(it - 1, 0) / max_iter (reference model/planar.py:211-217)."""
+        if self._full_grid is None:
+            self._full_grid = normalized_pixel_grid(self.cfg.grid_spec, crop=False, device=self.device).T.contiguous()
+        progress = torch.tensor(max(self.it - 1, 0) / self.cfg.max_iter, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            rgb = self.graph.neural_image(self._full_grid, progress)
+        return rgb.reshape(3, self.cfg.H, self.cfg.W).cpu().numpy()
+
+    def visualize(self, step: int = 0, split: str = "train"):
+        """The frame `vis/<n>.png` and the TB image panels (reference
+        model/planar.py:256-292): the input images and masks on the first
+        call, the predicted image, the implicit masks, and the predicted
+        edges and warped patch corners under their `tb` flags. Panels land on
+        step max(step, 1), as the reference tags it + 1."""
+        from PIL import Image
+
+        tag_step = max(step, 1)
+        frame = self.predict_entire_image()
+        Image.fromarray((np.clip(frame, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)).save(
+            f"{self.vis_path}/{self.vis_it}.png"
+        )
+        self.vis_it += 1
+        if not self.tb:
+            return
+        colors = self.box_colors
+        if self.vis_it == 1:
+            rgb = self.data["rgb"].cpu().numpy()
+            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "input_images", vis_lib.color_border(rgb, colors))
+            if self.cfg.use_masks and self.data.get("masks") is not None:
+                masks = self.data["masks"].cpu().numpy()
+                vis_lib.tb_image(self.opt, self.tb, tag_step, split, "input_masks", vis_lib.color_border(masks, colors))
+        vis_lib.tb_image(self.opt, self.tb, tag_step, split, "predicted_image", frame[None])
+        tb_opt = self.opt.get("tb") or {}
+        show_edges = bool(tb_opt.get("show_edges")) and self.cfg.use_edges
+        if self.cfg.use_implicit_mask or show_edges:
+            progress = torch.tensor(max(self.it - 1, 0) / self.cfg.max_iter, dtype=torch.float32, device=self.device)
+            with torch.no_grad():
+                out = graph_forward(self.graph, self.data, self.cfg, progress)
+        if self.cfg.use_implicit_mask:
+            h, w = self.cfg.map_hw
+            mask = out["mask_prediction"].cpu().numpy().reshape(self.cfg.batch_size, h, w, 1).transpose(0, 3, 1, 2)
+            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "implicit_masks",
+                             vis_lib.color_border(mask, colors, width=1, depth=1))
+        if show_edges:
+            # the reference ships this panel commented out (model/planar.py:288-292)
+            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "predicted_edges", out["edge_prediction"].cpu().numpy())
+        if bool(tb_opt.get("show_corners")):
+            # the current warped patch windows on the canvas (the reference's
+            # warp_corners, warp.py:83-93, is never called)
+            spec = self.cfg.grid_spec
+            with torch.no_grad():
+                cn = warp_corners(crop_corners(spec, self.device), self.graph.warp).cpu().numpy()  # [B, 4, 2]
+            px = np.empty_like(cn)
+            px[..., 0] = (cn[..., 0] / spec.norm_w + 1) / 2 * self.cfg.W - 0.5
+            px[..., 1] = (cn[..., 1] / spec.norm_h + 1) / 2 * self.cfg.H - 0.5
+            overlay = vis_lib.draw_corner_boxes(np.clip(frame, 0, 1), px, colors)
+            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "warp_corners", overlay[None])
+
+    def _mux_video(self):
+        """vis.mp4 from the frames (reference model/planar.py:163-165): ffmpeg
+        when it is on PATH (the reference's invocation), else a cv2
+        VideoWriter mp4v; the frames stay in vis/ either way. Only the
+        `<int>.png` frames are muxed, unreadable or odd-sized ones are
+        skipped, and a mux failure warns instead of failing a finished run."""
+        ffmpeg = shutil.which("ffmpeg")
+        if ffmpeg:
+            subprocess.run(
+                [ffmpeg, "-y", "-framerate", "30", "-i", f"{self.vis_path}/%d.png", "-pix_fmt", "yuv420p",
+                 self.video_fname],
+                check=False,
+                capture_output=True,
+            )
+            return
+        try:
+            import cv2
+        except ImportError:
+            log.warn("neither ffmpeg nor cv2 found; skipping vis.mp4 mux (frames kept in vis/)")
+            return
+        try:
+            frames = sorted(
+                (f for f in os.listdir(self.vis_path) if f.endswith(".png") and f[: -len(".png")].isdigit()),
+                key=lambda f: int(f.split(".")[0]),
+            )
+            first = None
+            for f in frames:
+                first = cv2.imread(os.path.join(self.vis_path, f))
+                if first is not None:
+                    break
+            if first is None:
+                return
+            h, w = first.shape[:2]
+            writer = cv2.VideoWriter(self.video_fname, cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+            if not writer.isOpened():
+                log.warn("cv2 VideoWriter failed to open; skipping vis.mp4 mux")
+                return
+            written = 0
+            for f in frames:
+                img = cv2.imread(os.path.join(self.vis_path, f))
+                if img is not None and img.shape[:2] == (h, w):
+                    writer.write(img)
+                    written += 1
+            writer.release()
+            log.info(f"muxed {written} frames -> {self.video_fname} (cv2 mp4v)")
+        except Exception as e:  # noqa: BLE001 - a finished run must not fail on its video
+            log.warn(f"vis.mp4 mux failed ({e}); frames kept in {self.vis_path}")

@@ -3,7 +3,7 @@
 Pixel centers (+0.5) mapped to [-1, 1] per axis and scaled by the
 aspect-preserving factors norm_h = H/max(H,W), norm_w = W/max(H,W); the crop
 variant spans the centered patch_H x patch_W window of the full canvas
-(reference warp.py:33-68).
+(reference warp.py:33-68); `crop_corners` gives that window's four corners.
 """
 
 from __future__ import annotations
@@ -55,3 +55,11 @@ def normalized_pixel_grid(spec: GridSpec, crop: bool = False, device=None) -> to
     x_range = ((xs + 0.5) / spec.W * 2 - 1) * spec.norm_w
     Y, X = torch.meshgrid(y_range, x_range, indexing="ij")  # [h, w]
     return torch.stack([X, Y], dim=-1).reshape(-1, 2)
+
+
+def crop_corners(spec: GridSpec, device=None) -> torch.Tensor:
+    """[4, 2] normalized (x, y) coordinates of the patch window's corners
+    (reference `Warp.warp_corners`, warp.py:86-91)."""
+    Y = [((y + 0.5) / spec.H * 2 - 1) * spec.norm_h for y in spec.y_crop]
+    X = [((x + 0.5) / spec.W * 2 - 1) * spec.norm_w for x in spec.x_crop]
+    return torch.tensor([(X[0], Y[0]), (X[0], Y[1]), (X[1], Y[1]), (X[1], Y[0])], dtype=torch.float32, device=device)

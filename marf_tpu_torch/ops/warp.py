@@ -1,7 +1,9 @@
 """Homography warps on normalized grids (torch twin of marf_tpu/ops/warp.py).
 
 Homogenize, map the 8-vector warp through sl3_to_SL3, apply x @ H^T and
-perspective-divide with +1e-8 (reference warp.py:70-81).
+perspective-divide with +1e-8 (reference warp.py:70-81); `warp_corners`
+maps the patch window's corners for the TensorBoard overlay
+(warp.py:83-93).
 """
 
 from __future__ import annotations
@@ -25,3 +27,10 @@ def warp_grid_cf_flat(xy_grid: torch.Tensor, warp: torch.Tensor, eps: float = 1e
     H = sl3_to_SL3(warp)  # [B, 3, 3]
     warped_hom = torch.einsum("bjk,kn->jbn", H, grid_hom_T).reshape(3, -1)  # [3, B*HW]
     return warped_hom[:2] / (warped_hom[2:3] + eps)
+
+
+def warp_corners(corners: torch.Tensor, warp: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """[4, 2] normalized corner coordinates (`grid.crop_corners`) warped by
+    per-image sl(3) warps [B, 8] -> [B, 4, 2]."""
+    warped_hom = torch.einsum("nk,bjk->bnj", to_hom(corners), sl3_to_SL3(warp))
+    return warped_hom[..., :2] / (warped_hom[..., 2:] + eps)

@@ -1,11 +1,15 @@
-"""TensorBoard scalar writer with the `torch.utils.tensorboard.SummaryWriter`
-calls the trainer makes (`add_scalar`, `flush`, `close`), on tensorboard's
-own event-file writer. tensorboard is imported when a writer is made, so the
-port runs without it while `--tb=` is empty."""
+"""TensorBoard writer with the `torch.utils.tensorboard.SummaryWriter` calls
+the trainer makes (`add_scalar`, `add_image`, `flush`, `close`), on
+tensorboard's own event-file writer (twin of marf_tpu/utils/tb.py).
+tensorboard is imported when a writer is made, so the port runs without it
+while `--tb=` is empty."""
 
 from __future__ import annotations
 
+import io
 import time
+
+import numpy as np
 
 
 class SummaryWriter:
@@ -19,6 +23,25 @@ class SummaryWriter:
         from tensorboard.compat.proto.summary_pb2 import Summary
 
         summary = Summary(value=[Summary.Value(tag=tag, simple_value=float(value))])
+        self._writer.add_event(Event(wall_time=time.time(), step=int(step), summary=summary))
+
+    def add_image(self, tag: str, image, step: int) -> None:
+        """image: [C, H, W] float array in [0, 1] (C in {1, 3, 4}), written
+        as a PNG image summary."""
+        from PIL import Image
+        from tensorboard.compat.proto.event_pb2 import Event
+        from tensorboard.compat.proto.summary_pb2 import Summary
+
+        arr = np.asarray(image)
+        if arr.ndim == 2:
+            arr = arr[None]
+        chw = np.clip(arr, 0.0, 1.0)
+        hwc = (np.transpose(chw, (1, 2, 0)) * 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(hwc[..., 0] if hwc.shape[-1] == 1 else hwc).save(buf, format="PNG")
+        img = Summary.Image(height=chw.shape[1], width=chw.shape[2], colorspace=chw.shape[0],
+                            encoded_image_string=buf.getvalue())
+        summary = Summary(value=[Summary.Value(tag=tag, image=img)])
         self._writer.add_event(Event(wall_time=time.time(), step=int(step), summary=summary))
 
     def flush(self) -> None:
