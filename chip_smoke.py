@@ -29,7 +29,11 @@ Phases, one result line each; any failure exits non-zero:
        points, by the same rule with the bf16 tolerances below, and bounded
        at the card's dense bf16 rate (989 TFLOP/s); K5 and K6 with 5
        per-image heads (the JSON line's numbers), then with the shared head
-       on all N columns, the shape fused_dedup=off gives them.
+       on all N columns, the shape fused_dedup=off gives them;
+     - K6 with column counts at the sharded dedup step's shapes (one head on
+       rank 0's Klp dedup columns of 2 ranks, cnt from
+       slot_dedup_sharded_inputs), at float32 and bf16: printed rows, held
+       as K6's.
   4. main path: the port's trainer (`marf_tpu_torch.engine.trainer.Model`),
      synthetic data, seed 3, each run with the launch counts set to 0 just
      before it and read just after:
@@ -75,8 +79,23 @@ Phases, one result line each; any failure exits non-zero:
      - 10 fused canonical steps each with --optim.algo=AdamW, SGD and
        RMSprop: finite losses, K1 10 times each;
      and the host ms of each vis frame, checkpoint save and restore.
-Then a JSON line with each kernel's numbers (launches: phases 4 and 5), the
-nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+  6. sharded, through the launcher (`marf_tpu_torch.parallel.launch.spawn`,
+     each rank running `marf_tpu_torch.train.main`) on 2 ranks: NCCL with
+     rank r on cuda:r where the machine has two cards, else both on cuda:0
+     over gloo (share_device: correctness, not scaling). Synthetic data,
+     seed 3, B = 5 patches of 180x240 (108,000 of 216,000 positions per
+     rank): canonical (K1) 60 steps with TB and --freq.ckpt=30, fused_warp=off
+     (K2) 20, implicit dedup (K3 -> K1 -> K6 with cnt) 60 and at bf16 20,
+     fused_dedup=off (K5 -> K6) 20, per-image heads at B = 4 (K5 -> K6, two
+     heads per rank) 20. Each rank launches each kernel of its path once per
+     step; the ranks' parameters and Adam state are bitwise equal; each
+     float32 run's first 10 steps' losses and PSNR are within 2e-5 of 1 rank
+     of the same config (bf16 printed); rank 0 alone wrote one events file
+     and ckpt/30, ckpt/60; the 2-rank ckpt/30 resumed on 1 rank is within
+     2e-5 of the 2-rank run over steps 31-40; steps/s at 1 and 2 ranks.
+Then a JSON line with each kernel's numbers (launches: phases 4, 5 and 6,
+summed over the ranks), the nvidia-smi line, and last
+`{"ok": true, "device": {...}}`.
 """
 
 import copy
@@ -170,9 +189,10 @@ def phase_build():
     from marf_tpu_torch.ops.cuda import fused_implicit as fi
     from marf_tpu_torch.ops.cuda import fused_mask as fm
     from marf_tpu_torch.ops.cuda import fused_step as fs
+    from marf_tpu_torch.parallel.launch import build_kernels
 
     t0 = time.perf_counter()
-    _build.build_libraries({"fused_step": fs.SOURCES, "fused_mask": fm.SOURCES, "fused_implicit": fi.SOURCES})
+    build_kernels()
     fs._library()
     fm._library()
     fi._library()
@@ -631,7 +651,45 @@ def phase_kernels(device):
         moved = {k: _rel(v, ref64[k]) for k, v in named6(mask_grads_rounded_forward(stacks64, k6_64[0], cot6)).items()}
         print(f"[kernel] K6 fused_mask_backward_g N={N} heads={n_heads} float64 with the forward rounded at 2^-23 "
               "vs float64: " + " ".join(f"{k}={v:.2e}" for k, v in moved.items()), flush=True)
+
+    # K6 with column counts at the sharded dedup step's shapes (phase 6):
+    # one head on rank 0's block of Klp dedup columns, cnt from
+    # slot_dedup_sharded_inputs at 2 ranks; printed rows held as K6's above
+    (layers, Xc, cnt_c, seg_sq, seg_esq, abk_c, c_c), Klp = sharded_dedup_inputs(cfg, data, device, 2)
+    layers64 = [(w.double(), b.double()) for w, b in layers]
+    hw6 = [t for wb in layers for t in wb]
+    k6c = (Xc, seg_sq, seg_esq, abk_c)
+    k6c_64 = tuple(t.double() for t in k6c)
+    for dt, extra in (("float32", {}), ("bfloat16", BF16)):
+        check_kernel(
+            f"K6{' bf16' if extra else ''} fused_mask_backward_g with cnt, sharded dedup columns Klp={Klp} heads=1",
+            lambda: named6(fm.fused_mask_backward_g([layers], *k6c, c_c, cnt_c, dt)),
+            lambda: named6(fm.fused_mask_backward_g_reference([layers], *k6c, c_c, cnt_c, dt)),
+            lambda: named6(fm.fused_mask_backward_g_reference([layers64], *k6c_64, c_c, cnt_c.double(), dt)),
+            (), _mlp_flops(Klp, mdims, len(mdims) - 2), _nbytes(*k6c, cnt_c, *hw6) + _nbytes(*hw6),
+            **extra,
+        )
     return results
+
+
+def sharded_dedup_inputs(cfg, data, device, n_ranks):
+    """K6's inputs on the sharded dedup step's rank 0 (phase 6): the dedup
+    columns of the synthetic batch with a few saturated pixels, laid out by
+    slot_dedup_sharded_inputs for n_ranks, rank 0's Klp columns of X and of
+    the column counts, segment sums of a plausible sq and esq (a column's
+    sum over its cnt positions), the cotangent scalars. Returns ((layers, X,
+    cnt, Ssq, Sesq, abk, c), Klp)."""
+    from marf_tpu_torch.ops.cuda import fused_mask as fm
+
+    rng, (head,), uv, onehot, table = factored_batch(cfg, data, device)
+    X_pad, _, cnt_pad, _, _, _ = fm.slot_dedup_sharded_inputs(uv.numpy(), onehot.numpy(), n_ranks)
+    Klp = X_pad.shape[1] // n_ranks
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    cnt = cnt_pad[:, :Klp]
+    N = onehot.shape[0] * onehot.shape[2]
+    abk = d([2.0 / (3 * 0.7 * N), 1e-6, -1e-5])
+    return (fm.mask_w_stack(head, table), d(X_pad[:, :Klp]), d(cnt), d(rng.rand(1, Klp) * 0.05 * cnt),
+            d(rng.rand(1, Klp) * 0.5 * cnt), abk, 2.0 * 1.5 / N), Klp
 
 
 def options(out_root: str, name: str, iters: int, *extra):
@@ -1022,6 +1080,128 @@ def phase_lifecycle(out_root: str):
     return total
 
 
+# phase 6: per-step losses and PSNR of a float32 run on 2 ranks against
+# 1 rank of the same config over its first 10 steps (marf_tpu's mesh
+# tolerance, tests/test_parallel.py)
+SHARD_RTOL = 2e-5
+SHARD_RANKS = 2
+
+
+def _sharded_runs(implicit, single, bf16):
+    """Phase 6's runs: (name, extra flags, steps, launches per rank per step,
+    launches per step of 1 rank, held to 1 rank). The sharded dedup step
+    runs K6 with column counts where 1 rank runs K4."""
+    k1, k6 = "fused_train_kernel_warp", "fused_mask_backward_g"
+    dedup = {"fused_mask_forward": 1, k1: 1, k6: 1}
+    dedup1 = {"fused_mask_forward": 1, k1: 1, "fused_mask_backward_dedup": 1}
+    heads = {"fused_implicit_train_kernel": 1, k6: 1}
+    bf = lambda d: {f"{k}_bf16": v for k, v in d.items()}
+    return [
+        ("canonical", ("--freq.ckpt=30", "--tb.num_images=[4,8]"), 60, {k1: 1}, {k1: 1}, True),
+        ("warp_off", ("--tpu.fused_warp=off",), 20, {"fused_train_kernel": 1}, {"fused_train_kernel": 1}, True),
+        ("implicit", implicit, 60, dedup, dedup1, True),
+        ("implicit_bf16", (*implicit, bf16), 20, bf(dedup), bf(dedup1), False),
+        ("implicit_dedup_off", (*implicit, "--tpu.fused_dedup=off"), 20, heads, heads, True),
+        ("implicit_single_B4", (*single, "--batch_size=4"), 20, heads, heads, True),
+    ]
+
+
+def phase_sharded(out_root: str, smi: str):
+    """Phase 6: pixel-sharded training on 2 ranks through the launcher
+    (marf_tpu_torch.parallel.launch.spawn, each rank running
+    marf_tpu_torch.train.main): NCCL with rank r on cuda:r on a machine with
+    two cards, else both ranks on cuda:0 over gloo (share_device). Each run
+    beside 1 rank of the same config; the replicas' digests, each rank's
+    launches, rank 0's outputs, and a 1-rank resume of the 2-rank ckpt/30.
+    Returns the launches of its runs (the 2-rank runs' summed over the
+    ranks)."""
+    import shutil
+
+    from marf_tpu_torch.parallel.launch import run_each, spawn, train_rank
+    from marf_tpu_torch.train import main as train_main
+    from marf_tpu_torch.utils.config import parse_arguments, set_opt
+
+    t0 = time.perf_counter()
+    os.environ["MARF_YES"] = "1"
+    share = torch.cuda.device_count() < SHARD_RANKS
+    implicit = ("--use_implicit_mask", "--use_masks=false")
+    runs = _sharded_runs(implicit, (*implicit, "--build_single_masks"), "--tpu.compute_dtype=bfloat16")
+
+    def args(name, iters, *extra):
+        return ["--model=planar", "--yaml=planar", "--group=sharded", f"--name={name}", "--seed=3",
+                "--barf_c2f=[0,0.4]", "--dataset=synthetic", f"--max_iter={iters}", f"--freq.scalar={min(iters, 20) // 2}",
+                f"--freq.vis={iters}", f"--output_root={out_root}", "--tpu.fused_step=on",
+                *([] if any(e.startswith("--tb.") for e in extra) else ["--tb="]), *extra]
+
+    calls = []
+    for name, extra, iters, *_ in runs:
+        argv = args(f"{name}_2ranks", iters, f"--tpu.n_devices={SHARD_RANKS}", *extra)
+        calls.append((train_rank, (argv, set_opt(parse_arguments(argv), interactive=False))))
+    layout = (f"{SHARD_RANKS} ranks sharing cuda:0 over gloo (share_device; this machine has "
+              f"{torch.cuda.device_count()} card): correctness, not scaling" if share else
+              f"{SHARD_RANKS} ranks over NCCL, one card each")
+    print(f"[sharded] {layout}; {len(runs)} runs in one spawn of the ranks", flush=True)
+    t_spawn = time.perf_counter()
+    per_rank = spawn(run_each, SHARD_RANKS, (calls,), share_device=share, timeout_s=600)
+    t_spawn = time.perf_counter() - t_spawn
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    print(f"[sharded] rank -> device: " + ", ".join(f"{r[0]['rank']} -> {r[0]['device']} ({r[0]['backend']})"
+                                                     for r in per_rank), flush=True)
+    for i, (name, extra, iters, per_step, per_step1, held) in enumerate(runs):
+        ranks = [r[i] for r in per_rank]
+        want = {k: v * iters for k, v in per_step.items()}
+        for r in ranks:
+            if r["launches"] != want or r["it"] != iters:
+                fail(f"sharded {name}: rank {r['rank']} launched {r['launches']} in {r['it']} steps, expected {want}")
+            add(r["launches"])
+        if len({r["digest"] for r in ranks}) != 1:
+            fail(f"sharded {name}: the ranks' parameters and optimizer state differ (digests "
+                 f"{[r['digest'][:12] for r in ranks]})")
+        h2 = {k: np.concatenate([h[k] for h in ranks[0]["history"]]) for k in ranks[0]["history"][0]}
+        if not (np.isfinite(h2["all"]).all() and (h2["finite"] == 1).all()):
+            fail(f"sharded {name}: non-finite loss")
+        m1, c1 = _launch_counts(lambda: train_main(args(f"{name}_1rank", iters, *extra)))
+        h1 = _expect(f"sharded {name} on 1 rank", m1, c1, {k: v * iters for k, v in per_step1.items()}, iters)
+        add(c1)
+        gaps = {k: float(np.max(np.abs(h2[k][:10] - h1[k][:10]) / np.abs(h1[k][:10]))) for k in ("loss_rgb", "all", "PSNR")}
+        line = (f"[sharded] {name}: launches per rank {ranks[0]['launches']}, replicas bitwise equal, steps/s "
+                f"{SHARD_RANKS} ranks {ranks[0]['steps_per_sec']:.2f} vs 1 rank {m1.steps_per_sec:.2f}; "
+                f"first-10-step rel diff vs 1 rank " + " ".join(f"{k}={v:.2e}" for k, v in gaps.items()))
+        if held:
+            print(line + f" (tol {SHARD_RTOL:.0e})", flush=True)
+            if not max(gaps.values()) <= SHARD_RTOL:
+                fail(f"sharded {name}: {SHARD_RANKS} ranks vs 1 rank over the first 10 steps: {gaps} > {SHARD_RTOL:.0e}")
+        else:
+            print(line + " (bf16: printed, not held)", flush=True)
+        if name == "canonical":
+            run = ranks[0]["output_path"]
+            events = [f for f in os.listdir(run) if f.startswith("events.")]
+            ckpts = sorted(os.listdir(os.path.join(run, "ckpt")), key=int)
+            if len(events) != 1 or ckpts != ["30", "60"]:
+                fail(f"sharded canonical: events {events}, checkpoints {ckpts}; expected one events file, 30 and 60")
+            # the 2-rank ckpt/30 resumed on 1 rank
+            resumed = os.path.join(os.path.dirname(run), "canonical_resume1_seed3")
+            shutil.copytree(run, resumed)
+            shutil.rmtree(os.path.join(resumed, "ckpt", "60"))
+            m_r, c_r = _launch_counts(lambda: train_main(args("canonical_resume1", iters, *extra, "--resume=30")))
+            h_r = _expect("sharded resume on 1 rank", m_r, c_r, {k: v * 30 for k, v in per_step.items()}, iters)
+            add(c_r)
+            gap = {k: float(np.max(np.abs(h_r[k][:10] - h2[k][30:40]) / np.abs(h2[k][30:40])))
+                   for k in ("loss_rgb", "all", "PSNR")}
+            print(f"[sharded] canonical: rank 0 wrote {events[0]} and ckpt {ckpts}; ckpt/30 of {SHARD_RANKS} ranks "
+                  f"resumed on 1 rank: steps 31-40 rel diff " + " ".join(f"{k}={v:.2e}" for k, v in gap.items())
+                  + f" (tol {SHARD_RTOL:.0e})", flush=True)
+            if not max(gap.values()) <= SHARD_RTOL:
+                fail(f"sharded resume on 1 rank: {gap} > {SHARD_RTOL:.0e}")
+    print(f"[sharded] phase 6 {time.perf_counter() - t0:.1f} s ({SHARD_RANKS}-rank spawn {t_spawn:.1f} s); "
+          f"{layout}; steps/s above on {smi}", flush=True)
+    return total
+
+
 KERNELS = [
     ("K1", "fused_train_kernel_warp", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:272"),
     ("K2", "fused_train_kernel", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:208"),
@@ -1057,8 +1237,11 @@ def main():
         t_main = time.perf_counter() - t0 - t_kernels
         for k, v in phase_lifecycle(tmp).items():
             launches[k] = launches.get(k, 0) + v
-    print(f"[time] build and kernels {t_kernels:.1f} s, main path {t_main:.1f} s, lifecycle "
-          f"{time.perf_counter() - t0 - t_kernels - t_main:.1f} s", flush=True)
+        t_life = time.perf_counter() - t0 - t_kernels - t_main
+        for k, v in phase_sharded(tmp, smi).items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"[time] build and kernels {t_kernels:.1f} s, main path {t_main:.1f} s, lifecycle {t_life:.1f} s, sharded "
+          f"{time.perf_counter() - t0 - t_kernels - t_main - t_life:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
          **results[kid], "library_ms": None}

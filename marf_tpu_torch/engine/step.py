@@ -25,6 +25,9 @@ Homography_Error from the post-update warp, Mask_Error of the pre-update mask
 (implicit masks with premade masks), and the fix_first re-zero of warp 0
 (reference model/planar.py:156-158), in that order.
 
+`finish_step` (the optimizer step and the metrics) and `step_schedules` are
+shared with the pixel-sharded step of marf_tpu_torch/parallel/shard_fused.py.
+
 Per-step constants (the flat target/mask/grid streams, 1/(3 sum m) of fixed
 masks, the mask-head inputs X or their dedup structures, and the progress /
 alpha / c2f schedules for every step) are built once when the step is made,
@@ -259,10 +262,8 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     B = cfg.batch_size
     HW = h * w
     N = B * HW
-    steps = torch.arange(cfg.max_iter + 1, device=device)
-    progress = steps.to(torch.float32) / cfg.max_iter
+    steps, progress, alphas, cws = step_schedules(cfg, device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    alphas = alpha_schedule(steps, cfg.max_iter, cfg.alpha_initial, cfg.alpha_final) if cfg.use_edges else zero.expand(len(steps))
     gt_hom = data.get("gt_hom") if use_homographies else None
     masks_ref = None  # the premade masks, [1, N], for Mask_Error
     if cfg.use_implicit_mask and cfg.use_masks and data.get("masks") is not None:
@@ -282,8 +283,6 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     if fused or fused_implicit:
         from marf_tpu_torch.ops.cuda.fused_step import fused_train_kernel, fused_train_kernel_warp
 
-        arch = cfg.arch
-        cws = barf_c2f_weights(progress, tuple(arch.barf_c2f), arch.posenc_L) if (arch.posenc_L and arch.barf_c2f is not None) else None
         targets_cf = data["rgb"].permute(1, 0, 2, 3).reshape(3, N).contiguous()
         if (fused or dedup) and not coords_kernel:
             # the kernel's (u, v, b) stream: the unwarped grid repeated per image
@@ -464,25 +463,48 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
 
     def step_fn(step: int, heavy: bool = True) -> dict:
         loss, mask_cf = grads_fn(step, heavy)
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        metrics = {f"loss_{k}": v for k, v in loss.items()}
-        metrics["all"] = summarize_loss(loss, cfg.loss_weight)
-        metrics["PSNR"] = psnr_from_rgb_loss(loss["rgb"])
-        metrics["finite"] = check_finite(loss)
-        with torch.no_grad():
-            if gt_hom is not None:
-                metrics["Homography_Error"] = (
-                    homography_error(sl3_to_SL3(graph.warp), gt_hom) if (heavy or not lazy) else zero
-                )
-            if masks_ref is not None:
-                metrics["Mask_Error"] = mse(mask_cf, masks_ref) if (heavy or not lazy) else zero
-            if cfg.fix_first:
-                graph.warp[0].zero_()
-        return metrics
+        mask_error = None if masks_ref is None else (lambda: mse(mask_cf, masks_ref))
+        return finish_step(cfg, graph, optimizer, scheduler, loss, heavy, lazy, gt_hom, mask_error)
 
     return step_fn
+
+
+def step_schedules(cfg: PlanarConfig, device) -> tuple:
+    """The per-step constants of a run, indexed by step: (steps [max_iter + 1]
+    int, progress, alpha (zeros without edges), the c2f band weights [.., L]
+    or None)."""
+    steps = torch.arange(cfg.max_iter + 1, device=device)
+    progress = steps.to(torch.float32) / cfg.max_iter
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    alphas = alpha_schedule(steps, cfg.max_iter, cfg.alpha_initial, cfg.alpha_final) if cfg.use_edges else zero.expand(len(steps))
+    arch = cfg.arch
+    cws = barf_c2f_weights(progress, tuple(arch.barf_c2f), arch.posenc_L) if (arch.posenc_L and arch.barf_c2f is not None) else None
+    return steps, progress, alphas, cws
+
+
+def finish_step(cfg: PlanarConfig, graph: Graph, optimizer, scheduler, loss: dict, heavy: bool, lazy: bool, gt_hom,
+                mask_error=None) -> dict:
+    """What every step does once its gradients are set: the optimizer and LR
+    scheduler step, then the metrics (the loss terms and PSNR of the
+    pre-update forward, Homography_Error of the post-update warp,
+    `mask_error()` of the pre-update mask when given; with lazy metrics
+    those two only when `heavy`, 0 otherwise) and the fix_first re-zero."""
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+    zero = torch.zeros((), dtype=torch.float32, device=graph.warp.device)
+    metrics = {f"loss_{k}": v for k, v in loss.items()}
+    metrics["all"] = summarize_loss(loss, cfg.loss_weight)
+    metrics["PSNR"] = psnr_from_rgb_loss(loss["rgb"])
+    metrics["finite"] = check_finite(loss)
+    with torch.no_grad():
+        if gt_hom is not None:
+            metrics["Homography_Error"] = homography_error(sl3_to_SL3(graph.warp), gt_hom) if (heavy or not lazy) else zero
+        if mask_error is not None:
+            metrics["Mask_Error"] = mask_error() if (heavy or not lazy) else zero
+        if cfg.fix_first:
+            graph.warp[0].zero_()
+    return metrics
 
 
 def run_chunk(step_fn, start: int, n: int) -> dict[str, np.ndarray]:

@@ -16,6 +16,15 @@ boundary and at the end (unless `save_checkpoint: false`); `vis.mp4` from the
 frames at the end. The step's constants (the flat streams, the mask-head
 inputs and their dedup structures) are built once when `train` makes the
 step.
+
+With more than one device (`tpu.n_devices` or MARF_DEVICES, `resolve_n_devices`)
+the Model is one rank of a pixel-sharded run (marf_tpu_torch/parallel/): it is
+given its `Mesh`, every rank loads or synthesizes the same dataset, takes rank
+0's initial parameters and trains its block of the pixel axis
+(parallel/shard_fused.py). Rank 0 alone writes the TB events, vis frames, the
+mp4 and the checkpoints; the ranks meet at a barrier after each checkpoint
+write and before a restore. The checkpoint is the single-card one, so a run
+resumes on another number of ranks.
 """
 
 from __future__ import annotations
@@ -34,21 +43,46 @@ from marf_tpu_torch.engine.step import chunk_schedule, make_optimizer, make_trai
 from marf_tpu_torch.models.planar import Graph, PlanarConfig, graph_forward
 from marf_tpu_torch.ops.grid import crop_corners, normalized_pixel_grid
 from marf_tpu_torch.ops.warp import warp_corners
+from marf_tpu_torch.parallel.mesh import barrier
 from marf_tpu_torch.utils import vis as vis_lib
 from marf_tpu_torch.utils.config import resolve_device
 from marf_tpu_torch.utils.console import IterTimer, colorcode_to_number, log
 
 
-class Model:
-    """Planar bundle-adjustment trainer (the reference Model's lifecycle)."""
+def resolve_n_devices(opt) -> int:
+    """Number of ranks: env MARF_DEVICES > --tpu.n_devices > 'auto' (twin of
+    marf_tpu's `_resolve_n_devices`). 'auto' is the world a torchrun launch
+    set (WORLD_SIZE), else 1; marf_tpu's takes every chip of a TPU slice."""
+    raw = os.environ.get("MARF_DEVICES")
+    if raw is None:
+        raw = (opt.get("tpu") or {}).get("n_devices", "auto")
+    if raw in (None, "", "auto"):
+        return int(os.environ.get("WORLD_SIZE", 1))
+    n = int(raw)
+    if n < 1:
+        raise ValueError(f"tpu.n_devices={n}: need at least 1")
+    return n
 
-    def __init__(self, opt):
+
+class Model:
+    """Planar bundle-adjustment trainer (the reference Model's lifecycle);
+    with `mesh`, one rank of a pixel-sharded run."""
+
+    def __init__(self, opt, mesh=None):
         self.opt = opt
         self.cfg = PlanarConfig.from_options(opt)
-        n_dev = (opt.get("tpu") or {}).get("n_devices", "auto")
-        if n_dev not in (None, "", "auto", 1) or os.environ.get("MARF_DEVICES") not in (None, "", "1"):
-            raise NotImplementedError("multi-device training is not ported yet (ROADMAP.md Queue 1, slice 5)")
+        n_dev = resolve_n_devices(opt)
+        if (mesh.world_size if mesh else 1) != n_dev:
+            raise RuntimeError(f"{n_dev} devices asked for, {mesh.world_size if mesh else 1} rank(s) given: start the "
+                               "ranks through marf_tpu_torch.train.main or torchrun")
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
         self.device = resolve_device(bool(opt.get("cpu")))
+        if mesh is not None:
+            from marf_tpu_torch.parallel.shard_fused import check_shardable
+
+            self.device = mesh.device
+            check_shardable(self.cfg, n_dev, self.device)
         self.dataset = opt.get("dataset")
         os.makedirs(opt.output_path, exist_ok=True)
         self.use_homographies = bool(opt.get("use_homographies", False))
@@ -101,6 +135,10 @@ class Model:
             from marf_tpu_torch.utils.torch_init import load_torch_init
 
             load_torch_init(self.graph, torch_init)
+        if self.mesh is not None:
+            from marf_tpu_torch.parallel.mesh import broadcast_module
+
+            broadcast_module(self.graph)
 
     def setup_optimizer(self):
         """Phase 3: per-group optimizer (reference model/planar.py:86-104),
@@ -114,6 +152,7 @@ class Model:
             raise FileNotFoundError(f"no checkpoint to restore (load={load!r}, resume={resume!r}) "
                                     f"under {self.opt.output_path}")
         if restore:
+            barrier(self.mesh)  # a checkpoint another rank is writing is whole before any rank reads it
             log.info(f"restoring checkpoint from {restore}")
             self.it = restore_checkpoint(restore, self.graph, self.optimizer, self.scheduler, self.device)
 
@@ -122,14 +161,15 @@ class Model:
         directory and the per-image border colors (reference
         model/planar.py:106-134)."""
         log.info("setting up visualizers...")
-        if self.opt.get("tb") is not None:
+        if self.opt.get("tb") is not None and self.is_main:
             from marf_tpu_torch.utils.tb import SummaryWriter
 
             self.tb = SummaryWriter(log_dir=self.opt.output_path, flush_secs=10)
         colors = [colorcode_to_number(c) for c in vis_lib.BOX_COLORS[: self.cfg.batch_size]]
         self.box_colors = np.array(colors).astype(int)
         self.vis_path = f"{self.opt.output_path}/vis"
-        os.makedirs(self.vis_path, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.vis_path, exist_ok=True)
         self.video_fname = f"{self.opt.output_path}/vis.mp4"
 
     # ------------------------------------------------------------------ train
@@ -139,14 +179,20 @@ class Model:
         log.title("TRAINING START")
         self.timer = IterTimer()
         freq = self.opt.freq
-        step_fn = make_train_step(
-            self.cfg, self.graph, self.optimizer, self.data, self.scheduler, use_homographies=self.use_homographies
-        )
+        if self.mesh is None:
+            step_fn = make_train_step(self.cfg, self.graph, self.optimizer, self.data, self.scheduler,
+                                      use_homographies=self.use_homographies)
+        else:
+            from marf_tpu_torch.parallel.shard_fused import make_sharded_train_step
+
+            step_fn = make_sharded_train_step(self.cfg, self.graph, self.optimizer, self.data, self.mesh, self.scheduler,
+                                              use_homographies=self.use_homographies)
         max_iter = int(self.cfg.max_iter)
         ckpt_freq = freq.get("ckpt")
         c = chunk_schedule(max_iter, freq.scalar, freq.vis, ckpt_freq)
-        self.visualize(step=0)  # reference model/planar.py:152-153
-        pbar = tqdm.tqdm(total=max_iter, desc="Training", leave=False, initial=self.it)
+        if self.is_main:
+            self.visualize(step=0)  # reference model/planar.py:152-153
+        pbar = tqdm.tqdm(total=max_iter, desc="Training", leave=False, initial=self.it, disable=not self.is_main)
         postfix = {}
         try:
             while self.it < max_iter:
@@ -171,7 +217,7 @@ class Model:
                     )
                 pbar.update(n)
                 pbar.set_postfix(**postfix)
-                if self.it % freq.vis == 0:
+                if self.it % freq.vis == 0 and self.is_main:
                     self.visualize(step=self.it)
                 if ckpt_freq and self.it % ckpt_freq == 0:
                     self.save_checkpoint()
@@ -179,17 +225,23 @@ class Model:
             pbar.close()
         if self.opt.get("save_checkpoint", True) and self._saved_at != self.it:
             self.save_checkpoint()
-        self._mux_video()
+        if self.is_main:
+            self._mux_video()
         if self.tb:
             self.tb.flush()
             self.tb.close()
         log.info(f"mean steps/sec: {self.steps_per_sec:.2f}")
         log.title("TRAINING DONE")
 
-    def save_checkpoint(self) -> str:
-        """The training state at `self.it` under `<output_path>/ckpt/<it>`."""
+    def save_checkpoint(self) -> str | None:
+        """The training state at `self.it` under `<output_path>/ckpt/<it>`,
+        written by rank 0; every rank waits for it."""
         self._saved_at = self.it
-        return save_checkpoint(self.opt.output_path, self.it, self.graph, self.optimizer, self.scheduler)
+        path = None
+        if self.is_main:
+            path = save_checkpoint(self.opt.output_path, self.it, self.graph, self.optimizer, self.scheduler)
+        barrier(self.mesh)
+        return path
 
     @property
     def steps_per_sec(self) -> float:

@@ -22,6 +22,11 @@ result. The backward's segment sums are a fixed-order sum over B for slot0
 (inside K4) and E-sized gathers for the extras (in `base`); no float
 scatter-add, so the step stays bitwise reproducible.
 
+The pixel-sharded step (parallel/shard_fused.py) lays the same columns out
+per rank (`slot_dedup_sharded_inputs`): the dedup columns split into
+contiguous blocks apart from the positions, the extras grouped by the rank
+that owns their position.
+
 Without dedup (per-image heads, or the shared head under fused_dedup=off)
 the head sees all N columns of X = `build_mask_x`, head h its column block
 [h HW, (h+1) HW).
@@ -128,6 +133,61 @@ def slot_dedup_inputs(uv: np.ndarray, onehot: np.ndarray):
     extmap = (combo[:, pix_e] == cmb_e[None]).astype(np.float32)  # [B, E]
     cnt_all = np.concatenate([slot0map.sum(0), extmap.sum(0)])[None].astype(np.float32)
     return X_all, slot0map, pix_e.astype(np.int32), extmap, cnt_all
+
+
+def slot_dedup_sharded_inputs(uv: np.ndarray, onehot: np.ndarray, n_devices: int):
+    """Per-rank dedup structures of the pixel-sharded step (copy of
+    marf_tpu/ops/pallas/fused_mask.py `slot_dedup_sharded_inputs`).
+
+    The position axis N = B*HW is sharded contiguously (rank d owns
+    [d Nl, (d+1) Nl)); the dedup column axis K = HW + E is padded and sharded
+    independently. slot0 stays dense per rank (p = n mod HW is affine over a
+    contiguous block); the extras' (position, column) pairs are grouped by
+    the rank that owns the position, so a step's gathers are Eloc-sized.
+
+    One difference from marf_tpu: K is padded to a multiple of 4 D, not D,
+    so each rank's Klp = K_pad / D columns stay on the multiple of 4 floats
+    that the kernels' 16-byte X reads need (engine/step.py
+    DEDUP_COLUMN_MULTIPLE). The extra columns have X = 0 and
+    cnt = 0; on marf_tpu's own K_pad columns every array equals marf_tpu's.
+
+    Args:
+      uv: [42, HW]; onehot: [B, 8, HW] (factor_mask_inputs, as numpy).
+      n_devices: the world size D (N % D == 0).
+
+    Returns:
+      (X_pad [56, K_pad], slot0map_flat [1, N] f32, cnt_pad [1, K_pad] f32,
+       ext_off [D, Eloc] i32 position offsets within the owning rank's block,
+       ext_col [D, Eloc] i32 global column (>= HW),
+       ext_val [D, Eloc] f32 1 for a real pair, 0 for padding).
+    """
+    X_all, slot0map, ext_pix, extmap, cnt_all = slot_dedup_inputs(uv, onehot)
+    B, HW = slot0map.shape
+    N = B * HW
+    D = int(n_devices)
+    if N % D:
+        raise ValueError(f"position axis {N} must divide over {D} ranks")
+    Nl = N // D
+    K = X_all.shape[1]
+    K_pad = 4 * D * (-(-K // (4 * D)))
+    X_pad = np.pad(X_all, ((0, 0), (0, K_pad - K))).astype(np.float32)
+    cnt_pad = np.pad(cnt_all, ((0, 0), (0, K_pad - K))).astype(np.float32)
+    slot0map_flat = slot0map.reshape(1, N).astype(np.float32)
+
+    bb, jj = np.nonzero(extmap)  # each pair covers exactly one position
+    n_pos = bb * HW + ext_pix[jj]
+    dev = n_pos // Nl
+    per_dev = [np.flatnonzero(dev == d) for d in range(D)]
+    Eloc = max((len(s) for s in per_dev), default=0)
+    ext_off = np.zeros((D, Eloc), np.int32)
+    ext_col = np.zeros((D, Eloc), np.int32)
+    ext_val = np.zeros((D, Eloc), np.float32)
+    for d, sel in enumerate(per_dev):
+        k = len(sel)
+        ext_off[d, :k] = n_pos[sel] - d * Nl
+        ext_col[d, :k] = HW + jj[sel]
+        ext_val[d, :k] = 1.0
+    return X_pad, slot0map_flat, cnt_pad, ext_off, ext_col, ext_val
 
 
 def mask_w_stack(head, table: torch.Tensor) -> list:

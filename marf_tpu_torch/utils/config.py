@@ -149,13 +149,18 @@ def set_opt(opt_cmd=None, interactive=None) -> AttrDict:
     return opt
 
 
+def seed_rngs(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global RNGs."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
 def process_options(opt: AttrDict) -> None:
     """Seed the RNGs, derive the run name and output path (reference
     options.py:99-120) and resolve `opt.device`."""
     if opt.get("seed") is not None:
-        random.seed(opt.seed)
-        np.random.seed(opt.seed)
-        torch.manual_seed(opt.seed)
+        seed_rngs(opt.seed)
         if opt.seed != 0:
             opt.name = f"{opt.name}_seed{opt.seed}"
     else:

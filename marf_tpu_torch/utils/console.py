@@ -9,19 +9,29 @@ import time
 
 
 class Log:
+    """`quiet` silences everything but warnings (the ranks other than 0 of a
+    sharded run)."""
+
+    quiet = False
+
     def process(self, pid):
-        print(f"Process ID: {pid}", flush=True)
+        if not self.quiet:
+            print(f"Process ID: {pid}", flush=True)
 
     def title(self, message):
-        print(message, flush=True)
+        if not self.quiet:
+            print(message, flush=True)
 
     def info(self, message):
-        print(message, flush=True)
+        if not self.quiet:
+            print(message, flush=True)
 
     def warn(self, message):
         print(f"WARNING: {message}", flush=True)
 
     def options(self, opt, level=0):
+        if self.quiet:
+            return
         for key, value in sorted(opt.items()):
             if isinstance(value, dict):
                 print("   " * level + f"* {key}:")

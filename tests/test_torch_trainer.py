@@ -179,7 +179,8 @@ def test_device_resolution_without_cuda(monkeypatch, tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """Neither jax nor any module of marf_tpu (the JAX package) is imported,
-    on the canonical path and on the implicit-mask path."""
+    on the canonical path and on the implicit-mask path, nor by the
+    multi-device modules (marf_tpu_torch/parallel/)."""
     code = f"""
 import sys
 from marf_tpu_torch.train import main
@@ -192,6 +193,7 @@ m = main(["--model=planar", "--yaml=planar", "--cpu", "--output_root={tmp_path}"
 assert m.it == 2
 import marf_tpu_torch.ops.cuda._build, marf_tpu_torch.ops.cuda.fused_step, marf_tpu_torch.ops.cuda.fused_mask
 import marf_tpu_torch.utils.params
+import marf_tpu_torch.parallel.mesh, marf_tpu_torch.parallel.shard_fused, marf_tpu_torch.parallel.launch
 leaked = sorted(k for k in sys.modules if k in ("jax", "marf_tpu") or k.startswith(("jax.", "jaxlib", "flax", "optax", "marf_tpu.")))
 assert not leaked, leaked
 print("JAX-FREE")
