@@ -213,6 +213,19 @@ def test_unshardable_configs_raise(tmp_path):
               "--use_implicit_mask", "--build_single_masks", "--N_vocab=8", *TINY])
 
 
+def test_more_ranks_than_cards_raise(monkeypatch):
+    """On CUDA the launcher needs a card per rank, unless the ranks share one
+    (share_device); without a card it raises before it starts a rank."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 ranks need 2 CUDA cards, 1 visible"):
+        launch.spawn(launch.run_each, 2, ([],), timeout_s=SPAWN_TIMEOUT_S)
+    launch.check_cards(2, share_device=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.check_cards(1, share_device=True)
+
+
 def test_failing_rank_stops_the_launcher():
     """Rank 1 raises at once while rank 0 waits in its first collective: the
     launcher stops rank 0 and raises, well inside its timeout."""
