@@ -652,43 +652,117 @@ def phase_kernels(device):
         print(f"[kernel] K6 fused_mask_backward_g N={N} heads={n_heads} float64 with the forward rounded at 2^-23 "
               "vs float64: " + " ".join(f"{k}={v:.2e}" for k, v in moved.items()), flush=True)
 
-    # K6 with column counts at the sharded dedup step's shapes (phase 6):
-    # one head on rank 0's block of Klp dedup columns, cnt from
-    # slot_dedup_sharded_inputs at 2 ranks; printed rows held as K6's above
-    (layers, Xc, cnt_c, seg_sq, seg_esq, abk_c, c_c), Klp = sharded_dedup_inputs(cfg, data, device, 2)
-    layers64 = [(w.double(), b.double()) for w, b in layers]
-    hw6 = [t for wb in layers for t in wb]
-    k6c = (Xc, seg_sq, seg_esq, abk_c)
-    k6c_64 = tuple(t.double() for t in k6c)
-    for dt, extra in (("float32", {}), ("bfloat16", BF16)):
+    # the kernels at phase 6's shapes (2 ranks), each held as at full shape:
+    # K1 and K2 on rank 1's block of the positions (it starts 21,600 pixels
+    # into image 2); K3 and K6 with the column counts (cnt from
+    # slot_dedup_sharded_inputs) on each rank's block of the dedup columns
+    # (rank 1's ends in the pad columns); K5 and K6 on rank 1's block with 1
+    # head (fused_dedup=off) and on 2 heads of HW columns (per-image heads at
+    # B = 4). Printed rows; the JSON line keeps the full shapes' numbers.
+    ranks = SHARD_RANKS
+    Nl = N // ranks
+    blk = lambda t: t[:, N - Nl :].contiguous()  # noqa: E731
+    k1r = (blk(grid_b), H, cw, blk(targets), blk(masks), g, inv_sum3)
+    k1r_64 = tuple(t.double() for t in k1r)
+    for dt, extra in (("float32", {}), (bf, BF16)):
         check_kernel(
-            f"K6{' bf16' if extra else ''} fused_mask_backward_g with cnt, sharded dedup columns Klp={Klp} heads=1",
-            lambda: named6(fm.fused_mask_backward_g([layers], *k6c, c_c, cnt_c, dt)),
-            lambda: named6(fm.fused_mask_backward_g_reference([layers], *k6c, c_c, cnt_c, dt)),
-            lambda: named6(fm.fused_mask_backward_g_reference([layers64], *k6c_64, c_c, cnt_c.double(), dt)),
-            (), _mlp_flops(Klp, mdims, len(mdims) - 2), _nbytes(*k6c, cnt_c, *hw6) + _nbytes(*hw6),
-            **extra,
+            f"K1{' bf16' if extra else ''} fused_train_kernel_warp, rank 1 of {ranks}: N={Nl}",
+            lambda: _named(*fs.fused_train_kernel_warp(net, *k1r, compute_dtype=dt), "dH"),
+            lambda: _named(*fs.fused_train_kernel_warp_reference(net, *k1r, dt), "dH"),
+            lambda: _named(*fs.fused_train_kernel_warp_reference(net64, *k1r_64, dt), "dH"),
+            ("rgb", "sq", "loss"), _mlp_flops(Nl, dims, len(dims) - 1),
+            _nbytes(*k1r, *weights) + (3 + 1) * Nl * 4 + _nbytes(*weights) + _nbytes(H), **extra,
+        )
+    k2r = (blk(coords), cw, blk(targets), blk(masks), g, inv_sum3)
+    k2r_64 = tuple(t.double() for t in k2r)
+    check_kernel(
+        f"K2 fused_train_kernel, rank 1 of {ranks}: N={Nl}",
+        lambda: _named(*fs.fused_train_kernel(net, *k2r), "dcoords"),
+        lambda: _named(*fs.fused_train_kernel_reference(net, *k2r), "dcoords"),
+        lambda: _named(*fs.fused_train_kernel_reference(net64, *k2r_64), "dcoords"),
+        ("rgb", "sq", "loss"), _mlp_flops(Nl, dims, len(dims) - 1),
+        _nbytes(*k2r, *weights) + (3 + 1) * Nl * 4 + _nbytes(*weights) + _nbytes(k2r[0]),
+        per_point={"dcoords": lambda r64: dcoords_error_scale(net64, *k2r_64[:4], 2.0 * k2r_64[4] * k2r_64[5])},
+    )
+    for rank in range(ranks):
+        (layers, Xc, cnt_c, seg_sq, seg_esq, abk_c, c_c), Klp = sharded_dedup_inputs(cfg, data, device, ranks, rank)
+        layers64 = [(w.double(), b.double()) for w, b in layers]
+        hw6 = [t for wb in layers for t in wb]
+        k6c = (Xc, seg_sq, seg_esq, abk_c)
+        k6c_64 = tuple(t.double() for t in k6c)
+        for dt, extra in (("float32", {}), (bf, BF16)):
+            bft, where = " bf16" if extra else "", f"rank {rank} of {ranks}: dedup columns Klp={Klp}"
+            check_kernel(
+                f"K3{bft} fused_mask_forward, {where}",
+                lambda: {"m": fm.fused_mask_forward(layers, Xc, dt)},
+                lambda: {"m": fm.fused_mask_forward_reference(layers, Xc, dt)},
+                lambda: {"m": fm.fused_mask_forward_reference(layers64, Xc.double(), dt)},
+                ("m",), 2 * Klp * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])), _nbytes(Xc, *hw6) + Klp * 4,
+                **extra,
+            )
+            check_kernel(
+                f"K6{bft} fused_mask_backward_g with cnt, {where} heads=1",
+                lambda: named6(fm.fused_mask_backward_g([layers], *k6c, c_c, cnt_c, dt)),
+                lambda: named6(fm.fused_mask_backward_g_reference([layers], *k6c, c_c, cnt_c, dt)),
+                lambda: named6(fm.fused_mask_backward_g_reference([layers64], *k6c_64, c_c, cnt_c.double(), dt)),
+                (), _mlp_flops(Klp, mdims, len(mdims) - 2), _nbytes(*k6c, cnt_c, *hw6) + _nbytes(*hw6),
+                **extra,
+            )
+    # K5 -> K6 on rank 1's block: the shared head on its Nl columns, and two
+    # per-image heads of HW columns each (images 2 and 3 of the batch)
+    HWc = N // cfg.batch_size
+    for n_heads, cols in ((1, slice(N - Nl, N)), (cfg.batch_size, slice(2 * HWc, 4 * HWc))):
+        stacks, Xn, sq, esq, abk, c = heads_inputs(cfg, data, device, n_heads)
+        if n_heads > 1:
+            stacks = stacks[2:4]
+        n = cols.stop - cols.start
+        cut = lambda t: t[:, cols].contiguous()  # noqa: E731
+        stacks64 = [[(w.double(), b.double()) for w, b in layers] for layers in stacks]
+        hweights = [t for layers in stacks for wb in layers for t in wb]
+        g2C = 2.0 * (1.0 + (1.0 - 0.23))
+        k5 = (cut(coords), cut(Xn), cw, cut(targets))
+        k5_64 = tuple(t.double() for t in k5)
+        tag = f"rank 1 of {ranks}: N={n} heads={len(stacks)}"
+        check_kernel(
+            f"K5 fused_implicit_train_kernel, {tag}",
+            lambda: named5(fi.fused_implicit_train_kernel(net, stacks, *k5, g2C)),
+            lambda: named5(fi.fused_implicit_train_kernel_reference(net, stacks, *k5, g2C)),
+            lambda: named5(fi.fused_implicit_train_kernel_reference(net64, stacks64, *k5_64, g2C)),
+            ("rgb", "sq", "loss", "m", "msum"), _mlp_flops(n, dims, len(dims) - 1)
+            + 2 * n * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])),
+            _nbytes(*k5, *weights, *hweights) + (3 + 1) * n * 4 + _nbytes(*weights) + n * 4 * (1 + 2) + 8,
+            per_point={"dcoords": lambda r64: dcoords_error_scale(net64, k5_64[0], k5_64[2], k5_64[3], r64["m"], g2C)},
+        )
+        k6 = (cut(Xn), cut(sq), cut(esq), abk)
+        k6_64 = tuple(t.double() for t in k6)
+        check_kernel(
+            f"K6 fused_mask_backward_g, {tag}",
+            lambda: named6(fm.fused_mask_backward_g(stacks, *k6, c)),
+            lambda: named6(fm.fused_mask_backward_g_reference(stacks, *k6, c)),
+            lambda: named6(fm.fused_mask_backward_g_reference(stacks64, *k6_64, c)),
+            (), _mlp_flops(n, mdims, len(mdims) - 2), _nbytes(*k6, *hweights) + _nbytes(*hweights),
         )
     return results
 
 
-def sharded_dedup_inputs(cfg, data, device, n_ranks):
-    """K6's inputs on the sharded dedup step's rank 0 (phase 6): the dedup
-    columns of the synthetic batch with a few saturated pixels, laid out by
-    slot_dedup_sharded_inputs for n_ranks, rank 0's Klp columns of X and of
-    the column counts, segment sums of a plausible sq and esq (a column's
-    sum over its cnt positions), the cotangent scalars. Returns ((layers, X,
-    cnt, Ssq, Sesq, abk, c), Klp)."""
+def sharded_dedup_inputs(cfg, data, device, n_ranks, rank):
+    """K3's and K6's inputs on one rank of the sharded dedup step (phase 6):
+    the dedup columns of the synthetic batch with a few saturated pixels,
+    laid out by slot_dedup_sharded_inputs for n_ranks, the rank's Klp
+    columns of X and of the column counts, segment sums of a plausible sq
+    and esq (a column's sum over its cnt positions), the cotangent scalars.
+    Returns ((layers, X, cnt, Ssq, Sesq, abk, c), Klp)."""
     from marf_tpu_torch.ops.cuda import fused_mask as fm
 
     rng, (head,), uv, onehot, table = factored_batch(cfg, data, device)
     X_pad, _, cnt_pad, _, _, _ = fm.slot_dedup_sharded_inputs(uv.numpy(), onehot.numpy(), n_ranks)
     Klp = X_pad.shape[1] // n_ranks
-    d = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-    cnt = cnt_pad[:, :Klp]
+    cols = slice(rank * Klp, (rank + 1) * Klp)
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)  # noqa: E731
+    cnt = cnt_pad[:, cols]
     N = onehot.shape[0] * onehot.shape[2]
     abk = d([2.0 / (3 * 0.7 * N), 1e-6, -1e-5])
-    return (fm.mask_w_stack(head, table), d(X_pad[:, :Klp]), d(cnt), d(rng.rand(1, Klp) * 0.05 * cnt),
+    return (fm.mask_w_stack(head, table), d(X_pad[:, cols]), d(cnt), d(rng.rand(1, Klp) * 0.05 * cnt),
             d(rng.rand(1, Klp) * 0.5 * cnt), abk, 2.0 * 1.5 / N), Klp
 
 

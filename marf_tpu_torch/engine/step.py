@@ -25,8 +25,9 @@ Homography_Error from the post-update warp, Mask_Error of the pre-update mask
 (implicit masks with premade masks), and the fix_first re-zero of warp 0
 (reference model/planar.py:156-158), in that order.
 
-`finish_step` (the optimizer step and the metrics) and `step_schedules` are
-shared with the pixel-sharded step of marf_tpu_torch/parallel/shard_fused.py.
+Given a `Mesh` (marf_tpu_torch/parallel/), `make_train_step` builds one
+rank of the pixel-sharded step instead: the same kernels on the rank's block
+of the pixel axis, with the sums over that axis taken over the ranks.
 
 Per-step constants (the flat target/mask/grid streams, 1/(3 sum m) of fixed
 masks, the mask-head inputs X or their dedup structures, and the progress /
@@ -195,27 +196,36 @@ def mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, use_edges)
 # The dedup columns are padded to a multiple of this: X [56, K] is read in
 # place by K3's and K4's layer-0 products, and the tensor-core engine copies
 # an operand 16 bytes at a time only when its row stride is a multiple of 4
-# floats (4 bytes at a time otherwise).
+# floats (4 bytes at a time otherwise). A pixel-sharded step pads to a
+# multiple of this times the ranks, so that each rank's block keeps it.
 DEDUP_COLUMN_MULTIPLE = 4
 
 
-def stage_mask_inputs(graph: Graph, images: torch.Tensor) -> tuple:
-    """The fused implicit step's constant inputs, built once on the host
-    (factoring and slot0+extras dedup, ops/cuda/fused_mask.py) and moved to
-    the graph's device: (X_all [56, Kp], slot0map [B, HW], ext_pix [E] int64,
-    extmap [B, E], cnt_all [1, Kp], table [8, 384]). The K = HW + E dedup
-    columns are padded with inert zero columns (X = 0, cnt = 0) to Kp, a
-    multiple of DEDUP_COLUMN_MULTIPLE."""
-    from marf_tpu_torch.ops.cuda.fused_mask import factor_mask_inputs, slot_dedup_inputs
+def stage_mask_inputs(graph: Graph, images: torch.Tensor, n_ranks: int = 1, rank: int = 0) -> tuple:
+    """The fused dedup step's constant inputs for rank `rank` of `n_ranks`,
+    built once on the host (factoring and slot0+extras dedup,
+    ops/cuda/fused_mask.py `slot_dedup_sharded_inputs`) and moved to the
+    graph's device: (X_all [56, K_pad], cnt_all [1, K_pad], slot0 [1, Nl] of
+    the rank's Nl = N / n_ranks positions, the rank's extra (position,
+    column) pairs as three int64 [P] streams (position within its block,
+    image, extra column - HW), table [8, 384], K). The K = HW + E dedup
+    columns are padded with inert zero columns (X = 0, cnt = 0) to K_pad, a
+    multiple of DEDUP_COLUMN_MULTIPLE n_ranks."""
+    from marf_tpu_torch.ops.cuda.fused_mask import factor_mask_inputs, slot_dedup_sharded_inputs
 
     with torch.no_grad():
         uv, onehot, table = factor_mask_inputs(graph.view_embedding.cpu(), images.cpu(), graph.grid.cpu())
-    X_all, slot0map, ext_pix, extmap, cnt_all = slot_dedup_inputs(uv.numpy(), onehot.numpy())
-    pad = -X_all.shape[1] % DEDUP_COLUMN_MULTIPLE
-    X_all, cnt_all = (np.pad(a, ((0, 0), (0, pad))) for a in (X_all, cnt_all))
+    X_all, slot0, cnt_all, ext_off, ext_col, ext_val = slot_dedup_sharded_inputs(
+        uv.numpy(), onehot.numpy(), n_ranks, DEDUP_COLUMN_MULTIPLE)
+    HW = uv.shape[1]
+    Nl = slot0.shape[1] // n_ranks
+    E = int(ext_col.max()) + 1 - HW if ext_val.any() else 0
+    real = ext_val[rank] > 0
+    off = ext_off[rank][real].astype(np.int64)
+    pairs = (off, (rank * Nl + off) // HW, ext_col[rank][real].astype(np.int64) - HW)
     dev = graph.warp.device
-    arrays = (X_all, slot0map, ext_pix.astype(np.int64), extmap, cnt_all)
-    return (*(torch.from_numpy(a).to(dev) for a in arrays), table.to(dev))
+    arrays = (X_all, cnt_all, slot0[:, rank * Nl : (rank + 1) * Nl], *pairs)
+    return (*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays), table.to(dev), HW + E)
 
 
 def stage_mask_x(graph: Graph, images: torch.Tensor, single: bool) -> tuple:
@@ -240,7 +250,16 @@ def set_grads(layers, grads) -> None:
         layer.bias.grad = db
 
 
-def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, scheduler=None, use_homographies: bool = True):
+def _flat(pairs) -> list:
+    return [t for pair in pairs for t in pair]
+
+
+def _pairs(ts) -> list:
+    return list(zip(ts[0::2], ts[1::2]))
+
+
+def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, scheduler=None, use_homographies: bool = True,
+                    mesh=None):
     """Build step_fn(step: int, heavy: bool) -> metrics dict of 0-d tensors.
 
     Metric timing matches the reference's `log_scalars` call site
@@ -250,6 +269,21 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     computes the metric-only work and the other rows report 0. The implicit
     paths' edge term is not metric-only (its esq feeds K4 or K6), so it runs
     every step.
+
+    With `mesh` (parallel/mesh.py) the step is one rank of a pixel-sharded
+    step (twin of marf_tpu/parallel/shard_fused.py): the kernels run on the
+    rank's contiguous block of the flat pixel axis N = B*HW (column order
+    b*HW + i), and what marf_tpu psums is summed over the ranks by one packed
+    all_reduce at each point: the masked-MSE normalizer, the loss partials,
+    the MLP, warp (dH before the expm VJP on K1) and mask-head gradients, the
+    dedup segment sums; the gradient-blocked edge term runs on every rank on
+    the gathered rgb [3, N]. The shared-head dedup step shards its dedup
+    columns apart from the positions, and backs the mask head with K6 and
+    the column counts on the rank's column block where one card runs K4. Per-image
+    heads run on the rank that owns their images; the others' gradients
+    enter the sum as zeros. Every rank passes the same `data` and `heavy`;
+    parameters and optimizer state stay replicated. Without a mesh the sums
+    are over the one block, and nothing is summed.
     """
     from marf_tpu_torch.ops.cuda.fused_step import MAX_IMAGES
 
@@ -262,40 +296,63 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     B = cfg.batch_size
     HW = h * w
     N = B * HW
-    steps, progress, alphas, cws = step_schedules(cfg, device)
+    D, r = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    if mesh is None:
+        reduce = lambda parts: parts  # noqa: E731
+        place = lambda t, n: t  # noqa: E731
+        # the means over positions (mask loss, Mask_Error): a mean, or a sum over N
+        pos_part, pos_mean = torch.mean, (lambda s: s)
+    else:
+        from marf_tpu_torch.parallel.mesh import place_columns, psum
+        from marf_tpu_torch.parallel.shard_fused import check_shardable
+
+        check_shardable(cfg, D, device)
+        reduce = psum
+        place = lambda t, n: place_columns(mesh, t, n)  # noqa: E731
+        pos_part, pos_mean = torch.sum, (lambda s: s / N)
+    Nl = N // D
+    cols = slice(r * Nl, (r + 1) * Nl)  # this rank's positions
+    steps = torch.arange(cfg.max_iter + 1, device=device)
+    progress = steps.to(torch.float32) / cfg.max_iter
     zero = torch.zeros((), dtype=torch.float32, device=device)
+    alphas = alpha_schedule(steps, cfg.max_iter, cfg.alpha_initial, cfg.alpha_final) if cfg.use_edges else zero.expand(len(steps))
     gt_hom = data.get("gt_hom") if use_homographies else None
-    masks_ref = None  # the premade masks, [1, N], for Mask_Error
+    masks_ref = None  # the premade masks at this rank's positions, [1, Nl], for Mask_Error
     if cfg.use_implicit_mask and cfg.use_masks and data.get("masks") is not None:
-        masks_ref = data["masks"].permute(1, 0, 2, 3).reshape(1, N)
+        masks_ref = data["masks"].permute(1, 0, 2, 3).reshape(1, N)[:, cols]
     coords_kernel = cfg.fused_warp == "off" or B > MAX_IMAGES  # K2 in place of K1
+    rgb_leg = "K2" if coords_kernel else "K1"
     if dedup:
-        path = f"fused implicit dedup (K3 -> {'K2' if coords_kernel else 'K1'} -> K4)"
+        path = f"fused implicit dedup (K3 -> {rgb_leg} -> {'K4' if mesh is None else 'K6 with column counts'})"
     elif fused_implicit:
         path = f"fused implicit, {'per-image heads' if cfg.build_single_masks else 'shared head, no dedup'} (K5 -> K6)"
     elif fused:
-        path = f"fused ({'K2' if coords_kernel else 'K1'})"
+        path = f"fused ({rgb_leg})"
     else:
         path = "autograd"
     cdtype = cfg.arch.compute_dtype
-    log.info(f"train step: {path}, {cdtype}, on {device}")
+    where = f"on {device}" if mesh is None else (f"sharded over {D} ranks ({mesh.backend}), rank {r} on {device}, "
+                                                 f"{Nl} of {N} positions")
+    log.info(f"train step: {path}, {cdtype}, {where}")
 
     if fused or fused_implicit:
         from marf_tpu_torch.ops.cuda.fused_step import fused_train_kernel, fused_train_kernel_warp
 
-        targets_cf = data["rgb"].permute(1, 0, 2, 3).reshape(3, N).contiguous()
+        arch = cfg.arch
+        cws = barf_c2f_weights(progress, tuple(arch.barf_c2f), arch.posenc_L) if (arch.posenc_L and arch.barf_c2f is not None) else None
+        targets_cf = data["rgb"].permute(1, 0, 2, 3).reshape(3, N)[:, cols].contiguous()
         if (fused or dedup) and not coords_kernel:
             # the kernel's (u, v, b) stream: the unwarped grid repeated per image
             grid_b = torch.cat(
                 [graph.grid.T.repeat(1, B), torch.arange(B, dtype=torch.float32, device=device).repeat_interleave(HW)[None]]
-            ).contiguous()
+            )[:, cols].contiguous()
         edges_cf = data["edges"].permute(1, 0, 2, 3).contiguous() if cfg.use_edges else None
     if fused:
         if cfg.use_masks and data.get("masks") is not None:
-            masks_cf = data["masks"].permute(1, 0, 2, 3).reshape(1, N).contiguous()
+            masks_cf = data["masks"].permute(1, 0, 2, 3).reshape(1, N)[:, cols].contiguous()
         else:
-            masks_cf = torch.ones((1, N), dtype=torch.float32, device=device)
-        inv_sum3_fixed = 1.0 / (torch.sum(masks_cf) * 3.0)
+            masks_cf = torch.ones((1, Nl), dtype=torch.float32, device=device)
+        inv_sum3_fixed = 1.0 / (reduce({"m": [torch.sum(masks_cf)]})["m"][0] * 3.0)
         me = data.get("masks_eroded")
         me_cf = None if me is None else me.permute(1, 0, 2, 3).contiguous()
         c_render = 10.0 ** float(cfg.w_render)
@@ -311,14 +368,25 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         )
 
     if dedup:
-        X_all, slot0map, ext_pix, extmap, cnt_all, table = stage_mask_inputs(graph, data["rgb"])
-        E = ext_pix.shape[0]  # known at setup: the extras' index ops run only when E > 0
-        K = HW + E
-        log.info(f"mask-head dedup: K = {K} columns (HW = {HW}, E = {E}; padded to {X_all.shape[1]}) for N = {N} "
-                 "positions")
+        X_all, cnt_all, slot0, ext_off, ext_img, ext_j, table, K = stage_mask_inputs(graph, data["rgb"], D, r)
+        E = K - HW  # known at setup: the extras' index ops run only when E > 0
+        K_pad = X_all.shape[1]
+        Klp = K_pad // D
+        kcols = slice(r * Klp, (r + 1) * Klp)  # this rank's dedup columns
+        X_loc, cnt_loc = X_all[:, kcols].contiguous(), cnt_all[:, kcols].contiguous()
+        # slot0 column p = n mod HW is affine over a contiguous block of
+        # positions: a window of Nl from `start` in T tiles of HW
+        start = (r * Nl) % HW
+        T = -(-(start + Nl) // HW)
+        log.info(f"mask-head dedup: K = {K} columns (HW = {HW}, E = {E}; padded to {K_pad}) for N = {N} positions"
+                 + ("" if mesh is None else f"; {Klp} columns and {ext_off.numel()} extra (position, column) pairs on "
+                    "this rank"))
     elif fused_implicit:
         X_flat, table = stage_mask_x(graph, data["rgb"], cfg.build_single_masks)
+        X_flat = X_flat[:, cols].contiguous()
         heads = list(graph.implicit_mask) if cfg.build_single_masks else [graph.implicit_mask]
+        # this rank's heads: per-image heads whose images lie in its block
+        own = range(r * B // D, (r + 1) * B // D) if cfg.build_single_masks else range(1)
     elif cfg.use_implicit_mask and not cfg.train_view_embedding:
         # frozen view embedding: the dense mask-head inputs are constants
         with torch.no_grad():
@@ -327,39 +395,59 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             x = x.transpose(0, 1).reshape(x.shape[1], -1)  # [426, B*HW]
         data = dict(data, mask_head_inputs_cf=x)
 
-    def rgb_kernel_grads(step: int, masks, g_loss_scale, inv_sum3):
-        """K1 or K2 on this step's warp; sets the MLP and warp gradients and
-        returns (rgb [3, N], rgb_loss, sq [1, N])."""
+    def warp_coords():
+        """The warped grid at this rank's positions, [2, Nl], contiguous (as
+        K2 and K5 take it), differentiable in the warp."""
+        return warp_grid_cf_flat(graph.grid, graph.warp)[:, cols].contiguous()
+
+    def rgb_kernel_grads(step: int, masks, g_loss_scale, inv_sum3, partials: dict, gather_rgb: bool):
+        """K1 or K2 on this step's warp at this rank's positions, then one sum
+        over the ranks of the warp (dH on K1) and MLP gradients, the rgb loss,
+        `partials` ({name: [tensors]}) and, with gather_rgb, the rgb gathered
+        to [3, N]; sets the MLP and warp gradients. Returns (rgb [3, N] when
+        gathered, else [3, Nl], rgb_loss, sq [1, Nl], the summed partials)."""
         cw = None if cws is None else cws[step]
         if coords_kernel:
-            coords = warp_grid_cf_flat(graph.grid, graph.warp)
+            coords = warp_coords()
             rgb_cf, rgb_loss, dmlp, dcoords, sq = fused_train_kernel(
                 graph.neural_image, coords.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3, cdtype
             )
-            (dwarp,) = torch.autograd.grad(coords, graph.warp, dcoords)
+            (dgeo,) = torch.autograd.grad(coords, graph.warp, dcoords)
+            finish = lambda g: g  # noqa: E731
         else:
             H = sl3_to_SL3(graph.warp)
-            rgb_cf, rgb_loss, dmlp, dH, sq = fused_train_kernel_warp(
+            rgb_cf, rgb_loss, dmlp, dgeo, sq = fused_train_kernel_warp(
                 graph.neural_image, grid_b, H.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3, cdtype
             )
-            (dwarp,) = torch.autograd.grad(H, graph.warp, dH)
-        set_grads(graph.neural_image.layers, dmlp)
-        graph.warp.grad = dwarp
-        return rgb_cf, rgb_loss, sq
+            finish = lambda g: torch.autograd.grad(H, graph.warp, g)[0]  # noqa: E731
+        sums = reduce({"geo": [dgeo], "loss": [rgb_loss], "mlp": _flat(dmlp), **partials,
+                       "rgb": [place(rgb_cf, N)] if gather_rgb else []})
+        set_grads(graph.neural_image.layers, _pairs(sums["mlp"]))
+        graph.warp.grad = finish(sums["geo"][0])
+        return (sums["rgb"][0] if gather_rgb else rgb_cf), sums["loss"][0], sq, sums
 
     def edge_sq(rgb_cf):
-        """The gradient-blocked edge term's squared error per position, [1, N];
-        [3, B, h, w] keeps the image axis as channels."""
+        """The gradient-blocked edge term's squared error at this rank's
+        positions, [1, Nl], from the whole rgb [3, N]; [3, B, h, w] keeps the
+        image axis as channels."""
         edge_pred_cf = compute_edges(rgb_cf.reshape(3, B, h, w))
-        return torch.sum((edge_pred_cf - edges_cf) ** 2, dim=0).reshape(1, N)
+        return torch.sum((edge_pred_cf - edges_cf) ** 2, dim=0).reshape(1, N)[:, cols]
 
-    def implicit_loss(rgb_loss, edge_loss, mask_loss, alpha) -> dict:
-        return {
-            "render": render_loss(rgb_loss, edge_loss, mask_loss, alpha),
-            "rgb": rgb_loss,
-            "mask": mask_loss,
-            "edge": edge_loss,
-        }
+    def mask_terms(m, heavy: bool) -> dict:
+        """This rank's parts of the means over positions of the predicted
+        mask m [1, Nl]: the mask loss and, when computed, Mask_Error."""
+        parts = {"mask": [pos_part((1.0 - m) ** 2)]}
+        if masks_ref is not None and (heavy or not lazy):
+            parts["mask_error"] = [pos_part((m - masks_ref) ** 2)]
+        return parts
+
+    def implicit_loss(rgb_loss, edge_loss, sums, alpha) -> tuple:
+        """The loss terms and Mask_Error (or None) of an implicit step."""
+        mask_loss = pos_mean(sums["mask"][0])
+        mask_error = pos_mean(sums["mask_error"][0]) if "mask_error" in sums else None
+        loss = {"render": render_loss(rgb_loss, edge_loss, mask_loss, alpha), "rgb": rgb_loss, "mask": mask_loss,
+                "edge": edge_loss}
+        return loss, mask_error
 
     def fused_grads(step: int, heavy: bool):
         alpha = alphas[step]
@@ -367,8 +455,9 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         g_loss_scale = c_render * (1.0 - alpha)
         if c_rgb is not None:
             g_loss_scale = g_loss_scale + c_rgb
-        rgb_cf, rgb_loss, _ = rgb_kernel_grads(step, masks_cf, g_loss_scale, inv_sum3_fixed)
-        if cfg.use_edges and (heavy or not lazy):
+        edges = cfg.use_edges and (heavy or not lazy)
+        rgb_cf, rgb_loss, _, _ = rgb_kernel_grads(step, masks_cf, g_loss_scale, inv_sum3_fixed, {}, edges)
+        if edges:
             # the gradient-blocked edge term; [3, B, h, w] keeps the image axis as channels
             edge_loss = mse(compute_edges(rgb_cf.reshape(3, B, h, w)), edges_cf, me_cf)
         else:
@@ -376,85 +465,120 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         loss = {"render": render_loss(rgb_loss, edge_loss, zero, alpha), "rgb": rgb_loss, "mask": zero, "edge": edge_loss}
         return loss, None
 
+    def extras_sum(v):
+        """Per extra column, the sum of a position stream [1, Nl] over the
+        rank's positions that the column covers, [E]: the pairs written into
+        an image x column grid and summed over images in a fixed order (no
+        float scatter-add)."""
+        grid = v.new_zeros((B, E))
+        grid[ext_img, ext_j] = v[0, ext_off]
+        return torch.sum(grid, dim=0)
+
+    def column_sums(v):
+        """This rank's part of the per-dedup-column sums of a position stream
+        [1, Nl], [1, K_pad]: slot0's by one write into the T tiles reduced
+        over them, then the extras'."""
+        tiles = v.new_zeros((1, T * HW))
+        tiles[:, start : start + Nl] = slot0 * v
+        out = v.new_zeros((1, K_pad))
+        out[:, :HW] = tiles.reshape(T, HW).sum(0)
+        if E:
+            out[:, HW:K] = extras_sum(v)
+        return out
+
     def implicit_grads(step: int, heavy: bool):
         alpha = alphas[step]
         C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
-        # ---- mask forward on the K dedup columns, expanded to positions:
-        # m[b, p] = slot0map[b, p] m[p] + the one extra column that covers (b, p)
+        # ---- mask forward on this rank's dedup columns, gathered to all K
+        # and expanded to its positions: m[n] = slot0[n] m[n mod HW] + the
+        # one extra column that covers n
         stack = mask_w_stack(graph.implicit_mask, table)
-        m_all = fused_mask_forward(stack, X_all, cdtype)[:, :K]  # [1, K]: the pad columns cut
-        m_pos = slot0map * m_all[:, :HW]  # [B, HW]
+        m_all = reduce({"m": [place(fused_mask_forward(stack, X_loc, cdtype), K_pad)]})["m"][0][:, :K]  # pad cut
+        m_flat = slot0 * m_all[:, :HW].repeat(1, T)[:, start : start + Nl]
         if E:
-            m_pos = m_pos.index_add(1, ext_pix, extmap * m_all[:, HW:])
-        m_flat = m_pos.reshape(1, N)
+            m_flat = m_flat.index_add(1, ext_off, m_all[:, HW + ext_j])
         inv_sum3 = 1.0 / (torch.dot(cnt_all[0, :K], m_all[0]) * 3.0)
         # ---- the rgb kernel, masked by the predicted m
-        rgb_cf, rgb_loss, sq = rgb_kernel_grads(step, m_flat, C_r, inv_sum3)
-        # ---- the gradient-blocked edge term, per position [B, HW]
-        if cfg.use_edges:
-            esq_b = edge_sq(rgb_cf).reshape(B, HW)
-            edge_loss = torch.sum(m_pos * m_pos * esq_b) * inv_sum3
+        rgb_cf, rgb_loss, sq, sums = rgb_kernel_grads(step, m_flat, C_r, inv_sum3, mask_terms(m_flat, heavy),
+                                                      cfg.use_edges)
+        esq = edge_sq(rgb_cf) if cfg.use_edges else None
+        if mesh is None:
+            # ---- K4: the extras' segment sums go in `base`, slot0's in the
+            # kernel; base and cnt are 0 on the pad columns, so is their cotangent
+            edge_loss = torch.sum(m_flat * m_flat * esq) * inv_sum3 if cfg.use_edges else zero
+            a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
+            base = c_s * cnt_all
+            if E:
+                tail = a_s * extras_sum(sq)
+                if esq is not None:
+                    tail = tail + b_s * extras_sum(esq)
+                base = base + torch.nn.functional.pad(tail[None], (HW, K_pad - K))
+            dstack = fused_mask_backward_dedup(
+                stack, X_all, slot0.reshape(B, HW), sq.reshape(B, HW), None if esq is None else esq.reshape(B, HW),
+                base, cnt_all, torch.stack([a_s, b_s, k_s]), cdtype)
         else:
-            esq_b = None
-            edge_loss = zero
-        mask_loss = torch.mean((1.0 - m_flat) ** 2)
-        # ---- K4: the extras' segment sums go in `base`, slot0's in the
-        # kernel; base and cnt are 0 on the pad columns, so is their cotangent
-        a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
-        sq_b = sq.reshape(B, HW)
-        base = c_s * cnt_all
-        if E:
-            tail = a_s * torch.sum(extmap * sq_b[:, ext_pix], dim=0)
-            if esq_b is not None:
-                tail = tail + b_s * torch.sum(extmap * esq_b[:, ext_pix], dim=0)
-            base = base + torch.nn.functional.pad(tail[None], (HW, cnt_all.shape[1] - K))
-        dstack = fused_mask_backward_dedup(stack, X_all, slot0map, sq_b, esq_b, base, cnt_all, torch.stack([a_s, b_s, k_s]),
-                                           cdtype)
+            # ---- K6 on this rank's dedup columns with their counts: the
+            # global edge loss and segment sums of sq and esq first
+            parts = {"sq": [column_sums(sq)]}
+            if esq is not None:
+                parts.update(edge=[torch.sum(m_flat * m_flat * esq)], esq=[column_sums(esq)])
+            s = psum(parts)
+            edge_loss = s["edge"][0] * inv_sum3 if esq is not None else zero
+            a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
+            (dstack,) = fused_mask_backward_g([stack], X_loc, s["sq"][0][:, kcols],
+                                              s["esq"][0][:, kcols] if esq is not None else None,
+                                              torch.stack([a_s, b_s, k_s]), c_s, cnt_loc, cdtype)
+            dstack = _pairs(psum({"g": _flat(dstack)})["g"])
         set_grads(graph.implicit_mask.layers, unfactor_mask_grads(dstack, table))
-        return implicit_loss(rgb_loss, edge_loss, mask_loss, alpha), m_flat
+        return implicit_loss(rgb_loss, edge_loss, sums, alpha)
 
     def implicit_heads_grads(step: int, heavy: bool):
         alpha = alphas[step]
         C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
-        stacks = [mask_w_stack(head, table) for head in heads]
+        stacks = [mask_w_stack(heads[i], table) for i in own]
         # ---- K5: the mask forward on every head's column block, then the rgb
         # step masked by m with the unnormalized cotangent 2 C_r (rgb - t) m^2
-        coords = warp_grid_cf_flat(graph.grid, graph.warp)
+        coords = warp_coords()
         rgb_cf, m_flat, sq, dcoords_u, msum, loss_u, dmlp_u = fused_implicit_train_kernel(
             graph.neural_image, stacks, coords.detach(), X_flat, None if cws is None else cws[step], targets_cf, 2.0 * C_r,
             cdtype,
         )
+        (dwarp_u,) = torch.autograd.grad(coords, graph.warp, dcoords_u)
+        sums = reduce({"msum": [msum], "loss": [loss_u], "warp": [dwarp_u], "mlp": _flat(dmlp_u),
+                       **mask_terms(m_flat, heavy), "rgb": [place(rgb_cf, N)] if cfg.use_edges else []})
         # the masked-MSE normalization 1 / (3 sum m): K5's outputs are linear in it
-        inv_sum3 = 1.0 / (msum * 3.0)
-        rgb_loss = loss_u * inv_sum3
-        (dwarp,) = torch.autograd.grad(coords, graph.warp, dcoords_u)
-        graph.warp.grad = dwarp * inv_sum3
-        set_grads(graph.neural_image.layers, [(dw * inv_sum3, db * inv_sum3) for dw, db in dmlp_u])
-        # ---- the gradient-blocked edge term, per position [1, N]
+        inv_sum3 = 1.0 / (sums["msum"][0] * 3.0)
+        rgb_loss = sums["loss"][0] * inv_sum3
+        graph.warp.grad = sums["warp"][0] * inv_sum3
+        set_grads(graph.neural_image.layers, [(dw * inv_sum3, db * inv_sum3) for dw, db in _pairs(sums["mlp"])])
+        # ---- the gradient-blocked edge term, per position [1, Nl]
         if cfg.use_edges:
-            esq = edge_sq(rgb_cf)
-            edge_loss = torch.sum(m_flat * m_flat * esq) * inv_sum3
+            esq = edge_sq(sums["rgb"][0])
+            edge_loss = reduce({"e": [torch.sum(m_flat * m_flat * esq)]})["e"][0] * inv_sum3
         else:
             esq = None
             edge_loss = zero
-        mask_loss = torch.mean((1.0 - m_flat) ** 2)
-        # ---- K6: each head's backward on its block with the per-column cotangent
+        # ---- K6: each head's backward on its block with the per-column
+        # cotangent; the heads of other ranks enter the sum as zeros
         a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
-        dstacks = fused_mask_backward_g(stacks, X_flat, sq, esq, torch.stack([a_s, b_s, k_s]), c_s,
-                                        compute_dtype=cdtype)
-        for head, dstack in zip(heads, dstacks):
-            set_grads(head.layers, unfactor_mask_grads(dstack, table))
-        return implicit_loss(rgb_loss, edge_loss, mask_loss, alpha), m_flat
+        dstacks = dict(zip(own, fused_mask_backward_g(stacks, X_flat, sq, esq, torch.stack([a_s, b_s, k_s]), c_s,
+                                                      compute_dtype=cdtype)))
+        like = _flat(dstacks[own[0]])
+        summed = reduce({i: _flat(dstacks[i]) if i in dstacks else [torch.zeros_like(t) for t in like]
+                         for i in range(len(heads))})
+        for i, head in enumerate(heads):
+            set_grads(head.layers, unfactor_mask_grads(_pairs(summed[i]), table))
+        return implicit_loss(rgb_loss, edge_loss, sums, alpha)
 
     def autograd_grads(step: int, heavy: bool):
         optimizer.zero_grad(set_to_none=True)
         outputs = graph_forward(graph, data, cfg, progress[step])
         loss = graph_loss(outputs, data, cfg, steps[step])
         summarize_loss(loss, cfg.loss_weight).backward()
-        mask_cf = None
-        if masks_ref is not None:
-            mask_cf = outputs["mask_prediction_map"].detach().permute(1, 0, 2, 3).reshape(1, N)
-        return {k: v.detach() for k, v in loss.items()}, mask_cf
+        mask_error = None
+        if masks_ref is not None and (heavy or not lazy):
+            mask_error = mse(outputs["mask_prediction_map"].detach().permute(1, 0, 2, 3).reshape(1, N), masks_ref)
+        return {k: v.detach() for k, v in loss.items()}, mask_error
 
     if fused_implicit:
         grads_fn = implicit_grads if dedup else implicit_heads_grads
@@ -462,49 +586,26 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         grads_fn = fused_grads if fused else autograd_grads
 
     def step_fn(step: int, heavy: bool = True) -> dict:
-        loss, mask_cf = grads_fn(step, heavy)
-        mask_error = None if masks_ref is None else (lambda: mse(mask_cf, masks_ref))
-        return finish_step(cfg, graph, optimizer, scheduler, loss, heavy, lazy, gt_hom, mask_error)
+        loss, mask_error = grads_fn(step, heavy)
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        metrics = {f"loss_{k}": v for k, v in loss.items()}
+        metrics["all"] = summarize_loss(loss, cfg.loss_weight)
+        metrics["PSNR"] = psnr_from_rgb_loss(loss["rgb"])
+        metrics["finite"] = check_finite(loss)
+        with torch.no_grad():
+            if gt_hom is not None:
+                metrics["Homography_Error"] = (
+                    homography_error(sl3_to_SL3(graph.warp), gt_hom) if (heavy or not lazy) else zero
+                )
+            if masks_ref is not None:
+                metrics["Mask_Error"] = mask_error if (heavy or not lazy) else zero
+            if cfg.fix_first:
+                graph.warp[0].zero_()
+        return metrics
 
     return step_fn
-
-
-def step_schedules(cfg: PlanarConfig, device) -> tuple:
-    """The per-step constants of a run, indexed by step: (steps [max_iter + 1]
-    int, progress, alpha (zeros without edges), the c2f band weights [.., L]
-    or None)."""
-    steps = torch.arange(cfg.max_iter + 1, device=device)
-    progress = steps.to(torch.float32) / cfg.max_iter
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    alphas = alpha_schedule(steps, cfg.max_iter, cfg.alpha_initial, cfg.alpha_final) if cfg.use_edges else zero.expand(len(steps))
-    arch = cfg.arch
-    cws = barf_c2f_weights(progress, tuple(arch.barf_c2f), arch.posenc_L) if (arch.posenc_L and arch.barf_c2f is not None) else None
-    return steps, progress, alphas, cws
-
-
-def finish_step(cfg: PlanarConfig, graph: Graph, optimizer, scheduler, loss: dict, heavy: bool, lazy: bool, gt_hom,
-                mask_error=None) -> dict:
-    """What every step does once its gradients are set: the optimizer and LR
-    scheduler step, then the metrics (the loss terms and PSNR of the
-    pre-update forward, Homography_Error of the post-update warp,
-    `mask_error()` of the pre-update mask when given; with lazy metrics
-    those two only when `heavy`, 0 otherwise) and the fix_first re-zero."""
-    optimizer.step()
-    if scheduler is not None:
-        scheduler.step()
-    zero = torch.zeros((), dtype=torch.float32, device=graph.warp.device)
-    metrics = {f"loss_{k}": v for k, v in loss.items()}
-    metrics["all"] = summarize_loss(loss, cfg.loss_weight)
-    metrics["PSNR"] = psnr_from_rgb_loss(loss["rgb"])
-    metrics["finite"] = check_finite(loss)
-    with torch.no_grad():
-        if gt_hom is not None:
-            metrics["Homography_Error"] = homography_error(sl3_to_SL3(graph.warp), gt_hom) if (heavy or not lazy) else zero
-        if mask_error is not None:
-            metrics["Mask_Error"] = mask_error() if (heavy or not lazy) else zero
-        if cfg.fix_first:
-            graph.warp[0].zero_()
-    return metrics
 
 
 def run_chunk(step_fn, start: int, n: int) -> dict[str, np.ndarray]:

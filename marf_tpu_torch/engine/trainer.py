@@ -21,7 +21,7 @@ With more than one device (`tpu.n_devices` or MARF_DEVICES, `resolve_n_devices`)
 the Model is one rank of a pixel-sharded run (marf_tpu_torch/parallel/): it is
 given its `Mesh`, every rank loads or synthesizes the same dataset, takes rank
 0's initial parameters and trains its block of the pixel axis
-(parallel/shard_fused.py). Rank 0 alone writes the TB events, vis frames, the
+(engine/step.py `make_train_step` with the mesh). Rank 0 alone writes the TB events, vis frames, the
 mp4 and the checkpoints; the ranks meet at a barrier after each checkpoint
 write and before a restore. The checkpoint is the single-card one, so a run
 resumes on another number of ranks.
@@ -77,12 +77,7 @@ class Model:
                                "ranks through marf_tpu_torch.train.main or torchrun")
         self.mesh = mesh
         self.is_main = mesh is None or mesh.rank == 0
-        self.device = resolve_device(bool(opt.get("cpu")))
-        if mesh is not None:
-            from marf_tpu_torch.parallel.shard_fused import check_shardable
-
-            self.device = mesh.device
-            check_shardable(self.cfg, n_dev, self.device)
+        self.device = resolve_device(bool(opt.get("cpu"))) if mesh is None else mesh.device
         self.dataset = opt.get("dataset")
         os.makedirs(opt.output_path, exist_ok=True)
         self.use_homographies = bool(opt.get("use_homographies", False))
@@ -179,14 +174,10 @@ class Model:
         log.title("TRAINING START")
         self.timer = IterTimer()
         freq = self.opt.freq
-        if self.mesh is None:
-            step_fn = make_train_step(self.cfg, self.graph, self.optimizer, self.data, self.scheduler,
-                                      use_homographies=self.use_homographies)
-        else:
-            from marf_tpu_torch.parallel.shard_fused import make_sharded_train_step
-
-            step_fn = make_sharded_train_step(self.cfg, self.graph, self.optimizer, self.data, self.mesh, self.scheduler,
-                                              use_homographies=self.use_homographies)
+        step_fn = make_train_step(
+            self.cfg, self.graph, self.optimizer, self.data, self.scheduler, use_homographies=self.use_homographies,
+            mesh=self.mesh,
+        )
         max_iter = int(self.cfg.max_iter)
         ckpt_freq = freq.get("ckpt")
         c = chunk_schedule(max_iter, freq.scalar, freq.vis, ckpt_freq)

@@ -22,10 +22,10 @@ result. The backward's segment sums are a fixed-order sum over B for slot0
 (inside K4) and E-sized gathers for the extras (in `base`); no float
 scatter-add, so the step stays bitwise reproducible.
 
-The pixel-sharded step (parallel/shard_fused.py) lays the same columns out
-per rank (`slot_dedup_sharded_inputs`): the dedup columns split into
-contiguous blocks apart from the positions, the extras grouped by the rank
-that owns their position.
+The fused dedup step (engine/step.py) lays the columns out per rank of a
+pixel-sharded run (`slot_dedup_sharded_inputs`; one rank on one card): the
+dedup columns split into contiguous blocks apart from the positions, the
+extras grouped by the rank that owns their position.
 
 Without dedup (per-image heads, or the shared head under fused_dedup=off)
 the head sees all N columns of X = `build_mask_x`, head h its column block
@@ -135,7 +135,7 @@ def slot_dedup_inputs(uv: np.ndarray, onehot: np.ndarray):
     return X_all, slot0map, pix_e.astype(np.int32), extmap, cnt_all
 
 
-def slot_dedup_sharded_inputs(uv: np.ndarray, onehot: np.ndarray, n_devices: int):
+def slot_dedup_sharded_inputs(uv: np.ndarray, onehot: np.ndarray, n_devices: int, column_multiple: int = 4):
     """Per-rank dedup structures of the pixel-sharded step (copy of
     marf_tpu/ops/pallas/fused_mask.py `slot_dedup_sharded_inputs`).
 
@@ -145,15 +145,16 @@ def slot_dedup_sharded_inputs(uv: np.ndarray, onehot: np.ndarray, n_devices: int
     contiguous block); the extras' (position, column) pairs are grouped by
     the rank that owns the position, so a step's gathers are Eloc-sized.
 
-    One difference from marf_tpu: K is padded to a multiple of 4 D, not D,
-    so each rank's Klp = K_pad / D columns stay on the multiple of 4 floats
-    that the kernels' 16-byte X reads need (engine/step.py
-    DEDUP_COLUMN_MULTIPLE). The extra columns have X = 0 and
+    One difference from marf_tpu: K is padded to a multiple of
+    column_multiple D, not D, so each rank's Klp = K_pad / D columns stay on
+    the multiple of 4 floats that the kernels' 16-byte X reads need
+    (engine/step.py DEDUP_COLUMN_MULTIPLE). The extra columns have X = 0 and
     cnt = 0; on marf_tpu's own K_pad columns every array equals marf_tpu's.
 
     Args:
       uv: [42, HW]; onehot: [B, 8, HW] (factor_mask_inputs, as numpy).
       n_devices: the world size D (N % D == 0).
+      column_multiple: K_pad is a multiple of this times D.
 
     Returns:
       (X_pad [56, K_pad], slot0map_flat [1, N] f32, cnt_pad [1, K_pad] f32,
@@ -169,7 +170,7 @@ def slot_dedup_sharded_inputs(uv: np.ndarray, onehot: np.ndarray, n_devices: int
         raise ValueError(f"position axis {N} must divide over {D} ranks")
     Nl = N // D
     K = X_all.shape[1]
-    K_pad = 4 * D * (-(-K // (4 * D)))
+    K_pad = column_multiple * D * (-(-K // (column_multiple * D)))
     X_pad = np.pad(X_all, ((0, 0), (0, K_pad - K))).astype(np.float32)
     cnt_pad = np.pad(cnt_all, ((0, 0), (0, K_pad - K))).astype(np.float32)
     slot0map_flat = slot0map.reshape(1, N).astype(np.float32)

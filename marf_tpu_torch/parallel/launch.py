@@ -73,8 +73,7 @@ def _rank_entry(rank, world_size, fn, args, store, cpu, share_device, determinis
     import torch.distributed as dist
 
     log.quiet = rank != 0
-    if deterministic:
-        torch.use_deterministic_algorithms(True)
+    torch.use_deterministic_algorithms(deterministic)
     if cpu and "OMP_NUM_THREADS" not in os.environ:
         torch.set_num_threads(1)  # as torchrun: one thread per rank unless asked otherwise
     device, backend = rank_device(rank, cpu, share_device)
@@ -87,15 +86,15 @@ def _rank_entry(rank, world_size, fn, args, store, cpu, share_device, determinis
 
 
 def spawn(fn, world_size: int, args: tuple = (), *, cpu: bool = False, share_device: bool = False,
-          deterministic: bool = False, timeout_s: float | None = None) -> list:
+          timeout_s: float | None = None) -> list:
     """Run fn(mesh, *args) in `world_size` new processes, one rank each, and
     return their results in rank order. `fn` must be importable (a module
     function); its result is passed back through `torch.save`.
 
     cpu: every rank on the CPU over gloo. share_device: every rank on
-    `cuda:0` over gloo. deterministic: `torch.use_deterministic_algorithms`
-    in each rank. timeout_s: the ranks are stopped and this raises when they
-    have not all ended by then (None: no limit).
+    `cuda:0` over gloo. timeout_s: the ranks are stopped and this raises
+    when they have not all ended by then (None: no limit). Each rank takes
+    the caller's `torch.use_deterministic_algorithms` setting.
 
     Raises RuntimeError when a rank exits non-zero or the time runs out;
     the other ranks are stopped first."""
@@ -107,7 +106,7 @@ def spawn(fn, world_size: int, args: tuple = (), *, cpu: bool = False, share_dev
         paths = [os.path.join(tmp, f"rank{r}.pt") for r in range(world_size)]
         procs = [ctx.Process(target=_rank_entry, name=f"rank{r}",
                              args=(r, world_size, fn, args, os.path.join(tmp, "store"), cpu, share_device,
-                                   deterministic, paths[r]))
+                                   torch.are_deterministic_algorithms_enabled(), paths[r]))
                  for r in range(world_size)]
         for p in procs:
             p.start()
@@ -144,11 +143,6 @@ def spawn(fn, world_size: int, args: tuple = (), *, cpu: bool = False, share_dev
 def run_each(mesh: Mesh, calls: list) -> list:
     """Rank body of several jobs in one spawn: [fn(mesh, *args) for (fn, args) in calls]."""
     return [fn(mesh, *args) for fn, args in calls]
-
-
-def on_rank(mesh: Mesh, rank: int, fn, *args):
-    """fn(*args) on one rank only (None on the others)."""
-    return fn(*args) if mesh.rank == rank else None
 
 
 def state_digest(*state_dicts) -> str:

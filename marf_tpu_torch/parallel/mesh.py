@@ -7,7 +7,7 @@ here each rank is a process of its own under `torch.distributed`, and a
 device and the backend (NCCL with rank r on `cuda:r`, or gloo: on the CPU,
 or with every rank sharing `cuda:0`). Parameters and optimizer state are
 replicated; the flat pixel axis is sharded in contiguous column blocks
-(parallel/shard_fused.py).
+(engine/step.py).
 
 What marf_tpu `psum`s or tiles with `all_gather` over ICI is summed here by
 one `all_reduce` of a packed float32 buffer (`psum`): a tiled column gather
@@ -38,18 +38,6 @@ class Mesh:
     backend: str
 
 
-def choose_pixel_axis(h: int, w: int, n_devices: int) -> int | None:
-    """Pick which spatial dim of [B, C, h, w] to shard: the height axis (2) if
-    divisible by the mesh, else width (3), else None (replicate)."""
-    if n_devices <= 1:
-        return None
-    if h % n_devices == 0:
-        return 2
-    if w % n_devices == 0:
-        return 3
-    return None
-
-
 def init_mesh(rank: int, world_size: int, device: torch.device, backend: str, init_method: str = "env://",
               timeout_s: float = INIT_TIMEOUT_S) -> Mesh:
     """Join the process group and return this rank's Mesh; on CUDA the rank's
@@ -63,17 +51,21 @@ def init_mesh(rank: int, world_size: int, device: torch.device, backend: str, in
     return Mesh(rank, world_size, device, backend)
 
 
-def psum(tensors: list) -> list:
-    """Each float32 tensor summed over the ranks, by one all_reduce of the
-    tensors packed into a flat buffer. Every rank gets the same bits."""
+def psum(parts: dict) -> dict:
+    """Each float32 tensor of `parts` ({name: [tensors]}) summed over the
+    ranks, by one all_reduce of them all packed into a flat buffer: {name:
+    [sums]}, views of that buffer. Every rank gets the same bits."""
+    tensors = [t for ts in parts.values() for t in ts]
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"psum takes float32 tensors, got {sorted({str(t.dtype) for t in tensors})}")
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat)
-    out, i = [], 0
-    for t in tensors:
-        out.append(flat[i : i + t.numel()].view(t.shape))
-        i += t.numel()
+    out, i = {}, 0
+    for name, ts in parts.items():
+        out[name] = []
+        for t in ts:
+            out[name].append(flat[i : i + t.numel()].view(t.shape))
+            i += t.numel()
     return out
 
 
@@ -84,11 +76,6 @@ def place_columns(mesh: Mesh, block: torch.Tensor, n_cols: int) -> torch.Tensor:
     n = block.shape[1]
     full[:, mesh.rank * n : (mesh.rank + 1) * n] = block
     return full
-
-
-def gather_columns(mesh: Mesh, block: torch.Tensor, n_cols: int) -> torch.Tensor:
-    """The ranks' column blocks [C, n_cols / world_size] tiled to [C, n_cols]."""
-    return psum([place_columns(mesh, block, n_cols)])[0]
 
 
 def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:

@@ -1,67 +1,20 @@
-"""The fused train step sharded over ranks (twin of
-marf_tpu/parallel/shard_fused.py): every rank runs the single-card kernels
-on its contiguous block of the flat pixel axis.
+"""Which configs train pixel-sharded, and a sharded run's rank body (twin of
+marf_tpu/parallel/shard_fused.py).
 
-- The flat pixel axis N = B*HW (column order b*HW + i) is split into D
-  contiguous blocks of Nl = N / D columns; rank r keeps a contiguous copy of
-  block r of each flat stream (`shard_flat_data`) and runs the unchanged
-  kernels on it. Parameters and optimizer state are replicated: after the
-  sums every rank applies the same optimizer step.
-- What marf_tpu `psum`s over ICI is summed by `mesh.psum`, each step's sums
-  packed into a few all_reduces: the masked-MSE normalizer 1 / (3 sum m) is
-  global, and so are the loss partials and the MLP, warp and mask-head
-  gradients. The gradient-blocked edge term runs on every rank on the
-  gathered rgb [3, N] (a zero-filled buffer summed with the rgb psum).
-- The fixed-mask step: K1 (warp in the kernel, dH summed before the expm
-  VJP), or K2 under fused_warp=off or more than 8 images (the per-column
-  warp's VJP summed). The mask sum is constant, so it is summed once.
-- The shared-head implicit step with dedup: K3 on the rank's block of the
-  dedup column axis (K_pad columns, sharded apart from the positions), m
-  gathered to [1, K_pad]; the dense slot0 expansion to the rank's positions
-  (a tile and a slice: p = n mod HW is affine over a contiguous block) plus
-  its Eloc extras; K1 or K2 on its positions; the per-column segment sums
-  of sq and esq summed to [1, K_pad]; K6 with the column counts on its
-  column block. K4 stays on the single-card path: K6 with `cnt` takes its
-  place here, as in marf_tpu.
-- The implicit step without dedup (per-image heads when B % D == 0, the
-  shared head under fused_dedup=off): K5 -> K6 on the rank's block; with
-  per-image heads each rank runs only its own B / D heads, and the others'
-  gradients enter the sum as zeros.
-Losses and metrics are those of engine/step.py: the pre-update losses and
-PSNR, the post-update Homography_Error, fix_first after the metrics.
+The sharded step itself is engine/step.py `make_train_step` given a `Mesh`:
+every rank runs the single-card kernels on its contiguous block of the flat
+pixel axis N = B*HW, with the sums over that axis taken over the ranks. A
+config runs sharded when its fused pipeline does and its blocks divide:
+the flat pixel axis over the ranks, and per-image heads whole per rank.
+marf_tpu runs the other configs on its GSPMD-partitioned XLA step, which is
+not ported: here they raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import torch
 
-from marf_tpu_torch.engine.step import (
-    finish_step,
-    implicit_loss_coeffs,
-    make_optimizer,
-    mask_cot_scalars,
-    run_chunk,
-    set_grads,
-    stage_mask_x,
-    step_schedules,
-)
-from marf_tpu_torch.models.planar import (
-    Graph,
-    PlanarConfig,
-    use_fused_dedup,
-    use_fused_implicit,
-    use_fused_step,
-    use_lazy_metrics,
-)
-from marf_tpu_torch.ops.filters import compute_edges
-from marf_tpu_torch.ops.lie import sl3_to_SL3
-from marf_tpu_torch.ops.losses import mse, render_loss
-from marf_tpu_torch.parallel.mesh import Mesh, gather_columns, place_columns, psum
-from marf_tpu_torch.utils.console import log
-
-# sharded on their column axis: the position streams over N, the dedup
-# columns over K_pad (an axis of their own); each contiguous per rank
-FLAT_KEYS = ("rgb_cf", "masks_cf", "grid_b", "mask_X", "mask_Xall", "mask_slot0map_flat")
+from marf_tpu_torch.models.planar import Graph, PlanarConfig, use_fused_implicit, use_fused_step
 
 ROADMAP_ITEM = "ROADMAP.md Queue 1, the GSPMD/autograd twin of marf_tpu/parallel/sharded.py"
 
@@ -92,311 +45,24 @@ def check_shardable(cfg: PlanarConfig, n_devices: int, device: torch.device) -> 
             f"GSPMD step ({ROADMAP_ITEM}), not ported yet")
 
 
-def flatten_planar_data(data: dict, cfg: PlanarConfig, graph: Graph, n_devices: int) -> dict:
-    """The flat channels-first streams of the sharded step, on the graph's
-    device: grid_b [3, N] (u, v, image index), rgb_cf [3, N], masks_cf [1, N]
-    (ones without masks); for the shared-head dedup step the per-rank
-    slot0+extras structures (ops/cuda/fused_mask.py
-    `slot_dedup_sharded_inputs`) and the mask table, for the implicit step
-    without dedup X [56, N] and the table. The step reads the edge targets
-    and gt_hom from the dataset dict itself."""
-    device = graph.warp.device
-    h, w = cfg.map_hw
-    B = cfg.batch_size
-    HW = h * w
-    N = B * HW
-    grid_b = torch.cat(
-        [graph.grid.T.repeat(1, B), torch.arange(B, dtype=torch.float32, device=device).repeat_interleave(HW)[None]]
-    )
-    out = {"grid_b": grid_b, "rgb_cf": data["rgb"].permute(1, 0, 2, 3).reshape(3, N)}
-    if cfg.use_masks and data.get("masks") is not None:
-        out["masks_cf"] = data["masks"].permute(1, 0, 2, 3).reshape(1, N)
-    else:
-        out["masks_cf"] = torch.ones((1, N), dtype=torch.float32, device=device)
-    if use_fused_implicit(cfg, device) and use_fused_dedup(cfg, device):
-        from marf_tpu_torch.ops.cuda.fused_mask import factor_mask_inputs, slot_dedup_sharded_inputs
-
-        with torch.no_grad():
-            uv, onehot, table = factor_mask_inputs(graph.view_embedding.cpu(), data["rgb"].cpu(), graph.grid.cpu())
-        arrays = slot_dedup_sharded_inputs(uv.numpy(), onehot.numpy(), n_devices)
-        keys = ("mask_Xall", "mask_slot0map_flat", "mask_cntpad", "mask_extoff", "mask_extcol", "mask_extval")
-        for key, a in zip(keys, arrays):
-            t = torch.from_numpy(a)
-            out[key] = (t.long() if a.dtype.kind == "i" else t).to(device)
-        out["mask_table"] = table.to(device)
-    elif use_fused_implicit(cfg, device):
-        out["mask_X"], out["mask_table"] = stage_mask_x(graph, data["rgb"], cfg.build_single_masks)
-    return out
-
-
-def shard_flat_data(flat: dict, mesh: Mesh) -> dict:
-    """This rank's contiguous copy of its column block of each FLAT_KEYS
-    stream; the rest whole."""
-    out = {}
-    for key, value in flat.items():
-        if key in FLAT_KEYS:
-            n = value.shape[1] // mesh.world_size
-            value = value[:, mesh.rank * n : (mesh.rank + 1) * n]
-        out[key] = value.contiguous()
-    return out
-
-
-def warp_cols(grid_b: torch.Tensor, warp: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Per-column homography warp of a column block: grid_b [3, Nl] (u, v,
-    image index) -> [2, Nl] warped coordinates; the math of
-    ops/warp.warp_grid_cf_flat (x @ H^T, perspective divide +1e-8) for a
-    block that may start inside an image. Differentiable in warp; contiguous,
-    as K2 and K5 take it."""
-    H = sl3_to_SL3(warp)
-    hom = torch.cat([grid_b[:2], torch.ones_like(grid_b[:1])])
-    warped = torch.einsum("njk,kn->jn", H[grid_b[2].long()], hom)
-    return (warped[:2] / (warped[2:3] + eps)).contiguous()
-
-
-def _flat(pairs) -> list:
-    return [t for pair in pairs for t in pair]
-
-
-def _pairs(ts) -> list:
-    return list(zip(ts[0::2], ts[1::2]))
-
-
-def make_sharded_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, mesh: Mesh, scheduler=None,
-                            use_homographies: bool = True):
-    """step_fn(step: int, heavy: bool) -> metrics, as engine/step.py
-    `make_train_step`, with this rank's kernels on its column blocks and the
-    sums over the ranks between them. `data` is the whole dataset on the
-    rank's device; every rank passes the same, and the same `heavy`."""
-    from marf_tpu_torch.ops.cuda.fused_step import MAX_IMAGES, fused_train_kernel, fused_train_kernel_warp
-
-    device = graph.warp.device
-    D, r = mesh.world_size, mesh.rank
-    check_shardable(cfg, D, device)
-    implicit = use_fused_implicit(cfg, device)
-    dedup = implicit and use_fused_dedup(cfg, device)
-    lazy = use_lazy_metrics(cfg, device)
-    h, w = cfg.map_hw
-    B = cfg.batch_size
-    HW = h * w
-    N = B * HW
-    Nl = N // D
-    _, _, alphas, cws = step_schedules(cfg, device)
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    gt_hom = data.get("gt_hom") if use_homographies else None
-    mask_metric = cfg.use_implicit_mask and cfg.use_masks and data.get("masks") is not None
-    coords_kernel = cfg.fused_warp == "off" or B > MAX_IMAGES  # K2 in place of K1
-    cdtype = cfg.arch.compute_dtype
-    net = graph.neural_image
-    d = shard_flat_data(flatten_planar_data(data, cfg, graph, D), mesh)
-    grid_b, targets, masks_cf = d["grid_b"], d["rgb_cf"], d["masks_cf"]
-    edges_cf = data["edges"].permute(1, 0, 2, 3).contiguous() if cfg.use_edges else None
-    rgb_leg = "K2" if coords_kernel else "K1"
-    if dedup:
-        path = f"fused implicit dedup (K3 -> {rgb_leg} -> K6 with column counts)"
-    elif implicit:
-        path = f"fused implicit, {'per-image heads' if cfg.build_single_masks else 'shared head, no dedup'} (K5 -> K6)"
-    else:
-        path = f"fused ({rgb_leg})"
-    log.info(f"train step: {path}, {cdtype}, sharded over {D} ranks ({mesh.backend}), rank {r} on {device}, "
-             f"{Nl} of {N} positions")
-
-    def rgb_leg_grads(step: int, masks, g_loss_scale, inv_sum3):
-        """K1 or K2 on this rank's positions: (rgb [3, Nl], loss partial,
-        dmlp partial, the warp partial (dH or dwarp), its finisher to dwarp
-        after the sum, sq [1, Nl])."""
-        cw = None if cws is None else cws[step]
-        if coords_kernel:
-            coords = warp_cols(grid_b, graph.warp)
-            rgb, loss, dmlp, dcoords, sq = fused_train_kernel(net, coords.detach(), cw, targets, masks, g_loss_scale,
-                                                              inv_sum3, cdtype)
-            (dwarp,) = torch.autograd.grad(coords, graph.warp, dcoords)
-            return rgb, loss, dmlp, dwarp, lambda g: g, sq
-        H = sl3_to_SL3(graph.warp)
-        rgb, loss, dmlp, dH, sq = fused_train_kernel_warp(net, grid_b, H.detach(), cw, targets, masks, g_loss_scale,
-                                                          inv_sum3, cdtype)
-        return rgb, loss, dmlp, dH, lambda g: torch.autograd.grad(H, graph.warp, g)[0], sq
-
-    def edge_sq_local(rgb_full):
-        """The gradient-blocked edge term's squared error at this rank's
-        positions, [1, Nl], from the gathered rgb [3, N]."""
-        esq = torch.sum((compute_edges(rgb_full.reshape(3, B, h, w)) - edges_cf) ** 2, dim=0).reshape(1, N)
-        return esq[:, r * Nl : (r + 1) * Nl]
-
-    def losses(rgb_loss, edge_loss, mask_loss, alpha) -> dict:
-        return {"render": render_loss(rgb_loss, edge_loss, mask_loss, alpha), "rgb": rgb_loss, "mask": mask_loss,
-                "edge": edge_loss}
-
-    def mask_partials(m_local, heavy: bool) -> list:
-        """[sum (1 - m)^2] and, for Mask_Error, [sum (m - premade mask)^2]
-        over this rank's positions."""
-        out = [torch.sum((1.0 - m_local) ** 2).reshape(1)]
-        if mask_metric and (heavy or not lazy):
-            out.append(torch.sum((m_local - masks_cf) ** 2).reshape(1))
-        return out
-
-    if not implicit:
-        inv_sum3_fixed = 1.0 / (psum([torch.sum(masks_cf).reshape(1)])[0][0] * 3.0)
-        me = data.get("masks_eroded")
-        me_cf = None if me is None else me.permute(1, 0, 2, 3).contiguous()
-        c_render = 10.0 ** float(cfg.w_render)
-        c_rgb = 10.0 ** float(cfg.w_rgb) if cfg.w_rgb is not None else None
-
-        def grads_fn(step: int, heavy: bool):
-            alpha = alphas[step]
-            g_loss_scale = c_render * (1.0 - alpha)
-            if c_rgb is not None:
-                g_loss_scale = g_loss_scale + c_rgb
-            rgb, loss, dmlp, geo, finish, _ = rgb_leg_grads(step, masks_cf, g_loss_scale, inv_sum3_fixed)
-            edges = cfg.use_edges and (heavy or not lazy)
-            sums = psum([geo, loss.reshape(1), *_flat(dmlp)] + ([place_columns(mesh, rgb, N)] if edges else []))
-            graph.warp.grad = finish(sums[0])
-            set_grads(net.layers, _pairs(sums[2 : 2 + 2 * len(dmlp)]))
-            rgb_loss = sums[1][0]
-            edge_loss = mse(compute_edges(sums[-1].reshape(3, B, h, w)), edges_cf, me_cf) if edges else zero
-            return losses(rgb_loss, edge_loss, zero, alpha), None
-
-    elif dedup:
-        from marf_tpu_torch.ops.cuda.fused_mask import (
-            fused_mask_backward_g,
-            fused_mask_forward,
-            mask_w_stack,
-            unfactor_mask_grads,
-        )
-
-        X_local, s0_local, table = d["mask_Xall"], d["mask_slot0map_flat"], d["mask_table"]
-        cnt_pad = d["mask_cntpad"]
-        K_pad = cnt_pad.shape[1]
-        Klp = K_pad // D
-        cnt_local = cnt_pad[:, r * Klp : (r + 1) * Klp].contiguous()
-        ext_off, ext_col, ext_val = (d[k][r] for k in ("mask_extoff", "mask_extcol", "mask_extval"))
-        Eloc = ext_off.shape[0]
-        start = (r * Nl) % HW
-        T = -(-Nl // HW) + 1  # tiles covering a window of Nl positions from any start
-        log.info(f"mask-head dedup: K_pad = {K_pad} columns, {Klp} on this rank; {Eloc} extra (position, column) "
-                 f"slots on this rank")
-
-        def seg_partial(v_local):
-            """This rank's part of the per-column segment sums of a position
-            stream [1, Nl] -> [1, K_pad]: slot0 by one slice write into a
-            [T, HW] buffer reduced over T, the extras by an Eloc-sized
-            index_add (padding slots add 0 at column 0)."""
-            buf = v_local.new_zeros((1, T * HW))
-            buf[:, start : start + Nl] = s0_local * v_local
-            part = v_local.new_zeros((K_pad,))
-            part[:HW] = buf.reshape(T, HW).sum(0)
-            if Eloc:
-                part.index_add_(0, ext_col, v_local[0, ext_off] * ext_val)
-            return part[None]
-
-        def grads_fn(step: int, heavy: bool):
-            alpha = alphas[step]
-            C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
-            # ---- K3 on this rank's dedup columns, m gathered to all K_pad
-            stack = mask_w_stack(graph.implicit_mask, table)
-            m_all = gather_columns(mesh, fused_mask_forward(stack, X_local, cdtype), K_pad)
-            inv_sum3 = 1.0 / (torch.dot(cnt_pad[0], m_all[0]) * 3.0)
-            # ---- m at this rank's positions: slot0 dense, then the extras
-            m_local = s0_local * m_all[:, :HW].repeat(1, T)[:, start : start + Nl]
-            if Eloc:
-                m_local = m_local.index_add(1, ext_off, m_all[:, ext_col] * ext_val)
-            # ---- K1 or K2 masked by m
-            rgb, loss, dmlp, geo, finish, sq = rgb_leg_grads(step, m_local, C_r, inv_sum3)
-            parts = mask_partials(m_local, heavy)
-            sums = psum([geo, loss.reshape(1), *parts, *_flat(dmlp)]
-                        + ([place_columns(mesh, rgb, N)] if cfg.use_edges else []))
-            graph.warp.grad = finish(sums[0])
-            rgb_loss, mask_loss = sums[1][0], sums[2][0] / N
-            mask_error = sums[3][0] / N if len(parts) == 2 else None
-            set_grads(net.layers, _pairs(sums[2 + len(parts) : 2 + len(parts) + 2 * len(dmlp)]))
-            # ---- the edge term at this rank's positions, then the global
-            # edge loss and segment sums
-            if cfg.use_edges:
-                esq = edge_sq_local(sums[-1])
-                edge_l, s_sq, s_esq = psum([torch.sum(m_local * m_local * esq).reshape(1), seg_partial(sq),
-                                            seg_partial(esq)])
-                edge_loss = edge_l[0] * inv_sum3
-            else:
-                (s_sq,), s_esq, edge_loss = psum([seg_partial(sq)]), None, zero
-            block = lambda s: None if s is None else s[:, r * Klp : (r + 1) * Klp]
-            # ---- K6 on this rank's columns with the column counts
-            a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
-            (dstack,) = fused_mask_backward_g([stack], X_local, block(s_sq), block(s_esq),
-                                              torch.stack([a_s, b_s, k_s]), c_s, cnt_local, cdtype)
-            set_grads(graph.implicit_mask.layers, unfactor_mask_grads(_pairs(psum(_flat(dstack))), table))
-            return losses(rgb_loss, edge_loss, mask_loss, alpha), mask_error
-
-    else:
-        from marf_tpu_torch.ops.cuda.fused_implicit import fused_implicit_train_kernel
-        from marf_tpu_torch.ops.cuda.fused_mask import fused_mask_backward_g, mask_w_stack, unfactor_mask_grads
-
-        X_local, table = d["mask_X"], d["mask_table"]
-        single = cfg.build_single_masks
-        heads = list(graph.implicit_mask) if single else [graph.implicit_mask]
-        Bl = B // D if single else 1
-        own = range(r * Bl, (r + 1) * Bl) if single else range(1)
-
-        def grads_fn(step: int, heavy: bool):
-            alpha = alphas[step]
-            C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
-            stacks = [mask_w_stack(heads[i], table) for i in own]
-            # ---- K5 on this rank's positions, its own heads
-            coords = warp_cols(grid_b, graph.warp)
-            rgb, m_local, sq, dcoords_u, msum, loss_u, dmlp_u = fused_implicit_train_kernel(
-                net, stacks, coords.detach(), X_local, None if cws is None else cws[step], targets, 2.0 * C_r, cdtype
-            )
-            (dwarp_u,) = torch.autograd.grad(coords, graph.warp, dcoords_u)
-            parts = mask_partials(m_local, heavy)
-            sums = psum([msum.reshape(1), loss_u.reshape(1), dwarp_u, *parts, *_flat(dmlp_u)]
-                        + ([place_columns(mesh, rgb, N)] if cfg.use_edges else []))
-            # the masked-MSE normalization 1 / (3 sum m) of the global sum
-            inv_sum3 = 1.0 / (sums[0][0] * 3.0)
-            rgb_loss = sums[1][0] * inv_sum3
-            graph.warp.grad = sums[2] * inv_sum3
-            mask_loss = sums[3][0] / N
-            mask_error = sums[4][0] / N if len(parts) == 2 else None
-            dmlp = sums[3 + len(parts) : 3 + len(parts) + 2 * len(dmlp_u)]
-            set_grads(net.layers, [(dw * inv_sum3, db * inv_sum3) for dw, db in _pairs(dmlp)])
-            if cfg.use_edges:
-                esq = edge_sq_local(sums[-1])
-                edge_loss = psum([torch.sum(m_local * m_local * esq).reshape(1)])[0][0] * inv_sum3
-            else:
-                esq, edge_loss = None, zero
-            # ---- K6 on this rank's heads; the other heads' gradients are 0 here
-            a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
-            dstacks = fused_mask_backward_g(stacks, X_local, sq, esq, torch.stack([a_s, b_s, k_s]), c_s,
-                                            compute_dtype=cdtype)
-            if single:
-                full = [[torch.zeros_like(t) for t in _flat(dstacks[0])]] * B
-                for i, dstack in zip(own, dstacks):
-                    full[i] = _flat(dstack)
-                summed = psum([t for head in full for t in head])
-                n = len(full[0])
-                for i, head in enumerate(heads):
-                    set_grads(head.layers, unfactor_mask_grads(_pairs(summed[i * n : (i + 1) * n]), table))
-            else:
-                set_grads(heads[0].layers, unfactor_mask_grads(_pairs(psum(_flat(dstacks[0]))), table))
-            return losses(rgb_loss, edge_loss, mask_loss, alpha), mask_error
-
-    def step_fn(step: int, heavy: bool = True) -> dict:
-        loss, mask_error = grads_fn(step, heavy)
-        return finish_step(cfg, graph, optimizer, scheduler, loss, heavy, lazy, gt_hom,
-                           None if not mask_metric else (lambda: mask_error))
-
-    return step_fn
-
-
-def train_steps(mesh: Mesh, cfg: PlanarConfig, state_dict: dict, data: dict, n_steps: int, optim_opt: dict,
+def train_steps(mesh, cfg: PlanarConfig, state_dict: dict, data: dict, n_steps: int, optim_opt: dict,
                 use_homographies: bool = True):
     """n_steps sharded steps from a Graph state_dict on a dataset dict
     (numpy or tensors, the whole dataset on every rank), the twin of marf_tpu's
     `make_fused_sharded_setup` and its chunk. Returns ({metric: [n_steps]
-    array}, the final state_dict on the CPU)."""
+    array}, the final state_dict, the first step's gradients {parameter
+    name: tensor}, all on the CPU)."""
+    import numpy as np
+
     from marf_tpu_torch.data.planar import to_device
+    from marf_tpu_torch.engine.step import make_optimizer, make_train_step, run_chunk
 
     graph = Graph(cfg).to(mesh.device)
     graph.load_state_dict(state_dict)
     optimizer, scheduler = make_optimizer(graph, optim_opt, cfg.max_iter)
-    step_fn = make_sharded_train_step(cfg, graph, optimizer, to_device(data, mesh.device), mesh, scheduler,
-                                      use_homographies)
-    metrics = run_chunk(step_fn, 0, n_steps)
-    return metrics, {k: v.cpu() for k, v in graph.state_dict().items()}
+    step_fn = make_train_step(cfg, graph, optimizer, to_device(data, mesh.device), scheduler, use_homographies, mesh)
+    first = run_chunk(step_fn, 0, 1)
+    grads = {n: p.grad.cpu().clone() for n, p in graph.named_parameters() if p.grad is not None}
+    rest = run_chunk(step_fn, 1, n_steps - 1)
+    metrics = {k: np.concatenate([first[k], rest[k]]) for k in first}
+    return metrics, {k: v.cpu() for k, v in graph.state_dict().items()}, grads

@@ -22,7 +22,7 @@ def main(argv=None, mesh=None, opt=None, **launch_options):
     """Train with the options of `argv` (default sys.argv[1:]) and return the
     Model. Without `mesh`, a run of N > 1 devices starts its ranks here and
     returns their results (parallel/launch.py `spawn` with `launch_options`:
-    share_device, deterministic, timeout_s; `train_rank`), or, under
+    share_device, timeout_s; `train_rank`), or, under
     torchrun, joins its world and trains this rank. A spawned rank passes
     its `mesh` and the launcher's resolved `opt` (one run name for all
     ranks)."""
