@@ -38,6 +38,7 @@ from marf_tpu_torch.parallel import launch
 from marf_tpu_torch.parallel import shard_fused as tsf
 from marf_tpu_torch.train import main
 from marf_tpu_torch.utils.params import params_from_jax, params_to_jax
+from parallel_rank_bodies import fail_on_rank_1
 from test_torch_models import cfg_pair, fake_data, jax_params, port_graph, to_jax, to_torch
 from test_torch_trainer import TINY
 
@@ -278,12 +279,6 @@ def test_more_ranks_than_cards_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.check_cards(1, share_device=True)
-
-
-def fail_on_rank_1(mesh):
-    """A rank body that raises on rank 1 (the ranks import this module)."""
-    if mesh.rank == 1:
-        raise RuntimeError("rank 1 fails")
 
 
 def test_failing_rank_stops_the_launcher():
