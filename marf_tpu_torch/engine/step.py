@@ -279,11 +279,11 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     dedup segment sums; the gradient-blocked edge term runs on every rank on
     the gathered rgb [3, N]. The shared-head dedup step shards its dedup
     columns apart from the positions, and backs the mask head with K6 and
-    the column counts on the rank's column block where one card runs K4. Per-image
-    heads run on the rank that owns their images; the others' gradients
-    enter the sum as zeros. Every rank passes the same `data` and `heavy`;
-    parameters and optimizer state stay replicated. Without a mesh the sums
-    are over the one block, and nothing is summed.
+    the column counts on the rank's column block where one card runs K4.
+    Per-image heads run on the rank that owns their images; the others'
+    gradients enter the sum as zeros. Every rank passes the same `data` and
+    `heavy`; parameters and optimizer state stay replicated. Without a mesh
+    the block is the whole axis and every sum is the identity.
     """
     from marf_tpu_torch.ops.cuda.fused_step import MAX_IMAGES
 
