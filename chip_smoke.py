@@ -30,6 +30,9 @@ Phases, one result line each; any failure exits non-zero:
        at the card's dense bf16 rate (989 TFLOP/s); K5 and K6 with 5
        per-image heads (the JSON line's numbers), then with the shared head
        on all N columns, the shape fused_dedup=off gives them;
+     - K1 at float32 and bf16 at the noposenc bench case's shape (posenc
+       off: L = 0, input_dim 2; c2f off; N = 216,000): printed rows, held
+       as K1's;
      - K6 with column counts at the sharded dedup step's shapes (one head on
        rank 0's Klp dedup columns of 2 ranks, cnt from
        slot_dedup_sharded_inputs), at float32 and bf16: printed rows, held
@@ -93,8 +96,20 @@ Phases, one result line each; any failure exits non-zero:
      of the same config (bf16 printed); rank 0 alone wrote one events file
      and ckpt/30, ckpt/60; the 2-rank ckpt/30 resumed on 1 rank is within
      2e-5 of the 2-rank run over steps 31-40; steps/s at 1 and 2 ranks.
-Then a JSON line with each kernel's numbers (launches: phases 4, 5 and 6,
-summed over the ranks), the nvidia-smi line, and last
+  7. bench, the measurement entry points: `marf_tpu_torch.bench.run_case`
+     for the six cases of bench.py at float32 and default knobs, and for
+     implicit and implicit_single at bf16, 300 steps each (one warm-up chunk
+     of 100, two timed): a finite steps/s > 0 and final PSNR, the case's
+     kernels once per timed step and no other (K1; K3, K1, K4; K5, K6; their
+     bf16 entry points at bf16), the golden skipped off cat_batch3; one
+     `python -m marf_tpu_torch.bench` process (canonical) held the same way
+     from its one stdout line; one `marf_tpu_torch.train.main` run with
+     --profile=1 (60 steps in chunks of 20): one trace file under
+     `<run>/profile` whose device kernels include K1's (encode_kernel,
+     tc_gemm_kernel, head_kernel, encode_bwd_kernel).
+Then a JSON line with each kernel's numbers (launches: phases 4 to 7, summed
+over the ranks; phase 7's bench runs count their timed steps), the
+nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
 
@@ -458,6 +473,7 @@ def _mlp_flops(N, dims, dx_layers):
 
 
 def phase_kernels(device):
+    from marf_tpu_torch.models.neural_image import NeuralImage, NeuralImageConfig
     from marf_tpu_torch.ops.cuda import fused_implicit as fi
     from marf_tpu_torch.ops.cuda import fused_mask as fm
     from marf_tpu_torch.ops.cuda import fused_step as fs
@@ -651,6 +667,27 @@ def phase_kernels(device):
         moved = {k: _rel(v, ref64[k]) for k, v in named6(mask_grads_rounded_forward(stacks64, k6_64[0], cot6)).items()}
         print(f"[kernel] K6 fused_mask_backward_g N={N} heads={n_heads} float64 with the forward rounded at 2^-23 "
               "vs float64: " + " ".join(f"{k}={v:.2e}" for k, v in moved.items()), flush=True)
+
+    # K1 at the noposenc bench case's shapes (phase 7): arch.posenc off (L =
+    # 0, input_dim 2, the first layer's K = 2) and barf_c2f None, on all N
+    # positions. Printed rows; the JSON line keeps the canonical shape's.
+    net0 = NeuralImage(NeuralImageConfig(posenc_L=None, barf_c2f=None), generator=torch.Generator().manual_seed(4))
+    net0 = net0.to(device)
+    net0_64 = copy.deepcopy(net0).double()
+    w0 = [t for layer in net0.layers for t in (layer.weight, layer.bias)]
+    dims0 = [net0.cfg.input_dim] + [layer.out_features for layer in net0.layers]
+    k1n = (grid_b, H, None, targets, masks, g, inv_sum3)
+    k1n_64 = tuple(None if t is None else t.double() for t in k1n)
+    for dt, extra in (("float32", {}), ("bfloat16", BF16)):
+        check_kernel(
+            f"K1{' bf16' if extra else ''} fused_train_kernel_warp, posenc off (L=0, input_dim {dims0[0]}), "
+            f"c2f off: N={N}",
+            lambda: _named(*fs.fused_train_kernel_warp(net0, *k1n, compute_dtype=dt), "dH"),
+            lambda: _named(*fs.fused_train_kernel_warp_reference(net0, *k1n, dt), "dH"),
+            lambda: _named(*fs.fused_train_kernel_warp_reference(net0_64, *k1n_64, dt), "dH"),
+            ("rgb", "sq", "loss"), _mlp_flops(N, dims0, len(dims0) - 1),
+            _nbytes(grid_b, H, targets, masks, *w0) + (3 + 1) * N * 4 + _nbytes(*w0) + _nbytes(H), **extra,
+        )
 
     # the kernels at phase 6's shapes (2 ranks), each held as at full shape:
     # K1 and K2 on rank 1's block of the positions (it starts 21,600 pixels
@@ -1276,6 +1313,94 @@ def phase_sharded(out_root: str, smi: str):
     return total
 
 
+# phase 7: the bench entry at 300 iterations (one warm-up chunk of 100, two
+# timed); each case's kernels at default knobs, each once per timed step
+BENCH_ITERS = 300
+BENCH_RGB = ("fused_train_kernel_warp",)
+BENCH_PATHS = {
+    "canonical": BENCH_RGB, "fullposenc": BENCH_RGB, "noposenc": BENCH_RGB, "edges_only": BENCH_RGB,
+    "implicit": ("fused_mask_forward", "fused_train_kernel_warp", "fused_mask_backward_dedup"),
+    "implicit_single": ("fused_implicit_train_kernel", "fused_mask_backward_g"),
+}
+# K1's device kernels, as step_profile lists them (csrc/fused_step.cuh, tc_gemm.cuh)
+K1_DEVICE_KERNELS = ("encode_kernel", "tc_gemm_kernel", "head_kernel", "encode_bwd_kernel")
+
+
+def _check_bench(tag: str, r: dict, case: str, dtype: str):
+    """A bench line: a finite steps/s > 0 and final PSNR, the case's kernels
+    once per timed step and no other, the golden skipped off cat_batch3."""
+    from marf_tpu_torch.ops.cuda import LAUNCHES
+
+    x = r["extra"]
+    if not (r["value"] is not None and np.isfinite(r["value"]) and r["value"] > 0 and np.isfinite(x["final_psnr_db"])):
+        fail(f"bench {tag}: steps/s {r['value']}, final PSNR {x['final_psnr_db']}")
+    suffix = "_bf16" if dtype == "bfloat16" else ""
+    want = {k: float(k in {p + suffix for p in BENCH_PATHS[case]}) for k in LAUNCHES}
+    if x["launches"] != want:
+        fail(f"bench {tag}: launches per timed step {x['launches']}, expected {want}")
+    if x["dataset"] != "cat_batch3" and "skipped" not in x["golden"]:
+        fail(f"bench {tag}: golden {x['golden']} on dataset {x['dataset']}, expected skipped")
+    if (x["case"], x["compute_dtype"], x["iters_timed"]) != (case, dtype, BENCH_ITERS - 100):
+        fail(f"bench {tag}: case {x['case']}, dtype {x['compute_dtype']}, {x['iters_timed']} timed steps")
+    ran = ", ".join(k for k, v in x["launches"].items() if v) or "none"
+    print(f"[bench] {tag}: {r['value']:.2f} steps/s, final PSNR {x['final_psnr_db']:.3f} dB, kernels per step 1 x "
+          f"{ran}, golden {x['golden']}, dataset {x['dataset']}, device {x['device']}", flush=True)
+
+
+def phase_bench(out_root: str):
+    """Phase 7: the bench entry. `run_case` in-process for the six cases at
+    float32 and for implicit and implicit_single at bf16; one
+    `python -m marf_tpu_torch.bench` process (canonical); one
+    `train.main` run with --profile=1 whose trace must name K1's device
+    kernels. Returns the launch counts (the timed steps' for the bench
+    runs)."""
+    from marf_tpu_torch.bench import CASES, run_case
+
+    t0 = time.perf_counter()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    runs = [(case, "float32") for case in CASES] + [("implicit", "bfloat16"), ("implicit_single", "bfloat16")]
+    for case, dtype in runs:
+        (r, _), counts = _launch_counts(lambda: run_case(case, BENCH_ITERS, dtype=dtype))
+        _check_bench(f"{case} {dtype}", r, case, dtype)
+        add(counts)
+    env = dict(os.environ, MARF_BENCH_CASE="canonical", MARF_BENCH_ITERS=str(BENCH_ITERS))
+    proc = subprocess.run([sys.executable, "-m", "marf_tpu_torch.bench"], env=env, capture_output=True, text=True,
+                          timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"python -m marf_tpu_torch.bench: rc {proc.returncode}, stdout {proc.stdout[-1000:]!r}, "
+             f"stderr {proc.stderr[-2000:]!r}")
+    r = json.loads(lines[-1])
+    _check_bench("canonical float32 (python -m marf_tpu_torch.bench)", r, "canonical", "float32")
+    add({k: round(v * r["extra"]["iters_timed"]) for k, v in r["extra"]["launches"].items() if v})
+
+    # --profile=1: chunk 1 of 3 (steps 20-40) traced into <run>/profile
+    m, counts = _launch_counts(lambda: _train_cli(out_root, "profiled", 60, "--dataset=synthetic", "--freq.scalar=20",
+                                                   "--freq.vis=60", "--tb=", "--profile=1"))
+    _expect("profiled", m, counts, {"fused_train_kernel_warp": 60}, 60)
+    add(counts)
+    prof_dir = os.path.join(m.opt.output_path, "profile")
+    files = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")] if os.path.isdir(prof_dir) else []
+    if len(files) != 1:
+        fail(f"--profile=1: trace files {files} under {prof_dir}, expected one")
+    with open(os.path.join(prof_dir, files[0])) as f:
+        trace = json.load(f)
+    kernels = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    found = {k: sum(f"{k}<" in n or f"{k}(" in n for n in kernels) for k in K1_DEVICE_KERNELS}
+    if not all(found.values()):
+        fail(f"--profile=1: the trace names K1's device kernels {found} times ({len(kernels)} kernel events)")
+    size = os.path.getsize(os.path.join(prof_dir, files[0])) / 2**20
+    print(f"[bench] --profile=1 (chunk 1 of 3, 20 steps): {files[0]} {size:.1f} MiB, {len(kernels)} kernel events; "
+          f"K1's device kernels " + ", ".join(f"{k} x{v}" for k, v in found.items()), flush=True)
+    print(f"[bench] phase 7 {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 KERNELS = [
     ("K1", "fused_train_kernel_warp", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:272"),
     ("K2", "fused_train_kernel", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:208"),
@@ -1314,8 +1439,11 @@ def main():
         t_life = time.perf_counter() - t0 - t_kernels - t_main
         for k, v in phase_sharded(tmp, smi).items():
             launches[k] = launches.get(k, 0) + v
+        t_shard = time.perf_counter() - t0 - t_kernels - t_main - t_life
+        for k, v in phase_bench(tmp).items():
+            launches[k] = launches.get(k, 0) + v
     print(f"[time] build and kernels {t_kernels:.1f} s, main path {t_main:.1f} s, lifecycle {t_life:.1f} s, sharded "
-          f"{time.perf_counter() - t0 - t_kernels - t_main - t_life:.1f} s", flush=True)
+          f"{t_shard:.1f} s, bench {time.perf_counter() - t0 - t_kernels - t_main - t_life - t_shard:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
          **results[kid], "library_ms": None}

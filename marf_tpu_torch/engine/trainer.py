@@ -169,25 +169,44 @@ class Model:
 
     # ------------------------------------------------------------------ train
 
-    def train(self):
-        """Phase 5: the chunked training loop (reference model/planar.py:136-170)."""
-        log.title("TRAINING START")
-        self.timer = IterTimer()
-        freq = self.opt.freq
-        step_fn = make_train_step(
+    def make_step(self):
+        """The train step `train` runs (engine/step.py `make_train_step` on
+        this Model's graph, optimizer, data and mesh; twin of marf_tpu's
+        `_build_compiled`). Its constants are built here, once."""
+        return make_train_step(
             self.cfg, self.graph, self.optimizer, self.data, self.scheduler, use_homographies=self.use_homographies,
             mesh=self.mesh,
         )
+
+    def train(self):
+        """Phase 5: the chunked training loop (reference model/planar.py:136-170).
+
+        `--profile=N` traces chunks [1, 1 + N) of this loop (chunk 0 carries
+        the kernels' build and warm-up) with torch.profiler, CPU activity and
+        CUDA activity on a card, written by `tensorboard_trace_handler` as one
+        `<worker>.<ns>.pt.trace.json` under `<output_path>/profile` (view:
+        tensorboard --logdir <run>/profile, or chrome://tracing). A pure
+        overlay: the cadences and the metrics are those of the run without
+        it. Under a mesh, rank 0 alone traces."""
+        log.title("TRAINING START")
+        self.timer = IterTimer()
+        freq = self.opt.freq
+        step_fn = self.make_step()
         max_iter = int(self.cfg.max_iter)
         ckpt_freq = freq.get("ckpt")
         c = chunk_schedule(max_iter, freq.scalar, freq.vis, ckpt_freq)
+        profile_chunks = int(self.opt.get("profile") or 0) if self.is_main else 0
+        profiler = None
         if self.is_main:
             self.visualize(step=0)  # reference model/planar.py:152-153
         pbar = tqdm.tqdm(total=max_iter, desc="Training", leave=False, initial=self.it, disable=not self.is_main)
         postfix = {}
+        chunk_idx = 0
         try:
             while self.it < max_iter:
                 n = min(c, max_iter - self.it)
+                if profile_chunks and chunk_idx == 1:
+                    profiler = self._start_profiler()
                 self.timer.tic()
                 md = run_chunk(step_fn, self.it, n)  # returns after the chunk's device work
                 self.chunk_times.append((n, self.timer.toc(n) * n))
@@ -208,12 +227,18 @@ class Model:
                     )
                 pbar.update(n)
                 pbar.set_postfix(**postfix)
+                chunk_idx += 1
+                if profiler is not None and chunk_idx >= 1 + profile_chunks:
+                    self._stop_profiler(profiler)
+                    profiler = None
                 if self.it % freq.vis == 0 and self.is_main:
                     self.visualize(step=self.it)
                 if ckpt_freq and self.it % ckpt_freq == 0:
                     self.save_checkpoint()
         finally:
             pbar.close()
+            if profiler is not None:
+                self._stop_profiler(profiler)
         if self.opt.get("save_checkpoint", True) and self._saved_at != self.it:
             self.save_checkpoint()
         if self.is_main:
@@ -223,6 +248,19 @@ class Model:
             self.tb.close()
         log.info(f"mean steps/sec: {self.steps_per_sec:.2f}")
         log.title("TRAINING DONE")
+
+    def _start_profiler(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        handler = torch.profiler.tensorboard_trace_handler(f"{self.opt.output_path}/profile")
+        profiler = torch.profiler.profile(activities=acts, on_trace_ready=handler)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        profiler.stop()  # writes the trace
+        log.info(f"profiler trace written to {self.opt.output_path}/profile")
 
     def save_checkpoint(self) -> str | None:
         """The training state at `self.it` under `<output_path>/ckpt/<it>`,

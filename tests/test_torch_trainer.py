@@ -180,7 +180,7 @@ def test_device_resolution_without_cuda(monkeypatch, tmp_path):
 def test_port_never_imports_jax(tmp_path):
     """Neither jax nor any module of marf_tpu (the JAX package) is imported,
     on the canonical path and on the implicit-mask path, nor by the
-    multi-device modules (marf_tpu_torch/parallel/)."""
+    multi-device modules (marf_tpu_torch/parallel/) or the bench entry."""
     code = f"""
 import sys
 from marf_tpu_torch.train import main
@@ -194,6 +194,8 @@ assert m.it == 2
 import marf_tpu_torch.ops.cuda._build, marf_tpu_torch.ops.cuda.fused_step, marf_tpu_torch.ops.cuda.fused_mask
 import marf_tpu_torch.utils.params
 import marf_tpu_torch.parallel.mesh, marf_tpu_torch.parallel.shard_fused, marf_tpu_torch.parallel.launch
+from marf_tpu_torch import bench
+bench.golden_check("canonical", 600, 3, "float32", "cat_batch3", 21.9)
 leaked = sorted(k for k in sys.modules if k in ("jax", "marf_tpu") or k.startswith(("jax.", "jaxlib", "flax", "optax", "marf_tpu.")))
 assert not leaked, leaked
 print("JAX-FREE")
