@@ -38,8 +38,10 @@ Phases, one result line each; any failure exits non-zero:
        slot_dedup_sharded_inputs), at float32 and bf16: printed rows, held
        as K6's.
   4. main path: the port's trainer (`marf_tpu_torch.engine.trainer.Model`),
-     synthetic data, seed 3, each run with the launch counts set to 0 just
-     before it and read just after:
+     its step captured as CUDA graphs after the first chunk and replayed,
+     one chunk deep (the default on a card), synthetic data, seed 3, each
+     run with the launch counts set to 0 just before it and read just after
+     (a replay adds the launches its graph recorded):
      - canonical config (planar.yaml + barf_c2f=[0,0.4]), fused (K1 once per
        step) then autograd (no kernel) from the same init;
      - the `implicit` config (+ --use_implicit_mask --use_masks=false), fused
@@ -76,11 +78,14 @@ Phases, one result line each; any failure exits non-zero:
        scene, for its steps/s beside the fixture run's;
      - a copy of that run resumed from ckpt/30 (--resume=30): K1 30 times,
        its ckpt/60 (parameters and Adam state) and its last 30 steps'
-       metrics bitwise the unbroken run's;
+       metrics bitwise the unbroken run's (its first chunk eager, the
+       unbroken run's replayed);
      - the shared-head implicit config, 20 steps with --freq.vis=20: K3, K1
        and K4 20 times each, the train/implicit_masks panel at 1 and 20;
-     - 10 fused canonical steps each with --optim.algo=AdamW, SGD and
-       RMSprop: finite losses, K1 10 times each;
+     - 20 fused canonical steps in chunks of 10 each with --optim.algo=Adam,
+       AdamW, SGD and RMSprop under a StepLR schedule applied on the device
+       (steps 5, gamma 0.5): finite losses, K1 20 times each, the second
+       chunk replayed, the learning rate 1e-3 x 0.5^4 after it;
      and the host ms of each vis frame, checkpoint save and restore.
   6. sharded, through the launcher (`marf_tpu_torch.parallel.launch.spawn`,
      each rank running `marf_tpu_torch.train.main`) on 2 ranks: NCCL with
@@ -90,8 +95,10 @@ Phases, one result line each; any failure exits non-zero:
      rank): canonical (K1) 60 steps with TB and --freq.ckpt=30, fused_warp=off
      (K2) 20, implicit dedup (K3 -> K1 -> K6 with cnt) 60 and at bf16 20,
      fused_dedup=off (K5 -> K6) 20, per-image heads at B = 4 (K5 -> K6, two
-     heads per rank) 20. Each rank launches each kernel of its path once per
-     step; the ranks' parameters and Adam state are bitwise equal; each
+     heads per rank) 20. Each rank runs its chunks eagerly ("eager
+     (gloo)": gloo's collectives are not captured) and launches each kernel
+     of its path once per step; the ranks' parameters and Adam state are
+     bitwise equal; each
      float32 run's first 10 steps' losses and PSNR are within 2e-5 of 1 rank
      of the same config (bf16 printed); rank 0 alone wrote one events file
      and ckpt/30, ckpt/60; the 2-rank ckpt/30 resumed on 1 rank is within
@@ -106,9 +113,20 @@ Phases, one result line each; any failure exits non-zero:
      from its one stdout line; one `marf_tpu_torch.train.main` run with
      --profile=1 (60 steps in chunks of 20): one trace file under
      `<run>/profile` whose device kernels include K1's (encode_kernel,
-     tc_gemm_kernel, head_kernel, encode_bwd_kernel).
-Then a JSON line with each kernel's numbers (launches: phases 4 to 7, summed
-over the ranks; phase 7's bench runs count their timed steps), the
+     tc_gemm_kernel, head_kernel, encode_bwd_kernel), run in a replayed
+     graph.
+  8. capture: on 9 paths (canonical float32 and bf16, canonical autograd,
+     implicit dedup float32 and bf16, implicit with fused_warp=off,
+     implicit_single float32 and bf16, implicit with fused_dedup=off), the
+     captured chunk (`make_train_chunk`) against the eager one from the same
+     init, 100 steps in chunks of 20 at full width: every step's metrics,
+     the parameters and the optimizer state bitwise equal, each kernel of
+     the path once per step counted through the replays, and host ms per
+     step (the dispatch), device ms per step (the kernels of one traced
+     chunk) and steps/s, captured beside eager.
+Then a JSON line with each kernel's numbers (launches: phases 4 to 8, summed
+over the ranks; phase 7's bench runs count their timed steps; phase 8 its
+captured runs), the
 nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
@@ -607,6 +625,7 @@ def phase_kernels(device):
         stacks64 = [[(w.double(), b.double()) for w, b in layers] for layers in stacks]
         hweights = [t for layers in stacks for wb in layers for t in wb]
         g2C = 2.0 * (1.0 + (1.0 - 0.23))  # 2 C_r at progress 0.23, as K1's inputs
+        g2C_t = torch.tensor(g2C, device=device)  # the kernel takes it on the device
         k5 = (coords, Xn, cw, targets)
         k5_64 = tuple(t.double() for t in k5)
 
@@ -621,8 +640,8 @@ def phase_kernels(device):
         # error scale
         results["K5" + tag] = check_kernel(
             f"K5 fused_implicit_train_kernel N={N} heads={n_heads}",
-            lambda: named5(fi.fused_implicit_train_kernel(net, stacks, *k5, g2C)),
-            lambda: named5(fi.fused_implicit_train_kernel_reference(net, stacks, *k5, g2C)),
+            lambda: named5(fi.fused_implicit_train_kernel(net, stacks, *k5, g2C_t)),
+            lambda: named5(fi.fused_implicit_train_kernel_reference(net, stacks, *k5, g2C_t)),
             lambda: named5(fi.fused_implicit_train_kernel_reference(net64, stacks64, *k5_64, g2C)),
             ("rgb", "sq", "loss", "m", "msum"), rgb_flops + 2 * N * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])),
             _nbytes(*k5, *weights, *hweights) + out_bytes + N * 4 * (1 + 2) + 8,  # + m, dcoords, msum, loss
@@ -644,8 +663,8 @@ def phase_kernels(device):
         # K5 and K6 at compute_dtype = bfloat16 on the same inputs, as K1-K4's
         results["K5 bf16" + tag] = check_kernel(
             f"K5 bf16 fused_implicit_train_kernel N={N} heads={n_heads}",
-            lambda: named5(fi.fused_implicit_train_kernel(net, stacks, *k5, g2C, bf)),
-            lambda: named5(fi.fused_implicit_train_kernel_reference(net, stacks, *k5, g2C, bf)),
+            lambda: named5(fi.fused_implicit_train_kernel(net, stacks, *k5, g2C_t, bf)),
+            lambda: named5(fi.fused_implicit_train_kernel_reference(net, stacks, *k5, g2C_t, bf)),
             lambda: named5(fi.fused_implicit_train_kernel_reference(net64, stacks64, *k5_64, g2C, bf)),
             ("rgb", "sq", "loss", "m", "msum"), rgb_flops + 2 * N * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])),
             _nbytes(*k5, *weights, *hweights) + out_bytes + N * 4 * (1 + 2) + 8,
@@ -757,13 +776,14 @@ def phase_kernels(device):
         stacks64 = [[(w.double(), b.double()) for w, b in layers] for layers in stacks]
         hweights = [t for layers in stacks for wb in layers for t in wb]
         g2C = 2.0 * (1.0 + (1.0 - 0.23))
+        g2C_t = torch.tensor(g2C, device=device)
         k5 = (cut(coords), cut(Xn), cw, cut(targets))
         k5_64 = tuple(t.double() for t in k5)
         tag = f"rank 1 of {ranks}: N={n} heads={len(stacks)}"
         check_kernel(
             f"K5 fused_implicit_train_kernel, {tag}",
-            lambda: named5(fi.fused_implicit_train_kernel(net, stacks, *k5, g2C)),
-            lambda: named5(fi.fused_implicit_train_kernel_reference(net, stacks, *k5, g2C)),
+            lambda: named5(fi.fused_implicit_train_kernel(net, stacks, *k5, g2C_t)),
+            lambda: named5(fi.fused_implicit_train_kernel_reference(net, stacks, *k5, g2C_t)),
             lambda: named5(fi.fused_implicit_train_kernel_reference(net64, stacks64, *k5_64, g2C)),
             ("rgb", "sq", "loss", "m", "msum"), _mlp_flops(n, dims, len(dims) - 1)
             + 2 * n * sum(a * b for a, b in zip(mdims[:-1], mdims[1:])),
@@ -1172,14 +1192,21 @@ def phase_lifecycle(out_root: str):
             fail(f"lifecycle implicit: TB images {images}, expected train/implicit_masks at steps 1 and 20")
         print(f"[life] implicit on the fixture: launches {c}, TB images {images}", flush=True)
 
-        # the other optimizers, 10 fused canonical steps each
-        for algo in ("AdamW", "SGD", "RMSprop"):
-            m_o, c = _launch_counts(lambda: _train_cli(out_root, f"canonical_{algo}", 10, *fixture, "--freq.scalar=10",
-                                                       "--freq.vis=10", "--tb=", f"--optim.algo={algo}"))
+        # each optimizer under a StepLR schedule on the device, 20 fused
+        # canonical steps each in chunks of 10 (the second chunk replayed)
+        sched = ("--optim.sched.type=StepLR", "--optim.sched.steps=5", "--optim.sched.gamma=0.5", "--optim.apply_sched")
+        for algo in ("Adam", "AdamW", "SGD", "RMSprop"):
+            m_o, c = _launch_counts(lambda: _train_cli(out_root, f"canonical_{algo}", 20, *fixture, "--freq.scalar=10",
+                                                       "--freq.vis=10", "--tb=", f"--optim.algo={algo}", *sched))
             add(c)
-            hist = _expect(f"lifecycle {algo}", m_o, c, {k1: 10}, 10)
-            print(f"[life] {algo} ({type(m_o.optimizer).__name__}): launches {c}, rgb loss "
-                  f"{hist['loss_rgb'][0]:.5f} -> {hist['loss_rgb'][-1]:.5f}", flush=True)
+            hist = _expect(f"lifecycle {algo}", m_o, c, {k1: 20}, 20)
+            lr = float(m_o.optimizer.param_groups[0]["lr"])
+            modes = sorted(ch.mode for ch in m_o.chunks.values())
+            if abs(lr - 1e-3 * 0.5**4) > 1e-9 or not modes[0].startswith("captured"):
+                fail(f"lifecycle {algo}: learning rate {lr:.4e} after 20 steps (expected 6.25e-5), chunks {modes}")
+            print(f"[life] {algo} ({type(m_o.optimizer).__name__}, StepLR): launches {c}, rgb loss "
+                  f"{hist['loss_rgb'][0]:.5f} -> {hist['loss_rgb'][-1]:.5f}, lr {lr:.4e} after 20 steps, chunks "
+                  f"{modes}", flush=True)
     finally:
         trainer.Model.visualize, trainer.Model.save_checkpoint, trainer.restore_checkpoint = originals
     print(f"[life] visualize ms per call (canonical, 360x480 render, PNG frame and TB panels; the first with the "
@@ -1268,6 +1295,8 @@ def phase_sharded(out_root: str, smi: str):
         for r in ranks:
             if r["launches"] != want or r["it"] != iters:
                 fail(f"sharded {name}: rank {r['rank']} launched {r['launches']} in {r['it']} steps, expected {want}")
+            if r["chunk_modes"] != [f"eager ({r['backend']})"]:
+                fail(f"sharded {name}: rank {r['rank']} ran chunks {r['chunk_modes']}, expected eager ({r['backend']})")
             add(r["launches"])
         if len({r["digest"] for r in ranks}) != 1:
             fail(f"sharded {name}: the ranks' parameters and optimizer state differ (digests "
@@ -1279,7 +1308,8 @@ def phase_sharded(out_root: str, smi: str):
         h1 = _expect(f"sharded {name} on 1 rank", m1, c1, {k: v * iters for k, v in per_step1.items()}, iters)
         add(c1)
         gaps = {k: float(np.max(np.abs(h2[k][:10] - h1[k][:10]) / np.abs(h1[k][:10]))) for k in ("loss_rgb", "all", "PSNR")}
-        line = (f"[sharded] {name}: launches per rank {ranks[0]['launches']}, replicas bitwise equal, steps/s "
+        line = (f"[sharded] {name}: chunks {ranks[0]['chunk_modes']}, launches per rank {ranks[0]['launches']}, "
+                f"replicas bitwise equal, steps/s "
                 f"{SHARD_RANKS} ranks {ranks[0]['steps_per_sec']:.2f} vs 1 rank {m1.steps_per_sec:.2f}; "
                 f"first-10-step rel diff vs 1 rank " + " ".join(f"{k}={v:.2e}" for k, v in gaps.items()))
         if held:
@@ -1401,6 +1431,114 @@ def phase_bench(out_root: str):
     return total
 
 
+# phase 8: each path's captured chunk against its eager oracle, from the same
+# init at full width, CAPTURE_ITERS steps in chunks of CAPTURE_CHUNK: chunk 0
+# (the captured run's warm-up and capture), three timed, one traced
+CAPTURE_ITERS = 100
+CAPTURE_CHUNK = 20
+
+
+def _capture_paths(implicit, single, bf16):
+    """Phase 8's paths: (name, extra flags, each kernel's launches per step)."""
+    k1, k6 = "fused_train_kernel_warp", "fused_mask_backward_g"
+    dedup = {"fused_mask_forward": 1, k1: 1, "fused_mask_backward_dedup": 1}
+    heads = {"fused_implicit_train_kernel": 1, k6: 1}
+    bf = lambda d: {f"{k}_bf16": v for k, v in d.items()}
+    return [
+        ("canonical", (), {k1: 1}),
+        ("canonical bf16", (bf16,), bf({k1: 1})),
+        ("canonical autograd", ("--tpu.fused_step=off",), {}),
+        ("implicit", implicit, dedup),
+        ("implicit bf16", (*implicit, bf16), bf(dedup)),
+        ("implicit fused_warp=off", (*implicit, "--tpu.fused_warp=off"),
+         {"fused_mask_forward": 1, "fused_train_kernel": 1, "fused_mask_backward_dedup": 1}),
+        ("implicit_single", single, heads),
+        ("implicit_single bf16", (*single, bf16), bf(heads)),
+        ("implicit fused_dedup=off", (*implicit, "--tpu.fused_dedup=off"), heads),
+    ]
+
+
+def _chunk_run(opt, capture: bool) -> dict:
+    """CAPTURE_ITERS steps of the config's step through `make_train_chunk`,
+    with the launch counts set to 0 just before: every step's metrics, the
+    state after, the launches, and the times of chunks 1-3 (host: the
+    dispatch; wall: to the metric read) and of chunk 4's device kernels."""
+    from marf_tpu_torch.engine.step import make_train_chunk
+    from marf_tpu_torch.engine.trainer import Model
+    from marf_tpu_torch.ops.cuda import LAUNCHES
+    from marf_tpu_torch.step_profile import device_kernels
+
+    m = Model(opt, capture=capture)
+    m.load_dataset()
+    m.build_networks()
+    m.setup_optimizer()
+    step = m.make_step()
+    chunk = make_train_chunk(step, CAPTURE_CHUNK, capture)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    rows = [chunk().result()]
+    host = wall = 0.0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        handle = chunk()
+        t1 = time.perf_counter()
+        rows.append(handle.result())
+        host += t1 - t0
+        wall += time.perf_counter() - t0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rows.append(chunk().result())
+        torch.cuda.synchronize()
+    device_ms = sum(ms for ms, _ in device_kernels(prof)[0]) / CAPTURE_CHUNK
+    timed = 3 * CAPTURE_CHUNK
+    tensors = list(m.graph.state_dict().values())
+    tensors += [v for st in m.optimizer.state_dict()["state"].values() for v in st.values()]
+    return {"rows": rows, "state": tensors, "launches": {k: v for k, v in LAUNCHES.items() if v},
+            "host_ms": host * 1e3 / timed, "steps_per_sec": timed / wall, "device_ms": device_ms,
+            "mode": chunk.mode}
+
+
+def phase_capture(out_root: str, smi: str):
+    """Phase 8: on every path, the captured chunk against the eager one from
+    the same init: every step's metrics, the parameters and the optimizer
+    state bitwise equal, each kernel of the path launched once per step
+    (counted through the replays), and host ms, device ms and steps/s side
+    by side. Returns the launches of the captured runs."""
+    t0 = time.perf_counter()
+    implicit = ("--use_implicit_mask", "--use_masks=false")
+    total = {}
+    for name, extra, per_step in _capture_paths(implicit, (*implicit, "--build_single_masks"),
+                                                "--tpu.compute_dtype=bfloat16"):
+        opt = options(out_root, f"capture_{name.replace(' ', '_')}", CAPTURE_ITERS, *extra)
+        t_path = time.perf_counter()
+        runs = {capture: _chunk_run(copy.deepcopy(opt), capture) for capture in (True, False)}
+        t_path = time.perf_counter() - t_path
+        cap, eag = runs[True], runs[False]
+        want = {k: v * CAPTURE_ITERS for k, v in per_step.items()}
+        for capture, r in runs.items():
+            if r["launches"] != want:
+                fail(f"capture {name} ({r['mode']}): launches {r['launches']}, expected {want}")
+        if not cap["mode"].startswith("captured") or not eag["mode"].startswith("eager"):
+            fail(f"capture {name}: chunk modes {cap['mode']!r}, {eag['mode']!r}")
+        for k, v in cap["launches"].items():
+            total[k] = total.get(k, 0) + v
+        rows_equal = all(a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+                         for a, b in zip(cap["rows"], eag["rows"]))
+        state_equal = len(cap["state"]) == len(eag["state"]) and all(
+            torch.equal(a, b) for a, b in zip(cap["state"], eag["state"]))
+        if not (rows_equal and state_equal):
+            diff = max((a.double() - b.double()).abs().max().item() for a, b in zip(cap["state"], eag["state"]))
+            fail(f"capture {name}: captured vs eager metrics bitwise {rows_equal}, state bitwise {state_equal} "
+                 f"(max-abs state difference {diff:.3e})")
+        print(f"[capture] {name}: {CAPTURE_ITERS} steps, metrics, parameters and optimizer state bitwise equal "
+              f"captured vs eager; launches {cap['launches'] or 'none'}; captured {cap['steps_per_sec']:.2f} steps/s, "
+              f"host {cap['host_ms']:.3f} ms/step, device {cap['device_ms']:.3f} ms/step, busy share "
+              f"{cap['device_ms'] * cap['steps_per_sec'] / 1e3:.3f}; eager {eag['steps_per_sec']:.2f} steps/s, host "
+              f"{eag['host_ms']:.3f} ms/step, device {eag['device_ms']:.3f} ms/step, busy share "
+              f"{eag['device_ms'] * eag['steps_per_sec'] / 1e3:.3f}; {smi}; both runs {t_path:.1f} s", flush=True)
+    print(f"[capture] phase 8 {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 KERNELS = [
     ("K1", "fused_train_kernel_warp", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:272"),
     ("K2", "fused_train_kernel", "marf_tpu_torch/csrc/fused_step.cu", "marf_tpu/ops/pallas/fused_step.py:208"),
@@ -1442,8 +1580,12 @@ def main():
         t_shard = time.perf_counter() - t0 - t_kernels - t_main - t_life
         for k, v in phase_bench(tmp).items():
             launches[k] = launches.get(k, 0) + v
+        t_bench = time.perf_counter() - t0 - t_kernels - t_main - t_life - t_shard
+        for k, v in phase_capture(tmp, smi).items():
+            launches[k] = launches.get(k, 0) + v
     print(f"[time] build and kernels {t_kernels:.1f} s, main path {t_main:.1f} s, lifecycle {t_life:.1f} s, sharded "
-          f"{t_shard:.1f} s, bench {time.perf_counter() - t0 - t_kernels - t_main - t_life - t_shard:.1f} s", flush=True)
+          f"{t_shard:.1f} s, bench {t_bench:.1f} s, capture "
+          f"{time.perf_counter() - t0 - t_kernels - t_main - t_life - t_shard - t_bench:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
          **results[kid], "library_ms": None}

@@ -5,8 +5,10 @@
     python -m marf_tpu_torch.bench --cpu     # on the CPU (the kernels' plain versions)
 
 Builds a case's config from the port's planar.yaml, trains it through
-`Model.make_step`, exactly the step `python -m marf_tpu_torch.train` runs, and
-prints ONE JSON line on stdout (everything else goes to stderr):
+`Model.make_step` and `Model.chunk`, exactly the step and the chunks `python
+-m marf_tpu_torch.train` runs (on a card: captured as CUDA graphs after the
+first chunk, replayed; one chunk deep), and prints ONE JSON line on stdout
+(everything else goes to stderr):
 
     {"metric": "steps_per_sec", "value": N, "unit": "steps/s",
      "vs_baseline": N / REF_BASELINE_STEPS_PER_SEC[case], "extra": {...}}
@@ -14,7 +16,8 @@ prints ONE JSON line on stdout (everything else goes to stderr):
 `extra` carries the case, the dataset actually used, the device (the card's
 `nvidia-smi --query-gpu=name,power.limit` line, or "cpu"), the timed steps,
 the final PSNR, homography error and (implicit masks) mask error, the
-compute dtype, each kernel's launches per timed step (`ops/cuda` LAUNCHES;
+compute dtype, the chunks' mode (captured or eager, and why), each kernel's
+launches per timed step (`ops/cuda` LAUNCHES, counted through the replays;
 0 on the autograd path and on the CPU) and the golden check.
 
 Env knobs (bench.py's):
@@ -26,6 +29,8 @@ Env knobs (bench.py's):
     MARF_BENCH_FUSED_WARP   auto | on | off (tpu.fused_warp; off = K2 in place of K1)
     MARF_BENCH_FUSED_DEDUP  auto | on | off (tpu.fused_dedup; off = K5 -> K6 for the shared head)
     MARF_BENCH_LAZY_METRICS auto | on | off (tpu.lazy_metrics)
+    MARF_BENCH_CAPTURE      auto | off (the Model's `capture`: auto captures the step on a card; off
+                            runs the eager chunk, the oracle); `extra.chunk` names the mode that ran
     MARF_BENCH_PRECISION    '' | highest: both full float32 (TF32 is off), anything else raises
     MARF_BENCH_CHECK        1 (default) = hold the final PSNR to tools/bench_goldens.json (exit 1
                             outside the band); 0 = report only
@@ -80,6 +85,7 @@ CASES = {
 }
 CHUNK = 100
 WARMUP_CHUNKS = 1
+CAPTURE = {"auto": None, "off": False}  # MARF_BENCH_CAPTURE -> the Model's capture
 GOLDEN_DATASET = "cat_batch3"
 GOLDENS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools", "bench_goldens.json")
 
@@ -111,16 +117,18 @@ def bench_options(case: str, iters: int, seed: int, dtype: str, fused_step: str,
 
 
 def build_model(case: str, iters: int, seed: int, dtype: str, fused_step: str, fused_warp: str, fused_dedup: str,
-                lazy_metrics: str, overrides: dict | None = None, cpu: bool = False, *, output_path: str):
+                lazy_metrics: str, overrides: dict | None = None, cpu: bool = False, *, output_path: str,
+                capture: bool | None = None):
     """(Model, its train step, the dataset used): the case's options through
     load_dataset -> build_networks -> setup_optimizer -> make_step. A dataset
     missing on disk falls back to `synthetic` (bench.py:138-144).
-    `output_path` is the run directory (the Model writes nothing else)."""
+    `output_path` is the run directory (the Model writes nothing else);
+    `capture` is the Model's."""
     from marf_tpu_torch.engine.trainer import Model
 
     opt = bench_options(case, iters, seed, dtype, fused_step, fused_warp, fused_dedup, lazy_metrics, output_path,
                         overrides, cpu)
-    m = Model(opt)
+    m = Model(opt, capture=capture)
     try:
         m.load_dataset()
     except FileNotFoundError as e:
@@ -170,12 +178,13 @@ def device_name(device: torch.device) -> str:
 
 def run_case(case: str = "canonical", iters: int = 3000, seed: int = 3, dtype: str = "float32",
              fused_step: str = "auto", fused_warp: str = "auto", fused_dedup: str = "auto", lazy_metrics: str = "auto",
-             check: bool = True, overrides: dict | None = None, cpu: bool = False):
+             check: bool = True, overrides: dict | None = None, cpu: bool = False, capture: bool | None = None):
     """Time one case: WARMUP_CHUNKS chunks of CHUNK steps (the kernels'
-    first-use build among them), then the rest, each chunk one `run_chunk`,
-    which returns after reading the chunk's metrics to the host. Returns
-    (the JSON line's dict, golden ok or None when not checked)."""
-    from marf_tpu_torch.engine.step import run_chunk
+    first-use build and the capture among them), then the rest, dispatched
+    one chunk deep as `Model.train` does (chunk k + 1 before chunk k's
+    metrics are read); the time ends at the last chunk's read. `capture`
+    is the Model's (None: captured on a card; False: eager). Returns (the
+    JSON line's dict, golden ok or None when not checked)."""
     from marf_tpu_torch.ops.cuda import LAUNCHES
 
     if case not in CASES:
@@ -184,20 +193,26 @@ def run_case(case: str = "canonical", iters: int = 3000, seed: int = 3, dtype: s
         raise ValueError(f"MARF_BENCH_ITERS={iters}: need a multiple of {CHUNK}, at least {(WARMUP_CHUNKS + 1) * CHUNK}")
     with tempfile.TemporaryDirectory(prefix="marf_bench_") as out:
         m, step_fn, dataset = build_model(case, iters, seed, dtype, fused_step, fused_warp, fused_dedup, lazy_metrics,
-                                          overrides, cpu, output_path=out)
+                                          overrides, cpu, output_path=out, capture=capture)
+        chunk = m.chunk(step_fn, CHUNK)
         device = device_name(m.device)
         log.info(f"bench case: {case}, dataset: {dataset}, device: {device}")
         it = 0
         for _ in range(WARMUP_CHUNKS):
-            run_chunk(step_fn, it, CHUNK)
+            chunk().result()
             it += CHUNK
         for k in LAUNCHES:
             LAUNCHES[k] = 0
         n_timed = iters - it
+        pending = None
         t0 = time.perf_counter()
         while it < iters:
-            md = run_chunk(step_fn, it, CHUNK)
+            handle = chunk()
+            if pending is not None:
+                pending.result()
+            pending = handle
             it += CHUNK
+        md = pending.result()
         dt = time.perf_counter() - t0
     steps_per_sec = n_timed / dt
     final = {k: float(v[-1]) for k, v in md.items()}
@@ -213,6 +228,7 @@ def run_case(case: str = "canonical", iters: int = 3000, seed: int = 3, dtype: s
         "final_homography_error": round(final.get("Homography_Error", float("nan")), 5),
         "ref_baseline_steps_per_sec": REF_BASELINE_STEPS_PER_SEC[case],
         "compute_dtype": dtype,
+        "chunk": chunk.mode,
         "launches": {k: v / n_timed for k, v in LAUNCHES.items()},
     }
     if "Mask_Error" in final:
@@ -242,6 +258,9 @@ def main(argv: list[str] | None = None) -> dict:
     precision = env("MARF_BENCH_PRECISION", "")
     if precision not in ("", "highest"):
         raise ValueError(f"MARF_BENCH_PRECISION={precision!r}: the port runs full float32 ('' or 'highest')")
+    capture = env("MARF_BENCH_CAPTURE", "auto")
+    if capture not in CAPTURE:
+        raise ValueError(f"MARF_BENCH_CAPTURE={capture!r}: one of {', '.join(CAPTURE)}")
     out = sys.stdout
     with contextlib.redirect_stdout(sys.stderr):
         if not cpu and not torch.cuda.is_available():
@@ -255,7 +274,8 @@ def main(argv: list[str] | None = None) -> dict:
             case=case, iters=int(env("MARF_BENCH_ITERS", 3000)), seed=int(env("MARF_BENCH_SEED", 3)),
             dtype=env("MARF_BENCH_DTYPE", "float32"), fused_step=env("MARF_BENCH_FUSED_STEP", "auto"),
             fused_warp=env("MARF_BENCH_FUSED_WARP", "auto"), fused_dedup=env("MARF_BENCH_FUSED_DEDUP", "auto"),
-            lazy_metrics=env("MARF_BENCH_LAZY_METRICS", "auto"), check=env("MARF_BENCH_CHECK", "1") != "0", cpu=cpu)
+            lazy_metrics=env("MARF_BENCH_LAZY_METRICS", "auto"), check=env("MARF_BENCH_CHECK", "1") != "0", cpu=cpu,
+            capture=CAPTURE[capture])
     print(json.dumps(result), file=out, flush=True)
     if golden_ok is False:
         sys.exit(1)

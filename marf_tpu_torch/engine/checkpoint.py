@@ -8,6 +8,13 @@ one), written by `torch.save` and read back onto the run's device with
 `map_location`. `--resume` takes the latest step of the run directory (an
 int takes that step); `--load=<path>` restores from a run directory or from a
 checkpoint directory.
+
+One format on every device: the optimizer's learning rates are written as
+floats (on a card they are tensors, `LrSchedule`), and a restore keeps the
+live optimizer's own build flags (`capturable`, `fused`, `foreach`) and
+learning-rate tensors. So a checkpoint moves between the CPU and a card,
+between a captured run and an eager one, and one written before the
+schedule moved to the device (a LambdaLR state, float rates) loads.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ def save_checkpoint(output_path: str, step: int, graph, optimizer, scheduler=Non
     state = {
         "step": int(step),
         "graph": graph.state_dict(),
-        "optimizer": optimizer.state_dict(),
+        "optimizer": _float_lrs(optimizer.state_dict()),
         "scheduler": None if scheduler is None else scheduler.state_dict(),
     }
     tmp = os.path.join(path, _STATE_FILE + ".tmp")
@@ -43,6 +50,15 @@ def save_checkpoint(output_path: str, step: int, graph, optimizer, scheduler=Non
     os.replace(tmp, os.path.join(path, _STATE_FILE))
     log.info(f"saved checkpoint @ step {step} -> {path}")
     return path
+
+
+# an optimizer's build flags: the live optimizer's stand over a checkpoint's
+_BUILD_FLAGS = ("capturable", "fused", "foreach", "differentiable")
+
+
+def _float_lrs(opt_state: dict) -> dict:
+    groups = [{k: float(v) if k == "lr" else v for k, v in g.items()} for g in opt_state["param_groups"]]
+    return dict(opt_state, param_groups=groups)
 
 
 def latest_checkpoint(output_path: str) -> str | None:
@@ -67,7 +83,18 @@ def restore_checkpoint(path: str, graph, optimizer, scheduler=None, device=None)
         raise ValueError(f"checkpoint {path}: LR scheduler state {'absent' if state['scheduler'] is None else 'present'}, "
                          f"but this run {'has' if scheduler is not None else 'has no'} scheduler (optim.apply_sched)")
     graph.load_state_dict(state["graph"])
-    optimizer.load_state_dict(state["optimizer"])
+    live = optimizer.param_groups
+    saved = state["optimizer"]
+    if len(saved["param_groups"]) == len(live):
+        groups = [dict(g, **{k: lg[k] for k in _BUILD_FLAGS if k in lg}) for g, lg in zip(saved["param_groups"], live)]
+        saved = dict(saved, param_groups=groups)
+    lrs = [g["lr"] for g in live]
+    optimizer.load_state_dict(saved)
+    for group, lr in zip(optimizer.param_groups, lrs):
+        if isinstance(lr, torch.Tensor):
+            group["lr"] = lr  # the schedule's tensor, rewritten by its own state below
+        else:
+            group["lr"] = float(group["lr"])
     if scheduler is not None:
         scheduler.load_state_dict(state["scheduler"])
     return int(state["step"])

@@ -1,4 +1,4 @@
-"""The train step and the chunked loop (twin of marf_tpu/engine/step.py).
+"""The train step and its chunks (twin of marf_tpu/engine/step.py).
 
 Four gradient paths; the fused ones compute the autograd path's update:
   - the autograd step (`graph_forward` + `graph_loss` + backward);
@@ -32,8 +32,12 @@ of the pixel axis, with the sums over that axis taken over the ranks.
 Per-step constants (the flat target/mask/grid streams, 1/(3 sum m) of fixed
 masks, the mask-head inputs X or their dedup structures, and the progress /
 alpha / c2f schedules for every step) are built once when the step is made,
-so a step reads no value back to the host: its metrics stay on the device
-until `run_chunk` reads a whole chunk at once.
+and the step reads its row of the schedules at a step counter on the
+device, which it advances; the learning rates of `optim.sched` move on the
+device too (`LrSchedule`). So a step reads no value back to the host and
+copies none to the device, and `make_train_chunk` captures it as CUDA
+graphs on a card (marf_tpu compiles its chunk into one `lax.scan`): its
+metrics stay on the device until a whole chunk is read at once.
 """
 
 from __future__ import annotations
@@ -97,7 +101,9 @@ class OptaxRMSprop(torch.optim.Optimizer):
     """RMSprop with optax.rmsprop's update: nu = decay nu + (1 - decay) g^2,
     p -= lr g / sqrt(nu + eps), eps inside the root. torch.optim.RMSprop
     divides by sqrt(nu) + eps, which at this model's gradient sizes moves the
-    first steps by up to an order of magnitude."""
+    first steps by up to an order of magnitude. The learning rate may be a
+    0-d tensor on the device (`LrSchedule`): the update is tensor ops, and
+    reads no value back to the host."""
 
     def __init__(self, params, lr: float, decay: float = 0.99, eps: float = 1e-8):
         super().__init__(params, {"lr": lr, "decay": decay, "eps": eps})
@@ -113,22 +119,82 @@ class OptaxRMSprop(torch.optim.Optimizer):
                     state["nu"] = torch.zeros_like(p)
                 nu = state["nu"]
                 nu.mul_(group["decay"]).addcmul_(p.grad, p.grad, value=1.0 - group["decay"])
-                p.addcdiv_(p.grad, (nu + group["eps"]).sqrt(), value=-group["lr"])
+                p.sub_(p.grad / (nu + group["eps"]).sqrt() * group["lr"])
 
 
-def _algo(name: str, groups: list) -> torch.optim.Optimizer:
+def _algo(name: str, groups: list, device: torch.device) -> torch.optim.Optimizer:
     """The reference's `optim.algo` (torch optimizer names,
     options/planar.yaml:78) with marf_tpu's hyperparameters (engine/step.py
-    `_algo`): torch's defaults, optax's RMSprop update."""
+    `_algo`): torch's defaults, optax's RMSprop update. On a card every
+    optimizer steps without reading a value back to the host, so that a
+    CUDA graph can capture it: Adam and AdamW are built `capturable`, SGD
+    `fused` (both take a learning rate that is a tensor on the card); on
+    the CPU they are built as torch builds them."""
+    card = device.type == "cuda"
     if name == "Adam":
-        return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8, capturable=card)
     if name == "AdamW":
-        return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+        return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01, capturable=card)
     if name == "SGD":
-        return torch.optim.SGD(groups, lr=groups[0]["lr"])
+        return torch.optim.SGD(groups, lr=groups[0]["lr"], fused=card or None)
     if name == "RMSprop":
         return OptaxRMSprop(groups, lr=groups[0]["lr"], decay=0.99, eps=1e-8)
     raise ValueError(f"unsupported optimizer: {name}")
+
+
+class LrSchedule:
+    """`optim.sched` applied on the device, LambdaLR's twin: position s (a
+    0-d int64 tensor on the parameters' device) gives group g the rate
+    base_lr[g] x factor_g(s), read from a table of every step's rates
+    [groups, max_iter + 1] built once (past max_iter, the last one's). The
+    groups' learning rates are 0-d tensors that `step()` overwrites in
+    place, so a step captured in a CUDA graph moves its rates with no host
+    value. The table is float64 on the CPU, as LambdaLR's Python floats
+    are, and float32 on a card, where capturable Adam takes it. The state
+    dict is LambdaLR's `last_epoch` and `base_lrs`, so a LambdaLR state
+    loads."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, lambdas: list, max_iter: int):
+        self.optimizer = optimizer
+        self.max_iter = int(max_iter)
+        self.lambdas = [fn or (lambda _: 1.0) for fn in lambdas]
+        device = optimizer.param_groups[0]["params"][0].device
+        dtype = torch.float32 if device.type == "cuda" else torch.float64
+        self.position = torch.zeros((), dtype=torch.int64, device=device)
+        self.lrs = torch.zeros(len(self.lambdas), dtype=dtype, device=device)  # group g's rate is lrs[g]
+        for group in optimizer.param_groups:
+            group.setdefault("initial_lr", group["lr"])  # as LambdaLR records it
+        self._set_base_lrs([float(g["lr"]) for g in optimizer.param_groups])
+        self._write()
+
+    def _set_base_lrs(self, base_lrs: list) -> None:
+        """The table of every step's rates: base_lr x factor(s), computed as
+        LambdaLR computes each rate."""
+        self.base_lrs = [float(b) for b in base_lrs]
+        rates = [[base * fn(s) for s in range(self.max_iter + 1)] for base, fn in zip(self.base_lrs, self.lambdas)]
+        self.table = torch.tensor(rates, dtype=torch.float64).to(self.lrs.device, self.lrs.dtype)
+
+    def _write(self) -> None:
+        """The rates at the position into the groups' learning rates."""
+        for i, group in enumerate(self.optimizer.param_groups):
+            group["lr"] = self.lrs[i]
+        self.lrs.copy_(self.table.index_select(1, self.position.view(1))[:, 0])
+
+    def step(self) -> None:
+        """Advance one step, after the optimizer's (LambdaLR.step())."""
+        self.position.add_(1).clamp_(max=self.max_iter)
+        self.lrs.copy_(self.table.index_select(1, self.position.view(1))[:, 0])
+
+    def state_dict(self) -> dict:
+        return {"last_epoch": int(self.position), "base_lrs": list(self.base_lrs)}
+
+    def load_state_dict(self, state: dict) -> None:
+        """A state of this class or of LambdaLR; its base rates win, as in
+        LambdaLR."""
+        if [float(b) for b in state["base_lrs"]] != self.base_lrs:
+            self._set_base_lrs(state["base_lrs"])
+        self.position.fill_(min(int(state["last_epoch"]), self.max_iter))
+        self._write()
 
 
 def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
@@ -138,7 +204,7 @@ def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
     view embedding takes a fourth group, at a constant optim.lr_mask that no
     schedule moves (the JAX package's "frozen" group), only when it takes
     gradients (optim.train_view_embedding); the reference never optimizes
-    it. Returns (optimizer, LR scheduler or None); step the scheduler once
+    it. Returns (optimizer, `LrSchedule` or None); step the schedule once
     per step."""
     lr = float(optim_opt["lr"])
     groups = [
@@ -153,7 +219,7 @@ def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
         if graph.view_embedding.requires_grad:
             groups.append({"params": [graph.view_embedding], "lr": lr_mask})
             lambdas.append(None)
-    opt = _algo(optim_opt.get("algo", "Adam"), groups)
+    opt = _algo(optim_opt.get("algo", "Adam"), groups, graph.warp.device)
     if (optim_opt.get("sched") or {}).get("type") and not optim_opt.get("apply_sched"):
         log.warn(
             "optim.sched is configured but inert (reference-faithful: the reference never steps its "
@@ -161,7 +227,7 @@ def make_optimizer(graph: Graph, optim_opt: dict, max_iter: int):
         )
     if all(fn is None for fn in lambdas):
         return opt, None
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, [fn or (lambda _: 1.0) for fn in lambdas])
+    return opt, LrSchedule(opt, lambdas, max_iter)
 
 
 def implicit_loss_coeffs(cfg: PlanarConfig, alpha):
@@ -260,7 +326,8 @@ def _pairs(ts) -> list:
 
 def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, scheduler=None, use_homographies: bool = True,
                     mesh=None):
-    """Build step_fn(step: int, heavy: bool) -> metrics dict of 0-d tensors.
+    """Build the step: a `TrainStep`, step(heavy=...) -> metrics dict of 0-d
+    tensors, one step at its device counter.
 
     Metric timing matches the reference's `log_scalars` call site
     (model/planar.py:199-201): loss terms and PSNR from the pre-update
@@ -400,13 +467,18 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         K2 and K5 take it), differentiable in the warp."""
         return warp_grid_cf_flat(graph.grid, graph.warp)[:, cols].contiguous()
 
-    def rgb_kernel_grads(step: int, masks, g_loss_scale, inv_sum3, partials: dict, gather_rgb: bool):
+    def at(table, idx):
+        """table[idx] of a per-step table [max_iter + 1, ...], idx [1] on the
+        device (index_select: no index read back to the host)."""
+        return table.index_select(0, idx)[0]
+
+    def rgb_kernel_grads(idx, masks, g_loss_scale, inv_sum3, partials: dict, gather_rgb: bool):
         """K1 or K2 on this step's warp at this rank's positions, then one sum
         over the ranks of the warp (dH on K1) and MLP gradients, the rgb loss,
         `partials` ({name: [tensors]}) and, with gather_rgb, the rgb gathered
         to [3, N]; sets the MLP and warp gradients. Returns (rgb [3, N] when
         gathered, else [3, Nl], rgb_loss, sq [1, Nl], the summed partials)."""
-        cw = None if cws is None else cws[step]
+        cw = None if cws is None else at(cws, idx)
         if coords_kernel:
             coords = warp_coords()
             rgb_cf, rgb_loss, dmlp, dcoords, sq = fused_train_kernel(
@@ -449,14 +521,14 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
                 "edge": edge_loss}
         return loss, mask_error
 
-    def fused_grads(step: int, heavy: bool):
-        alpha = alphas[step]
+    def fused_grads(idx, heavy: bool):
+        alpha = at(alphas, idx)
         # d total / d loss_rgb: the render term's (1 - alpha) plus the direct rgb term
         g_loss_scale = c_render * (1.0 - alpha)
         if c_rgb is not None:
             g_loss_scale = g_loss_scale + c_rgb
         edges = cfg.use_edges and (heavy or not lazy)
-        rgb_cf, rgb_loss, _, _ = rgb_kernel_grads(step, masks_cf, g_loss_scale, inv_sum3_fixed, {}, edges)
+        rgb_cf, rgb_loss, _, _ = rgb_kernel_grads(idx, masks_cf, g_loss_scale, inv_sum3_fixed, {}, edges)
         if edges:
             # the gradient-blocked edge term; [3, B, h, w] keeps the image axis as channels
             edge_loss = mse(compute_edges(rgb_cf.reshape(3, B, h, w)), edges_cf, me_cf)
@@ -486,8 +558,8 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             out[:, HW:K] = extras_sum(v)
         return out
 
-    def implicit_grads(step: int, heavy: bool):
-        alpha = alphas[step]
+    def implicit_grads(idx, heavy: bool):
+        alpha = at(alphas, idx)
         C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
         # ---- mask forward on this rank's dedup columns, gathered to all K
         # and expanded to its positions: m[n] = slot0[n] m[n mod HW] + the
@@ -499,7 +571,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             m_flat = m_flat.index_add(1, ext_off, m_all[:, HW + ext_j])
         inv_sum3 = 1.0 / (torch.dot(cnt_all[0, :K], m_all[0]) * 3.0)
         # ---- the rgb kernel, masked by the predicted m
-        rgb_cf, rgb_loss, sq, sums = rgb_kernel_grads(step, m_flat, C_r, inv_sum3, mask_terms(m_flat, heavy),
+        rgb_cf, rgb_loss, sq, sums = rgb_kernel_grads(idx, m_flat, C_r, inv_sum3, mask_terms(m_flat, heavy),
                                                       cfg.use_edges)
         esq = edge_sq(rgb_cf) if cfg.use_edges else None
         if mesh is None:
@@ -532,15 +604,15 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         set_grads(graph.implicit_mask.layers, unfactor_mask_grads(dstack, table))
         return implicit_loss(rgb_loss, edge_loss, sums, alpha)
 
-    def implicit_heads_grads(step: int, heavy: bool):
-        alpha = alphas[step]
+    def implicit_heads_grads(idx, heavy: bool):
+        alpha = at(alphas, idx)
         C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
         stacks = [mask_w_stack(heads[i], table) for i in own]
         # ---- K5: the mask forward on every head's column block, then the rgb
         # step masked by m with the unnormalized cotangent 2 C_r (rgb - t) m^2
         coords = warp_coords()
         rgb_cf, m_flat, sq, dcoords_u, msum, loss_u, dmlp_u = fused_implicit_train_kernel(
-            graph.neural_image, stacks, coords.detach(), X_flat, None if cws is None else cws[step], targets_cf, 2.0 * C_r,
+            graph.neural_image, stacks, coords.detach(), X_flat, None if cws is None else at(cws, idx), targets_cf, 2.0 * C_r,
             cdtype,
         )
         (dwarp_u,) = torch.autograd.grad(coords, graph.warp, dcoords_u)
@@ -570,10 +642,10 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             set_grads(head.layers, unfactor_mask_grads(_pairs(summed[i]), table))
         return implicit_loss(rgb_loss, edge_loss, sums, alpha)
 
-    def autograd_grads(step: int, heavy: bool):
+    def autograd_grads(idx, heavy: bool):
         optimizer.zero_grad(set_to_none=True)
-        outputs = graph_forward(graph, data, cfg, progress[step])
-        loss = graph_loss(outputs, data, cfg, steps[step])
+        outputs = graph_forward(graph, data, cfg, at(progress, idx))
+        loss = graph_loss(outputs, data, cfg, at(steps, idx))
         summarize_loss(loss, cfg.loss_weight).backward()
         mask_error = None
         if masks_ref is not None and (heavy or not lazy):
@@ -585,8 +657,11 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     else:
         grads_fn = fused_grads if fused else autograd_grads
 
-    def step_fn(step: int, heavy: bool = True) -> dict:
-        loss, mask_error = grads_fn(step, heavy)
+    counter = torch.zeros((), dtype=torch.int64, device=device)  # the step, carried on the device
+
+    def step_fn(heavy: bool) -> dict:
+        idx = torch.clamp(counter, max=cfg.max_iter).view(1)  # the tables end at max_iter
+        loss, mask_error = grads_fn(idx, heavy)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -603,18 +678,224 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
                 metrics["Mask_Error"] = mask_error if (heavy or not lazy) else zero
             if cfg.fix_first:
                 graph.warp[0].zero_()
+        counter.add_(1)
         return metrics
 
-    return step_fn
+    return TrainStep(step_fn, counter, graph, optimizer, scheduler, mesh)
 
 
-def run_chunk(step_fn, start: int, n: int) -> dict[str, np.ndarray]:
-    """Run steps [start, start + n) and read their metrics back with one
-    device->host copy: {name: [n] array}."""
-    rows = [step_fn(start + i, heavy=(i == n - 1)) for i in range(n)]
-    keys = list(rows[0])
-    stacked = torch.stack([torch.stack([r[k].to(torch.float32) for k in keys]) for r in rows]).cpu().numpy()
-    return {k: stacked[:, j] for j, k in enumerate(keys)}
+class TrainStep:
+    """A train step from `make_train_step`: `step(heavy=...)` runs one step
+    at the step counter, a 0-d int64 tensor on the device (marf_tpu's
+    `TrainState.step`), and advances it; the per-step tables (c2f weights,
+    alpha, progress) are read at it on the device, so the step reads no
+    value from the host and a CUDA graph can capture it. Returns the
+    metrics, a dict of 0-d tensors. `heavy` marks the chunk-final step.
+    `set_step(it)` writes the counter (after a restore) in place.
+
+    Capture needs every tensor the step reads or writes across steps to
+    keep its storage: parameters and optimizer state are updated in place,
+    and `check_bound` raises once any of them was rebound (an optimizer's
+    `load_state_dict` after capture needs a new step)."""
+
+    def __init__(self, fn, counter: torch.Tensor, graph: Graph, optimizer, scheduler, mesh):
+        self._fn = fn
+        self.counter = counter
+        self.graph = graph
+        self.optimizer = optimizer
+        self.scheduler = scheduler
+        self.mesh = mesh
+        self.device = counter.device
+        self.chunk_state = None  # what its chunks share (`_ChunkState`), made by the first `make_train_chunk`
+
+    def __call__(self, *, heavy: bool = True) -> dict:
+        return self._fn(heavy)
+
+    def set_step(self, it: int) -> None:
+        self.counter.fill_(int(it))
+
+    def bound_tensors(self) -> list:
+        """The tensors a captured step reads and writes in place: the
+        parameters, the optimizer's state and learning rates, the schedule's
+        position and table, the counter."""
+        out = [self.counter, *self.graph.parameters()]
+        out += [t for st in self.optimizer.state.values() for t in st.values() if isinstance(t, torch.Tensor)]
+        out += [g["lr"] for g in self.optimizer.param_groups if isinstance(g["lr"], torch.Tensor)]
+        if self.scheduler is not None:
+            out += [self.scheduler.position, self.scheduler.table]
+        return out
+
+
+def chunk_mode(step: TrainStep, capture: bool | None = None) -> tuple[bool, str]:
+    """(capture, why) of a step's chunks. None (the default) captures on a
+    card without a mesh. A chunk runs eager on the CPU, when the caller
+    passes capture=False, or under a mesh: gloo's collectives cannot be
+    captured, and NCCL's capture has never run."""
+    if step.mesh is not None:
+        if capture:
+            raise ValueError(f"capture=True: a step sharded over {step.mesh.backend} is not captured")
+        return False, step.mesh.backend
+    if step.device.type != "cuda":
+        if capture:
+            raise ValueError(f"capture=True: CUDA graphs capture a step on a card, not on {step.device}")
+        return False, step.device.type
+    if capture is False:
+        return False, "capture=False"
+    return True, "CUDA graphs of a light and a heavy step, replayed"
+
+
+class _ChunkState:
+    """What a step's chunks share: the metric rows [capacity, k] on the
+    device and their row counter, written by each step; after the first
+    captured chunk, the two CUDA graphs (the light step, the heavy step)
+    in one memory pool, the launches each recorded, and the storage of the
+    tensors they were captured on."""
+
+    def __init__(self, step: TrainStep):
+        self.step = step
+        self.capacity = 0
+        self.keys = None
+        self.rows = None
+        self.row = torch.zeros((1,), dtype=torch.int64, device=step.device)
+        self.graphs = None  # {heavy: CUDAGraph}
+        self.launches = None  # {heavy: {wrapper: launches per replay}}
+        self.bound = None
+        self.mode = None  # the capture mode last logged
+
+    def reserve(self, n: int) -> None:
+        if n > self.capacity and self.graphs is not None:
+            raise ValueError(f"a chunk of {n} steps: the captured step writes at most {self.capacity} rows")
+        self.capacity = max(self.capacity, n)
+
+    def step_and_record(self, heavy: bool) -> None:
+        """One step; its metrics into the next row."""
+        metrics = self.step(heavy=heavy)
+        if self.rows is None or self.rows.shape[0] < self.capacity:
+            self.keys = list(metrics)
+            self.rows = torch.zeros((self.capacity, len(self.keys)), dtype=torch.float32, device=self.step.device)
+        row = torch.stack([metrics[k].to(torch.float32) for k in self.keys])
+        self.rows.index_copy_(0, self.row, row[None])
+        self.row.add_(1)
+
+    def capture(self) -> None:
+        """Capture the light and the heavy step, each recording its metric
+        row (warmed up: the first chunk ran both eagerly). Capture runs no
+        step and counts no launch: `LAUNCHES` is put back, and each replay
+        adds what its graph recorded."""
+        from marf_tpu_torch.ops.cuda import LAUNCHES
+
+        graphs, launches, pool = {}, {}, None
+        for heavy in (False, True):
+            before = dict(LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                self.step_and_record(heavy)
+            pool = graph.pool()
+            launches[heavy] = {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
+            LAUNCHES.update(before)
+            graphs[heavy] = graph
+        self.graphs, self.launches = graphs, launches
+        self.bound = [t.data_ptr() for t in self.step.bound_tensors()]
+
+    def replay(self, heavy: bool, times: int) -> None:
+        from marf_tpu_torch.ops.cuda import LAUNCHES
+
+        for _ in range(times):
+            self.graphs[heavy].replay()
+        for k, v in self.launches[heavy].items():
+            LAUNCHES[k] += v * times
+
+    def check_bound(self) -> None:
+        if [t.data_ptr() for t in self.step.bound_tensors()] != self.bound:
+            raise RuntimeError("a tensor the captured step updates in place was rebound after capture (an "
+                               "optimizer's load_state_dict?); make a new step")
+
+
+class ChunkMetrics:
+    """A dispatched chunk's metric rows, on their way to the host: a copy
+    into pinned host memory behind an event on a card. `result()` waits for
+    it: {name: [n] array}."""
+
+    def __init__(self, keys: list, host: torch.Tensor, event):
+        self.keys, self.host, self.event = keys, host, event
+
+    def result(self) -> dict[str, np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        arr = self.host.numpy().copy()  # off the pinned buffer
+        return {k: arr[:, j] for j, k in enumerate(self.keys)}
+
+
+class TrainChunk:
+    """`make_train_chunk`'s chunk: calling it dispatches n steps (the last
+    heavy) and returns their `ChunkMetrics` without waiting for them."""
+
+    def __init__(self, step: TrainStep, n: int, capture: bool, mode: str):
+        self.step, self.n, self.capture, self.mode = step, n, capture, mode
+        self.state = step.chunk_state
+
+    def __call__(self) -> ChunkMetrics:
+        st, n = self.state, self.n
+        st.row.zero_()
+        if not self.capture:
+            for i in range(n):
+                st.step_and_record(heavy=i == n - 1)
+        elif st.graphs is None:
+            # warm-up, as torch's CUDA-graph recipe asks: on a side stream,
+            # as real training; then the capture
+            main = torch.cuda.current_stream(self.step.device)
+            side = torch.cuda.Stream(self.step.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for i in range(n):
+                    st.step_and_record(heavy=i == n - 1)
+            main.wait_stream(side)
+            st.capture()
+        else:
+            st.check_bound()
+            st.replay(False, n - 1)
+            st.replay(True, 1)
+        return self._read(n)
+
+    def _read(self, n: int) -> ChunkMetrics:
+        st = self.state
+        if self.step.device.type != "cuda":
+            return ChunkMetrics(st.keys, st.rows[:n].clone(), None)
+        host = torch.empty((n, len(st.keys)), dtype=torch.float32, pin_memory=True)
+        host.copy_(st.rows[:n], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return ChunkMetrics(st.keys, host, event)
+
+
+def make_train_chunk(step: TrainStep, n: int, capture: bool | None = None) -> TrainChunk:
+    """Twin of marf_tpu's `make_train_chunk` (a `lax.scan` of n steps): a
+    chunk of n steps of `step`, the last heavy, whose metrics land in the
+    step's rows [n, k] on the device. On a card (`chunk_mode`) the step is
+    captured as CUDA graphs: the first chunk of the step runs eagerly as
+    real training (it carries the kernels' build and warm-up) and then
+    captures a light and a heavy step; every later chunk, of any length up
+    to the first ones', replays the light one n - 1 times and the heavy one
+    once. A capture that fails raises. capture=False runs the chunk eagerly
+    (the oracle), as the CPU and a mesh always do."""
+    capture, why = chunk_mode(step, capture)
+    if n < 1:
+        raise ValueError(f"a chunk of {n} steps")
+    if step.chunk_state is None:
+        step.chunk_state = _ChunkState(step)
+    mode = f"{'captured' if capture else 'eager'} ({why})"
+    if step.chunk_state.mode != mode:
+        step.chunk_state.mode = mode
+        log.info(f"train chunk: {mode}")
+    step.chunk_state.reserve(n)
+    return TrainChunk(step, n, capture, mode)
+
+
+def run_chunk(step: TrainStep, start: int, n: int) -> dict[str, np.ndarray]:
+    """The eager oracle: steps [start, start + n), the counter set to start,
+    their metrics read back with one device->host copy: {name: [n] array}."""
+    step.set_step(start)
+    return make_train_chunk(step, n, capture=False)().result()
 
 
 def chunk_schedule(max_iter: int, freq_scalar: int, freq_vis: int, freq_ckpt: int | None = None) -> int:

@@ -6,9 +6,16 @@ setup_visualizer -> train. The data is the on-disk `data/planar/<set>`
 layout or `--dataset=synthetic`; `load_torch_init` copies a reference init
 into the graph; `load` / `resume` restore a checkpoint (engine/checkpoint.py)
 and carry its step. The loop runs `gcd(freq.scalar, freq.vis, freq.ckpt)`
-steps per chunk and reads each chunk's metrics (every step's finite flag, the
-chunk-final scalars) back in one copy; TensorBoard gets the reference's
-scalar tags `train/loss_*`, `train/PSNR`, `train/Homography_Error` and, for
+steps per chunk (engine/step.py `make_train_chunk`: on a card the step is
+captured as CUDA graphs after the first chunk, and replayed; chunks are kept
+by length, as marf_tpu's `_chunk` keeps its compiled programs) and reads each
+chunk's metrics (every step's finite flag, the chunk-final scalars) back in
+one copy. The loop runs one chunk deep, as marf_tpu's `_train_loop` does:
+chunk k + 1 is dispatched before chunk k's metrics are read, and the
+pipeline drains before a vis frame, a checkpoint, the end and the profiler
+window's edges, so what the run writes is that of the unpipelined loop, and
+a non-finite loss raises one chunk late, naming its step. TensorBoard gets
+the reference's scalar tags `train/loss_*`, `train/PSNR`, `train/Homography_Error` and, for
 implicit masks with premade masks, `train/Mask_Error` at `freq.scalar`. At
 step 0 and every `freq.vis` boundary a full-canvas render is written to
 `vis/<n>.png` with the image panels; a checkpoint at every `freq.ckpt`
@@ -39,7 +46,7 @@ import tqdm
 
 from marf_tpu_torch.data.planar import load_planar_dataset, synthesize_planar_dataset, to_device
 from marf_tpu_torch.engine.checkpoint import resolve_restore_path, restore_checkpoint, save_checkpoint
-from marf_tpu_torch.engine.step import chunk_schedule, make_optimizer, make_train_step, run_chunk
+from marf_tpu_torch.engine.step import chunk_schedule, make_optimizer, make_train_chunk, make_train_step
 from marf_tpu_torch.models.planar import Graph, PlanarConfig, graph_forward
 from marf_tpu_torch.ops.grid import crop_corners, normalized_pixel_grid
 from marf_tpu_torch.ops.warp import warp_corners
@@ -66,10 +73,13 @@ def resolve_n_devices(opt) -> int:
 
 class Model:
     """Planar bundle-adjustment trainer (the reference Model's lifecycle);
-    with `mesh`, one rank of a pixel-sharded run."""
+    with `mesh`, one rank of a pixel-sharded run. `capture` is
+    `make_train_chunk`'s: None captures the step on a card (not under a
+    mesh), False runs it eagerly (the oracle)."""
 
-    def __init__(self, opt, mesh=None):
+    def __init__(self, opt, mesh=None, capture: bool | None = None):
         self.opt = opt
+        self.capture = capture
         self.cfg = PlanarConfig.from_options(opt)
         n_dev = resolve_n_devices(opt)
         if (mesh.world_size if mesh else 1) != n_dev:
@@ -96,6 +106,7 @@ class Model:
         self._full_grid = None
         self.chunk_times = []  # (steps, seconds) per chunk, device work included
         self.history = []  # per chunk: {metric: [steps] array}
+        self.chunks = {}  # make_train_chunk's chunks of the step `train` runs, by length
 
     # ---------------------------------------------------------------- phases
 
@@ -178,20 +189,29 @@ class Model:
             mesh=self.mesh,
         )
 
+    def chunk(self, step, n: int):
+        """The chunk of n steps of `step` (`make_train_chunk`, this Model's
+        `capture`), kept by length."""
+        if n not in self.chunks:
+            self.chunks[n] = make_train_chunk(step, n, self.capture)
+        return self.chunks[n]
+
     def train(self):
-        """Phase 5: the chunked training loop (reference model/planar.py:136-170).
+        """Phase 5: the chunked training loop (reference model/planar.py:136-170),
+        one chunk deep (module docstring).
 
         `--profile=N` traces chunks [1, 1 + N) of this loop (chunk 0 carries
-        the kernels' build and warm-up) with torch.profiler, CPU activity and
-        CUDA activity on a card, written by `tensorboard_trace_handler` as one
-        `<worker>.<ns>.pt.trace.json` under `<output_path>/profile` (view:
-        tensorboard --logdir <run>/profile, or chrome://tracing). A pure
-        overlay: the cadences and the metrics are those of the run without
-        it. Under a mesh, rank 0 alone traces."""
+        the kernels' build, warm-up and the capture) with torch.profiler, CPU
+        activity and CUDA activity on a card, written by
+        `tensorboard_trace_handler` as one `<worker>.<ns>.pt.trace.json` under
+        `<output_path>/profile` (view: tensorboard --logdir <run>/profile, or
+        chrome://tracing). A pure overlay: the cadences and the metrics are
+        those of the run without it. Under a mesh, rank 0 alone traces."""
         log.title("TRAINING START")
         self.timer = IterTimer()
         freq = self.opt.freq
-        step_fn = self.make_step()
+        step = self.make_step()
+        step.set_step(self.it)
         max_iter = int(self.cfg.max_iter)
         ckpt_freq = freq.get("ckpt")
         c = chunk_schedule(max_iter, freq.scalar, freq.vis, ckpt_freq)
@@ -201,32 +221,50 @@ class Model:
             self.visualize(step=0)  # reference model/planar.py:152-153
         pbar = tqdm.tqdm(total=max_iter, desc="Training", leave=False, initial=self.it, disable=not self.is_main)
         postfix = {}
+        pending = None  # (it after the chunk, its steps, its ChunkMetrics), dispatched and not yet read
+
+        def consume(p):
+            """Read a chunk's metrics: every step's finite flag, then the
+            scalars at the freq.scalar cadence."""
+            nonlocal postfix
+            it_k, n_k, handle = p
+            md = handle.result()
+            self.history.append(md)
+            finite = md["finite"]
+            if not finite.all():
+                first_bad = it_k - n_k + int(np.argmin(finite)) + 1
+                raise FloatingPointError(f"non-finite loss at iteration {first_bad}")
+            if it_k % freq.scalar == 0:
+                row = {k: float(v[-1]) for k, v in md.items() if k != "finite"}
+                if self.tb:
+                    self.log_scalars(row, step=it_k)
+                postfix = dict(it=it_k, loss=f"{row['all']:.3f}", it_per_sec=f"{self.timer.steps_per_sec:.1f}")
+                log.info(f"it {it_k}/{max_iter}  loss {row['all']:.5f}  PSNR {row['PSNR']:.3f}"
+                         f"  {self.steps_per_sec:.1f} steps/s")
+            pbar.update(n_k)
+            pbar.set_postfix(**postfix)
+
         chunk_idx = 0
         try:
             while self.it < max_iter:
                 n = min(c, max_iter - self.it)
                 if profile_chunks and chunk_idx == 1:
+                    if pending is not None:
+                        consume(pending)
+                        pending = None
                     profiler = self._start_profiler()
                 self.timer.tic()
-                md = run_chunk(step_fn, self.it, n)  # returns after the chunk's device work
-                self.chunk_times.append((n, self.timer.toc(n) * n))
+                handle = self.chunk(step, n)()
                 self.it += n
-                self.history.append(md)
-                finite = md["finite"]
-                if not finite.all():
-                    first_bad = self.it - n + int(np.argmin(finite)) + 1
-                    raise FloatingPointError(f"non-finite loss at iteration {first_bad}")
-                if self.it % freq.scalar == 0:
-                    row = {k: float(v[-1]) for k, v in md.items() if k != "finite"}
-                    if self.tb:
-                        self.log_scalars(row, step=self.it)
-                    postfix = dict(it=self.it, loss=f"{row['all']:.3f}", it_per_sec=f"{self.timer.steps_per_sec:.1f}")
-                    log.info(
-                        f"it {self.it}/{max_iter}  loss {row['all']:.5f}  PSNR {row['PSNR']:.3f}"
-                        f"  {self.steps_per_sec:.1f} steps/s"
-                    )
-                pbar.update(n)
-                pbar.set_postfix(**postfix)
+                needs_state = (self.it % freq.vis == 0 or (ckpt_freq and self.it % ckpt_freq == 0)
+                               or self.it >= max_iter or profiler is not None)
+                if pending is not None:
+                    consume(pending)  # waits for chunk k while chunk k + 1 runs
+                pending = (self.it, n, handle)
+                if needs_state:
+                    consume(pending)
+                    pending = None
+                self.chunk_times.append((n, self.timer.toc(n) * n))
                 chunk_idx += 1
                 if profiler is not None and chunk_idx >= 1 + profile_chunks:
                     self._stop_profiler(profiler)

@@ -3,7 +3,10 @@ its plain PyTorch version.
 
 `LAUNCHES` counts the launches of each kernel in this process, by wrapper
 name. A wrapper adds one where it launches its kernel and nowhere else: the
-plain versions, which CPU tensors take, do not count.
+plain versions, which CPU tensors take, do not count. A step captured as a
+CUDA graph runs no wrapper when it is replayed: engine/step.py's captured
+chunk puts the counts back after the capture, and adds each graph's
+recorded launches at each replay.
 """
 
 LAUNCHES = {

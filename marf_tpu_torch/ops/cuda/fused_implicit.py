@@ -68,8 +68,10 @@ def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw
         owns columns [h HW, (h+1) HW), HW = N / len(stacks).
       cw: [L] c2f band weights, or None when c2f is off.
       targets: [3, N].
-      g2C: 2 * C_r, the unnormalized rgb-loss cotangent scale (float or 0-d
-        tensor).
+      g2C: 2 * C_r, the unnormalized rgb-loss cotangent scale: a 0-d tensor
+        on the device of `coords` (on the CPU also a float). A float would
+        be copied from the host at every call, which a captured CUDA graph
+        cannot hold, so the kernel's path raises for one.
       compute_dtype: "float32" or "bfloat16" (module docstring); None takes
         net.cfg.compute_dtype.
 
@@ -91,8 +93,9 @@ def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw
     check_tensor(fn, "x_cf", x_cf, (mdims[0], N), device)  # as many columns as coords
     check_tensor(fn, "coords", coords, (2, N), device)
     check_tensor(fn, "targets", targets, (3, N), device)
-    scal = torch.stack([torch.as_tensor(g2C, dtype=torch.float32, device=device),
-                        torch.ones((), dtype=torch.float32, device=device)])
+    if not isinstance(g2C, torch.Tensor) or g2C.shape != () or g2C.device != device:
+        raise ValueError(f"{fn}: g2C must be a 0-d tensor on {device}, got {type(g2C).__name__}")
+    scal = torch.stack([g2C.to(torch.float32), torch.ones((), dtype=torch.float32, device=device)])
 
     lib = _library()
     sfx = "_bf16" if cdt == "bfloat16" else ""

@@ -12,6 +12,8 @@ would run these float32 convolutions in TF32 unless
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -20,10 +22,17 @@ _DERIV_101 = (-1.0, 0.0, 1.0)
 _GAUSS_1D = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
 
+@functools.cache
+def _taps(taps: tuple[float, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The taps as a tensor on `device`, copied from the host once: a
+    captured CUDA graph can hold no copy from pageable host memory."""
+    return torch.tensor(taps, dtype=dtype, device=device)
+
+
 def _conv1d_axis(x: torch.Tensor, taps: tuple[float, ...], axis: int) -> torch.Tensor:
     """1-D correlation of [N, 1, H, W] along H (axis=2) or W (axis=3),
     reflect-101 borders."""
-    k = torch.tensor(taps, dtype=x.dtype, device=x.device)
+    k = _taps(taps, x.dtype, x.device)
     p = len(taps) // 2
     if axis == 2:
         return F.conv2d(F.pad(x, (0, 0, p, p), mode="reflect"), k.view(1, 1, -1, 1))

@@ -9,16 +9,25 @@ planar model's 34-row input is [x, y, sin_x(8), cos_x(8), sin_y(8), cos_y(8)].
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
 
+@functools.cache
+def _frequencies(L: int, device: torch.device) -> torch.Tensor:
+    """[L, 1] float32 2^k * fl32(pi) (exact) on `device`, copied from the
+    host once: a captured CUDA graph can hold no copy from pageable host
+    memory."""
+    freq = (2.0 ** np.arange(L)).astype(np.float32) * np.float32(np.pi)
+    return torch.as_tensor(freq, device=device)[:, None]
+
+
 def barf_posenc_cf(coord_cf: torch.Tensor, L: int) -> torch.Tensor:
     """[C, P] -> [2*C*L, P] sin/cos encoding (no c2f weighting)."""
-    freq = (2.0 ** np.arange(L)).astype(np.float32) * np.float32(np.pi)  # 2^k * fl32(pi), exact
-    freq = torch.as_tensor(freq, device=coord_cf.device)[:, None]  # [L, 1]
+    freq = _frequencies(L, coord_cf.device)  # [L, 1]
     blocks = []
     for c in range(coord_cf.shape[0]):
         spec = coord_cf[c : c + 1] * freq  # [L, P]

@@ -173,8 +173,9 @@ def state_digest(*state_dicts) -> str:
 def train_rank(mesh: Mesh, argv: list, opt) -> dict:
     """One rank of `marf_tpu_torch.train.main(argv)` with the launcher's
     resolved options: its trainer's metric history, the kernel launches of
-    this run (the counts are set to 0 first), steps/s and the digest of its
-    parameters and optimizer state."""
+    this run (the counts are set to 0 first), steps/s, its chunks' modes
+    (engine/step.py `make_train_chunk`) and the digest of its parameters and
+    optimizer state."""
     from marf_tpu_torch.ops.cuda import LAUNCHES
     from marf_tpu_torch.train import main
 
@@ -184,4 +185,5 @@ def train_rank(mesh: Mesh, argv: list, opt) -> dict:
     return {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend, "it": m.it,
             "history": m.history, "launches": {k: v for k, v in LAUNCHES.items() if v},
             "steps_per_sec": m.steps_per_sec, "output_path": m.opt.output_path,
+            "chunk_modes": sorted({c.mode for c in m.chunks.values()}),
             "digest": state_digest(m.graph.state_dict(), m.optimizer.state_dict())}

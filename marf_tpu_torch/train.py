@@ -4,7 +4,9 @@ repository's train.py):
     python -m marf_tpu_torch.train --group=<GROUP> --model=planar --yaml=planar \
         --name=<NAME> --seed=3 --barf_c2f=[0,0.4] --dataset=synthetic
 
-Runs on CUDA device 0; `--cpu` runs on the CPU instead. With
+Runs on CUDA device 0, the step captured as CUDA graphs and replayed
+(engine/step.py `make_train_chunk`); `--cpu` runs on the CPU instead, eagerly.
+`main(argv, capture=False)` runs the card's step eagerly (the oracle). With
 `--tpu.n_devices=N` (or MARF_DEVICES=N) and N > 1 it starts N ranks, one
 process each, that train pixel-sharded (marf_tpu_torch/parallel/): rank r on
 `cuda:r` over NCCL, or all on the CPU over gloo under `--cpu`. Under
@@ -18,9 +20,10 @@ import sys
 from marf_tpu_torch.utils.console import log
 
 
-def main(argv=None, mesh=None, opt=None, **launch_options):
+def main(argv=None, mesh=None, opt=None, capture=None, **launch_options):
     """Train with the options of `argv` (default sys.argv[1:]) and return the
-    Model. Without `mesh`, a run of N > 1 devices starts its ranks here and
+    Model; `capture` is the Model's (None: captured on a card, False:
+    eager). Without `mesh`, a run of N > 1 devices starts its ranks here and
     returns their results (parallel/launch.py `spawn` with `launch_options`:
     share_device, timeout_s; `train_rank`), or, under
     torchrun, joins its world and trains this rank. A spawned rank passes
@@ -43,7 +46,7 @@ def main(argv=None, mesh=None, opt=None, **launch_options):
         return _start_ranks(opt, argv, n_dev, launch_options)
     if mesh is None or mesh.rank == 0:
         save_options_file(opt)
-    m = Model(opt, mesh)
+    m = Model(opt, mesh, capture)
     m.load_dataset()
     m.build_networks()
     m.setup_optimizer()

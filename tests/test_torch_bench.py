@@ -104,6 +104,7 @@ def test_json_line_has_bench_py_keys(cpu_line):
     assert line["vs_baseline"] == pytest.approx(line["value"] / 30.0, abs=1e-3)
     assert extra["case"] == "canonical" and extra["iters_timed"] == 100 and extra["device"] == "cpu"
     assert extra["compute_dtype"] == "float32" and np.isfinite(extra["final_psnr_db"])
+    assert extra["chunk"] == "eager (cpu)"  # CUDA graphs capture the step on a card only
     # the CPU runs the kernels' plain versions, which count no launch
     assert set(extra["launches"]) == set(LAUNCHES)
     assert not any(extra["launches"].values())

@@ -166,7 +166,9 @@ def test_plain_matches_port_autograd_step(rng, use_masks):
         if not use_masks:
             data.update(masks=None, masks_eroded=None)
         opt, _ = make_optimizer(g, {"lr": 0.0, "lr_warp": 0.0}, tcfg.max_iter)
-        make_train_step(tcfg, g, opt, data)(3)
+        step_fn = make_train_step(tcfg, g, opt, data)
+        step_fn.set_step(3)
+        step_fn()
         grads[mode] = {k: p.grad.clone() for k, p in g.named_parameters()}
     for k, ref in grads["off"].items():
         assert rel_err(grads["on"][k].numpy(), ref.numpy()) <= 1e-4, k
@@ -183,7 +185,9 @@ def test_coords_step_matches_port_autograd_step(rng, kw):
         jcfg, tcfg = cfg_pair(fused_step=mode, alpha_initial=0.3, **kw)
         g = port_graph(tcfg, jax_params(jcfg))
         opt, _ = make_optimizer(g, {"lr": 0.0, "lr_warp": 0.0}, tcfg.max_iter)
-        make_train_step(tcfg, g, opt, to_torch(fake_data(jcfg, np.random.RandomState(5))))(3)
+        step_fn = make_train_step(tcfg, g, opt, to_torch(fake_data(jcfg, np.random.RandomState(5))))
+        step_fn.set_step(3)
+        step_fn()
         grads[mode] = {k: p.grad.clone() for k, p in g.named_parameters()}
     for k, ref in grads["off"].items():
         assert rel_err(grads["on"][k].numpy(), ref.numpy()) <= 1e-4, k

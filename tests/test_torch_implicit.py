@@ -293,7 +293,7 @@ def one_step_grads(tcfg, jp, data):
         return adam_step(*args, **kwargs)
 
     opt.step = step
-    return make_train_step(tcfg, g, opt, to_torch(data))(0), grads
+    return make_train_step(tcfg, g, opt, to_torch(data))(), grads
 
 
 @pytest.mark.parametrize("use_edges", [True, False])

@@ -176,7 +176,9 @@ def test_heads_step_grads_match_port_autograd(kw, use_edges, capsys):
         jcfg, tcfg = icfg(use_edges=use_edges, alpha_initial=0.3, fused_step=mode, **kw)
         g = port_graph(tcfg, jax_params(jcfg))
         opt, _ = make_optimizer(g, {"lr": 0.0, "lr_warp": 0.0}, tcfg.max_iter)
-        make_train_step(tcfg, g, opt, to_torch(data))(3)
+        step_fn = make_train_step(tcfg, g, opt, to_torch(data))
+        step_fn.set_step(3)
+        step_fn()
         grads[mode] = {k: p.grad.clone() for k, p in g.named_parameters() if p.grad is not None}
     assert "(K5 -> K6)" in capsys.readouterr().out
     assert set(grads["on"]) == set(grads["off"]) and len(grads["on"]) == len(list(g.parameters())) - 1

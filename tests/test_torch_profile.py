@@ -71,17 +71,22 @@ def test_profile_is_a_pure_overlay(tmp_path, monkeypatch, capsys, deterministic)
 
 def test_trace_closed_when_the_run_raises_inside_the_window(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("MARF_YES", "1")
-    real = trainer.run_chunk
+    real = trainer.make_train_chunk
     calls = []
 
-    def failing(step_fn, start, n):
-        calls.append(start)
-        md = real(step_fn, start, n)
-        if len(calls) == 2:  # chunk 1, the traced one
-            raise FloatingPointError("non-finite loss (injected)")
-        return md
+    def failing(step, n, capture=None):
+        chunk = real(step, n, capture)
 
-    monkeypatch.setattr(trainer, "run_chunk", failing)
+        def dispatch():
+            calls.append(n)
+            handle = chunk()
+            if len(calls) == 2:  # chunk 1, the traced one
+                raise FloatingPointError("non-finite loss (injected)")
+            return handle
+
+        return dispatch
+
+    monkeypatch.setattr(trainer, "make_train_chunk", failing)
     with pytest.raises(FloatingPointError, match="injected"):
         _run(tmp_path, "--profile=2", "--group=g", "--name=raises")
     assert not torch.autograd._profiler_enabled()
