@@ -36,7 +36,9 @@ Phases, one result line each; any failure exits non-zero:
      - K6 with column counts at the sharded dedup step's shapes (one head on
        rank 0's Klp dedup columns of 2 ranks, cnt from
        slot_dedup_sharded_inputs), at float32 and bf16: printed rows, held
-       as K6's.
+       as K6's; likewise K1 and K2 on rank 1's block, and K5 and K6 on
+       rank 1's calls (1 x 108,000; per-image heads 2 x 43,200 at B = 4,
+       and 3 x 43,200 at B = 5).
   4. main path: the port's trainer (`marf_tpu_torch.engine.trainer.Model`),
      its step captured as CUDA graphs after the first chunk and replayed,
      one chunk deep (the default on a card), synthetic data, seed 3, each
@@ -95,14 +97,21 @@ Phases, one result line each; any failure exits non-zero:
      rank): canonical (K1) 60 steps with TB and --freq.ckpt=30, fused_warp=off
      (K2) 20, implicit dedup (K3 -> K1 -> K6 with cnt) 60 and at bf16 20,
      fused_dedup=off (K5 -> K6) 20, per-image heads at B = 4 (K5 -> K6, two
-     heads per rank) 20. Each rank runs its chunks eagerly ("eager
-     (gloo)": gloo's collectives are not captured) and launches each kernel
-     of its path once per step; the ranks' parameters and Adam state are
-     bitwise equal; each
-     float32 run's first 10 steps' losses and PSNR are within 2e-5 of 1 rank
-     of the same config (bf16 printed); rank 0 alone wrote one events file
-     and ckpt/30, ckpt/60; the 2-rank ckpt/30 resumed on 1 rank is within
-     2e-5 of the 2-rank run over steps 31-40; steps/s at 1 and 2 ranks.
+     heads per rank) 20, per-image heads at B = 5 (whole images, 2 | 3 per
+     rank: K5 -> K6 once per rank and step) 20; then on the partitioned
+     autograd step (no kernel):
+     canonical with --tpu.fused_step=off 20, beside 1 rank captured and 1
+     rank eager. Each rank
+     runs its chunks eagerly ("eager (gloo)": gloo's collectives are not
+     captured), reports its step's path (fused, or autograd) sharded over 2
+     ranks, and launches each kernel of its path once per step (none on
+     the autograd step); the ranks' parameters and Adam state are bitwise
+     equal;
+     each float32 run's first 10 steps' losses and PSNR are within 2e-5 of 1
+     rank of the same config (bf16 printed); rank 0 alone wrote one events
+     file and ckpt/30, ckpt/60; the 2-rank ckpt/30 resumed on 1 rank is
+     within 2e-5 of the 2-rank run over steps 31-40; steps/s at 1 and 2
+     ranks.
   7. bench, the measurement entry points: `marf_tpu_torch.bench.run_case`
      for the six cases of bench.py at float32 and default knobs, and for
      implicit and implicit_single at bf16, 300 steps each (one warm-up chunk
@@ -713,8 +722,9 @@ def phase_kernels(device):
     # into image 2); K3 and K6 with the column counts (cnt from
     # slot_dedup_sharded_inputs) on each rank's block of the dedup columns
     # (rank 1's ends in the pad columns); K5 and K6 on rank 1's block with 1
-    # head (fused_dedup=off) and on 2 heads of HW columns (per-image heads at
-    # B = 4). Printed rows; the JSON line keeps the full shapes' numbers.
+    # head (fused_dedup=off), and on its whole images' heads of HW columns
+    # (per-image heads: 2 at B = 4, 3 at B = 5). Printed rows; the JSON
+    # line keeps the full shapes' numbers.
     ranks = SHARD_RANKS
     Nl = N // ranks
     blk = lambda t: t[:, N - Nl :].contiguous()  # noqa: E731
@@ -764,13 +774,13 @@ def phase_kernels(device):
                 (), _mlp_flops(Klp, mdims, len(mdims) - 2), _nbytes(*k6c, cnt_c, *hw6) + _nbytes(*hw6),
                 **extra,
             )
-    # K5 -> K6 on rank 1's block: the shared head on its Nl columns, and two
-    # per-image heads of HW columns each (images 2 and 3 of the batch)
+    # K5 -> K6 on rank 1's block: the shared head on its Nl columns, and the
+    # per-image heads of images 2-3 (B = 4) and 2-4 (B = 5: 2 | 3 images)
     HWc = N // cfg.batch_size
-    for n_heads, cols in ((1, slice(N - Nl, N)), (cfg.batch_size, slice(2 * HWc, 4 * HWc))):
+    for n_heads, cols, own in ((1, slice(N - Nl, N), slice(0, 1)), (cfg.batch_size, slice(2 * HWc, 4 * HWc), slice(2, 4)),
+                               (cfg.batch_size, slice(2 * HWc, 5 * HWc), slice(2, 5))):
         stacks, Xn, sq, esq, abk, c = heads_inputs(cfg, data, device, n_heads)
-        if n_heads > 1:
-            stacks = stacks[2:4]
+        stacks = stacks[own]
         n = cols.stop - cols.start
         cut = lambda t: t[:, cols].contiguous()  # noqa: E731
         stacks64 = [[(w.double(), b.double()) for w, b in layers] for layers in stacks]
@@ -1226,9 +1236,12 @@ SHARD_RANKS = 2
 
 
 def _sharded_runs(implicit, single, bf16):
-    """Phase 6's runs: (name, extra flags, steps, launches per rank per step,
-    launches per step of 1 rank, held to 1 rank). The sharded dedup step
-    runs K6 with column counts where 1 rank runs K4."""
+    """Phase 6's 2-rank runs: (name, extra flags, steps, launches per rank
+    per step, launches per step of 1 rank, held to 1 rank). The sharded
+    dedup step runs K6 with column counts where 1 rank runs K4; per-image
+    heads at B = 5 run on 2 | 3 whole images per rank. The run that
+    launches no kernel runs the partitioned autograd step
+    (fused_step=off)."""
     k1, k6 = "fused_train_kernel_warp", "fused_mask_backward_g"
     dedup = {"fused_mask_forward": 1, k1: 1, k6: 1}
     dedup1 = {"fused_mask_forward": 1, k1: 1, "fused_mask_backward_dedup": 1}
@@ -1241,6 +1254,8 @@ def _sharded_runs(implicit, single, bf16):
         ("implicit_bf16", (*implicit, bf16), 20, bf(dedup), bf(dedup1), False),
         ("implicit_dedup_off", (*implicit, "--tpu.fused_dedup=off"), 20, heads, heads, True),
         ("implicit_single_B4", (*single, "--batch_size=4"), 20, heads, heads, True),
+        ("implicit_single_B5", single, 20, heads, heads, True),
+        ("autograd", ("--tpu.fused_step=off",), 20, {}, {}, True),
     ]
 
 
@@ -1268,7 +1283,8 @@ def phase_sharded(out_root: str, smi: str):
     def args(name, iters, *extra):
         return ["--model=planar", "--yaml=planar", "--group=sharded", f"--name={name}", "--seed=3",
                 "--barf_c2f=[0,0.4]", "--dataset=synthetic", f"--max_iter={iters}", f"--freq.scalar={min(iters, 20) // 2}",
-                f"--freq.vis={iters}", f"--output_root={out_root}", "--tpu.fused_step=on",
+                f"--freq.vis={iters}", f"--output_root={out_root}",
+                *([] if any(e.startswith("--tpu.fused_step=") for e in extra) else ["--tpu.fused_step=on"]),
                 *([] if any(e.startswith("--tb.") for e in extra) else ["--tb="]), *extra]
 
     calls = []
@@ -1295,6 +1311,8 @@ def phase_sharded(out_root: str, smi: str):
         for r in ranks:
             if r["launches"] != want or r["it"] != iters:
                 fail(f"sharded {name}: rank {r['rank']} launched {r['launches']} in {r['it']} steps, expected {want}")
+            if (r["path"] == "autograd") != (not per_step) or not r["layout"].startswith(f"sharded over {SHARD_RANKS}"):
+                fail(f"sharded {name}: rank {r['rank']} ran `{r['path']}, {r['layout']}`")
             if r["chunk_modes"] != [f"eager ({r['backend']})"]:
                 fail(f"sharded {name}: rank {r['rank']} ran chunks {r['chunk_modes']}, expected eager ({r['backend']})")
             add(r["launches"])
@@ -1308,8 +1326,7 @@ def phase_sharded(out_root: str, smi: str):
         h1 = _expect(f"sharded {name} on 1 rank", m1, c1, {k: v * iters for k, v in per_step1.items()}, iters)
         add(c1)
         gaps = {k: float(np.max(np.abs(h2[k][:10] - h1[k][:10]) / np.abs(h1[k][:10]))) for k in ("loss_rgb", "all", "PSNR")}
-        line = (f"[sharded] {name}: chunks {ranks[0]['chunk_modes']}, launches per rank {ranks[0]['launches']}, "
-                f"replicas bitwise equal, steps/s "
+        line = (f"[sharded] {name}: {ranks[0]['path']}, chunks {ranks[0]['chunk_modes']}, launches per rank {ranks[0]['launches']}, replicas bitwise equal, steps/s "
                 f"{SHARD_RANKS} ranks {ranks[0]['steps_per_sec']:.2f} vs 1 rank {m1.steps_per_sec:.2f}; "
                 f"first-10-step rel diff vs 1 rank " + " ".join(f"{k}={v:.2e}" for k, v in gaps.items()))
         if held:
@@ -1318,6 +1335,14 @@ def phase_sharded(out_root: str, smi: str):
                 fail(f"sharded {name}: {SHARD_RANKS} ranks vs 1 rank over the first 10 steps: {gaps} > {SHARD_RTOL:.0e}")
         else:
             print(line + " (bf16: printed, not held)", flush=True)
+        if not per_step:
+            # 1 rank eager, the 2 ranks' own mode: the partitioned step's cost beside the captured step's gain
+            m_e, c_e = _launch_counts(lambda: train_main(args(f"{name}_1rank_eager", iters, *extra), capture=False))
+            _expect(f"sharded {name} on 1 rank, eager", m_e, c_e, {}, iters)
+            modes = sorted({c.mode for c in m_e.chunks.values()})
+            print(f"[sharded] {name}: steps/s {SHARD_RANKS} ranks {ranks[0]['steps_per_sec']:.2f} vs 1 rank eager "
+                  f"{m_e.steps_per_sec:.2f} (chunks {modes}) = {ranks[0]['steps_per_sec'] / m_e.steps_per_sec:.2f}x",
+                  flush=True)
         if name == "canonical":
             run = ranks[0]["output_path"]
             events = [f for f in os.listdir(run) if f.startswith("events.")]

@@ -27,7 +27,10 @@ Homography_Error from the post-update warp, Mask_Error of the pre-update mask
 
 Given a `Mesh` (marf_tpu_torch/parallel/), `make_train_step` builds one
 rank of the pixel-sharded step instead: the same kernels on the rank's block
-of the pixel axis, with the sums over that axis taken over the ranks.
+of the pixel axis, with the sums over that axis taken over the ranks, or,
+off the fused paths, the partitioned autograd step (the twin of marf_tpu's
+GSPMD-partitioned XLA step): the networks on the rank's block, the maps
+gathered, the loss on every rank, the gradients summed.
 
 Per-step constants (the flat target/mask/grid streams, 1/(3 sum m) of fixed
 masks, the mask-head inputs X or their dedup structures, and the progress /
@@ -53,6 +56,7 @@ from marf_tpu_torch.models.planar import (
     PlanarConfig,
     graph_forward,
     graph_loss,
+    map_outputs,
     use_fused_dedup,
     use_fused_implicit,
     use_fused_step,
@@ -324,6 +328,41 @@ def _pairs(ts) -> list:
     return list(zip(ts[0::2], ts[1::2]))
 
 
+def head_spans(cols: slice, span: int) -> list:
+    """(head, first column, end column) of each head whose positions [h span,
+    (h+1) span) of the flat axis meet a rank's block `cols`, in the block's
+    columns."""
+    return [(h, max(cols.start, h * span) - cols.start, min(cols.stop, (h + 1) * span) - cols.start)
+            for h in range(cols.start // span, -(-cols.stop // span))]
+
+
+def _coords_kernel(cfg: PlanarConfig) -> bool:
+    """Whether the rgb leg is K2 (coords from the warp) in place of K1."""
+    from marf_tpu_torch.ops.cuda.fused_step import MAX_IMAGES
+
+    return cfg.fused_warp == "off" or cfg.batch_size > MAX_IMAGES
+
+
+def step_path(cfg: PlanarConfig, device: torch.device, n_ranks: int | None = None) -> tuple[str, bool]:
+    """The gradient path of `make_train_step` on `device`, named as its log
+    line names it, and whether n_ranks ranks (None: no mesh) shard the flat
+    pixel axis: it must divide over them (for fused per-image heads, whole
+    images: B >= n_ranks), else every rank runs the whole axis. A config
+    takes its own path on any number of ranks; sharded, the dedup step
+    backs the mask head with K6 and column counts where one card runs K4."""
+    h, w = cfg.map_hw
+    sharded = n_ranks is not None and (cfg.batch_size * h * w) % n_ranks == 0
+    rgb_leg = "K2" if _coords_kernel(cfg) else "K1"
+    if use_fused_implicit(cfg, device):
+        if cfg.build_single_masks:
+            sharded = n_ranks is not None and cfg.batch_size >= n_ranks
+        if use_fused_dedup(cfg, device):
+            return f"fused implicit dedup (K3 -> {rgb_leg} -> {'K6 with column counts' if sharded else 'K4'})", sharded
+        heads = "per-image heads" if cfg.build_single_masks else "shared head, no dedup"
+        return f"fused implicit, {heads} (K5 -> K6)", sharded
+    return (f"fused ({rgb_leg})" if use_fused_step(cfg, device) else "autograd"), sharded
+
+
 def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, scheduler=None, use_homographies: bool = True,
                     mesh=None):
     """Build the step: a `TrainStep`, step(heavy=...) -> metrics dict of 0-d
@@ -347,13 +386,20 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     the gathered rgb [3, N]. The shared-head dedup step shards its dedup
     columns apart from the positions, and backs the mask head with K6 and
     the column counts on the rank's column block where one card runs K4.
-    Per-image heads run on the rank that owns their images; the others'
-    gradients enter the sum as zeros. Every rank passes the same `data` and
+    Fused per-image heads shard by whole images: rank r holds images
+    [r B / D, (r+1) B / D), equal blocks when B % D == 0 (marf_tpu's
+    layout), uneven ones otherwise (where marf_tpu's trainer turns its
+    kernels off), so K5 and K6 see whole heads; the heads of other ranks
+    enter the gradient sum as zeros. Every rank passes the same `data` and
     `heavy`; parameters and optimizer state stay replicated. Without a mesh
     the block is the whole axis and every sum is the identity.
-    """
-    from marf_tpu_torch.ops.cuda.fused_step import MAX_IMAGES
 
+    Off the fused paths a rank runs the partitioned autograd step (twin of
+    marf_tpu's GSPMD step, `partitioned_grads`). When N does not divide over
+    the ranks (fused per-image heads: B < D), every rank runs the
+    single-card step of its path, kernels included, on the whole axis with
+    no sums (marf_tpu keeps such data replicated).
+    """
     device = graph.warp.device
     fused = use_fused_step(cfg, device)
     fused_implicit = use_fused_implicit(cfg, device)
@@ -363,43 +409,44 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     B = cfg.batch_size
     HW = h * w
     N = B * HW
-    D, r = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
-    if mesh is None:
+    path, sharded = step_path(cfg, device, None if mesh is None else mesh.world_size)
+    D, r = (mesh.world_size, mesh.rank) if sharded else (1, 0)
+    by_image = fused_implicit and cfg.build_single_masks  # whole images per rank
+    heads_own = range(r * B // D, (r + 1) * B // D)  # per-image heads: this rank's images
+    cols = slice(heads_own.start * HW, heads_own.stop * HW) if by_image else slice(r * (N // D), (r + 1) * (N // D))
+    Nl = cols.stop - cols.start  # this rank's positions
+    if not sharded:
         reduce = lambda parts: parts  # noqa: E731
-        place = lambda t, n: t  # noqa: E731
+        place = lambda t, n, start: t  # noqa: E731
         # the means over positions (mask loss, Mask_Error): a mean, or a sum over N
         pos_part, pos_mean = torch.mean, (lambda s: s)
     else:
         from marf_tpu_torch.parallel.mesh import place_columns, psum
-        from marf_tpu_torch.parallel.shard_fused import check_shardable
 
-        check_shardable(cfg, D, device)
         reduce = psum
-        place = lambda t, n: place_columns(mesh, t, n)  # noqa: E731
+        place = place_columns
         pos_part, pos_mean = torch.sum, (lambda s: s / N)
-    Nl = N // D
-    cols = slice(r * Nl, (r + 1) * Nl)  # this rank's positions
     steps = torch.arange(cfg.max_iter + 1, device=device)
     progress = steps.to(torch.float32) / cfg.max_iter
     zero = torch.zeros((), dtype=torch.float32, device=device)
     alphas = alpha_schedule(steps, cfg.max_iter, cfg.alpha_initial, cfg.alpha_final) if cfg.use_edges else zero.expand(len(steps))
     gt_hom = data.get("gt_hom") if use_homographies else None
-    masks_ref = None  # the premade masks at this rank's positions, [1, Nl], for Mask_Error
+    masks_full = masks_ref = None  # the premade masks [1, N] and at this rank's positions, for Mask_Error
     if cfg.use_implicit_mask and cfg.use_masks and data.get("masks") is not None:
-        masks_ref = data["masks"].permute(1, 0, 2, 3).reshape(1, N)[:, cols]
-    coords_kernel = cfg.fused_warp == "off" or B > MAX_IMAGES  # K2 in place of K1
-    rgb_leg = "K2" if coords_kernel else "K1"
-    if dedup:
-        path = f"fused implicit dedup (K3 -> {rgb_leg} -> {'K4' if mesh is None else 'K6 with column counts'})"
-    elif fused_implicit:
-        path = f"fused implicit, {'per-image heads' if cfg.build_single_masks else 'shared head, no dedup'} (K5 -> K6)"
-    elif fused:
-        path = f"fused ({rgb_leg})"
-    else:
-        path = "autograd"
+        masks_full = data["masks"].permute(1, 0, 2, 3).reshape(1, N)
+        masks_ref = masks_full[:, cols]
+    coords_kernel = _coords_kernel(cfg)
     cdtype = cfg.arch.compute_dtype
-    where = f"on {device}" if mesh is None else (f"sharded over {D} ranks ({mesh.backend}), rank {r} on {device}, "
-                                                 f"{Nl} of {N} positions")
+    if mesh is None:
+        where = f"on {device}"
+    else:
+        ranks = f"{mesh.world_size} ranks ({mesh.backend}), rank {mesh.rank} on {device}"
+        where = (f"sharded over {ranks}, {Nl} of {N} positions" if sharded else
+                 f"replicated on {ranks}, all {N} positions")
+        if not sharded:
+            why = (f"fewer images (B = {B}) than ranks for per-image heads" if by_image else
+                   f"the flat pixel axis (N = {B} x {h} x {w} = {N}) does not divide over {mesh.world_size} ranks")
+            log.warn(f"{why}; data stays replicated (single-card arithmetic on every rank)")
     log.info(f"train step: {path}, {cdtype}, {where}")
 
     if fused or fused_implicit:
@@ -446,14 +493,27 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         start = (r * Nl) % HW
         T = -(-(start + Nl) // HW)
         log.info(f"mask-head dedup: K = {K} columns (HW = {HW}, E = {E}; padded to {K_pad}) for N = {N} positions"
-                 + ("" if mesh is None else f"; {Klp} columns and {ext_off.numel()} extra (position, column) pairs on "
-                    "this rank"))
+                 + (f"; {Klp} columns and {ext_off.numel()} extra (position, column) pairs on this rank" if sharded
+                    else ""))
     elif fused_implicit:
         X_flat, table = stage_mask_x(graph, data["rgb"], cfg.build_single_masks)
         X_flat = X_flat[:, cols].contiguous()
         heads = list(graph.implicit_mask) if cfg.build_single_masks else [graph.implicit_mask]
-        # this rank's heads: per-image heads whose images lie in its block
-        own = range(r * B // D, (r + 1) * B // D) if cfg.build_single_masks else range(1)
+        own = heads_own if cfg.build_single_masks else range(1)  # this rank's heads
+    elif cfg.use_implicit_mask and sharded:
+        # the mask-head inputs at this rank's positions: its images' [426, HW]
+        # blocks, cut to its columns; constants while the view embedding is frozen
+        b0, b1 = cols.start // HW, -(-cols.stop // HW)
+
+        def mask_inputs():
+            x = mask_head_inputs_cf(graph.view_embedding, data["rgb"][b0:b1], graph.grid, cfg.mask_quantize_levels)
+            return x.transpose(0, 1).reshape(x.shape[1], -1)[:, cols.start - b0 * HW : cols.stop - b0 * HW]
+
+        if not cfg.train_view_embedding:
+            with torch.no_grad():
+                x_frozen = mask_inputs().contiguous()
+            mask_inputs = lambda: x_frozen  # noqa: E731
+        spans = head_spans(cols, HW)  # per-image heads: each image's columns on this rank
     elif cfg.use_implicit_mask and not cfg.train_view_embedding:
         # frozen view embedding: the dense mask-head inputs are constants
         with torch.no_grad():
@@ -493,7 +553,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             )
             finish = lambda g: torch.autograd.grad(H, graph.warp, g)[0]  # noqa: E731
         sums = reduce({"geo": [dgeo], "loss": [rgb_loss], "mlp": _flat(dmlp), **partials,
-                       "rgb": [place(rgb_cf, N)] if gather_rgb else []})
+                       "rgb": [place(rgb_cf, N, cols.start)] if gather_rgb else []})
         set_grads(graph.neural_image.layers, _pairs(sums["mlp"]))
         graph.warp.grad = finish(sums["geo"][0])
         return (sums["rgb"][0] if gather_rgb else rgb_cf), sums["loss"][0], sq, sums
@@ -565,7 +625,8 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         # and expanded to its positions: m[n] = slot0[n] m[n mod HW] + the
         # one extra column that covers n
         stack = mask_w_stack(graph.implicit_mask, table)
-        m_all = reduce({"m": [place(fused_mask_forward(stack, X_loc, cdtype), K_pad)]})["m"][0][:, :K]  # pad cut
+        m_loc = fused_mask_forward(stack, X_loc, cdtype)
+        m_all = reduce({"m": [place(m_loc, K_pad, kcols.start)]})["m"][0][:, :K]  # pad cut
         m_flat = slot0 * m_all[:, :HW].repeat(1, T)[:, start : start + Nl]
         if E:
             m_flat = m_flat.index_add(1, ext_off, m_all[:, HW + ext_j])
@@ -574,7 +635,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         rgb_cf, rgb_loss, sq, sums = rgb_kernel_grads(idx, m_flat, C_r, inv_sum3, mask_terms(m_flat, heavy),
                                                       cfg.use_edges)
         esq = edge_sq(rgb_cf) if cfg.use_edges else None
-        if mesh is None:
+        if not sharded:
             # ---- K4: the extras' segment sums go in `base`, slot0's in the
             # kernel; base and cnt are 0 on the pad columns, so is their cotangent
             edge_loss = torch.sum(m_flat * m_flat * esq) * inv_sum3 if cfg.use_edges else zero
@@ -617,7 +678,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         )
         (dwarp_u,) = torch.autograd.grad(coords, graph.warp, dcoords_u)
         sums = reduce({"msum": [msum], "loss": [loss_u], "warp": [dwarp_u], "mlp": _flat(dmlp_u),
-                       **mask_terms(m_flat, heavy), "rgb": [place(rgb_cf, N)] if cfg.use_edges else []})
+                       **mask_terms(m_flat, heavy), "rgb": [place(rgb_cf, N, cols.start)] if cfg.use_edges else []})
         # the masked-MSE normalization 1 / (3 sum m): K5's outputs are linear in it
         inv_sum3 = 1.0 / (sums["msum"][0] * 3.0)
         rgb_loss = sums["loss"][0] * inv_sum3
@@ -642,6 +703,36 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             set_grads(head.layers, unfactor_mask_grads(_pairs(summed[i]), table))
         return implicit_loss(rgb_loss, edge_loss, sums, alpha)
 
+    def partitioned_grads(idx, heavy: bool):
+        """The autograd step on a rank's block (twin of marf_tpu's GSPMD
+        step): the warp, the neural image and the mask heads at this rank's
+        positions; rgb [3, N] and m [1, N] gathered by one sum; graph_loss
+        on the whole maps on every rank (the edge convs, the masked-MSE
+        normalizers and the mask mean of one card, no halo); its cotangent
+        at this rank's positions back through the rank's networks (also
+        through differentiable edges); one sum of every gradient."""
+        optimizer.zero_grad(set_to_none=True)
+        local = [graph.neural_image(warp_coords(), at(progress, idx))]
+        if cfg.use_implicit_mask:
+            x = mask_inputs()
+            if cfg.build_single_masks:
+                local.append(torch.cat([graph.implicit_mask[b](x[:, lo:hi]) for b, lo, hi in spans], dim=1))
+            else:
+                local.append(graph.implicit_mask(x))
+        gathered = reduce({"maps": [place(t.detach(), N, cols.start) for t in local]})["maps"]
+        maps = [t.detach().requires_grad_() for t in gathered]
+        loss = graph_loss(map_outputs(cfg, *maps), data, cfg, at(steps, idx))
+        cots = torch.autograd.grad(summarize_loss(loss, cfg.loss_weight), maps)
+        torch.autograd.backward(local, [c[:, cols] for c in cots])
+        params = [p for p in graph.parameters() if p.requires_grad]
+        sums = reduce({"g": [torch.zeros_like(p) if p.grad is None else p.grad for p in params]})["g"]
+        for p, g in zip(params, sums):
+            p.grad = g
+        mask_error = None
+        if masks_full is not None and (heavy or not lazy):
+            mask_error = mse(maps[1].detach(), masks_full)
+        return {k: v.detach() for k, v in loss.items()}, mask_error
+
     def autograd_grads(idx, heavy: bool):
         optimizer.zero_grad(set_to_none=True)
         outputs = graph_forward(graph, data, cfg, at(progress, idx))
@@ -654,8 +745,10 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
 
     if fused_implicit:
         grads_fn = implicit_grads if dedup else implicit_heads_grads
+    elif fused:
+        grads_fn = fused_grads
     else:
-        grads_fn = fused_grads if fused else autograd_grads
+        grads_fn = partitioned_grads if sharded else autograd_grads
 
     counter = torch.zeros((), dtype=torch.int64, device=device)  # the step, carried on the device
 
@@ -681,7 +774,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         counter.add_(1)
         return metrics
 
-    return TrainStep(step_fn, counter, graph, optimizer, scheduler, mesh)
+    return TrainStep(step_fn, counter, graph, optimizer, scheduler, mesh, path, where)
 
 
 class TrainStep:
@@ -691,15 +784,19 @@ class TrainStep:
     alpha, progress) are read at it on the device, so the step reads no
     value from the host and a CUDA graph can capture it. Returns the
     metrics, a dict of 0-d tensors. `heavy` marks the chunk-final step.
-    `set_step(it)` writes the counter (after a restore) in place.
+    `set_step(it)` writes the counter (after a restore) in place. `path`
+    and `layout` are what its log line names: the gradient path and where
+    it runs (one device, sharded or replicated over a mesh).
 
     Capture needs every tensor the step reads or writes across steps to
     keep its storage: parameters and optimizer state are updated in place,
     and `check_bound` raises once any of them was rebound (an optimizer's
     `load_state_dict` after capture needs a new step)."""
 
-    def __init__(self, fn, counter: torch.Tensor, graph: Graph, optimizer, scheduler, mesh):
+    def __init__(self, fn, counter: torch.Tensor, graph: Graph, optimizer, scheduler, mesh, path: str, layout: str):
         self._fn = fn
+        self.path = path
+        self.layout = layout
         self.counter = counter
         self.graph = graph
         self.optimizer = optimizer

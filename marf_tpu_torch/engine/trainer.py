@@ -28,7 +28,10 @@ With more than one device (`tpu.n_devices` or MARF_DEVICES, `resolve_n_devices`)
 the Model is one rank of a pixel-sharded run (marf_tpu_torch/parallel/): it is
 given its `Mesh`, every rank loads or synthesizes the same dataset, takes rank
 0's initial parameters and trains its block of the pixel axis
-(engine/step.py `make_train_step` with the mesh). Rank 0 alone writes the TB events, vis frames, the
+(engine/step.py `make_train_step` with the mesh): a fused config with its
+kernels on the rank's block (marf_tpu's trainer turns off the ones its
+shard_map cannot run; the port runs every fused config's kernels), any
+other on the partitioned autograd step. Rank 0 alone writes the TB events, vis frames, the
 mp4 and the checkpoints; the ranks meet at a barrier after each checkpoint
 write and before a restore. The checkpoint is the single-card one, so a run
 resumes on another number of ranks.
@@ -106,6 +109,7 @@ class Model:
         self._full_grid = None
         self.chunk_times = []  # (steps, seconds) per chunk, device work included
         self.history = []  # per chunk: {metric: [steps] array}
+        self.step = None  # the step `train` runs (engine/step.py `TrainStep`)
         self.chunks = {}  # make_train_chunk's chunks of the step `train` runs, by length
 
     # ---------------------------------------------------------------- phases
@@ -210,7 +214,7 @@ class Model:
         log.title("TRAINING START")
         self.timer = IterTimer()
         freq = self.opt.freq
-        step = self.make_step()
+        step = self.step = self.make_step()
         step.set_step(self.it)
         max_iter = int(self.cfg.max_iter)
         ckpt_freq = freq.get("ckpt")

@@ -248,27 +248,35 @@ def graph_forward(graph: Graph, data: dict, cfg: PlanarConfig, progress: torch.T
     B = cfg.batch_size
     warped = warp_grid_cf_flat(graph.grid, graph.warp)  # [2, B*HW]
     rgb_flat = graph.neural_image(warped, progress)  # [3, B*HW]
+    if not cfg.use_implicit_mask:
+        return map_outputs(cfg, rgb_flat)
+    inputs_cf = data.get("mask_head_inputs_cf")
+    if inputs_cf is None:
+        inputs_cf = mask_head_inputs_cf(graph.view_embedding, data["rgb"], graph.grid, cfg.mask_quantize_levels)
+    if not cfg.build_single_masks:
+        if inputs_cf.dim() == 3:  # batch folded into the pixel axis, columns b*HW + i
+            inputs_cf = inputs_cf.transpose(0, 1).reshape(inputs_cf.shape[1], -1)
+        return map_outputs(cfg, rgb_flat, graph.implicit_mask(inputs_cf))  # mask [1, B*HW]
+    out = map_outputs(cfg, rgb_flat)
+    mask_cf = torch.stack([head(x) for head, x in zip(graph.implicit_mask, inputs_cf)])  # [B, 1, HW]
+    out["mask_prediction"] = mask_cf.transpose(1, 2)
+    out["mask_prediction_map"] = mask_cf.reshape(B, 1, h, w)
+    return out
+
+
+def map_outputs(cfg: PlanarConfig, rgb_flat: torch.Tensor, mask_flat: torch.Tensor | None = None) -> dict:
+    """`graph_forward`'s outputs from the flat maps in column order b*HW + i:
+    from rgb [3, B*HW] the rgb prediction, its map and, with edges on, the
+    edge prediction; from a mask [1, B*HW] the mask prediction and its map."""
+    h, w = cfg.map_hw
+    B = cfg.batch_size
     rgb_map = rgb_flat.reshape(3, B, h, w).permute(1, 0, 2, 3)
-    out = {
-        "rgb_prediction": rgb_flat.reshape(3, B, h * w).permute(1, 2, 0),
-        "rgb_prediction_map": rgb_map,
-    }
+    out = {"rgb_prediction": rgb_flat.reshape(3, B, h * w).permute(1, 2, 0), "rgb_prediction_map": rgb_map}
     if cfg.use_edges:
         out["edge_prediction"] = compute_edges(rgb_map, differentiable=cfg.differentiable_edges)
-    if cfg.use_implicit_mask:
-        inputs_cf = data.get("mask_head_inputs_cf")
-        if inputs_cf is None:
-            inputs_cf = mask_head_inputs_cf(graph.view_embedding, data["rgb"], graph.grid, cfg.mask_quantize_levels)
-        if cfg.build_single_masks:
-            mask_cf = torch.stack([head(x) for head, x in zip(graph.implicit_mask, inputs_cf)])  # [B, 1, HW]
-            out["mask_prediction"] = mask_cf.transpose(1, 2)
-            out["mask_prediction_map"] = mask_cf.reshape(B, 1, h, w)
-        else:
-            if inputs_cf.dim() == 3:  # batch folded into the pixel axis, columns b*HW + i
-                inputs_cf = inputs_cf.transpose(0, 1).reshape(inputs_cf.shape[1], -1)
-            mask_flat = graph.implicit_mask(inputs_cf)  # [1, B*HW]
-            out["mask_prediction"] = mask_flat.reshape(1, B, h * w).permute(1, 2, 0)
-            out["mask_prediction_map"] = mask_flat.reshape(1, B, h, w).permute(1, 0, 2, 3)
+    if mask_flat is not None:
+        out["mask_prediction"] = mask_flat.reshape(1, B, h * w).permute(1, 2, 0)
+        out["mask_prediction_map"] = mask_flat.reshape(1, B, h, w).permute(1, 0, 2, 3)
     return out
 
 

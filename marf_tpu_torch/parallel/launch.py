@@ -173,9 +173,10 @@ def state_digest(*state_dicts) -> str:
 def train_rank(mesh: Mesh, argv: list, opt) -> dict:
     """One rank of `marf_tpu_torch.train.main(argv)` with the launcher's
     resolved options: its trainer's metric history, the kernel launches of
-    this run (the counts are set to 0 first), steps/s, its chunks' modes
-    (engine/step.py `make_train_chunk`) and the digest of its parameters and
-    optimizer state."""
+    this run (the counts are set to 0 first), steps/s, its step's path and
+    layout and its chunks' modes (engine/step.py `make_train_step`,
+    `make_train_chunk`) and the digest of its parameters and optimizer
+    state."""
     from marf_tpu_torch.ops.cuda import LAUNCHES
     from marf_tpu_torch.train import main
 
@@ -184,6 +185,6 @@ def train_rank(mesh: Mesh, argv: list, opt) -> dict:
     m = main(argv, mesh=mesh, opt=opt)
     return {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend, "it": m.it,
             "history": m.history, "launches": {k: v for k, v in LAUNCHES.items() if v},
-            "steps_per_sec": m.steps_per_sec, "output_path": m.opt.output_path,
-            "chunk_modes": sorted({c.mode for c in m.chunks.values()}),
+            "steps_per_sec": m.steps_per_sec, "output_path": m.opt.output_path, "path": m.step.path,
+            "layout": m.step.layout, "chunk_modes": sorted({c.mode for c in m.chunks.values()}),
             "digest": state_digest(m.graph.state_dict(), m.optimizer.state_dict())}

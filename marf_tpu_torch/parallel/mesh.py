@@ -9,6 +9,13 @@ or with every rank sharing `cuda:0`). Parameters and optimizer state are
 replicated; the flat pixel axis is sharded in contiguous column blocks
 (engine/step.py).
 
+`make_mesh_2d` checks a layout as marf_tpu's 2-axis mesh (`batch`,
+`data`: n_batch blocks of images by n_pixel blocks of their pixels) and
+keeps the 1-D mesh: the port shards every layout as contiguous blocks of
+the flat axis, so rank r holds the same count of positions as rank (r //
+n_pixel, r % n_pixel) of marf_tpu's mesh (the same positions when each
+batch block is one image), and the step's sums do not depend on which.
+
 What marf_tpu `psum`s or tiles with `all_gather` over ICI is summed here by
 one `all_reduce` of a packed float32 buffer (`psum`): a tiled column gather
 is the sum of zero-filled full buffers into which each rank wrote its block
@@ -51,6 +58,19 @@ def init_mesh(rank: int, world_size: int, device: torch.device, backend: str, in
     return Mesh(rank, world_size, device, backend)
 
 
+def make_mesh_2d(mesh: Mesh, n_batch: int, n_pixel: int, batch_size: int) -> Mesh:
+    """The ranks of `mesh` as marf_tpu's 2-axis mesh (`make_mesh_2d`), images
+    over n_batch blocks, pixels over n_pixel: `mesh` itself (module
+    docstring). Raises ValueError unless n_batch x n_pixel is the world size
+    and the B images divide over the batch axis."""
+    if n_batch * n_pixel != mesh.world_size:
+        raise ValueError(f"a {n_batch} x {n_pixel} mesh needs {n_batch * n_pixel} ranks, the world has "
+                         f"{mesh.world_size}")
+    if batch_size % n_batch:
+        raise ValueError(f"B = {batch_size} images do not divide over the {n_batch} blocks of the batch axis")
+    return mesh
+
+
 def psum(parts: dict) -> dict:
     """Each float32 tensor of `parts` ({name: [tensors]}) summed over the
     ranks, by one all_reduce of them all packed into a flat buffer: {name:
@@ -69,12 +89,11 @@ def psum(parts: dict) -> dict:
     return out
 
 
-def place_columns(mesh: Mesh, block: torch.Tensor, n_cols: int) -> torch.Tensor:
-    """[C, n_cols] zeros with this rank's contiguous column block [C, n_cols /
-    world_size] written at its offset: `psum` of these is the tiled gather."""
+def place_columns(block: torch.Tensor, n_cols: int, start: int) -> torch.Tensor:
+    """[C, n_cols] zeros with a rank's column block [C, n] written at columns
+    [start, start + n): `psum` of these is the tiled gather."""
     full = block.new_zeros((block.shape[0], n_cols))
-    n = block.shape[1]
-    full[:, mesh.rank * n : (mesh.rank + 1) * n] = block
+    full[:, start : start + block.shape[1]] = block
     return full
 
 

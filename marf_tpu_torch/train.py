@@ -57,15 +57,9 @@ def main(argv=None, mesh=None, opt=None, capture=None, **launch_options):
 
 def _start_ranks(opt, argv: list, n_dev: int, launch_options: dict):
     """Spawn the n_dev ranks, or join torchrun's world as one of them."""
-    import torch
-
-    from marf_tpu_torch.models.planar import PlanarConfig
     from marf_tpu_torch.parallel import launch
-    from marf_tpu_torch.parallel.shard_fused import check_shardable
 
     cpu = bool(opt.get("cpu"))
-    device = torch.device("cpu") if cpu else torch.device("cuda", 0)
-    check_shardable(PlanarConfig.from_options(opt), n_dev, device)
     world = launch.env_world()
     if world is None:
         return launch.spawn(launch.train_rank, n_dev, (argv, opt), cpu=cpu, **launch_options)

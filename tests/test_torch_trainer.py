@@ -193,7 +193,7 @@ m = main(["--model=planar", "--yaml=planar", "--cpu", "--output_root={tmp_path}"
 assert m.it == 2
 import marf_tpu_torch.ops.cuda._build, marf_tpu_torch.ops.cuda.fused_step, marf_tpu_torch.ops.cuda.fused_mask
 import marf_tpu_torch.utils.params
-import marf_tpu_torch.parallel.mesh, marf_tpu_torch.parallel.shard_fused, marf_tpu_torch.parallel.launch
+import marf_tpu_torch.parallel.mesh, marf_tpu_torch.parallel.sharded, marf_tpu_torch.parallel.launch
 from marf_tpu_torch import bench
 bench.golden_check("canonical", 600, 3, "float32", "cat_batch3", 21.9)
 leaked = sorted(k for k in sys.modules if k in ("jax", "marf_tpu") or k.startswith(("jax.", "jaxlib", "flax", "optax", "marf_tpu.")))
