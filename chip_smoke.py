@@ -102,11 +102,13 @@ Phases, one result line each; any failure exits non-zero:
      autograd step (no kernel):
      canonical with --tpu.fused_step=off 20, beside 1 rank captured and 1
      rank eager. Each rank
-     runs its chunks eagerly ("eager (gloo)": gloo's collectives are not
-     captured), reports its step's path (fused, or autograd) sharded over 2
-     ranks, and launches each kernel of its path once per step (none on
-     the autograd step); the ranks' parameters and Adam state are bitwise
-     equal;
+     runs the trainer's default on a card, its step captured in segments
+     split at its collectives ("captured (2 ranks, gloo: 2 segments light,
+     2 heavy)" on canonical: one more graph than collectives, the
+     collectives run between the replays), reports its step's path (fused,
+     or autograd) sharded over 2 ranks, and launches each kernel of its
+     path once per step, counted through the replays (none on the autograd
+     step); the ranks' parameters and Adam state are bitwise equal;
      each float32 run's first 10 steps' losses and PSNR are within 2e-5 of 1
      rank of the same config (bf16 printed); rank 0 alone wrote one events
      file and ckpt/30, ckpt/60; the 2-rank ckpt/30 resumed on 1 rank is
@@ -132,10 +134,19 @@ Phases, one result line each; any failure exits non-zero:
      the parameters and the optimizer state bitwise equal, each kernel of
      the path once per step counted through the replays, and host ms per
      step (the dispatch), device ms per step (the kernels of one traced
-     chunk) and steps/s, captured beside eager.
+     chunk) and steps/s, captured beside eager; then the sharded twins, 2
+     ranks over gloo on cuda:0 through the rank body
+     (`marf_tpu_torch.parallel.sharded.train_steps`, one spawn): canonical
+     (K1), implicit dedup (K3 -> K1 -> K6 with counts), per-image heads at
+     B = 5 (K5 -> K6, 2 | 3 images) and the partitioned autograd step, each
+     captured in segments against eager from the same init, 100 steps in
+     chunks of 20: every step's metrics and the parameters and optimizer
+     state bitwise equal on both ranks, each kernel once per rank and step
+     through the replays, the segments per light and heavy step, host ms
+     per step and steps/s, captured beside eager beside 1 rank captured.
 Then a JSON line with each kernel's numbers (launches: phases 4 to 8, summed
 over the ranks; phase 7's bench runs count their timed steps; phase 8 its
-captured runs), the
+captured runs, both ranks of the sharded ones), the
 nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
 """
@@ -1237,25 +1248,28 @@ SHARD_RANKS = 2
 
 def _sharded_runs(implicit, single, bf16):
     """Phase 6's 2-rank runs: (name, extra flags, steps, launches per rank
-    per step, launches per step of 1 rank, held to 1 rank). The sharded
-    dedup step runs K6 with column counts where 1 rank runs K4; per-image
-    heads at B = 5 run on 2 | 3 whole images per rank. The run that
-    launches no kernel runs the partitioned autograd step
-    (fused_step=off)."""
+    per step, launches per step of 1 rank, held to 1 rank, CUDA graphs per
+    light and per heavy step: one more than the step's collectives, as
+    tests/test_torch_sharded_chunk.py counts them, without Mask_Error:
+    these configs have no premade masks). The sharded dedup step runs K6
+    with column counts where 1 rank runs K4; per-image heads at B = 5 run
+    on 2 | 3 whole images per rank. The run that launches no kernel runs
+    the partitioned autograd step (fused_step=off)."""
     k1, k6 = "fused_train_kernel_warp", "fused_mask_backward_g"
     dedup = {"fused_mask_forward": 1, k1: 1, k6: 1}
     dedup1 = {"fused_mask_forward": 1, k1: 1, "fused_mask_backward_dedup": 1}
     heads = {"fused_implicit_train_kernel": 1, k6: 1}
     bf = lambda d: {f"{k}_bf16": v for k, v in d.items()}
     return [
-        ("canonical", ("--freq.ckpt=30", "--tb.num_images=[4,8]"), 60, {k1: 1}, {k1: 1}, True),
-        ("warp_off", ("--tpu.fused_warp=off",), 20, {"fused_train_kernel": 1}, {"fused_train_kernel": 1}, True),
-        ("implicit", implicit, 60, dedup, dedup1, True),
-        ("implicit_bf16", (*implicit, bf16), 20, bf(dedup), bf(dedup1), False),
-        ("implicit_dedup_off", (*implicit, "--tpu.fused_dedup=off"), 20, heads, heads, True),
-        ("implicit_single_B4", (*single, "--batch_size=4"), 20, heads, heads, True),
-        ("implicit_single_B5", single, 20, heads, heads, True),
-        ("autograd", ("--tpu.fused_step=off",), 20, {}, {}, True),
+        ("canonical", ("--freq.ckpt=30", "--tb.num_images=[4,8]"), 60, {k1: 1}, {k1: 1}, True, (2, 2)),
+        ("warp_off", ("--tpu.fused_warp=off",), 20, {"fused_train_kernel": 1}, {"fused_train_kernel": 1}, True,
+         (2, 2)),
+        ("implicit", implicit, 60, dedup, dedup1, True, (5, 5)),
+        ("implicit_bf16", (*implicit, bf16), 20, bf(dedup), bf(dedup1), False, (5, 5)),
+        ("implicit_dedup_off", (*implicit, "--tpu.fused_dedup=off"), 20, heads, heads, True, (4, 4)),
+        ("implicit_single_B4", (*single, "--batch_size=4"), 20, heads, heads, True, (4, 4)),
+        ("implicit_single_B5", single, 20, heads, heads, True, (4, 4)),
+        ("autograd", ("--tpu.fused_step=off",), 20, {}, {}, True, (3, 3)),
     ]
 
 
@@ -1305,16 +1319,17 @@ def phase_sharded(out_root: str, smi: str):
             total[k] = total.get(k, 0) + v
     print(f"[sharded] rank -> device: " + ", ".join(f"{r[0]['rank']} -> {r[0]['device']} ({r[0]['backend']})"
                                                      for r in per_rank), flush=True)
-    for i, (name, extra, iters, per_step, per_step1, held) in enumerate(runs):
+    for i, (name, extra, iters, per_step, per_step1, held, segments) in enumerate(runs):
         ranks = [r[i] for r in per_rank]
         want = {k: v * iters for k, v in per_step.items()}
+        mode = f"captured ({SHARD_RANKS} ranks, {ranks[0]['backend']}: {segments[0]} segments light, {segments[1]} heavy)"
         for r in ranks:
             if r["launches"] != want or r["it"] != iters:
                 fail(f"sharded {name}: rank {r['rank']} launched {r['launches']} in {r['it']} steps, expected {want}")
             if (r["path"] == "autograd") != (not per_step) or not r["layout"].startswith(f"sharded over {SHARD_RANKS}"):
                 fail(f"sharded {name}: rank {r['rank']} ran `{r['path']}, {r['layout']}`")
-            if r["chunk_modes"] != [f"eager ({r['backend']})"]:
-                fail(f"sharded {name}: rank {r['rank']} ran chunks {r['chunk_modes']}, expected eager ({r['backend']})")
+            if r["chunk_modes"] != [mode]:
+                fail(f"sharded {name}: rank {r['rank']} ran chunks {r['chunk_modes']}, expected {mode}")
             add(r["launches"])
         if len({r["digest"] for r in ranks}) != 1:
             fail(f"sharded {name}: the ranks' parameters and optimizer state differ (digests "
@@ -1522,15 +1537,102 @@ def _chunk_run(opt, capture: bool) -> dict:
             "mode": chunk.mode}
 
 
+def _sharded_capture_paths(implicit, single):
+    """Phase 8's sharded paths on 2 ranks: (name, extra flags, each
+    kernel's launches per rank and step, phase 8's 1-rank path beside it,
+    CUDA graphs per light and per heavy step)."""
+    k1, k6 = "fused_train_kernel_warp", "fused_mask_backward_g"
+    return [
+        ("canonical", (), {k1: 1}, "canonical", (2, 2)),
+        ("implicit dedup", implicit, {"fused_mask_forward": 1, k1: 1, k6: 1}, "implicit", (5, 5)),
+        ("implicit_single B5", single, {"fused_implicit_train_kernel": 1, k6: 1}, "implicit_single", (4, 4)),
+        ("partitioned autograd", ("--tpu.fused_step=off",), {}, "canonical autograd", (3, 3)),
+    ]
+
+
+def _rank_inputs(opt):
+    """What `train_steps` takes for a config: (cfg, initial state_dict,
+    data, optimizer options, use_homographies), on the CPU, from the
+    trainer's own phases (seed 3, synthetic data)."""
+    from marf_tpu_torch.engine.trainer import Model
+
+    m = Model(opt)
+    m.load_dataset()
+    m.build_networks()
+    data = {k: None if v is None else v.cpu() for k, v in m.data.items()}
+    return m.cfg, {k: v.cpu() for k, v in m.graph.state_dict().items()}, data, dict(opt.optim), m.use_homographies
+
+
+def phase_capture_sharded(out_root: str, smi: str, one_rank: dict):
+    """Phase 8's sharded twins: 2 ranks over gloo on cuda:0 (share_device),
+    each path's rank body (`parallel/sharded.py` `train_steps`: step 1 as
+    an eager one-step chunk, then chunks of CAPTURE_CHUNK) captured in
+    segments against eager from the same init, CAPTURE_ITERS steps, one
+    spawn for all: every step's metrics and the digest of the parameters
+    and optimizer state bitwise equal, captured against eager and rank
+    against rank; each kernel of the path once per rank and step, counted
+    through the replays; the segments per light and heavy step; host ms
+    per step and steps/s captured beside eager beside 1 rank captured
+    (`one_rank`: phase 8's runs). Returns the captured runs' launches,
+    summed over the ranks."""
+    from marf_tpu_torch.parallel.launch import run_each, spawn
+    from marf_tpu_torch.parallel.sharded import train_steps
+
+    t0 = time.perf_counter()
+    implicit = ("--use_implicit_mask", "--use_masks=false")
+    paths = _sharded_capture_paths(implicit, (*implicit, "--build_single_masks"))
+    calls = []
+    for name, extra, *_ in paths:
+        cfg, state, data, optim, use_homographies = _rank_inputs(
+            options(out_root, f"capture_2ranks_{name.replace(' ', '_')}", CAPTURE_ITERS, *extra))
+        calls += [(train_steps, (cfg, state, data, CAPTURE_ITERS, optim, use_homographies),
+                   {"capture": capture, "chunk": CAPTURE_CHUNK}) for capture in (None, False)]
+    per_rank = spawn(run_each, SHARD_RANKS, (calls,), share_device=True, timeout_s=600)
+    total = {}
+    for i, (name, _, per_step, one_name, segments) in enumerate(paths):
+        cap, eag = ([r[2 * i + j] for r in per_rank] for j in (0, 1))
+        want = {k: v * CAPTURE_ITERS for k, v in per_step.items()}
+        mode = f"captured ({SHARD_RANKS} ranks, gloo: {segments[0]} segments light, {segments[1]} heavy)"
+        for runs, expect in ((cap, mode), (eag, "eager (capture=False)")):
+            for r in runs:
+                if r["launches"] != want or r["mode"] != expect or not r["layout"].startswith(f"sharded over {SHARD_RANKS}"):
+                    fail(f"capture 2 ranks {name}: a rank ran {r['mode']!r}, {r['layout']!r}, launches "
+                         f"{r['launches']}; expected {expect!r}, sharded, {want}")
+        for rank, (c, e) in enumerate(zip(cap, eag)):
+            rows_equal = c["metrics"].keys() == e["metrics"].keys() and all(
+                np.array_equal(c["metrics"][k], e["metrics"][k]) for k in c["metrics"])
+            if not (rows_equal and c["digest"] == e["digest"] == cap[0]["digest"]):
+                fail(f"capture 2 ranks {name}: rank {rank} captured vs eager metrics bitwise {rows_equal}, digests "
+                     f"{c['digest'][:12]} / {e['digest'][:12]} (rank 0 captured {cap[0]['digest'][:12]})")
+            if not (np.isfinite(c["metrics"]["all"]).all() and (c["metrics"]["finite"] == 1).all()):
+                fail(f"capture 2 ranks {name}: non-finite loss on rank {rank}")
+        for r in cap:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        one = one_rank[one_name]
+        for rank, (c, e) in enumerate(zip(cap, eag)):
+            print(f"[capture] 2 ranks {name}, rank {rank}: {CAPTURE_ITERS} steps, metrics, parameters and optimizer "
+                  f"state bitwise equal captured vs eager and across ranks; {segments[0]} segments light, "
+                  f"{segments[1]} heavy; launches {c['launches'] or 'none'}; captured {c['steps_per_sec']:.2f} steps/s, "
+                  f"host {c['host_ms']:.3f} ms/step; eager {e['steps_per_sec']:.2f} steps/s, host {e['host_ms']:.3f} "
+                  f"ms/step; 1 rank captured ({one_name}) {one['steps_per_sec']:.2f} steps/s, host "
+                  f"{one['host_ms']:.3f} ms/step: 2 ranks captured {c['steps_per_sec'] / one['steps_per_sec']:.2f}x, "
+                  f"eager {e['steps_per_sec'] / one['steps_per_sec']:.2f}x of 1 rank; {smi}", flush=True)
+    print(f"[capture] 2 ranks sharing cuda:0 over gloo: {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 def phase_capture(out_root: str, smi: str):
     """Phase 8: on every path, the captured chunk against the eager one from
     the same init: every step's metrics, the parameters and the optimizer
     state bitwise equal, each kernel of the path launched once per step
     (counted through the replays), and host ms, device ms and steps/s side
-    by side. Returns the launches of the captured runs."""
+    by side; then the sharded twins (`phase_capture_sharded`). Returns the
+    launches of the captured runs."""
     t0 = time.perf_counter()
     implicit = ("--use_implicit_mask", "--use_masks=false")
     total = {}
+    one_rank = {}
     for name, extra, per_step in _capture_paths(implicit, (*implicit, "--build_single_masks"),
                                                 "--tpu.compute_dtype=bfloat16"):
         opt = options(out_root, f"capture_{name.replace(' ', '_')}", CAPTURE_ITERS, *extra)
@@ -1560,6 +1662,9 @@ def phase_capture(out_root: str, smi: str):
               f"{cap['device_ms'] * cap['steps_per_sec'] / 1e3:.3f}; eager {eag['steps_per_sec']:.2f} steps/s, host "
               f"{eag['host_ms']:.3f} ms/step, device {eag['device_ms']:.3f} ms/step, busy share "
               f"{eag['device_ms'] * eag['steps_per_sec'] / 1e3:.3f}; {smi}; both runs {t_path:.1f} s", flush=True)
+        one_rank[name] = cap
+    for k, v in phase_capture_sharded(out_root, smi, one_rank).items():
+        total[k] = total.get(k, 0) + v
     print(f"[capture] phase 8 {time.perf_counter() - t0:.1f} s", flush=True)
     return total
 

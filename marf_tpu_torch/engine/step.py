@@ -39,16 +39,20 @@ and the step reads its row of the schedules at a step counter on the
 device, which it advances; the learning rates of `optim.sched` move on the
 device too (`LrSchedule`). So a step reads no value back to the host and
 copies none to the device, and `make_train_chunk` captures it as CUDA
-graphs on a card (marf_tpu compiles its chunk into one `lax.scan`): its
-metrics stay on the device until a whole chunk is read at once.
+graphs on a card (marf_tpu compiles its chunk into one `lax.scan`), a
+sharded step in segments split at its collectives, which run between the
+graphs' replays: its metrics stay on the device until a whole chunk is
+read at once.
 """
 
 from __future__ import annotations
 
+import gc
 import math
 
 import numpy as np
 import torch
+import torch.distributed
 
 from marf_tpu_torch.models.implicit_mask import mask_head_inputs_cf
 from marf_tpu_torch.models.planar import (
@@ -380,7 +384,9 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     step (twin of marf_tpu/parallel/shard_fused.py): the kernels run on the
     rank's contiguous block of the flat pixel axis N = B*HW (column order
     b*HW + i), and what marf_tpu psums is summed over the ranks by one packed
-    all_reduce at each point: the masked-MSE normalizer, the loss partials,
+    all_reduce at each point (the step's `Collectives.psum`, parallel/mesh.py;
+    the normalizer of fixed masks once, when the step is made, outside any
+    capture): the masked-MSE normalizer, the loss partials,
     the MLP, warp (dH before the expm VJP on K1) and mask-head gradients, the
     dedup segment sums; the gradient-blocked edge term runs on every rank on
     the gathered rgb [3, N]. The shared-head dedup step shards its dedup
@@ -416,14 +422,16 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     cols = slice(heads_own.start * HW, heads_own.stop * HW) if by_image else slice(r * (N // D), (r + 1) * (N // D))
     Nl = cols.stop - cols.start  # this rank's positions
     if not sharded:
+        collectives = None
         reduce = lambda parts: parts  # noqa: E731
         place = lambda t, n, start: t  # noqa: E731
         # the means over positions (mask loss, Mask_Error): a mean, or a sum over N
         pos_part, pos_mean = torch.mean, (lambda s: s)
     else:
-        from marf_tpu_torch.parallel.mesh import place_columns, psum
+        from marf_tpu_torch.parallel.mesh import Collectives, place_columns
 
-        reduce = psum
+        collectives = Collectives()
+        reduce = collectives.psum
         place = place_columns
         pos_part, pos_mean = torch.sum, (lambda s: s / N)
     steps = torch.arange(cfg.max_iter + 1, device=device)
@@ -655,13 +663,13 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             parts = {"sq": [column_sums(sq)]}
             if esq is not None:
                 parts.update(edge=[torch.sum(m_flat * m_flat * esq)], esq=[column_sums(esq)])
-            s = psum(parts)
+            s = reduce(parts)
             edge_loss = s["edge"][0] * inv_sum3 if esq is not None else zero
             a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
             (dstack,) = fused_mask_backward_g([stack], X_loc, s["sq"][0][:, kcols],
                                               s["esq"][0][:, kcols] if esq is not None else None,
                                               torch.stack([a_s, b_s, k_s]), c_s, cnt_loc, cdtype)
-            dstack = _pairs(psum({"g": _flat(dstack)})["g"])
+            dstack = _pairs(reduce({"g": _flat(dstack)})["g"])
         set_grads(graph.implicit_mask.layers, unfactor_mask_grads(dstack, table))
         return implicit_loss(rgb_loss, edge_loss, sums, alpha)
 
@@ -774,7 +782,7 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         counter.add_(1)
         return metrics
 
-    return TrainStep(step_fn, counter, graph, optimizer, scheduler, mesh, path, where)
+    return TrainStep(step_fn, counter, graph, optimizer, scheduler, mesh, collectives, path, where)
 
 
 class TrainStep:
@@ -786,14 +794,17 @@ class TrainStep:
     metrics, a dict of 0-d tensors. `heavy` marks the chunk-final step.
     `set_step(it)` writes the counter (after a restore) in place. `path`
     and `layout` are what its log line names: the gradient path and where
-    it runs (one device, sharded or replicated over a mesh).
+    it runs (one device, sharded or replicated over a mesh). `collectives`
+    (parallel/mesh.py `Collectives`) takes a sharded step's sums; None
+    without them (one device, replicated).
 
     Capture needs every tensor the step reads or writes across steps to
     keep its storage: parameters and optimizer state are updated in place,
     and `check_bound` raises once any of them was rebound (an optimizer's
     `load_state_dict` after capture needs a new step)."""
 
-    def __init__(self, fn, counter: torch.Tensor, graph: Graph, optimizer, scheduler, mesh, path: str, layout: str):
+    def __init__(self, fn, counter: torch.Tensor, graph: Graph, optimizer, scheduler, mesh, collectives, path: str,
+                 layout: str):
         self._fn = fn
         self.path = path
         self.layout = layout
@@ -802,6 +813,7 @@ class TrainStep:
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.mesh = mesh
+        self.collectives = collectives
         self.device = counter.device
         self.chunk_state = None  # what its chunks share (`_ChunkState`), made by the first `make_train_chunk`
 
@@ -825,28 +837,80 @@ class TrainStep:
 
 def chunk_mode(step: TrainStep, capture: bool | None = None) -> tuple[bool, str]:
     """(capture, why) of a step's chunks. None (the default) captures on a
-    card without a mesh. A chunk runs eager on the CPU, when the caller
-    passes capture=False, or under a mesh: gloo's collectives cannot be
-    captured, and NCCL's capture has never run."""
-    if step.mesh is not None:
-        if capture:
-            raise ValueError(f"capture=True: a step sharded over {step.mesh.backend} is not captured")
-        return False, step.mesh.backend
+    card: one device's step whole, a step under a mesh in segments split at
+    its collectives (`_Segments`), which run between the replays. A chunk
+    runs eager on the CPU, with or without a mesh, and when the caller
+    passes capture=False; capture=True on the CPU raises."""
     if step.device.type != "cuda":
         if capture:
             raise ValueError(f"capture=True: CUDA graphs capture a step on a card, not on {step.device}")
-        return False, step.device.type
+        return False, step.device.type if step.mesh is None else step.mesh.backend
     if capture is False:
         return False, "capture=False"
+    if step.mesh is not None:
+        return True, f"{step.mesh.world_size} ranks, {step.mesh.backend}"
     return True, "CUDA graphs of a light and a heavy step, replayed"
+
+
+class _Segments:
+    """One step captured as CUDA graphs split at its collectives, the twin
+    of marf_tpu's jit(shard_map(scan(step))): graph i runs from collective
+    i - 1 to collective i (one graph when the step has none). Every graph
+    is captured into the chunk state's memory pool on one stream, the one
+    autograd's backward takes from its forward, which may lie in an
+    earlier graph. `buffers[i]` is collective i's packed buffer: `replay`
+    all-reduces it in place between graph i and graph i + 1, on the stream
+    the graphs replay on. `launches[i]` are the kernel launches graph i
+    recorded; the capture itself counts none."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.graphs, self.buffers, self.launches = [], [], []
+        self._before = None
+
+    def begin(self) -> None:
+        from marf_tpu_torch.ops.cuda import LAUNCHES
+
+        self._before = dict(LAUNCHES)
+        self.graphs.append(torch.cuda.CUDAGraph())
+        self.graphs[-1].capture_begin(pool=self.pool)
+
+    def end(self) -> None:
+        from marf_tpu_torch.ops.cuda import LAUNCHES
+
+        self.graphs[-1].capture_end()
+        self.launches.append({k: v - self._before[k] for k, v in LAUNCHES.items() if v != self._before[k]})
+        LAUNCHES.update(self._before)
+
+    def cut(self, flat: torch.Tensor) -> None:
+        """At a collective (`Collectives.psum` under capture): end this graph
+        after the buffer's packing, keep the buffer, begin the next graph."""
+        self.end()
+        self.buffers.append(flat)
+        self.begin()
+
+    def replay(self, times: int) -> None:
+        from marf_tpu_torch.ops.cuda import LAUNCHES
+
+        for _ in range(times):
+            for i, graph in enumerate(self.graphs):
+                graph.replay()
+                if i < len(self.buffers):
+                    torch.distributed.all_reduce(self.buffers[i])
+        for launches in self.launches:
+            for k, v in launches.items():
+                LAUNCHES[k] += v * times
 
 
 class _ChunkState:
     """What a step's chunks share: the metric rows [capacity, k] on the
     device and their row counter, written by each step; after the first
-    captured chunk, the two CUDA graphs (the light step, the heavy step)
-    in one memory pool, the launches each recorded, and the storage of the
-    tensors they were captured on."""
+    captured chunk, the light and the heavy step as `_Segments` in one
+    memory pool, and the storage of the tensors they were captured on.
+    For a step with collectives, `issued[heavy]` holds each distinct list
+    of collectives its steps of that kind issued (`Collectives.issued`):
+    a captured step replays one list, so every step of a kind, eager or
+    captured, must issue the same."""
 
     def __init__(self, step: TrainStep):
         self.step = step
@@ -854,18 +918,22 @@ class _ChunkState:
         self.keys = None
         self.rows = None
         self.row = torch.zeros((1,), dtype=torch.int64, device=step.device)
-        self.graphs = None  # {heavy: CUDAGraph}
-        self.launches = None  # {heavy: {wrapper: launches per replay}}
+        self.segments = None  # {heavy: _Segments}
+        self.issued = {}
         self.bound = None
-        self.mode = None  # the capture mode last logged
+        self.mode = None  # the chunk mode last logged
 
     def reserve(self, n: int) -> None:
-        if n > self.capacity and self.graphs is not None:
+        if n > self.capacity and self.segments is not None:
             raise ValueError(f"a chunk of {n} steps: the captured step writes at most {self.capacity} rows")
         self.capacity = max(self.capacity, n)
 
     def step_and_record(self, heavy: bool) -> None:
-        """One step; its metrics into the next row."""
+        """One step; its metrics into the next row, its collectives into
+        `issued`."""
+        coll = self.step.collectives
+        if coll is not None:
+            coll.issued.clear()
         metrics = self.step(heavy=heavy)
         if self.rows is None or self.rows.shape[0] < self.capacity:
             self.keys = list(metrics)
@@ -873,34 +941,48 @@ class _ChunkState:
         row = torch.stack([metrics[k].to(torch.float32) for k in self.keys])
         self.rows.index_copy_(0, self.row, row[None])
         self.row.add_(1)
+        if coll is not None:
+            self.issued.setdefault(heavy, set()).add(tuple(coll.issued))
+
+    def check_issued(self) -> None:
+        for heavy, lists in self.issued.items():
+            if len(lists) > 1:
+                raise RuntimeError(f"the {'heavy' if heavy else 'light'} steps issued {len(lists)} different lists "
+                                   f"of collectives; a captured step replays one: {sorted(lists)}")
 
     def capture(self) -> None:
         """Capture the light and the heavy step, each recording its metric
-        row (warmed up: the first chunk ran both eagerly). Capture runs no
-        step and counts no launch: `LAUNCHES` is put back, and each replay
-        adds what its graph recorded."""
-        from marf_tpu_torch.ops.cuda import LAUNCHES
-
-        graphs, launches, pool = {}, {}, None
-        for heavy in (False, True):
-            before = dict(LAUNCHES)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                self.step_and_record(heavy)
-            pool = graph.pool()
-            launches[heavy] = {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
-            LAUNCHES.update(before)
-            graphs[heavy] = graph
-        self.graphs, self.launches = graphs, launches
+        row (warmed up: the first chunk ran both eagerly), each as
+        `_Segments` split at its collectives, on one side stream into one
+        memory pool. Capture runs no step and no collective and counts no
+        launch; it raises where the step's collectives differ from the
+        eager steps' of its kind, or between those."""
+        device = self.step.device
+        coll = self.step.collectives
+        self.check_issued()
+        torch.cuda.synchronize(device)  # as torch.cuda.graph prepares a capture
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool = torch.cuda.graph_pool_handle()
+        main, side = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+        side.wait_stream(main)
+        segments = {}
+        with torch.cuda.stream(side):
+            for heavy in (False, True):
+                seg = segments[heavy] = _Segments(pool)
+                seg.begin()
+                if coll is not None:
+                    coll.capture = seg
+                try:
+                    self.step_and_record(heavy)
+                finally:
+                    if coll is not None:
+                        coll.capture = None
+                    seg.end()
+        main.wait_stream(side)
+        self.check_issued()
+        self.segments = segments
         self.bound = [t.data_ptr() for t in self.step.bound_tensors()]
-
-    def replay(self, heavy: bool, times: int) -> None:
-        from marf_tpu_torch.ops.cuda import LAUNCHES
-
-        for _ in range(times):
-            self.graphs[heavy].replay()
-        for k, v in self.launches[heavy].items():
-            LAUNCHES[k] += v * times
 
     def check_bound(self) -> None:
         if [t.data_ptr() for t in self.step.bound_tensors()] != self.bound:
@@ -925,11 +1007,26 @@ class ChunkMetrics:
 
 class TrainChunk:
     """`make_train_chunk`'s chunk: calling it dispatches n steps (the last
-    heavy) and returns their `ChunkMetrics` without waiting for them."""
+    heavy) and returns their `ChunkMetrics` without waiting for them.
+    `mode` names how (`chunk_mode`), with a captured sharded step's
+    segments per light and heavy step once it is captured."""
 
-    def __init__(self, step: TrainStep, n: int, capture: bool, mode: str):
-        self.step, self.n, self.capture, self.mode = step, n, capture, mode
+    def __init__(self, step: TrainStep, n: int, capture: bool, why: str):
+        self.step, self.n, self.capture, self.why = step, n, capture, why
         self.state = step.chunk_state
+
+    @property
+    def mode(self) -> str:
+        segments = self.state.segments
+        if self.capture and segments is not None and self.step.mesh is not None:
+            light, heavy = (len(segments[h].graphs) for h in (False, True))
+            return f"captured ({self.why}: {light} segment{'s' * (light != 1)} light, {heavy} heavy)"
+        return f"{'captured' if self.capture else 'eager'} ({self.why})"
+
+    def log_mode(self) -> None:
+        if self.state.mode != self.mode:
+            self.state.mode = self.mode
+            log.info(f"train chunk: {self.mode}")
 
     def __call__(self) -> ChunkMetrics:
         st, n = self.state, self.n
@@ -937,9 +1034,10 @@ class TrainChunk:
         if not self.capture:
             for i in range(n):
                 st.step_and_record(heavy=i == n - 1)
-        elif st.graphs is None:
+        elif st.segments is None:
             # warm-up, as torch's CUDA-graph recipe asks: on a side stream,
-            # as real training; then the capture
+            # as real training (a sharded step with its collectives); then
+            # the capture
             main = torch.cuda.current_stream(self.step.device)
             side = torch.cuda.Stream(self.step.device)
             side.wait_stream(main)
@@ -948,10 +1046,11 @@ class TrainChunk:
                     st.step_and_record(heavy=i == n - 1)
             main.wait_stream(side)
             st.capture()
+            self.log_mode()
         else:
             st.check_bound()
-            st.replay(False, n - 1)
-            st.replay(True, 1)
+            st.segments[False].replay(n - 1)
+            st.segments[True].replay(1)
         return self._read(n)
 
     def _read(self, n: int) -> ChunkMetrics:
@@ -966,26 +1065,26 @@ class TrainChunk:
 
 
 def make_train_chunk(step: TrainStep, n: int, capture: bool | None = None) -> TrainChunk:
-    """Twin of marf_tpu's `make_train_chunk` (a `lax.scan` of n steps): a
-    chunk of n steps of `step`, the last heavy, whose metrics land in the
-    step's rows [n, k] on the device. On a card (`chunk_mode`) the step is
-    captured as CUDA graphs: the first chunk of the step runs eagerly as
-    real training (it carries the kernels' build and warm-up) and then
-    captures a light and a heavy step; every later chunk, of any length up
+    """Twin of marf_tpu's `make_train_chunk` (a `lax.scan` of n steps, under
+    `shard_map` on a mesh): a chunk of n steps of `step`, the last heavy,
+    whose metrics land in the step's rows [n, k] on the device. On a card
+    (`chunk_mode`) the step is captured as CUDA graphs: the first chunk of
+    the step runs eagerly as real training (it carries the kernels' build
+    and warm-up) and then captures a light and a heavy step, a sharded
+    step's split at its collectives; every later chunk, of any length up
     to the first ones', replays the light one n - 1 times and the heavy one
-    once. A capture that fails raises. capture=False runs the chunk eagerly
-    (the oracle), as the CPU and a mesh always do."""
+    once, a sharded step's with its collectives run between the graphs. A
+    capture that fails raises. capture=False runs the chunk eagerly (the
+    oracle), as the CPU always does."""
     capture, why = chunk_mode(step, capture)
     if n < 1:
         raise ValueError(f"a chunk of {n} steps")
     if step.chunk_state is None:
         step.chunk_state = _ChunkState(step)
-    mode = f"{'captured' if capture else 'eager'} ({why})"
-    if step.chunk_state.mode != mode:
-        step.chunk_state.mode = mode
-        log.info(f"train chunk: {mode}")
     step.chunk_state.reserve(n)
-    return TrainChunk(step, n, capture, mode)
+    chunk = TrainChunk(step, n, capture, why)
+    chunk.log_mode()
+    return chunk
 
 
 def run_chunk(step: TrainStep, start: int, n: int) -> dict[str, np.ndarray]:

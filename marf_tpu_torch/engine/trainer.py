@@ -77,8 +77,9 @@ def resolve_n_devices(opt) -> int:
 class Model:
     """Planar bundle-adjustment trainer (the reference Model's lifecycle);
     with `mesh`, one rank of a pixel-sharded run. `capture` is
-    `make_train_chunk`'s: None captures the step on a card (not under a
-    mesh), False runs it eagerly (the oracle)."""
+    `make_train_chunk`'s: None captures the step on a card (a rank's step
+    in segments split at its collectives), False runs it eagerly (the
+    oracle)."""
 
     def __init__(self, opt, mesh=None, capture: bool | None = None):
         self.opt = opt

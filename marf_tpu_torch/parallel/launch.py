@@ -141,8 +141,9 @@ def spawn(fn, world_size: int, args: tuple = (), *, cpu: bool = False, share_dev
 
 
 def run_each(mesh: Mesh, calls: list) -> list:
-    """Rank body of several jobs in one spawn: [fn(mesh, *args) for (fn, args) in calls]."""
-    return [fn(mesh, *args) for fn, args in calls]
+    """Rank body of several jobs in one spawn: [fn(mesh, *args, **kwargs)
+    for (fn, args) or (fn, args, kwargs) in calls]."""
+    return [fn(mesh, *args, **(kw[0] if kw else {})) for fn, args, *kw in calls]
 
 
 def state_digest(*state_dicts) -> str:

@@ -20,7 +20,9 @@ What marf_tpu `psum`s or tiles with `all_gather` over ICI is summed here by
 one `all_reduce` of a packed float32 buffer (`psum`): a tiled column gather
 is the sum of zero-filled full buffers into which each rank wrote its block
 (`place_columns`), exact because adding zeros is exact, so one code path
-serves both backends (gloo has no `all_gather` on CUDA tensors).
+serves both backends (gloo has no `all_gather` on CUDA tensors). A step's
+sums go through its `Collectives`, which a captured chunk uses to split the
+step into CUDA graphs at them (engine/step.py `_Segments`).
 """
 
 from __future__ import annotations
@@ -71,22 +73,42 @@ def make_mesh_2d(mesh: Mesh, n_batch: int, n_pixel: int, batch_size: int) -> Mes
     return mesh
 
 
-def psum(parts: dict) -> dict:
-    """Each float32 tensor of `parts` ({name: [tensors]}) summed over the
-    ranks, by one all_reduce of them all packed into a flat buffer: {name:
-    [sums]}, views of that buffer. Every rank gets the same bits."""
-    tensors = [t for ts in parts.values() for t in ts]
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"psum takes float32 tensors, got {sorted({str(t.dtype) for t in tensors})}")
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    out, i = {}, 0
-    for name, ts in parts.items():
-        out[name] = []
-        for t in ts:
-            out[name].append(flat[i : i + t.numel()].view(t.shape))
-            i += t.numel()
-    return out
+class Collectives:
+    """The sums of one rank's step. `psum` packs a step's parts into one
+    buffer and all-reduces it; `issued` lists the collectives issued since
+    it was last cleared, each as its parts' (name, shapes), so that a
+    captured step can be held to the eager one's. While `capture` is set
+    (engine/step.py `_Segments`, only inside a chunk's capture), `psum`
+    runs no collective: it builds the buffer in the graph being captured,
+    hands it to `capture.cut`, which ends that graph and begins the next,
+    and returns the views; the replay all-reduces the buffer between the
+    two graphs. Every rank captures on its own, so a capture never waits
+    on another rank."""
+
+    def __init__(self):
+        self.issued = []
+        self.capture = None
+
+    def psum(self, parts: dict) -> dict:
+        """Each float32 tensor of `parts` ({name: [tensors]}) summed over the
+        ranks, by one all_reduce of them all packed into a flat buffer: {name:
+        [sums]}, views of that buffer. Every rank gets the same bits."""
+        tensors = [t for ts in parts.values() for t in ts]
+        if any(t.dtype != torch.float32 for t in tensors):
+            raise TypeError(f"psum takes float32 tensors, got {sorted({str(t.dtype) for t in tensors})}")
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        self.issued.append(tuple((name, tuple(tuple(t.shape) for t in ts)) for name, ts in parts.items()))
+        if self.capture is None:
+            dist.all_reduce(flat)
+        else:
+            self.capture.cut(flat)
+        out, i = {}, 0
+        for name, ts in parts.items():
+            out[name] = []
+            for t in ts:
+                out[name].append(flat[i : i + t.numel()].view(t.shape))
+                i += t.numel()
+        return out
 
 
 def place_columns(block: torch.Tensor, n_cols: int, start: int) -> torch.Tensor:

@@ -5,7 +5,8 @@ repository's train.py):
         --name=<NAME> --seed=3 --barf_c2f=[0,0.4] --dataset=synthetic
 
 Runs on CUDA device 0, the step captured as CUDA graphs and replayed
-(engine/step.py `make_train_chunk`); `--cpu` runs on the CPU instead, eagerly.
+(engine/step.py `make_train_chunk`; a rank's step in segments split at its
+collectives); `--cpu` runs on the CPU instead, eagerly.
 `main(argv, capture=False)` runs the card's step eagerly (the oracle). With
 `--tpu.n_devices=N` (or MARF_DEVICES=N) and N > 1 it starts N ranks, one
 process each, that train pixel-sharded (marf_tpu_torch/parallel/): rank r on

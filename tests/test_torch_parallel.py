@@ -92,6 +92,10 @@ TRAINER_RUNS = [
      "fused implicit, per-image heads (K5 -> K6)"),
 ]
 TRAINER_ITERS = 20
+# cases run 5 steps, the first as a one-step chunk and the rest as
+# make_train_chunk's chunks (of 4, and of 2): (steps, chunk length); the
+# others run 2 steps
+LONG = {"fixed_K1": (5, None), "autograd_fixed": (5, 2)}
 
 
 def mesh_pair(**kw):
@@ -115,20 +119,22 @@ def optim_for(kw) -> dict:
 
 @pytest.fixture(scope="module")
 def sharded_runs(tmp_path_factory):
-    """Every 2-rank case in one spawn: the fused and the autograd cases, 2
-    steps of `parallel/sharded.py` `train_steps` each, and the trainer runs
-    (`launch.train_rank`, TRAINER_ITERS steps). Returns {id: [rank 0's
-    result, rank 1's]}; the trainer runs' ids are "trainer_<id>", and
-    "trainer_root" is their output root."""
+    """Every 2-rank case in one spawn: the fused and the autograd cases,
+    2 steps of `parallel/sharded.py` `train_steps` each (LONG's 5), and the
+    trainer runs (`launch.train_rank`, TRAINER_ITERS steps). Returns {id:
+    [rank 0's result, rank 1's]}; the trainer runs' ids are
+    "trainer_<id>", and "trainer_root" is their output root."""
     root = str(tmp_path_factory.mktemp("trainer"))
     calls, ids = [], []
     for cid, kw, sat in CASES:
         _, tcfg, jp, data = case_inputs(kw, sat)
-        calls.append((tsh.train_steps, (tcfg, params_from_jax(jp), data, 2, OPTIM)))
+        n, chunk = LONG.get(cid, (2, None))
+        calls.append((tsh.train_steps, (tcfg, params_from_jax(jp), data, n, OPTIM), {"chunk": chunk}))
         ids.append(cid)
     for cid, kw in AUTOGRAD_CASES:
         _, tcfg, jp, data = case_inputs(kw, False)
-        calls.append((tsh.train_steps, (tcfg, params_from_jax(jp), data, 2, optim_for(kw))))
+        n, chunk = LONG.get(f"autograd_{cid}", (2, None))
+        calls.append((tsh.train_steps, (tcfg, params_from_jax(jp), data, n, optim_for(kw)), {"chunk": chunk}))
         ids.append(f"autograd_{cid}")
     for cid, extra, _ in TRAINER_RUNS:
         argv = run_args(root, f"{cid}_2ranks", TRAINER_ITERS, "--tpu.n_devices=2", *extra)
@@ -277,11 +283,12 @@ def grads_to_jax(grads: dict, state_dict: dict) -> dict:
 
 @pytest.mark.parametrize("cid,kw,saturate", CASES, ids=[c[0] for c in CASES])
 def test_sharded_step_matches_jax_mesh_and_one_rank(sharded_runs, cid, kw, saturate):
-    """2 steps on 2 ranks against marf_tpu's shard_map step on a 2-device
-    mesh (on 1 device where its trainer would turn the kernels off: B % 2
-    != 0, whose per-image heads the port splits 1 | 2 images, and N odd)
-    and against the port's one-rank step; the two ranks' parameters and
-    Adam state end bitwise equal.
+    """2 steps on 2 ranks (LONG: 5, the rest one chunk of 4) against
+    marf_tpu's shard_map chunk of as many steps on a 2-device mesh (on 1
+    device where its trainer would turn the kernels off: B % 2 != 0, whose
+    per-image heads the port splits 1 | 2 images, and N odd) and against
+    the port's one-rank step; the chunks eager on the CPU; the two ranks'
+    parameters and Adam state end bitwise equal.
     Where marf_tpu runs on 1 device, its mask-head gradients are the
     single-card parity of tests/test_torch_implicit.py, not a mesh's: on
     heads_B3 one ReLU unit of head 1 (layer 1, unit 170) opens differently
@@ -297,13 +304,15 @@ def test_sharded_step_matches_jax_mesh_and_one_rank(sharded_runs, cid, kw, satur
     assert r0["digest"] == r1["digest"], "the ranks' parameters or Adam state differ"
     layout = "replicated on 2 ranks" if cid.endswith("replicated") else "sharded over 2 ranks"
     assert r0["path"] == step_path(tcfg, CPU, 2)[0] and r0["path"].startswith("fused")
-    assert r0["layout"].startswith(layout)
+    assert r0["layout"].startswith(layout) and r0["mode"] == "eager (gloo)"
+    n_steps = len(m2["all"])
+    assert n_steps == LONG.get(cid, (2,))[0]
     tx = capture_first_grads(jstep.make_optimizer(OPTIM, jcfg.max_iter))
     n_jax = 2 if jsf.fused_shardable(jcfg, 2) else 1  # marf_tpu's shard_map runs the others on 1 device only
     state, sharded, chunk = jsf.make_fused_sharded_setup(jcfg, tx, jmesh.make_mesh(n_jax), to_jax(data),
-                                                         jax.tree.map(jnp.asarray, jp), n_steps=2, donate=False)
+                                                         jax.tree.map(jnp.asarray, jp), n_steps=n_steps, donate=False)
     jstate, jm = chunk(state, sharded)
-    m1, p1, g1 = one_rank(tcfg, jp, data, OPTIM)
+    m1, p1, g1 = one_rank(tcfg, jp, data, OPTIM, n_steps)
     implicit = bool(kw.get("use_implicit_mask"))
     keys = metric_keys(tcfg)
     assert m2["finite"].all()
@@ -335,28 +344,30 @@ def metric_keys(tcfg) -> list:
     return keys + (["loss_edge"] if tcfg.use_edges else [])
 
 
-def jax_mesh_run(jcfg, jp, data, optim, mesh):
-    """marf_tpu's GSPMD step (`make_sharded_train_setup`) on `mesh`, 2 steps:
-    (metrics, final state, first-step gradients)."""
+def jax_mesh_run(jcfg, jp, data, optim, mesh, n_steps):
+    """marf_tpu's GSPMD step (`make_sharded_train_setup`) on `mesh`, a chunk
+    of n_steps: (metrics, final state, first-step gradients)."""
     tx = capture_first_grads(jstep.make_optimizer(optim, jcfg.max_iter))
     state, sharded, chunk = jsh.make_sharded_train_setup(jcfg, tx, mesh, to_jax(data), jax.tree.map(jnp.asarray, jp),
-                                                         n_steps=2, donate=False)
+                                                         n_steps=n_steps, donate=False)
     jstate, jm = chunk(state, sharded)
     return jm, jstate, jstate.opt_state[1]
 
 
 def check_autograd_run(ranks, tcfg, jcfg, jp, data, optim, jmesh_, layout):
-    """A partitioned autograd run's ranks against marf_tpu's GSPMD step on
-    `jmesh_` and the port's 1 rank: the path and layout each rank reports,
-    no kernel launched, replicas bitwise, the mesh tolerances."""
+    """A partitioned autograd run's ranks against marf_tpu's GSPMD chunk of
+    as many steps on `jmesh_` and the port's 1 rank: the path, layout and
+    (eager) chunk mode each rank reports, no kernel launched, replicas
+    bitwise, the mesh tolerances."""
     r0 = ranks[0]
     for r in ranks:
         assert r["path"] == "autograd" and r["layout"].startswith(layout), (r["path"], r["layout"])
-        assert r["launches"] == {} and r["digest"] == r0["digest"]
+        assert r["launches"] == {} and r["digest"] == r0["digest"] and r["mode"] == "eager (gloo)"
     m2, p2 = r0["metrics"], params_to_jax(r0["state_dict"])
     assert m2["finite"].all()
-    jm, jstate, jg = jax_mesh_run(jcfg, jp, data, optim, jmesh_)
-    m1, p1, g1 = one_rank(tcfg, jp, data, optim)
+    n_steps = len(m2["all"])
+    jm, jstate, jg = jax_mesh_run(jcfg, jp, data, optim, jmesh_, n_steps)
+    m1, p1, g1 = one_rank(tcfg, jp, data, optim, n_steps)
     keys = metric_keys(tcfg)
     assert_close(m2, jm, p2, jstate.params, keys, False)
     assert_close(m2, m1, p2, p1, keys, tcfg.use_implicit_mask)
@@ -371,7 +382,8 @@ def check_autograd_run(ranks, tcfg, jcfg, jp, data, optim, jmesh_, layout):
 
 @pytest.mark.parametrize("cid,kw", AUTOGRAD_CASES, ids=[c[0] for c in AUTOGRAD_CASES])
 def test_autograd_step_matches_jax_gspmd_mesh_and_one_rank(sharded_runs, cid, kw):
-    """2 steps of the partitioned autograd step on 2 ranks against marf_tpu's
+    """2 steps of the partitioned autograd step on 2 ranks (LONG: 5, the
+    rest in chunks of 2) against marf_tpu's
     GSPMD-partitioned step on make_mesh(2) (`make_sharded_train_setup`) and
     against the port's 1 rank: metrics, warp and MLP weights at the mesh
     tolerances, the mask heads' first-step gradients by `grads_agree`,
@@ -409,6 +421,7 @@ def test_train_main_on_two_ranks_matches_one_rank(sharded_runs, cid, extra, path
     assert ranks[0]["digest"] == ranks[1]["digest"]
     for r in ranks:
         assert r["path"] == path and r["layout"].startswith("sharded over 2 ranks")
+        assert r["chunk_modes"] == ["eager (gloo)"]
     one = main(run_args(sharded_runs["trainer_root"], f"{cid}_1rank", TRAINER_ITERS, *extra))
     h2, h1 = history(ranks[0]["history"]), history(one.history)
     keys = [k for k in h1 if k.startswith("loss_") or k in ("PSNR", "Homography_Error", "Mask_Error")]
