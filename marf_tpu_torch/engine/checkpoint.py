@@ -23,6 +23,7 @@ import os
 
 import torch
 
+from marf_tpu_torch.utils import trace
 from marf_tpu_torch.utils.console import log
 
 _CKPT_SUBDIR = "ckpt"
@@ -47,6 +48,7 @@ def save_checkpoint(output_path: str, step: int, graph, optimizer, scheduler=Non
     }
     tmp = os.path.join(path, _STATE_FILE + ".tmp")
     torch.save(state, tmp)
+    trace.count("ckpt_bytes", os.path.getsize(tmp))
     os.replace(tmp, os.path.join(path, _STATE_FILE))
     log.info(f"saved checkpoint @ step {step} -> {path}")
     return path

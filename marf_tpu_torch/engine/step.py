@@ -79,6 +79,7 @@ from marf_tpu_torch.ops.losses import (
 )
 from marf_tpu_torch.ops.posenc import barf_c2f_weights
 from marf_tpu_torch.ops.warp import warp_grid_cf_flat
+from marf_tpu_torch.utils import trace
 from marf_tpu_torch.utils.console import log
 
 
@@ -458,8 +459,10 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
     log.info(f"train step: {path}, {cdtype}, {where}")
 
     if fused or fused_implicit:
-        from marf_tpu_torch.ops.cuda.fused_step import fused_train_kernel, fused_train_kernel_warp
+        from marf_tpu_torch.ops.cuda import kernel
 
+        # each wrapper called inside its profiler range marf.K<i> (ops/cuda `kernel`)
+        fused_train_kernel_warp, fused_train_kernel = kernel("K1"), kernel("K2")
         arch = cfg.arch
         cws = barf_c2f_weights(progress, tuple(arch.barf_c2f), arch.posenc_L) if (arch.posenc_L and arch.barf_c2f is not None) else None
         targets_cf = data["rgb"].permute(1, 0, 2, 3).reshape(3, N)[:, cols].contiguous()
@@ -480,14 +483,10 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         c_render = 10.0 ** float(cfg.w_render)
         c_rgb = 10.0 ** float(cfg.w_rgb) if cfg.w_rgb is not None else None
     if fused_implicit:
-        from marf_tpu_torch.ops.cuda.fused_implicit import fused_implicit_train_kernel
-        from marf_tpu_torch.ops.cuda.fused_mask import (
-            fused_mask_backward_dedup,
-            fused_mask_backward_g,
-            fused_mask_forward,
-            mask_w_stack,
-            unfactor_mask_grads,
-        )
+        from marf_tpu_torch.ops.cuda.fused_mask import mask_w_stack, unfactor_mask_grads
+
+        fused_mask_forward, fused_mask_backward_dedup = kernel("K3"), kernel("K4")
+        fused_implicit_train_kernel, fused_mask_backward_g = kernel("K5"), kernel("K6")
 
     if dedup:
         X_all, cnt_all, slot0, ext_off, ext_img, ext_j, table, K = stage_mask_inputs(graph, data["rgb"], D, r)
@@ -979,6 +978,7 @@ class _ChunkState:
                     if coll is not None:
                         coll.capture = None
                     seg.end()
+                trace.count("captures")
         main.wait_stream(side)
         self.check_issued()
         self.segments = segments
@@ -999,9 +999,10 @@ class ChunkMetrics:
         self.keys, self.host, self.event = keys, host, event
 
     def result(self) -> dict[str, np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
-        arr = self.host.numpy().copy()  # off the pinned buffer
+        with trace.span("chunk.wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            arr = self.host.numpy().copy()  # off the pinned buffer
         return {k: arr[:, j] for j, k in enumerate(self.keys)}
 
 
@@ -1009,7 +1010,10 @@ class TrainChunk:
     """`make_train_chunk`'s chunk: calling it dispatches n steps (the last
     heavy) and returns their `ChunkMetrics` without waiting for them.
     `mode` names how (`chunk_mode`), with a captured sharded step's
-    segments per light and heavy step once it is captured."""
+    segments per light and heavy step once it is captured. Each call is a
+    tracer span (utils/trace.py) of what it ran: `chunk.eager`,
+    `chunk.warmup` then `chunk.capture`, or `chunk.replay`; then
+    `chunk.copy` for the rows' read."""
 
     def __init__(self, step: TrainStep, n: int, capture: bool, why: str):
         self.step, self.n, self.capture, self.why = step, n, capture, why
@@ -1032,26 +1036,34 @@ class TrainChunk:
         st, n = self.state, self.n
         st.row.zero_()
         if not self.capture:
-            for i in range(n):
-                st.step_and_record(heavy=i == n - 1)
+            with trace.span("chunk.eager", steps=n):
+                for i in range(n):
+                    st.step_and_record(heavy=i == n - 1)
+            trace.count("eager_steps", n)
         elif st.segments is None:
             # warm-up, as torch's CUDA-graph recipe asks: on a side stream,
             # as real training (a sharded step with its collectives); then
             # the capture
-            main = torch.cuda.current_stream(self.step.device)
-            side = torch.cuda.Stream(self.step.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                for i in range(n):
-                    st.step_and_record(heavy=i == n - 1)
-            main.wait_stream(side)
-            st.capture()
+            with trace.span("chunk.warmup", steps=n):
+                main = torch.cuda.current_stream(self.step.device)
+                side = torch.cuda.Stream(self.step.device)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    for i in range(n):
+                        st.step_and_record(heavy=i == n - 1)
+                main.wait_stream(side)
+            trace.count("eager_steps", n)
+            with trace.span("chunk.capture"):
+                st.capture()
             self.log_mode()
         else:
-            st.check_bound()
-            st.segments[False].replay(n - 1)
-            st.segments[True].replay(1)
-        return self._read(n)
+            with trace.span("chunk.replay", steps=n):
+                st.check_bound()
+                st.segments[False].replay(n - 1)
+                st.segments[True].replay(1)
+            trace.count("replays", n)
+        with trace.span("chunk.copy"):
+            return self._read(n)
 
     def _read(self, n: int) -> ChunkMetrics:
         st = self.state

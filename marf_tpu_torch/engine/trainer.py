@@ -54,6 +54,7 @@ from marf_tpu_torch.models.planar import Graph, PlanarConfig, graph_forward
 from marf_tpu_torch.ops.grid import crop_corners, normalized_pixel_grid
 from marf_tpu_torch.ops.warp import warp_corners
 from marf_tpu_torch.parallel.mesh import barrier
+from marf_tpu_torch.utils import trace
 from marf_tpu_torch.utils import vis as vis_lib
 from marf_tpu_torch.utils.config import resolve_device
 from marf_tpu_torch.utils.console import IterTimer, colorcode_to_number, log
@@ -108,7 +109,8 @@ class Model:
         self.vis_it = 0
         self._saved_at = None  # the step of the last checkpoint this run wrote
         self._full_grid = None
-        self.chunk_times = []  # (steps, seconds) per chunk, device work included
+        self._trace_base = trace.snapshot()  # what the tracer held before this Model: the summary subtracts it
+        self._iter_marks = None  # the tracer's train.iter totals when `train` began and after its first chunk
         self.history = []  # per chunk: {metric: [steps] array}
         self.step = None  # the step `train` runs (engine/step.py `TrainStep`)
         self.chunks = {}  # make_train_chunk's chunks of the step `train` runs, by length
@@ -118,70 +120,74 @@ class Model:
     def load_dataset(self):
         """Phase 1: load or synthesize the dataset on the host once and move
         it to the device (reference model/planar.py:59-78)."""
-        log.info("loading dataset...")
-        if self.dataset == "synthetic":
-            raw = synthesize_planar_dataset(self.cfg, seed=int(self.opt.get("seed") or 0))
-            if not self.cfg.use_masks:
-                raw = dict(raw, masks=None, masks_eroded=None)
-        else:
-            raw = load_planar_dataset(
-                self.cfg,
-                self.dataset,
-                root=(self.opt.get("data") or {}).get("root"),
-                use_masks=self.cfg.use_masks or self.cfg.use_implicit_mask,
-                use_homographies=self.use_homographies,
-                use_edges=self.cfg.use_edges,
-            )
-        if raw.get("gt_hom") is None:
-            self.use_homographies = False
-        self.data = to_device(raw, self.device)
+        with trace.span("setup.load_dataset"):
+            log.info("loading dataset...")
+            if self.dataset == "synthetic":
+                raw = synthesize_planar_dataset(self.cfg, seed=int(self.opt.get("seed") or 0))
+                if not self.cfg.use_masks:
+                    raw = dict(raw, masks=None, masks_eroded=None)
+            else:
+                raw = load_planar_dataset(
+                    self.cfg,
+                    self.dataset,
+                    root=(self.opt.get("data") or {}).get("root"),
+                    use_masks=self.cfg.use_masks or self.cfg.use_implicit_mask,
+                    use_homographies=self.use_homographies,
+                    use_edges=self.cfg.use_edges,
+                )
+            if raw.get("gt_hom") is None:
+                self.use_homographies = False
+            self.data = to_device(raw, self.device)
 
     def build_networks(self):
         """Phase 2: init parameters from an explicit generator seeded by --seed."""
-        log.info("building networks...")
-        gen = torch.Generator().manual_seed(int(self.opt.get("seed") or 0))
-        self.graph = Graph(self.cfg, generator=gen).to(self.device)
-        torch_init = self.opt.get("load_torch_init")
-        if torch_init:
-            from marf_tpu_torch.utils.torch_init import load_torch_init
+        with trace.span("setup.build_networks"):
+            log.info("building networks...")
+            gen = torch.Generator().manual_seed(int(self.opt.get("seed") or 0))
+            self.graph = Graph(self.cfg, generator=gen).to(self.device)
+            torch_init = self.opt.get("load_torch_init")
+            if torch_init:
+                from marf_tpu_torch.utils.torch_init import load_torch_init
 
-            load_torch_init(self.graph, torch_init)
-        if self.mesh is not None:
-            from marf_tpu_torch.parallel.mesh import broadcast_module
+                load_torch_init(self.graph, torch_init)
+            if self.mesh is not None:
+                from marf_tpu_torch.parallel.mesh import broadcast_module
 
-            broadcast_module(self.graph)
+                broadcast_module(self.graph)
 
     def setup_optimizer(self):
         """Phase 3: per-group optimizer (reference model/planar.py:86-104),
         then the checkpoint that `load` or `resume` names, whose step the run
         continues from. A requested restore that finds nothing raises."""
-        log.info("setting up optimizers...")
-        self.optimizer, self.scheduler = make_optimizer(self.graph, dict(self.opt.optim), self.cfg.max_iter)
-        load, resume = self.opt.get("load"), self.opt.get("resume")
-        restore = resolve_restore_path(self.opt.output_path, load, resume)
-        if restore is None and (load or resume):
-            raise FileNotFoundError(f"no checkpoint to restore (load={load!r}, resume={resume!r}) "
-                                    f"under {self.opt.output_path}")
-        if restore:
-            barrier(self.mesh)  # a checkpoint another rank is writing is whole before any rank reads it
-            log.info(f"restoring checkpoint from {restore}")
-            self.it = restore_checkpoint(restore, self.graph, self.optimizer, self.scheduler, self.device)
+        with trace.span("setup.optimizer"):
+            log.info("setting up optimizers...")
+            self.optimizer, self.scheduler = make_optimizer(self.graph, dict(self.opt.optim), self.cfg.max_iter)
+            load, resume = self.opt.get("load"), self.opt.get("resume")
+            restore = resolve_restore_path(self.opt.output_path, load, resume)
+            if restore is None and (load or resume):
+                raise FileNotFoundError(f"no checkpoint to restore (load={load!r}, resume={resume!r}) "
+                                        f"under {self.opt.output_path}")
+            if restore:
+                barrier(self.mesh)  # a checkpoint another rank is writing is whole before any rank reads it
+                log.info(f"restoring checkpoint from {restore}")
+                self.it = restore_checkpoint(restore, self.graph, self.optimizer, self.scheduler, self.device)
 
     def setup_visualizer(self):
         """Phase 4: the TensorBoard writer when `tb` is configured, the vis
         directory and the per-image border colors (reference
         model/planar.py:106-134)."""
-        log.info("setting up visualizers...")
-        if self.opt.get("tb") is not None and self.is_main:
-            from marf_tpu_torch.utils.tb import SummaryWriter
+        with trace.span("setup.visualizer"):
+            log.info("setting up visualizers...")
+            if self.opt.get("tb") is not None and self.is_main:
+                from marf_tpu_torch.utils.tb import SummaryWriter
 
-            self.tb = SummaryWriter(log_dir=self.opt.output_path, flush_secs=10)
-        colors = [colorcode_to_number(c) for c in vis_lib.BOX_COLORS[: self.cfg.batch_size]]
-        self.box_colors = np.array(colors).astype(int)
-        self.vis_path = f"{self.opt.output_path}/vis"
-        if self.is_main:
-            os.makedirs(self.vis_path, exist_ok=True)
-        self.video_fname = f"{self.opt.output_path}/vis.mp4"
+                self.tb = SummaryWriter(log_dir=self.opt.output_path, flush_secs=10)
+            colors = [colorcode_to_number(c) for c in vis_lib.BOX_COLORS[: self.cfg.batch_size]]
+            self.box_colors = np.array(colors).astype(int)
+            self.vis_path = f"{self.opt.output_path}/vis"
+            if self.is_main:
+                os.makedirs(self.vis_path, exist_ok=True)
+            self.video_fname = f"{self.opt.output_path}/vis.mp4"
 
     # ------------------------------------------------------------------ train
 
@@ -189,10 +195,11 @@ class Model:
         """The train step `train` runs (engine/step.py `make_train_step` on
         this Model's graph, optimizer, data and mesh; twin of marf_tpu's
         `_build_compiled`). Its constants are built here, once."""
-        return make_train_step(
-            self.cfg, self.graph, self.optimizer, self.data, self.scheduler, use_homographies=self.use_homographies,
-            mesh=self.mesh,
-        )
+        with trace.span("setup.make_step"):
+            return make_train_step(
+                self.cfg, self.graph, self.optimizer, self.data, self.scheduler,
+                use_homographies=self.use_homographies, mesh=self.mesh,
+            )
 
     def chunk(self, step, n: int):
         """The chunk of n steps of `step` (`make_train_chunk`, this Model's
@@ -211,9 +218,15 @@ class Model:
         `tensorboard_trace_handler` as one `<worker>.<ns>.pt.trace.json` under
         `<output_path>/profile` (view: tensorboard --logdir <run>/profile, or
         chrome://tracing). A pure overlay: the cadences and the metrics are
-        those of the run without it. Under a mesh, rank 0 alone traces."""
+        those of the run without it. Under a mesh, rank 0 alone traces.
+
+        Every chunk is a `train.iter` span (utils/trace.py) holding its
+        dispatch and the metric reads it waits for; the frame, checkpoint
+        and video boundaries are spans of their own. The run ends with the
+        tracer's summary of this Model's spans and counters."""
         log.title("TRAINING START")
         self.timer = IterTimer()
+        self._iter_marks = [trace.total("train.iter")]
         freq = self.opt.freq
         step = self.step = self.make_step()
         step.set_step(self.it)
@@ -233,21 +246,24 @@ class Model:
             scalars at the freq.scalar cadence."""
             nonlocal postfix
             it_k, n_k, handle = p
-            md = handle.result()
-            self.history.append(md)
-            finite = md["finite"]
-            if not finite.all():
-                first_bad = it_k - n_k + int(np.argmin(finite)) + 1
-                raise FloatingPointError(f"non-finite loss at iteration {first_bad}")
-            if it_k % freq.scalar == 0:
-                row = {k: float(v[-1]) for k, v in md.items() if k != "finite"}
-                if self.tb:
-                    self.log_scalars(row, step=it_k)
-                postfix = dict(it=it_k, loss=f"{row['all']:.3f}", it_per_sec=f"{self.timer.steps_per_sec:.1f}")
-                log.info(f"it {it_k}/{max_iter}  loss {row['all']:.5f}  PSNR {row['PSNR']:.3f}"
-                         f"  {self.steps_per_sec:.1f} steps/s")
-            pbar.update(n_k)
-            pbar.set_postfix(**postfix)
+            with trace.span("train.read", it=it_k, steps=n_k):
+                md = handle.result()
+                self.history.append(md)
+                finite = md["finite"]
+                if not finite.all():
+                    first_bad = it_k - n_k + int(np.argmin(finite)) + 1
+                    raise FloatingPointError(f"non-finite loss at iteration {first_bad}")
+                if it_k % freq.scalar == 0:
+                    with trace.span("train.scalars"):
+                        row = {k: float(v[-1]) for k, v in md.items() if k != "finite"}
+                        if self.tb:
+                            self.log_scalars(row, step=it_k)
+                        postfix = dict(it=it_k, loss=f"{row['all']:.3f}",
+                                       it_per_sec=f"{self.timer.steps_per_sec:.1f}")
+                        log.info(f"it {it_k}/{max_iter}  loss {row['all']:.5f}  PSNR {row['PSNR']:.3f}"
+                                 f"  {self.steps_per_sec:.1f} steps/s")
+                pbar.update(n_k)
+                pbar.set_postfix(**postfix)
 
         chunk_idx = 0
         try:
@@ -259,17 +275,21 @@ class Model:
                         pending = None
                     profiler = self._start_profiler()
                 self.timer.tic()
-                handle = self.chunk(step, n)()
-                self.it += n
-                needs_state = (self.it % freq.vis == 0 or (ckpt_freq and self.it % ckpt_freq == 0)
-                               or self.it >= max_iter or profiler is not None)
-                if pending is not None:
-                    consume(pending)  # waits for chunk k while chunk k + 1 runs
-                pending = (self.it, n, handle)
-                if needs_state:
-                    consume(pending)
-                    pending = None
-                self.chunk_times.append((n, self.timer.toc(n) * n))
+                with trace.span("train.iter", it=self.it + n, steps=n):
+                    with trace.span("train.dispatch", steps=n):
+                        handle = self.chunk(step, n)()
+                    self.it += n
+                    needs_state = (self.it % freq.vis == 0 or (ckpt_freq and self.it % ckpt_freq == 0)
+                                   or self.it >= max_iter or profiler is not None)
+                    if pending is not None:
+                        consume(pending)  # waits for chunk k while chunk k + 1 runs
+                    pending = (self.it, n, handle)
+                    if needs_state:
+                        consume(pending)
+                        pending = None
+                self.timer.toc(n)
+                if chunk_idx == 0:
+                    self._iter_marks.append(trace.total("train.iter"))
                 chunk_idx += 1
                 if profiler is not None and chunk_idx >= 1 + profile_chunks:
                     self._stop_profiler(profiler)
@@ -285,11 +305,14 @@ class Model:
         if self.opt.get("save_checkpoint", True) and self._saved_at != self.it:
             self.save_checkpoint()
         if self.is_main:
-            self._mux_video()
+            with trace.span("train.video"):
+                self._mux_video()
         if self.tb:
             self.tb.flush()
             self.tb.close()
         log.info(f"mean steps/sec: {self.steps_per_sec:.2f}")
+        for line in trace.summary(self._trace_base):
+            log.info(line)
         log.title("TRAINING DONE")
 
     def _start_profiler(self):
@@ -310,20 +333,25 @@ class Model:
         written by rank 0; every rank waits for it."""
         self._saved_at = self.it
         path = None
-        if self.is_main:
-            path = save_checkpoint(self.opt.output_path, self.it, self.graph, self.optimizer, self.scheduler)
-        barrier(self.mesh)
+        with trace.span("train.ckpt", it=self.it):
+            if self.is_main:
+                path = save_checkpoint(self.opt.output_path, self.it, self.graph, self.optimizer, self.scheduler)
+            barrier(self.mesh)
         return path
 
     @property
     def steps_per_sec(self) -> float:
-        """Steps per second over every chunk after the first (the first one
-        carries the kernel build and warm-up); over the first chunk alone
-        while it is the only one."""
-        timed = self.chunk_times[1:] or self.chunk_times
-        n = sum(k for k, _ in timed)
-        t = sum(s for _, s in timed)
-        return n / t if t > 0 else 0.0
+        """Steps per second over the `train.iter` spans (a chunk's dispatch
+        and the metric reads it waits for, device work included) of every
+        chunk of the last `train` after the first (the first one carries the
+        kernel build and warm-up); over the first chunk alone while it is the
+        only one. Read from the tracer's totals, which never drop."""
+        if self._iter_marks is None:
+            return 0.0
+        now = trace.total("train.iter")
+        base = self._iter_marks[-1] if now[0] > self._iter_marks[-1][0] else self._iter_marks[0]
+        _, seconds, steps = (a - b for a, b in zip(now, base))
+        return steps / seconds if seconds > 0 else 0.0
 
     def log_scalars(self, row: dict, step: int, split: str = "train"):
         """Publish the reference's scalar tags (model/planar.py:226-254)."""
@@ -350,17 +378,25 @@ class Model:
         model/planar.py:256-292): the input images and masks on the first
         call, the predicted image, the implicit masks, and the predicted
         edges and warped patch corners under their `tb` flags. Panels land on
-        step max(step, 1), as the reference tags it + 1."""
+        step max(step, 1), as the reference tags it + 1. One `train.vis`
+        span, holding `vis.render`, `vis.png` and `vis.panels`."""
         from PIL import Image
 
-        tag_step = max(step, 1)
-        frame = self.predict_entire_image()
-        Image.fromarray((np.clip(frame, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)).save(
-            f"{self.vis_path}/{self.vis_it}.png"
-        )
-        self.vis_it += 1
-        if not self.tb:
-            return
+        with trace.span("train.vis", it=self.it):
+            with trace.span("vis.render"):
+                frame = self.predict_entire_image()
+            with trace.span("vis.png"):
+                path = f"{self.vis_path}/{self.vis_it}.png"
+                Image.fromarray((np.clip(frame, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)).save(path)
+                trace.count("frames")
+                trace.count("frame_bytes", os.path.getsize(path))
+            self.vis_it += 1
+            if self.tb:
+                with trace.span("vis.panels"):
+                    self._tb_panels(frame, max(step, 1), split)
+
+    def _tb_panels(self, frame: np.ndarray, tag_step: int, split: str) -> None:
+        """`visualize`'s TB image panels of the frame just rendered."""
         colors = self.box_colors
         if self.vis_it == 1:
             rgb = self.data["rgb"].cpu().numpy()
@@ -372,17 +408,21 @@ class Model:
         tb_opt = self.opt.get("tb") or {}
         show_edges = bool(tb_opt.get("show_edges")) and self.cfg.use_edges
         if self.cfg.use_implicit_mask or show_edges:
-            progress = torch.tensor(max(self.it - 1, 0) / self.cfg.max_iter, dtype=torch.float32, device=self.device)
-            with torch.no_grad():
-                out = graph_forward(self.graph, self.data, self.cfg, progress)
+            with trace.span("vis.panel_forward"):  # the forward and its maps' copy to the host
+                progress = torch.tensor(max(self.it - 1, 0) / self.cfg.max_iter, dtype=torch.float32,
+                                        device=self.device)
+                with torch.no_grad():
+                    out = graph_forward(self.graph, self.data, self.cfg, progress)
+                shown = ["mask_prediction"] * self.cfg.use_implicit_mask + ["edge_prediction"] * show_edges
+                out = {k: out[k].cpu().numpy() for k in shown}
         if self.cfg.use_implicit_mask:
             h, w = self.cfg.map_hw
-            mask = out["mask_prediction"].cpu().numpy().reshape(self.cfg.batch_size, h, w, 1).transpose(0, 3, 1, 2)
+            mask = out["mask_prediction"].reshape(self.cfg.batch_size, h, w, 1).transpose(0, 3, 1, 2)
             vis_lib.tb_image(self.opt, self.tb, tag_step, split, "implicit_masks",
                              vis_lib.color_border(mask, colors, width=1, depth=1))
         if show_edges:
             # the reference ships this panel commented out (model/planar.py:288-292)
-            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "predicted_edges", out["edge_prediction"].cpu().numpy())
+            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "predicted_edges", out["edge_prediction"])
         if bool(tb_opt.get("show_corners")):
             # the current warped patch windows on the canvas (the reference's
             # warp_corners, warp.py:83-93, is never called)

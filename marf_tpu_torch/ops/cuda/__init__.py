@@ -7,7 +7,19 @@ plain versions, which CPU tensors take, do not count. A step captured as a
 CUDA graph runs no wrapper when it is replayed: engine/step.py's captured
 chunk puts the counts back after the capture, and adds each graph's
 recorded launches at each replay.
+
+`KERNELS` gives each train-step kernel's id K1-K6 its wrapper (module and
+name; the bf16 entry points share their float32 twin's id). `kernel(k)` is
+that wrapper, as its module holds it when the step is made, called inside
+the profiler range `marf.<k>`: the range shows in a profile of eager steps
+only, as a replayed graph runs no wrapper. It opens around the wrapper, so
+a range that a caller puts around the wrapper itself stays the innermost
+one, which the profiler credits with the kernel's device operations.
 """
+
+import importlib
+
+import torch
 
 LAUNCHES = {
     "fused_train_kernel_warp": 0,  # K1, fused_step.py
@@ -28,3 +40,24 @@ LAUNCHES = {
     "tc_gemm_bf16": 0,  # the bf16 GEMM engine alone, tc_gemm.py (tests only)
     "tc_presplit_bf16": 0,  # its weight conversion alone, tc_gemm.py (tests only)
 }
+
+KERNELS = {
+    "K1": ("fused_step", "fused_train_kernel_warp"),
+    "K2": ("fused_step", "fused_train_kernel"),
+    "K3": ("fused_mask", "fused_mask_forward"),
+    "K4": ("fused_mask", "fused_mask_backward_dedup"),
+    "K5": ("fused_implicit", "fused_implicit_train_kernel"),
+    "K6": ("fused_mask", "fused_mask_backward_g"),
+}
+
+
+def kernel(k: str):
+    """Kernel `k`'s wrapper (`KERNELS`), called inside the range `marf.<k>`."""
+    module, name = KERNELS[k]
+    fn = getattr(importlib.import_module(f"marf_tpu_torch.ops.cuda.{module}"), name)
+
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(f"marf.{k}"):
+            return fn(*args, **kwargs)
+
+    return call

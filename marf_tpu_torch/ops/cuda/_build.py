@@ -5,8 +5,9 @@ The library is compiled at first use with
 `nvcc -gencode arch=compute_90a,code=sm_90a` into `build/marf_tpu_torch/` at
 the repository root (listed in .gitignore), under a file name keyed by a hash
 of the sources, the shared headers (csrc/*.cuh) and the flags, so an edited
-source rebuilds and an unchanged one is loaded as it is. Nothing here runs at
-import time.
+source rebuilds and an unchanged one is loaded as it is. A library's first
+load is the tracer's span `build.<name>` (utils/trace.py). Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import time
 from collections.abc import Callable
+
+from marf_tpu_torch.utils import trace
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build", "marf_tpu_torch")
@@ -75,8 +78,9 @@ def load_library(name: str, sources: list[str], bind: Callable[[ctypes.CDLL], No
     set its C signatures with `bind` (once)."""
     if name in _loaded:
         return _loaded[name]
-    build_libraries({name: sources})
-    lib = ctypes.CDLL(_so_path(name, sources))
-    bind(lib)
+    with trace.span(f"build.{name}"):
+        build_libraries({name: sources})
+        lib = ctypes.CDLL(_so_path(name, sources))
+        bind(lib)
     _loaded[name] = lib
     return lib

@@ -22,10 +22,11 @@ graphs (the first captured chunk runs eagerly and captures):
     among them, draws on the device timeline) and the device kernels that
     take the most of it, by name (the GEMM engine's template instances
     among them); eager, also each hand-written kernel's share (K1-K6, in
-    float32 or bfloat16: the device kernels inside each wrapper's range on
-    the device timeline) and each wrapper's own kernels by name (a replayed
-    graph runs no wrapper); the busy share is that device time over the
-    step time of the untraced chunks.
+    float32 or bfloat16: the device kernels inside the `marf.K<i>` range
+    the step opens around each wrapper, ops/cuda `kernel`, on the device
+    timeline) and each wrapper's own kernels by name (a replayed graph runs
+    no wrapper); the busy share is that device time over the step time of
+    the untraced chunks.
 Metric-only work follows the trainer's cadence: the last step of every chunk
 is the heavy one. Prints one line per part, captured beside eager, with the
 card's nvidia-smi name and power limit; it raises without a card.
@@ -33,7 +34,6 @@ card's nvidia-smi name and power limit; it raises without a card.
 
 from __future__ import annotations
 
-import functools
 import json
 import subprocess
 import sys
@@ -42,16 +42,8 @@ import time
 
 import torch
 
-from marf_tpu_torch.ops.cuda import fused_implicit, fused_mask, fused_step
+from marf_tpu_torch.ops.cuda import KERNELS
 
-WRAPPERS = [
-    ("K1", fused_step, "fused_train_kernel_warp"),
-    ("K2", fused_step, "fused_train_kernel"),
-    ("K3", fused_mask, "fused_mask_forward"),
-    ("K4", fused_mask, "fused_mask_backward_dedup"),
-    ("K5", fused_implicit, "fused_implicit_train_kernel"),
-    ("K6", fused_mask, "fused_mask_backward_g"),
-]
 CHUNK = 20
 TOP_KERNELS = 12
 
@@ -60,15 +52,6 @@ def _short(key: str) -> str:
     """A device kernel's name without namespaces and arguments (template
     arguments kept)."""
     return key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
-
-
-def _traced(tag: str, fn):
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        with torch.profiler.record_function(tag):
-            return fn(*args, **kwargs)
-
-    return wrapper
 
 
 def device_kernels(prof) -> tuple[list, set]:
@@ -119,9 +102,9 @@ def _measure(chunk, per_wrapper: bool) -> dict:
     if per_wrapper:
         # each wrapper's kernels: the device kernels inside its range on the device timeline
         cuda = torch.autograd.DeviceType.CUDA
-        tags = {tag for tag, _, _ in WRAPPERS}
+        tags = {f"marf.{tag}" for tag in KERNELS}
         dev = [e for e in prof.events() if e.device_type == cuda]
-        spans = [(e.time_range.start, e.time_range.end, e.name) for e in dev if e.name in tags]
+        spans = [(e.time_range.start, e.time_range.end, e.name[len("marf."):]) for e in dev if e.name in tags]
         wrappers: dict[str, dict[str, float]] = {}
         for e in dev:
             if e.name in ranges:
@@ -144,8 +127,6 @@ def main(argv: list[str]) -> dict:
 
     if not torch.cuda.is_available():
         raise RuntimeError("step_profile measures the card: no CUDA device is available")
-    for tag, mod, name in WRAPPERS:
-        setattr(mod, name, _traced(tag, getattr(mod, name)))
     with tempfile.TemporaryDirectory(prefix="step_profile_") as out_root:
         base = ["--model=planar", "--yaml=planar", "--group=profile", "--name=step", "--seed=3",
                 "--barf_c2f=[0,0.4]", "--dataset=synthetic", f"--output_root={out_root}", "--tb="]

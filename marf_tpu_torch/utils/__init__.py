@@ -1,2 +1,2 @@
-"""Options (CLI DSL, yaml, device), console log, TensorBoard scalars, and
-JAX<->torch parameter transfer."""
+"""Options (CLI DSL, yaml, device), console log, TensorBoard scalars, the
+tracer's spans and counters, and JAX<->torch parameter transfer."""

@@ -1,0 +1,321 @@
+"""The port's tracer (marf_tpu_torch/utils/trace.py) and what the trainer,
+the chunk and the kernel wrappers record with it.
+
+CPU: the tracer alone (nesting, parents, the step counter shared down a
+chunk's spans, the ring's bound, totals, self time, counters, the summary);
+a tiny `Model.train()` (tests/test_torch_trainer.py sizes, TensorBoard on)
+records each set-up phase once, one `train.vis` per frame holding its
+render, PNG and panels, counts the frames and their bytes as written and
+every step as eager, and `steps_per_sec` keeps its meaning; under
+torch.profiler the same spans are `marf.*` ranges with the same nesting.
+Card (`cuda`): in an eager chunk each `marf.K<i>` range holds its kernel's
+device operations; a replayed graph opens none and counts its launches.
+This file imports no JAX, so it runs on the card's machine as it is:
+`python -m pytest tests/test_torch_trace.py -m cuda`.
+"""
+
+import glob
+import json
+import os
+import re
+import time
+
+import pytest
+import torch
+
+from marf_tpu_torch.utils import trace
+from marf_tpu_torch.utils.attrdict import AttrDict
+from marf_tpu_torch.utils.config import load_options, resolve_yaml_path
+from marf_tpu_torch.utils.trace import Span, Tracer
+
+SETUP = ["setup.load_dataset", "setup.build_networks", "setup.optimizer", "setup.visualizer", "setup.make_step"]
+
+
+# ------------------------------------------------------------------ the tracer
+
+
+def test_nesting_parents_and_the_chunks_counter():
+    t = Tracer()
+    with t.span("a", it=20, steps=20):
+        with t.span("b"):
+            with t.span("c", it=5):
+                pass
+        with t.span("d", steps=3):
+            pass
+    with t.span("e"):
+        pass
+    by = {s.name: s for s in t.records}
+    assert [s.name for s in t.records] == ["c", "b", "d", "a", "e"]  # recorded as they close
+    assert [by[n].index for n in "abcde"] == [0, 1, 2, 3, 4]
+    assert by["a"].parent is None and by["e"].parent is None
+    assert by["b"].parent == by["d"].parent == 0 and by["c"].parent == 1
+    assert by["b"].attrs == {"it": 20} and by["c"].attrs == {"it": 5} and by["e"].attrs == {}
+    assert by["a"].start <= by["b"].start <= by["c"].start <= by["c"].end <= by["b"].end <= by["d"].start
+    assert t.totals["a"][::2] == [1, 20] and t.totals["d"][::2] == [1, 3] and t.totals["b"][::2] == [1, 0]
+
+
+def test_a_span_that_raises_is_recorded_and_closed():
+    t = Tracer()
+    with pytest.raises(ValueError):
+        with t.span("outer"):
+            with t.span("inner"):
+                raise ValueError("boom")
+    with t.span("after"):
+        pass
+    assert [s.name for s in t.records] == ["inner", "outer", "after"]
+    assert t.records[-1].parent is None
+
+
+def test_ring_bound_and_totals_that_never_drop():
+    t = Tracer(maxlen=4)
+    for i in range(10):
+        with t.span("x" if i % 2 else "y", steps=i):
+            pass
+    assert len(t.records) == 4 and [s.index for s in t.records] == [6, 7, 8, 9]
+    assert t.totals["x"][0] == t.totals["y"][0] == 5
+    assert t.totals["x"][2] == 1 + 3 + 5 + 7 + 9
+    assert trace.RING == 65536 and trace.TRACER.records.maxlen == trace.RING
+
+
+def test_spans_and_self_time():
+    t = Tracer()
+    t.records.extend([Span("child", 1.0, 3.0, 0, {}, 1), Span("child", 5.0, 6.0, 0, {}, 2),
+                      Span("grandchild", 5.2, 5.8, 2, {}, 3), Span("parent", 0.0, 10.0, None, {}, 0),
+                      Span("child", 11.0, 12.0, None, {}, 4)])
+    parent = t.spans("parent")[0]
+    assert t.self_time(parent) == pytest.approx(10.0 - 2.0 - 1.0)
+    assert t.self_time(t.spans("child")[1]) == pytest.approx(1.0 - 0.6)
+    assert [s.index for s in t.spans("child", 0.5, 5.0)] == [1, 2]
+    assert [s.index for s in t.spans("child")] == [1, 2, 4]
+
+
+def test_counters_snapshot_summary_and_reset():
+    t = Tracer()
+    t.count("frames")
+    with t.span("train.vis"):
+        pass
+    base = t.snapshot()
+    t.count("frames", 2)
+    t.count("frame_bytes", 300)
+    for _ in range(2):
+        with t.span("train.vis"):
+            pass
+    assert t.counters == {"frames": 3, "frame_bytes": 300}
+    lines = t.summary(base)
+    assert len(lines) == 2 and lines[0].startswith("span train.vis: 2 x, ")
+    assert lines[1] == "counters: frame_bytes 300, frames 2"
+    assert t.summary(t.snapshot()) == ["counters: none"]
+    t.reset()
+    assert not t.records and not t.totals and not t.counters
+    with t.span("z"):
+        pass
+    assert t.records[0].index == 3  # indices go on after a reset
+
+
+# ----------------------------------------------------------------- the trainer
+
+
+def make_opt(tmp_path, **overrides):
+    opt = load_options(resolve_yaml_path("planar"))
+    opt.update(AttrDict(
+        model="planar", yaml="planar", group="it", name="run", seed=3, dataset="synthetic",
+        H=32, W=64, patch_H=16, patch_W=32, batch_size=3, max_iter=12, barf_c2f=[0, 0.4],
+        output_path=str(tmp_path / "out"), freq=AttrDict(scalar=2, vis=4, ckpt=6), save_checkpoint=True, cpu=True,
+    ))
+    opt.arch.layers = [None, 64, 64, 3]
+    opt.arch.posenc.L_2D = 4
+    opt.update(AttrDict(overrides))
+    os.makedirs(opt.output_path, exist_ok=True)
+    return opt
+
+
+def _train(opt):
+    from marf_tpu_torch.engine.trainer import Model
+
+    m = Model(opt)
+    m.load_dataset()
+    m.build_networks()
+    m.setup_optimizer()
+    m.setup_visualizer()
+    m.train()
+    return m
+
+
+def _children(parent: Span, spans: list) -> list:
+    return [s for s in spans if s.parent == parent.index]
+
+
+@pytest.mark.parametrize("implicit", [False, True], ids=["fixed_masks", "implicit_heads"])
+def test_train_records_its_spans_and_counters(tmp_path, capsys, implicit):
+    extra = dict(use_implicit_mask=True, use_masks=False, build_single_masks=True) if implicit else {}
+    t0 = time.perf_counter()
+    counters = dict(trace.COUNTERS)
+    m = _train(make_opt(tmp_path, **extra))
+    out = capsys.readouterr().out
+    recorded = [s for s in trace.TRACER.records if s.start >= t0]
+    names = [s.name for s in recorded]
+    grown = {k: v - counters.get(k, 0) for k, v in trace.COUNTERS.items()}
+
+    assert all(names.count(n) == 1 for n in SETUP)
+    # one train.vis per frame (step 0, then every freq.vis), holding its render, PNG and panels
+    pngs = sorted(glob.glob(os.path.join(m.vis_path, "*.png")))
+    frames = [s for s in recorded if s.name == "train.vis"]
+    assert len(frames) == len(pngs) == 1 + 12 // 4
+    assert [s.attrs["it"] for s in frames] == [0, 4, 8, 12]
+    for f in frames:
+        kids = _children(f, recorded)
+        assert [k.name for k in kids] == ["vis.render", "vis.png", "vis.panels"]
+        assert sum(k.end - k.start for k in kids) <= f.end - f.start
+        assert all(f.start <= k.start and k.end <= f.end and k.attrs["it"] == f.attrs["it"] for k in kids)
+        panels = _children(kids[2], recorded)
+        assert {p.name for p in panels} == ({"tb.image", "vis.panel_forward"} if implicit else {"tb.image"})
+    assert grown["frames"] == len(pngs) and grown["frame_bytes"] == sum(os.path.getsize(p) for p in pngs)
+    assert grown["tb_events"] > 0 and grown["tb_bytes"] > 0
+    assert grown["ckpt_bytes"] == sum(os.path.getsize(p) for p in glob.glob(f"{m.opt.output_path}/ckpt/*/state.pt"))
+    assert names.count("train.ckpt") == 2 and names.count("train.video") == 1
+    # the CPU runs every step eagerly, in chunks of gcd(2, 4, 6) = 2 steps
+    assert grown["eager_steps"] == 12 and grown.get("captures", 0) == grown.get("replays", 0) == 0
+    iters = [s for s in recorded if s.name == "train.iter"]
+    assert [s.attrs for s in iters] == [{"it": 2 * (k + 1), "steps": 2} for k in range(6)]
+    for it in iters:
+        dispatch = [k for k in _children(it, recorded) if k.name == "train.dispatch"]
+        assert len(dispatch) == 1
+        assert [c.name for c in _children(dispatch[0], recorded)] == ["chunk.eager", "chunk.copy"]
+        reads = [k for k in _children(it, recorded) if k.name == "train.read"]
+        assert all([c.name for c in _children(r, recorded)][:1] == ["chunk.wait"] for r in reads)
+    # steps_per_sec: the steps of every chunk after the first over their train.iter seconds
+    assert m.steps_per_sec == pytest.approx(10 / sum(s.end - s.start for s in iters[1:]))
+    assert "mean steps/sec" in out and "span train.vis: 4 x" in out
+    assert re.search(r"counters: .*eager_steps 12, .*frames 4", out)
+
+
+def test_profiler_shows_the_spans_as_marf_ranges(tmp_path):
+    from marf_tpu_torch.engine.trainer import Model
+
+    m = Model(make_opt(tmp_path, max_iter=4, freq=AttrDict(scalar=2, vis=4, ckpt=None), save_checkpoint=False))
+    m.load_dataset()
+    m.build_networks()
+    m.setup_optimizer()
+    m.setup_visualizer()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        m.train()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if str(e.get("name", "")).startswith("marf.")]
+    recorded = [s for s in trace.TRACER.records if s.start >= t0]
+    ranges = {}
+    for e in events:
+        ranges.setdefault(e["name"][len("marf."):], []).append((e["ts"], e["ts"] + e["dur"]))
+    assert {n: len(v) for n, v in ranges.items()} == {n: [s.name for s in recorded].count(n) for n in
+                                                      {s.name for s in recorded}}
+    # each span's range lies inside its parent's range
+    by_index = {s.index: s for s in recorded}
+    order = {n: sorted(v) for n, v in ranges.items()}
+    rank = {s.index: sorted(x.start for x in recorded if x.name == s.name).index(s.start) for s in recorded}
+    for s in recorded:
+        if s.parent in by_index:
+            p = by_index[s.parent]
+            a0, a1 = order[s.name][rank[s.index]]
+            b0, b1 = order[p.name][rank[p.index]]
+            assert b0 <= a0 and a1 <= b1, (s.name, p.name)
+
+
+# -------------------------------------------------------------------- the card
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (run on the card: python -m pytest tests/test_torch_trace.py -m cuda)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+# the hand-written kernels' device functions (csrc/*.cu, *.cuh)
+OWN_KERNEL = re.compile(r"\b(tc_gemm|tb_gemm|head|encode|encode_bwd|coords_bwd|mask_head_fwd|mask_head_bwd|presplit|"
+                        r"presplit_bf16|cast_bf16|colsum|reduce|reduce_group|reduce_tree_group)_kernel\b")
+
+
+def _card_step(tmp_path, implicit: bool):
+    from marf_tpu_torch.engine.trainer import Model
+
+    extra = dict(use_implicit_mask=True, use_masks=False, build_single_masks=True) if implicit else {}
+    m = Model(make_opt(tmp_path, cpu=False, tb=None, **extra))
+    m.load_dataset()
+    m.build_networks()
+    m.setup_optimizer()
+    return m.make_step()
+
+
+def _eager_profile(step, names: list) -> tuple[dict, list]:
+    """({name: device-side spans of that range}, [(start, end, name)] of the
+    device operations) of a profiled eager chunk of 3 steps, the kernels
+    built and warm."""
+    from marf_tpu_torch.engine.step import make_train_chunk
+
+    make_train_chunk(step, 2, capture=False)().result()
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        make_train_chunk(step, 3, capture=False)().result()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = {e.name for e in events if e.device_type != cuda}
+    ranges = {n: [(e.time_range.start, e.time_range.end) for e in events if e.device_type == cuda and e.name == n]
+              for n in names}
+    ops = [(e.time_range.start, e.time_range.end, e.name) for e in events
+           if e.device_type == cuda and e.name not in host]
+    return ranges, ops
+
+
+def _check_ranges_hold_the_kernels(ranges: dict, ops: list) -> None:
+    for name, spans in ranges.items():
+        assert len(spans) == 3, name  # one a step
+        assert all(any(r0 <= s and e <= r1 for s, e, _ in ops) for r0, r1 in spans), name
+    own = [(s, e) for s, e, n in ops if OWN_KERNEL.search(n) and "at::" not in n]
+    assert own and all(any(r0 <= s and e <= r1 for spans in ranges.values() for r0, r1 in spans) for s, e in own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("implicit", [False, True], ids=["K1", "K5_K6"])
+def test_kernel_ranges_hold_their_device_operations(cuda_device, tmp_path, implicit):
+    from marf_tpu_torch.engine.step import make_train_chunk
+    from marf_tpu_torch.ops.cuda import LAUNCHES
+
+    step = _card_step(tmp_path, implicit)
+    tags = ["K5", "K6"] if implicit else ["K1"]
+    _check_ranges_hold_the_kernels(*_eager_profile(step, [f"marf.{t}" for t in tags]))
+
+    # captured: the warm-up and capture count each launch once; a replay opens no range and counts as before
+    fn = "fused_implicit_train_kernel" if implicit else "fused_train_kernel_warp"
+    chunk = make_train_chunk(step, 4)
+    before, counters = LAUNCHES[fn], dict(trace.COUNTERS)
+    chunk().result()
+    assert LAUNCHES[fn] == before + 4
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        chunk().result()
+    assert LAUNCHES[fn] == before + 8
+    names = {e.name for e in prof.events()}
+    assert "marf.chunk.replay" in names and not {f"marf.{t}" for t in tags} & names
+    grown = {k: trace.COUNTERS.get(k, 0) - counters.get(k, 0) for k in ("eager_steps", "captures", "replays")}
+    assert grown == {"eager_steps": 4, "captures": 2, "replays": 4}
+
+
+@pytest.mark.cuda
+def test_a_callers_own_range_on_a_wrapper_keeps_its_kernels(cuda_device, tmp_path, monkeypatch):
+    """A range that a caller puts around a wrapper before the step is made
+    (a harness's own attribution) stays the innermost range: the profiler
+    credits it, not `marf.K1` around it, with K1's device operations."""
+    from marf_tpu_torch.ops.cuda import fused_step
+
+    real = fused_step.fused_train_kernel_warp
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function("caller.K1"):
+            return real(*args, **kwargs)
+
+    monkeypatch.setattr(fused_step, "fused_train_kernel_warp", wrapped)
+    _check_ranges_hold_the_kernels(*_eager_profile(_card_step(tmp_path, False), ["caller.K1"]))
