@@ -24,6 +24,15 @@ frames at the end. The step's constants (the flat streams, the mask-head
 inputs and their dedup structures) are built once when `train` makes the
 step.
 
+A frame boundary has a device part and a host part. `visualize` runs the
+device part before the next chunk is dispatched: the render, the panels'
+forward and every array the panels show, copied to the host. The host part
+(the PNG, the TB panels) and every TB scalar write run on one writer thread
+(utils/frame_writer.py), in call order, one frame deep, while the card trains
+the next segment; `train` drains it at its end, before the final checkpoint,
+vis.mp4 and the event file's close, so the files are those the loop wrote
+in line. Outside `train`, `visualize` and `log_scalars` return once written.
+
 With more than one device (`tpu.n_devices` or MARF_DEVICES, `resolve_n_devices`)
 the Model is one rank of a pixel-sharded run (marf_tpu_torch/parallel/): it is
 given its `Mesh`, every rank loads or synthesizes the same dataset, takes rank
@@ -39,6 +48,7 @@ resumes on another number of ranks.
 
 from __future__ import annotations
 
+import functools
 import os
 import shutil
 import subprocess
@@ -58,6 +68,7 @@ from marf_tpu_torch.utils import trace
 from marf_tpu_torch.utils import vis as vis_lib
 from marf_tpu_torch.utils.config import resolve_device
 from marf_tpu_torch.utils.console import IterTimer, colorcode_to_number, log
+from marf_tpu_torch.utils.frame_writer import FrameWriter
 
 
 def resolve_n_devices(opt) -> int:
@@ -101,6 +112,8 @@ class Model:
         self.optimizer = None
         self.scheduler = None
         self.tb = None
+        self.writer = FrameWriter()  # its thread starts at the first frame or TB write
+        self._in_train = False  # inside `train`, which drains the writer at its end
         self.box_colors = None
         self.vis_path = None
         self.video_fname = None
@@ -223,7 +236,9 @@ class Model:
         Every chunk is a `train.iter` span (utils/trace.py) holding its
         dispatch and the metric reads it waits for; the frame, checkpoint
         and video boundaries are spans of their own. The run ends with the
-        tracer's summary of this Model's spans and counters."""
+        tracer's summary of this Model's spans and counters. The writer
+        thread is drained in the loop's `finally`, so a hook that ends the
+        loop by raising still leaves every frame handed off on disk."""
         log.title("TRAINING START")
         self.timer = IterTimer()
         self._iter_marks = [trace.total("train.iter")]
@@ -235,8 +250,6 @@ class Model:
         c = chunk_schedule(max_iter, freq.scalar, freq.vis, ckpt_freq)
         profile_chunks = int(self.opt.get("profile") or 0) if self.is_main else 0
         profiler = None
-        if self.is_main:
-            self.visualize(step=0)  # reference model/planar.py:152-153
         pbar = tqdm.tqdm(total=max_iter, desc="Training", leave=False, initial=self.it, disable=not self.is_main)
         postfix = {}
         pending = None  # (it after the chunk, its steps, its ChunkMetrics), dispatched and not yet read
@@ -266,7 +279,10 @@ class Model:
                 pbar.set_postfix(**postfix)
 
         chunk_idx = 0
+        self._in_train = True
         try:
+            if self.is_main:
+                self.visualize(step=0)  # reference model/planar.py:152-153
             while self.it < max_iter:
                 n = min(c, max_iter - self.it)
                 if profile_chunks and chunk_idx == 1:
@@ -302,6 +318,8 @@ class Model:
             pbar.close()
             if profiler is not None:
                 self._stop_profiler(profiler)
+            self._in_train = False
+            self.writer.drain()
         if self.opt.get("save_checkpoint", True) and self._saved_at != self.it:
             self.save_checkpoint()
         if self.is_main:
@@ -354,7 +372,13 @@ class Model:
         return steps / seconds if seconds > 0 else 0.0
 
     def log_scalars(self, row: dict, step: int, split: str = "train"):
-        """Publish the reference's scalar tags (model/planar.py:226-254)."""
+        """Publish the reference's scalar tags (model/planar.py:226-254), on
+        the writer thread behind every TB write handed off before."""
+        self.writer.put(functools.partial(self._write_scalars, dict(row), step, split))
+        if not self._in_train:
+            self.writer.drain()
+
+    def _write_scalars(self, row: dict, step: int, split: str) -> None:
         for key in ("render", "rgb", "mask", "edge"):
             if self.cfg.loss_weight.get(key) is not None and f"loss_{key}" in row:
                 self.tb.add_scalar(f"{split}/loss_{key}", row[f"loss_{key}"], step)
@@ -378,33 +402,31 @@ class Model:
         model/planar.py:256-292): the input images and masks on the first
         call, the predicted image, the implicit masks, and the predicted
         edges and warped patch corners under their `tb` flags. Panels land on
-        step max(step, 1), as the reference tags it + 1. One `train.vis`
-        span, holding `vis.render`, `vis.png` and `vis.panels`."""
-        from PIL import Image
-
+        step max(step, 1), as the reference tags it + 1. The device part runs
+        here, in one `train.vis` span holding `vis.render`,
+        `vis.panel_forward` and the hand-off's `vis.wait`; it ends by handing
+        the host part (`_write_frame`) to the writer thread and opens no
+        device work after it (module docstring)."""
         with trace.span("train.vis", it=self.it):
             with trace.span("vis.render"):
                 frame = self.predict_entire_image()
-            with trace.span("vis.png"):
-                path = f"{self.vis_path}/{self.vis_it}.png"
-                Image.fromarray((np.clip(frame, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)).save(path)
-                trace.count("frames")
-                trace.count("frame_bytes", os.path.getsize(path))
+            panels = self._panel_arrays() if self.tb else None
+            path = f"{self.vis_path}/{self.vis_it}.png"
             self.vis_it += 1
-            if self.tb:
-                with trace.span("vis.panels"):
-                    self._tb_panels(frame, max(step, 1), split)
+            self.writer.frame(functools.partial(self._write_frame, frame, path, panels, max(step, 1), split),
+                              it=self.it)
+        if not self._in_train:
+            self.writer.drain()
 
-    def _tb_panels(self, frame: np.ndarray, tag_step: int, split: str) -> None:
-        """`visualize`'s TB image panels of the frame just rendered."""
-        colors = self.box_colors
-        if self.vis_it == 1:
-            rgb = self.data["rgb"].cpu().numpy()
-            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "input_images", vis_lib.color_border(rgb, colors))
+    def _panel_arrays(self) -> dict:
+        """What the TB panels show besides the frame, copied to the host: the
+        input images and masks on the first call, the panels' forward maps,
+        the warped patch corners."""
+        host = {}
+        if self.vis_it == 0:
+            host["rgb"] = self.data["rgb"].cpu().numpy()
             if self.cfg.use_masks and self.data.get("masks") is not None:
-                masks = self.data["masks"].cpu().numpy()
-                vis_lib.tb_image(self.opt, self.tb, tag_step, split, "input_masks", vis_lib.color_border(masks, colors))
-        vis_lib.tb_image(self.opt, self.tb, tag_step, split, "predicted_image", frame[None])
+                host["masks"] = self.data["masks"].cpu().numpy()
         tb_opt = self.opt.get("tb") or {}
         show_edges = bool(tb_opt.get("show_edges")) and self.cfg.use_edges
         if self.cfg.use_implicit_mask or show_edges:
@@ -414,21 +436,48 @@ class Model:
                 with torch.no_grad():
                     out = graph_forward(self.graph, self.data, self.cfg, progress)
                 shown = ["mask_prediction"] * self.cfg.use_implicit_mask + ["edge_prediction"] * show_edges
-                out = {k: out[k].cpu().numpy() for k in shown}
-        if self.cfg.use_implicit_mask:
+                host.update({k: out[k].cpu().numpy() for k in shown})
+        if bool(tb_opt.get("show_corners")):
+            with torch.no_grad():
+                host["corners"] = warp_corners(crop_corners(self.cfg.grid_spec, self.device),
+                                               self.graph.warp).cpu().numpy()  # [B, 4, 2]
+        return host
+
+    def _write_frame(self, frame: np.ndarray, path: str, panels: dict | None, tag_step: int, split: str) -> None:
+        """`visualize`'s host part, on the writer thread: numpy, PIL and TB
+        calls on host arrays."""
+        from PIL import Image
+
+        with trace.span("vis.png"):
+            Image.fromarray((np.clip(frame, 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)).save(path)
+            trace.count("frames")
+            trace.count("frame_bytes", os.path.getsize(path))
+        if panels is not None:
+            with trace.span("vis.panels"):
+                self._tb_panels(frame, panels, tag_step, split)
+
+    def _tb_panels(self, frame: np.ndarray, host: dict, tag_step: int, split: str) -> None:
+        """The TB image panels of a frame, from `_panel_arrays`' host arrays."""
+        colors = self.box_colors
+        if "rgb" in host:
+            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "input_images",
+                             vis_lib.color_border(host["rgb"], colors))
+        if "masks" in host:
+            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "input_masks",
+                             vis_lib.color_border(host["masks"], colors))
+        vis_lib.tb_image(self.opt, self.tb, tag_step, split, "predicted_image", frame[None])
+        if "mask_prediction" in host:
             h, w = self.cfg.map_hw
-            mask = out["mask_prediction"].reshape(self.cfg.batch_size, h, w, 1).transpose(0, 3, 1, 2)
+            mask = host["mask_prediction"].reshape(self.cfg.batch_size, h, w, 1).transpose(0, 3, 1, 2)
             vis_lib.tb_image(self.opt, self.tb, tag_step, split, "implicit_masks",
                              vis_lib.color_border(mask, colors, width=1, depth=1))
-        if show_edges:
+        if "edge_prediction" in host:
             # the reference ships this panel commented out (model/planar.py:288-292)
-            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "predicted_edges", out["edge_prediction"])
-        if bool(tb_opt.get("show_corners")):
+            vis_lib.tb_image(self.opt, self.tb, tag_step, split, "predicted_edges", host["edge_prediction"])
+        if "corners" in host:
             # the current warped patch windows on the canvas (the reference's
             # warp_corners, warp.py:83-93, is never called)
-            spec = self.cfg.grid_spec
-            with torch.no_grad():
-                cn = warp_corners(crop_corners(spec, self.device), self.graph.warp).cpu().numpy()  # [B, 4, 2]
+            spec, cn = self.cfg.grid_spec, host["corners"]
             px = np.empty_like(cn)
             px[..., 0] = (cn[..., 0] / spec.norm_w + 1) / 2 * self.cfg.W - 0.5
             px[..., 1] = (cn[..., 1] / spec.norm_h + 1) / 2 * self.cfg.H - 0.5

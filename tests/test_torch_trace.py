@@ -5,9 +5,12 @@ CPU: the tracer alone (nesting, parents, the step counter shared down a
 chunk's spans, the ring's bound, totals, self time, counters, the summary);
 a tiny `Model.train()` (tests/test_torch_trainer.py sizes, TensorBoard on)
 records each set-up phase once, one `train.vis` per frame holding its
-render, PNG and panels, counts the frames and their bytes as written and
-every step as eager, and `steps_per_sec` keeps its meaning; under
-torch.profiler the same spans are `marf.*` ranges with the same nesting.
+render, the panels' forward and the hand-off's wait, one `vis.write` per
+frame on the writer thread holding its PNG and panels, counts the frames
+and their bytes as written and every step as eager, and `steps_per_sec`
+keeps its meaning; under torch.profiler the training thread's spans are
+`marf.*` ranges with the same nesting (the writer thread runs with the
+profiler off: its spans are records only).
 Card (`cuda`): in an eager chunk each `marf.K<i>` range holds its kernel's
 device operations; a replayed graph opens none and counts its launches.
 This file imports no JAX, so it runs on the card's machine as it is:
@@ -145,6 +148,20 @@ def _children(parent: Span, spans: list) -> list:
     return [s for s in spans if s.parent == parent.index]
 
 
+def _on_writer_thread(spans: list) -> set:
+    """Indices of the `vis.write` spans and every span under them."""
+    by_index = {s.index: s for s in spans}
+
+    def under_write(s):
+        while s is not None:
+            if s.name == "vis.write":
+                return True
+            s = by_index.get(s.parent)
+        return False
+
+    return {s.index for s in spans if under_write(s)}
+
+
 @pytest.mark.parametrize("implicit", [False, True], ids=["fixed_masks", "implicit_heads"])
 def test_train_records_its_spans_and_counters(tmp_path, capsys, implicit):
     extra = dict(use_implicit_mask=True, use_masks=False, build_single_masks=True) if implicit else {}
@@ -157,18 +174,28 @@ def test_train_records_its_spans_and_counters(tmp_path, capsys, implicit):
     grown = {k: v - counters.get(k, 0) for k, v in trace.COUNTERS.items()}
 
     assert all(names.count(n) == 1 for n in SETUP)
-    # one train.vis per frame (step 0, then every freq.vis), holding its render, PNG and panels
+    # one train.vis per frame (step 0, then every freq.vis), holding its render, the panels' forward and the
+    # hand-off's wait; one vis.write per frame on the writer thread, holding its PNG and panels
     pngs = sorted(glob.glob(os.path.join(m.vis_path, "*.png")))
     frames = [s for s in recorded if s.name == "train.vis"]
-    assert len(frames) == len(pngs) == 1 + 12 // 4
-    assert [s.attrs["it"] for s in frames] == [0, 4, 8, 12]
-    for f in frames:
+    writes = [s for s in recorded if s.name == "vis.write"]
+    assert len(frames) == len(writes) == len(pngs) == 1 + 12 // 4
+    assert [s.attrs["it"] for s in frames] == [s.attrs["it"] for s in writes] == [0, 4, 8, 12]
+    waits = []
+    for f, w in zip(frames, writes):
         kids = _children(f, recorded)
-        assert [k.name for k in kids] == ["vis.render", "vis.png", "vis.panels"]
+        assert [k.name for k in kids] == ["vis.render"] + ["vis.panel_forward"] * implicit + ["vis.wait"]
         assert sum(k.end - k.start for k in kids) <= f.end - f.start
         assert all(f.start <= k.start and k.end <= f.end and k.attrs["it"] == f.attrs["it"] for k in kids)
-        panels = _children(kids[2], recorded)
-        assert {p.name for p in panels} == ({"tb.image", "vis.panel_forward"} if implicit else {"tb.image"})
+        waits.append(kids[-1])
+        assert w.parent is None and w.start >= kids[-1].end  # handed off after the wait
+        parts = _children(w, recorded)
+        assert [k.name for k in parts] == ["vis.png", "vis.panels"]
+        assert all(w.start <= k.start and k.end <= w.end and k.attrs["it"] == w.attrs["it"] for k in parts)
+        assert {p.name for p in _children(parts[1], recorded)} == {"tb.image"}
+    # one frame deep: a hand-off goes on only once the frame before it is written
+    assert all(wait.end >= w.end for wait, w in zip(waits[1:], writes))
+    assert grown["vis_handoffs"] == len(frames) and 0 <= grown.get("vis_waits", 0) < len(frames)
     assert grown["frames"] == len(pngs) and grown["frame_bytes"] == sum(os.path.getsize(p) for p in pngs)
     assert grown["tb_events"] > 0 and grown["tb_bytes"] > 0
     assert grown["ckpt_bytes"] == sum(os.path.getsize(p) for p in glob.glob(f"{m.opt.output_path}/ckpt/*/state.pt"))
@@ -205,11 +232,17 @@ def test_profiler_shows_the_spans_as_marf_ranges(tmp_path):
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if str(e.get("name", "")).startswith("marf.")]
     recorded = [s for s in trace.TRACER.records if s.start >= t0]
+    # the writer thread runs with the profiler off: its spans (vis.write, vis.png, vis.panels, tb.image) open
+    # no range; every span of the training thread does
+    writer = _on_writer_thread(recorded)
+    assert {s.name for s in recorded if s.index in writer} == {"vis.write", "vis.png", "vis.panels", "tb.image"}
+    recorded = [s for s in recorded if s.index not in writer]
     ranges = {}
     for e in events:
         ranges.setdefault(e["name"][len("marf."):], []).append((e["ts"], e["ts"] + e["dur"]))
     assert {n: len(v) for n, v in ranges.items()} == {n: [s.name for s in recorded].count(n) for n in
                                                       {s.name for s in recorded}}
+    assert {"train.vis", "vis.render", "vis.wait", "train.iter"} <= set(ranges)
     # each span's range lies inside its parent's range
     by_index = {s.index: s for s in recorded}
     order = {n: sorted(v) for n, v in ranges.items()}
