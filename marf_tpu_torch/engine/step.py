@@ -489,8 +489,12 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         fused_implicit_train_kernel, fused_mask_backward_g = kernel("K5"), kernel("K6")
 
     if dedup:
-        X_all, cnt_all, slot0, ext_off, ext_img, ext_j, table, K = stage_mask_inputs(graph, data["rgb"], D, r)
+        with trace.span("setup.dedup"):
+            X_all, cnt_all, slot0, ext_off, ext_img, ext_j, table, K = stage_mask_inputs(graph, data["rgb"], D, r)
         E = K - HW  # known at setup: the extras' index ops run only when E > 0
+        trace.count("dedup_columns", K)
+        trace.count("dedup_extras", E)
+        trace.count("dedup_pairs", ext_off.numel())
         K_pad = X_all.shape[1]
         Klp = K_pad // D
         kcols = slice(r * Klp, (r + 1) * Klp)  # this rank's dedup columns
@@ -499,9 +503,9 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         # positions: a window of Nl from `start` in T tiles of HW
         start = (r * Nl) % HW
         T = -(-(start + Nl) // HW)
-        log.info(f"mask-head dedup: K = {K} columns (HW = {HW}, E = {E}; padded to {K_pad}) for N = {N} positions"
-                 + (f"; {Klp} columns and {ext_off.numel()} extra (position, column) pairs on this rank" if sharded
-                    else ""))
+        log.info(f"mask-head dedup: K = {K} columns (HW = {HW}, E = {E}; padded to {K_pad}) for N = {N} positions; "
+                 + (f"{Klp} columns and " if sharded else "")
+                 + f"{ext_off.numel()} extra (position, column) pairs" + (" on this rank" if sharded else ""))
     elif fused_implicit:
         X_flat, table = stage_mask_x(graph, data["rgb"], cfg.build_single_masks)
         X_flat = X_flat[:, cols].contiguous()

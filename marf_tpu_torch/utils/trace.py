@@ -28,6 +28,9 @@ ranges on the thread that started it: the writer's spans are records only.
     setup.*           engine/trainer.py phases               load_dataset, build_networks,
                                                              optimizer (with its restore),
                                                              visualizer, make_step
+      setup.dedup     engine/step.py make_train_step         the shared head's dedup staging
+                                                             (stage_mask_inputs), inside
+                                                             setup.make_step
     train.iter        Model.train                            one chunk: dispatch and reads
     train.dispatch    Model.train                            the chunk's dispatch
     train.read        Model.train                            a chunk's metric read (consume)
@@ -56,6 +59,10 @@ ranges on the thread that started it: the writer's spans are records only.
                       found the frame before still being written
     tb_events         TB events written (scalars, images); tb_bytes their bytes
     ckpt_bytes        checkpoint bytes written
+    dedup_columns     the shared head's dedup columns K = HW + E, once per step made
+    dedup_extras      its extra columns E (the (pixel, colour) pairs past each
+                      pixel's slot0 column)
+    dedup_pairs       the extras' (position, column) pairs on this rank
 """
 
 from __future__ import annotations
@@ -165,7 +172,9 @@ class Tracer:
             n, s, _ = (a - b for a, b in zip(totals[name], base_totals.get(name, [0, 0.0, 0])))
             if n:
                 lines.append(f"span {name}: {n} x, {s:.3f} s, mean {s / n * 1e3:.3f} ms")
-        grown = {k: v - base_counters.get(k, 0) for k, v in sorted(counters.items()) if v != base_counters.get(k, 0)}
+        # a counter new since `since` shows even at 0 (a dedup step with no extra column)
+        grown = {k: v - base_counters.get(k, 0) for k, v in sorted(counters.items())
+                 if k not in base_counters or v != base_counters[k]}
         lines.append("counters: " + (", ".join(f"{k} {v}" for k, v in grown.items()) or "none"))
         return lines
 

@@ -10,7 +10,9 @@ frame on the writer thread holding its PNG and panels, counts the frames
 and their bytes as written and every step as eager, and `steps_per_sec`
 keeps its meaning; under torch.profiler the training thread's spans are
 `marf.*` ranges with the same nesting (the writer thread runs with the
-profiler off: its spans are records only).
+profiler off: its spans are records only); a tiny shared-head dedup Model
+records its staging as one `setup.dedup` inside `setup.make_step` and
+counts its K, E and extra pairs.
 Card (`cuda`): in an eager chunk each `marf.K<i>` range holds its kernel's
 device operations; a replayed graph opens none and counts its launches.
 This file imports no JAX, so it runs on the card's machine as it is:
@@ -113,6 +115,17 @@ def test_counters_snapshot_summary_and_reset():
     with t.span("z"):
         pass
     assert t.records[0].index == 3  # indices go on after a reset
+
+
+def test_a_counter_new_since_the_snapshot_shows_at_zero():
+    """A dedup step with no extra column still prints `dedup_extras 0`; a
+    counter the snapshot held and that did not grow stays out."""
+    t = Tracer()
+    t.count("frames")
+    base = t.snapshot()
+    t.count("frames", 0)
+    t.count("dedup_extras", 0)
+    assert t.summary(base) == ["counters: dedup_extras 0"]
 
 
 # ----------------------------------------------------------------- the trainer
@@ -253,6 +266,40 @@ def test_profiler_shows_the_spans_as_marf_ranges(tmp_path):
             a0, a1 = order[s.name][rank[s.index]]
             b0, b1 = order[p.name][rank[p.index]]
             assert b0 <= a0 and a1 <= b1, (s.name, p.name)
+
+
+def test_dedup_staging_is_a_span_of_make_step_with_its_sizes_counted(tmp_path, capsys):
+    """The shared head's fused dedup step (plain twins on the CPU): one
+    `setup.dedup` inside `setup.make_step`, the counters equal to the K, E
+    and extra pairs that `stage_mask_inputs` stages, and the closing summary
+    prints them."""
+    from marf_tpu_torch.engine.step import stage_mask_inputs
+    from marf_tpu_torch.engine.trainer import Model
+
+    opt = make_opt(tmp_path, use_implicit_mask=True, use_masks=False, build_single_masks=False, max_iter=4,
+                   freq=AttrDict(scalar=2, vis=4, ckpt=None), save_checkpoint=False, tb=None)
+    opt.tpu.fused_step = "on"
+    m = Model(opt)
+    m.load_dataset()
+    m.data["rgb"][1, :, 2:8, 4:12] = 1.0  # saturated in one photo: extra dedup columns there
+    m.build_networks()
+    m.setup_optimizer()
+    m.setup_visualizer()
+    t0, counters = time.perf_counter(), dict(trace.COUNTERS)
+    m.train()
+    out = capsys.readouterr().out
+    recorded = [s for s in trace.TRACER.records if s.start >= t0]
+    grown = {k: trace.COUNTERS.get(k, 0) - counters.get(k, 0) for k in ("dedup_columns", "dedup_extras", "dedup_pairs")}
+
+    assert "fused implicit dedup (K3 -> K1 -> K4)" in m.step.path
+    (dedup,) = [s for s in recorded if s.name == "setup.dedup"]
+    (make_step,) = [s for s in recorded if s.name == "setup.make_step"]
+    assert dedup.parent == make_step.index and make_step.start <= dedup.start <= dedup.end <= make_step.end
+    *_, ext_off, _, _, _, K = stage_mask_inputs(m.graph, m.data["rgb"])
+    E = K - opt.patch_H * opt.patch_W
+    assert E > 0 and grown == {"dedup_columns": K, "dedup_extras": E, "dedup_pairs": ext_off.numel()}
+    assert re.search(rf"counters: .*dedup_columns {K}, dedup_extras {E}, dedup_pairs {ext_off.numel()}", out)
+    assert "span setup.dedup: 1 x" in out
 
 
 # -------------------------------------------------------------------- the card
