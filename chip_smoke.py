@@ -124,8 +124,8 @@ Phases, one result line each; any failure exits non-zero:
      from its one stdout line; one `marf_tpu_torch.train.main` run with
      --profile=1 (60 steps in chunks of 20): one trace file under
      `<run>/profile` whose device kernels include K1's (encode_kernel,
-     tc_gemm_kernel, head_kernel, encode_bwd_kernel), run in a replayed
-     graph.
+     tc_presplit_kernel, tc_gemm_kernel, head_kernel, encode_bwd_kernel),
+     run in a replayed graph.
   8. capture: on 9 paths (canonical float32 and bf16, canonical autograd,
      implicit dedup float32 and bf16, implicit with fused_warp=off,
      implicit_single float32 and bf16, implicit with fused_dedup=off), the
@@ -1393,7 +1393,7 @@ BENCH_PATHS = {
     "implicit_single": ("fused_implicit_train_kernel", "fused_mask_backward_g"),
 }
 # K1's device kernels, as step_profile lists them (csrc/fused_step.cuh, tc_gemm.cuh)
-K1_DEVICE_KERNELS = ("encode_kernel", "tc_gemm_kernel", "head_kernel", "encode_bwd_kernel")
+K1_DEVICE_KERNELS = ("encode_kernel", "tc_presplit_kernel", "tc_gemm_kernel", "head_kernel", "encode_bwd_kernel")
 
 
 def _check_bench(tag: str, r: dict, case: str, dtype: str):

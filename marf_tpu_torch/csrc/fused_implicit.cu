@@ -43,7 +43,7 @@
 // layers read activations and weights K-major (in bf16 the hidden weights
 // converted to bf16 tiles once per call), the rgb forward and dz products
 // read their weights pre-split once per call (W and W^T as core-matrix
-// tiles in device memory, one bulk copy per tile; fused_step.cu), and the
+// tiles in device memory, the pre-split kernel; fused_step.cu), and the
 // rgb dW products read dz and the layer input point-major, with db folded
 // into the dW product (the row sums of dz over each split, no column-sum
 // pass).

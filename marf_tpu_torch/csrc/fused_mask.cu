@@ -44,8 +44,8 @@
 // K3 and K4 run one head; the weights of hidden layers 1..3 are the same B
 // for every block and k-tile of their products, so each call splits them
 // into TF32 hi and lo once (presplit_kernel, both orientations, 3 MB) and
-// their forward and ReLU-gated dz products stream each tile by one bulk
-// copy on an mbarrier, as the rgb pipeline does. K4's forward recompute
+// their forward and ReLU-gated dz products run on the engine's
+// warp-specialised pre-split kernel, as the rgb pipeline's do. K4's forward recompute
 // runs the same launches as K3, so its m is bitwise K3's (the Pallas kernel
 // recomputes it too).
 // K6 runs all heads in one launch per product: the head is part of the

@@ -23,8 +23,10 @@
 // partials fused into its epilogue and db folded into the dW product. The
 // forward and dz products take their weights split into TF32 hi and lo
 // once per call (presplit_kernel, W and W^T, 3.4 MB at the canonical
-// size), each 16 KB tile brought into shared memory by one bulk copy, so no
-// block splits a weight tile again. The elementwise stages (warp + posenc,
+// size), brought into shared memory by bulk copies, so no block splits a
+// weight tile again; they run on the engine's warp-specialised pre-split
+// kernel (a producer warpgroup, two consumer warpgroups on a 128 x 128
+// tile). The elementwise stages (warp + posenc,
 // the 256->3 head with the loss, the posenc/warp VJP) are memory-bound
 // passes of their own.
 //

@@ -104,6 +104,25 @@ int marf_tc_gemm(int a_k_contig, int b_n_contig, int b_split, int epi, int M, in
                         rsum, ws, stream);
 }
 
+// The pre-split product (marf_tc_gemm with b_split: layout "mk,nk" or
+// "mk,kn", no splits, no row sums) over `groups` operand sets in one launch,
+// as the mask heads' grouped products: group g's A at A + g a_gs, its
+// pre-split B at B + g b_gs, C at C + g c_gs, bias at bias + g N, gate at
+// gate + g g_gs.
+int marf_tc_gemm_presplit_groups(int epi, int groups, int M, int N, int K, const float* A, int lda, long long a_gs,
+                                 const float* B, long long b_gs, float* C, int ldc, long long c_gs, const float* bias,
+                                 const float* gate, int ldg, long long g_gs, void* stream) {
+  if (groups < 1 || groups > MAX_GROUP || M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  GemmCall c = gemm_call(M, N, K, A, lda, B, 0, C, ldc);
+  c.groups = groups, c.ldg = ldg;
+  for (int g = 0; g < groups; ++g) {
+    c.A[g] = A + g * a_gs, c.B[g] = B + g * b_gs, c.C[g] = C + g * c_gs;
+    c.bias[g] = bias ? bias + (long long)g * N : nullptr;
+    c.gate[g] = gate ? gate + g * g_gs : nullptr;
+  }
+  return run_presplit_epi<TcEngine>((cudaStream_t)stream, epi, c);
+}
+
 // Floats of the pre-split B of a product of N columns and depth K.
 long long marf_tc_presplit_floats(int N, int K) { return presplit_floats(N, K); }
 

@@ -43,38 +43,78 @@
 //     descriptor's leading byte offset 128 B between k chunks, stride byte
 //     offset 1024 B between row groups), transposing a point-major tile on
 //     the way; it runs while the tensor cores work on the previous tile.
-//   - B pre-split (the template flag B_PRE; the forward and dz products of
-//     the rgb pipeline and of the dedup mask head (K3, K4), whose B is a
-//     weight matrix, the same for every block and k-tile of the call):
-//     presplit_kernel writes W's hi and lo once per call into device
-//     memory, in both orientations (W for the forward, W^T for the dz
-//     product), laid out as the split pass lays out a tile and ordered
-//     [n-tile][k-tile][hi | lo], so one (n, k) tile is 16 contiguous KB. A
-//     block streams each k-tile's tile into a three-stage ring with one
-//     bulk copy (cp.async.bulk ... mbarrier::complete_tx::bytes), issued by
-//     one thread and waited on with mbarrier.try_wait.parity; there is no
-//     split pass and no raw B tile. The bits the tensor cores read are the
+//   - B pre-split (the forward and dz products of the rgb pipeline and of
+//     the dedup mask head (K3, K4), whose B is a weight matrix, the same for
+//     every block and k-tile of the call): presplit_kernel writes W's hi and
+//     lo once per call into device memory, in both orientations (W for the
+//     forward, W^T for the dz product), laid out as the split pass lays out
+//     a tile and ordered [n-tile][k-tile][hi | lo], so one (n, k) tile is 16
+//     contiguous KB, which bulk copies (cp.async.bulk ...
+//     mbarrier::complete_tx::bytes) bring into shared memory. There is no
+//     split pass and no raw B tile; the bits the tensor cores read are the
 //     split pass's, so the products are bitwise those of the streaming mode.
+//     These products run their own kernel, tc_presplit_kernel: see "The
+//     pre-split product" below.
 // (An mma.sync.m16n8k8 form of the same engine, every operand split in
 // registers, was no faster on the forward products and slower on the dW
 // products; PERF.md.)
 //
-// Shape: block tile 128 x BN, two warpgroups of 64 rows; BK = 32; raw
-// tiles through a cp.async ring (three stages for A, two for B; 16-byte
-// copies where the operand's pointer and row stride allow, 4-byte copies
-// otherwise, zero fill past every ragged edge), split B tiles
-// double-buffered. BN = 128 (one block per SM, 154 KB of shared memory) for
-// the products with a point-major A, BN = 64 (two blocks per SM, 107 KB;
-// 104 KB with B pre-split) for the others, which stream a K-major A. Blocks
+// Shape (the streaming products, tc_gemm_kernel): block tile 128 x BN, two
+// warpgroups of 64 rows; BK = 32; raw tiles through a cp.async ring (three
+// stages for A, two for B; 16-byte copies where the operand's pointer and
+// row stride allow, 4-byte copies otherwise, zero fill past every ragged
+// edge), split B tiles double-buffered. BN = 128 (one block per SM, 154 KB
+// of shared memory) for the products with a point-major A, BN = 64 (two
+// blocks per SM, 107 KB) for the others, which stream a K-major A. Blocks
 // are persistent over the (m, n) tiles of their group and split, n fastest,
 // so the blocks that share an A tile run together; a block loads its next
 // tile's first stages before it stores the current one. Epilogues: plain
-// store, bias + ReLU, ReLU gate; split-K partials
-// summed in a fixed (pairwise) order; and the folded db: in a dW product (A
-// = dz, point-major) the blocks of the first column tile also sum A's rows
-// from the same fragment reads, per k-tile then per partial, in a fixed
-// order, so db needs no pass of its own over dz. No float atomics: two
-// launches on the same inputs give bitwise-equal outputs.
+// store, bias + ReLU, ReLU gate; split-K partials summed in a fixed
+// (pairwise) order; and the folded db: in a dW product (A = dz,
+// point-major) the blocks of the first column tile also sum A's rows from
+// the same fragment reads, per k-tile then per partial, in a fixed order,
+// so db needs no pass of its own over dz. No float atomics: two launches on
+// the same inputs give bitwise-equal outputs.
+//
+// The pre-split product (tc_presplit_kernel; A K-major, B pre-split, one
+// split): persistent and warp-specialised, one block of three warpgroups
+// per SM, no __syncthreads in its k-loop.
+//   - The producer warpgroup (40 registers after setmaxnreg) walks the
+//     block's output tiles in order and keeps a ring of pp_ring k-tile
+//     stages full, each landing on the stage's `full` mbarrier: B's tile as
+//     bulk copies of the pre-split's 8 KB hi and lo halves (two pre-split
+//     tiles side by side for a 128-wide block tile); A's raw 128 x 32 tile
+//     by a bulk copy of each row's 128 bytes where K is whole k-tiles and
+//     the rows 16-byte aligned, else by cp.async of 8 or 4 bytes (the
+//     34-wide encoding: 8), zero fill past K (B is zero there too: the k8
+//     steps past K add exact zeros, so every k8 step is issued, with no
+//     branch). The consumers release a stage on its `empty` mbarrier.
+//   - Two consumer warpgroups (232 registers) share each block tile, rows
+//     [0, 64) and [64, 128), both on every stage, so neither can wait on a
+//     barrier phase more than one ahead of it. Each issues its k-tile's 12
+//     wgmmas, m64n128k8 (m64n64k8 where N <= 64), waits, releases the
+//     stage and adds the fresh accumulator into its running sum; the other
+//     warpgroup's wgmmas keep the tensor cores busy meanwhile. The
+//     epilogue stages each warpgroup's 64 rows in shared memory and writes
+//     them back as whole rows: 16-byte reads of the gate and stores of C,
+//     a warp a row, where the fragments' 8-byte accesses would touch eight
+//     rows at once.
+//   - The arithmetic is the streaming mode's, bit for bit: A split in
+//     registers, lo_a hi_b, hi_a lo_b, hi_a hi_b per k8 step into a fresh
+//     accumulator per k-tile, added into the running float32 sum in k-tile
+//     order (m64n128k8 gives each column m64n64k8's bits; checked against
+//     the streaming mode on the card).
+//   - Not ping-pong (each consumer its own tiles in turn, CUTLASS's other
+//     schedule), tried first and measured on the card (PERF.md): with one
+//     ring, a slot's fills alternate between the consumers, so their
+//     mainloops must take turns (a parity wait holds only one phase ahead),
+//     and ptxas serialises a consumer's wgmmas when it reads one group's
+//     accumulator with another in flight (C7514), so each consumer drains
+//     alone: no faster than the streaming kernel. A 128 x 128 tile shared
+//     by both also reads 25% fewer bytes from L2 than two 128 x 64 ones.
+// It adapts to the call's M, N, K and groups alone: the block tile's width
+// to N, the copies of A to its alignment and K; a shape with fewer tiles
+// than blocks (M under one wave) runs one tile a block.
 //
 // Groups: one launch runs the same product for up to MAX_GROUP operand sets
 // (mask heads), blockIdx.z = group * splits + split, the per-group pointers
@@ -94,7 +134,18 @@ constexpr int TC_K_STRIDE = TC_BK + 4;  // K-major raw tile [rows][BK + 4]: 4 mo
 constexpr int TC_FLUSH = 64;  // k-tiles (2,048 points) per partial of a dW product
 constexpr int TC_PRE_BN = 64;  // a pre-split B's tile width (the K-major-A products' BN)
 constexpr int TC_PRE_TILE = 2 * TC_PRE_BN * TC_BK;  // floats of one pre-split (n, k) tile: hi | lo
-constexpr int TC_PRE_RING = 3;  // pre-split B tiles in flight per block
+constexpr int PP_THREADS = 384;  // the pre-split product: a producer and two consumer warpgroups
+constexpr int PP_A_FL = TC_BM * TC_K_STRIDE;  // floats of a stage's raw A tile
+
+// the pre-split product's ring: k-tile stages, each a B tile and a raw
+// 128-row A tile, as many as fit beside the output staging
+__host__ __device__ constexpr int pp_ring(int bn) { return bn == 128 ? 3 : 4; }
+// its output staging, per consumer: 64 rows of bn + 8 floats (8 mod 32
+// banks a row: the fragments' 8-byte writes take two wavefronts a warp)
+__host__ __device__ constexpr int pp_stage_c(int bn) { return 64 * (bn + 8); }
+__host__ __device__ constexpr int pp_smem_bytes(int bn) {
+  return (pp_ring(bn) * (2 * bn * TC_BK + PP_A_FL) + 2 * pp_stage_c(bn)) * 4 + 2 * pp_ring(bn) * 8;
+}
 
 // floats of one raw tile of `rows` rows: K-major [rows][BK + 4], or
 // MN-major [BK][rows + 8] (8 mod 32 banks per k row)
@@ -347,14 +398,12 @@ __global__ void presplit_kernel(const float* __restrict__ W, int rows, int cols,
 
 // C[M, N] (+)= A[M, K] B[K, N] per group and split (GemmCall):
 // A(m, k) = A_K_CONTIG ? A[m*lda + k] : A[k*lda + m],
-// B(k, n) = B_N_CONTIG ? B[k*ldb + n] : B[n*ldb + k]; with B_PRE, B is a
-// pre-split B (presplit_kernel; B_N_CONTIG and ldb unused). a_vec / b_vec:
+// B(k, n) = B_N_CONTIG ? B[k*ldb + n] : B[n*ldb + k]. a_vec / b_vec:
 // 16-byte copies allowed for A / B (every group's pointer 16-byte aligned,
 // leading dimension a multiple of 4). The design is at the top of this file.
-template <bool A_K_CONTIG, bool B_N_CONTIG, int EPI, int BN, bool B_PRE>
+template <bool A_K_CONTIG, bool B_N_CONTIG, int EPI, int BN>
 __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(const GemmCall c, int a_vec,
                                                                               int b_vec) {
-  static_assert(!B_PRE || (A_K_CONTIG && BN == TC_PRE_BN), "a pre-split B: the K-major-A products, 64 wide");
   constexpr bool A_KM = A_K_CONTIG;
   constexpr bool B_KM = !B_N_CONTIG;
   constexpr int A_FL = tc_tile_floats(A_KM, TC_BM);
@@ -363,17 +412,14 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
   constexpr int NACC = BN / 2;
   constexpr int RAW = 3;    // A of tile kt is read when its wgmmas are issued
   constexpr int RAW_B = 2;  // B of tile kt + 1 is split during tile kt
-  // split B tiles: double-buffered, or the pre-split ring (slot kt % 3, as A's)
-  constexpr int SPLIT = B_PRE ? TC_PRE_RING : 2;
-  static_assert(!B_PRE || TC_PRE_RING == RAW, "load_stage(kt + 3) refills the slots tile kt frees");
+  constexpr int SPLIT = 2;  // split B tiles, double-buffered
   // a dW product (A point-major, plain store) writes a partial per
   // TC_FLUSH k-tiles; every other product one per split
   constexpr bool PARTS = !A_K_CONTIG && EPI == EPI_STORE;
   extern __shared__ __align__(128) float tc_smem[];
   float* split = tc_smem;  // [SPLIT][B hi | B lo]
   float* rawA = split + SPLIT * 2 * SB;
-  float* rawB = rawA + RAW * A_FL;  // not with B_PRE
-  uint64_t* bar = reinterpret_cast<uint64_t*>(rawA + RAW * A_FL);  // B_PRE: one per ring slot
+  float* rawB = rawA + RAW * A_FL;
 
   const int tid = threadIdx.x;
   const int g = blockIdx.z / c.splits;
@@ -394,30 +440,11 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
   // run together, so A comes from L2 after its first read)
   const int ntn = (c.N + BN - 1) / BN;
   const int tiles = (c.M + TC_BM - 1) / TC_BM * ntn;
-  const int kt_all = (c.K + TC_BK - 1) / TC_BK;  // a pre-split B's k-tiles
-  unsigned phase = 0;  // B_PRE: bit s, the parity of ring slot s's next fill
-
-  if constexpr (B_PRE) {
-    if (tid == 0) {
-      for (int s = 0; s < TC_PRE_RING; ++s) mbar_init(&bar[s], 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-  }
 
   auto load_stage = [&](int t, int kt) {
     const int kb = k0 + kt * TC_BK;
     tc_load_tile<A_KM, TC_BM>(rawA + kt % RAW * A_FL, A, c.lda, t / ntn * TC_BM, c.M, kb, k1, a_vec);
-    if constexpr (B_PRE) {
-      if (tid == 0) {  // the whole (n, k) tile, hi and lo, in one bulk copy
-        const int s = kt % TC_PRE_RING;
-        mbar_expect_tx(&bar[s], TC_PRE_TILE * sizeof(float));
-        bulk_load(split + s * 2 * SB, B + ((long long)(t % ntn) * kt_all + kb / TC_BK) * TC_PRE_TILE,
-                  TC_PRE_TILE * sizeof(float), &bar[s]);
-      }
-    } else {
-      tc_load_tile<B_KM, BN>(rawB + kt % RAW_B * B_FL, B, c.ldb, t % ntn * BN, c.N, kb, k1, b_vec);
-    }
+    tc_load_tile<B_KM, BN>(rawB + kt % RAW_B * B_FL, B, c.ldb, t % ntn * BN, c.N, kb, k1, b_vec);
   };
   auto split_b = [&](int kt) {
     float* s = split + (kt % 2) * 2 * SB;
@@ -437,11 +464,9 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
     const bool do_rsum = rsum != nullptr && n0 == 0;
     cp_async_wait<1>();
     __syncthreads();
-    if constexpr (!B_PRE) {
-      if (ktiles > 0) split_b(0);
-      fence_proxy_async();
-      __syncthreads();
-    }
+    if (ktiles > 0) split_b(0);
+    fence_proxy_async();
+    __syncthreads();
     if (ktiles > 2) load_stage(t, 2);
     cp_async_commit();
 
@@ -505,11 +530,6 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
       rs0 += t0, rs1 += t1;
       const float* bh = split + (kt % SPLIT) * 2 * SB;
       const float* bl = bh + SB;
-      if constexpr (B_PRE) {  // tile kt's bulk copy has landed
-        const int s = kt % TC_PRE_RING;
-        mbar_wait(&bar[s], (phase >> s) & 1u);
-        phase ^= 1u << s;
-      }
       reg_fence(fr);
       wg_fence();
 #pragma unroll
@@ -528,13 +548,11 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
         }
       }
       wg_commit();
-      if constexpr (!B_PRE) {
-        if (kt + 1 < ktiles) {  // split the next B tile while the tensor cores work
-          cp_async_wait<1>();
-          __syncthreads();
-          split_b(kt + 1);
-          fence_proxy_async();
-        }
+      if (kt + 1 < ktiles) {  // split the next B tile while the tensor cores work
+        cp_async_wait<1>();
+        __syncthreads();
+        split_b(kt + 1);
+        fence_proxy_async();
       }
       wg_wait0();
       reg_fence(fr);
@@ -545,9 +563,7 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
       if constexpr (PARTS) {
         if ((kt + 1) % TC_FLUSH == 0 && kt + 1 < ktiles) store(kt / TC_FLUSH);
       }
-      // B_PRE: A of tile kt + 1 lands here, one barrier for both
-      if constexpr (B_PRE) cp_async_wait<1>();
-      __syncthreads();  // A slot kt % 3 and split tile kt are free (and raw B slot (kt + 1) % 2)
+      __syncthreads();  // A slot kt % 3, split tile kt and raw B slot (kt + 1) % 2 are free
       if (kt + 3 < ktiles) load_stage(t, kt + 3);
       cp_async_commit();
     }
@@ -565,14 +581,13 @@ __global__ void __launch_bounds__(TC_THREADS, BN == 64 ? 2 : 1) tc_gemm_kernel(c
   cp_async_wait<0>();
 }
 
-template <bool AK, bool BNC, int EPI, int BN, bool B_PRE = false>
+template <bool AK, bool BNC, int EPI, int BN>
 int tc_launch(cudaStream_t st, const GemmCall& c, bool a_vec, bool b_vec) {
-  constexpr int floats = B_PRE ? TC_PRE_RING * TC_PRE_TILE + 3 * tc_tile_floats(AK, TC_BM) + 2 * TC_PRE_RING
-                               : 4 * BN * TC_BK + 3 * tc_tile_floats(AK, TC_BM) + 2 * tc_tile_floats(!BNC, BN);
+  constexpr int floats = 4 * BN * TC_BK + 3 * tc_tile_floats(AK, TC_BM) + 2 * tc_tile_floats(!BNC, BN);
   constexpr int smem = floats * (int)sizeof(float);
   // once per template instance: a host API call per launch would add to the
   // enqueue time that paces the train step
-  static const cudaError_t attr = cudaFuncSetAttribute(tc_gemm_kernel<AK, BNC, EPI, BN, B_PRE>,
+  static const cudaError_t attr = cudaFuncSetAttribute(tc_gemm_kernel<AK, BNC, EPI, BN>,
                                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   // persistent over the (m, n) tiles of each group and split: one wave
@@ -580,7 +595,281 @@ int tc_launch(cudaStream_t st, const GemmCall& c, bool a_vec, bool b_vec) {
   const int wave = TC_WAVE_BLOCKS * (BN == 64 ? 2 : 1);
   const int per = wave / zs > 1 ? wave / zs : 1;
   dim3 grid(tiles < per ? tiles : per, 1, zs);
-  tc_gemm_kernel<AK, BNC, EPI, BN, B_PRE><<<grid, TC_THREADS, smem, st>>>(c, a_vec, b_vec);
+  tc_gemm_kernel<AK, BNC, EPI, BN><<<grid, TC_THREADS, smem, st>>>(c, a_vec, b_vec);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The pre-split product (the design is at the top of this file, "The
+// pre-split product"): C[M, N] = epi(A B) for each group g = blockIdx.z, A
+// K-major (A(m, k) = A[m*lda + k]), B pre-split (presplit_kernel: fwd or dz
+// of the product's weight), one split. a_vec: how A's row pieces come (8:
+// a bulk copy a row; 2 or 1: cp.async of that many floats); c_vec:
+// 16-byte stores of C and reads of the gate (pointers 16-byte aligned, ldc
+// and ldg multiples of 4).
+
+// The waits and arrivals in tc_presplit_kernel's consumer loop: a branch
+// there (a spin loop, one lane's arrival) is a divergent path to ptxas,
+// which then serialises the loop's wgmmas (C7520), so the loop and the
+// lane's predicate live inside the asm.
+// until the phase of parity `parity` of `bar` has completed
+__device__ __forceinline__ void mbar_wait_spin(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nPP_WAIT:\nmbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@!p bra PP_WAIT;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one arrival on `bar` from the threads where `pred` holds
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+                   smem_u32(bar)),
+               "r"((int)pred)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread has issued so far has
+// landed (the arrival is one of the phase's expected count)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// until at most N of this warpgroup's wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes));
+}
+
+// The producer warpgroup's share of one stage's raw A tile: rows r0 ..
+// r0 + 127 below M, depth k0 .. k0 + 32, into s[r][k] (row stride
+// TC_K_STRIDE), zeros at k >= K (B's pre-split is zero there too, so the
+// k8 steps past K add exact zeros). Rows at or past M keep what they held:
+// their outputs are not stored. VEC floats a copy (2: 8 bytes, sixteen
+// threads a row; 1: 4 bytes, a warp a row).
+template <int VEC>
+__device__ __forceinline__ void pp_load_a(float* s, const float* __restrict__ A, int lda, int r0, int M, int k0, int K,
+                                          int pt) {
+  constexpr int PER_ROW = TC_BK / VEC;
+#pragma unroll 4  // the producer has 40 registers: four copies' addresses at a time
+  for (int i = 0; i < TC_BM * PER_ROW / 128; ++i) {
+    const int e = pt + i * 128, r = e / PER_ROW, k = e % PER_ROW * VEC;
+    if (r0 + r < M) {
+      const int n = min(VEC, max(0, K - (k0 + k)));
+      const float* src = n > 0 ? A + (long long)(r0 + r) * lda + (k0 + k) : A;
+      if (VEC == 2) cp_async8(s + r * TC_K_STRIDE + k, src, 4 * n);
+      else cp_async4(s + r * TC_K_STRIDE + k, src, 4 * n);
+    }
+  }
+}
+
+template <int EPI, int BN>
+__global__ void __launch_bounds__(PP_THREADS, 1) tc_presplit_kernel(const GemmCall c, int a_vec, int c_vec) {
+  constexpr int PP_RING = pp_ring(BN);
+  constexpr int B_FL = 2 * BN * TC_BK;  // floats of a stage's B: hi [BN rows], then lo
+  constexpr int NACC = BN / 2;          // accumulator floats a thread holds of its warpgroup's 64 x BN
+  constexpr int SUBS = BN / TC_PRE_BN;  // pre-split (n, k) tiles a stage's B takes
+  constexpr int CS = BN + 8;            // the output staging's row stride
+  extern __shared__ __align__(128) float tc_smem[];
+  float* sB = tc_smem;                        // [PP_RING][hi | lo]
+  float* sA = sB + PP_RING * B_FL;            // [PP_RING][TC_BM][TC_K_STRIDE]
+  float* sC = sA + PP_RING * PP_A_FL;         // [2][64][CS]: each consumer's rows of the tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(sC + 2 * pp_stage_c(BN));
+  uint64_t* empty = full + PP_RING;
+  const int g = blockIdx.z;
+  const int ntn = (c.N + BN - 1) / BN;
+  const int nsub = (c.N + TC_PRE_BN - 1) / TC_PRE_BN;  // the pre-split's n-tiles
+  const int tiles = (c.M + TC_BM - 1) / TC_BM * ntn;   // n fastest, as tc_gemm_kernel's
+  const int ktiles = (c.K + TC_BK - 1) / TC_BK;
+  // Stage p (counted over the block's tiles in order, k-tile fastest) is
+  // ring slot p % PP_RING in its fill p / PP_RING: `full` completes that
+  // fill's phase when the producer's 129 arrivals (each thread's once its
+  // cp.async copies have landed, thread 0's with the bytes its bulk copies
+  // bring) and those bytes are in, `empty` when the eight consumer warps
+  // have released it.
+  // Both consumers wait on every fill, so neither can wait on a phase more
+  // than one ahead of its barrier.
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PP_RING; ++s) mbar_init(&full[s], 128 + 1), mbar_init(&empty[s], 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the warpgroup, warp-uniform as ptxas can see (a role it cannot prove
+  // uniform is a divergent path, where it serialises the wgmmas)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (role == 0) {  // ---- the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const float* __restrict__ A = static_cast<const float*>(pick(c.A, g));
+    const float* __restrict__ B = static_cast<const float*>(pick(c.B, g));
+    int p = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int r0 = t / ntn * TC_BM, n64 = t % ntn * SUBS;
+      const int subs = min(SUBS, nsub - n64);  // the pre-split tiles that exist (zeros past N)
+      const int rows = min(TC_BM, c.M - r0);
+      for (int kt = 0; kt < ktiles; ++kt, ++p) {
+        const int s = p % PP_RING;
+        mbar_wait_spin(&empty[s], ((p / PP_RING) & 1) ^ 1);  // the fill before has been released
+        if (threadIdx.x == 0) {  // per pre-split tile: its hi rows, its lo rows
+          mbar_expect_tx(&full[s], subs * TC_PRE_TILE * sizeof(float) + (a_vec == 8 ? rows * TC_BK * 4 : 0));
+          for (int u = 0; u < subs; ++u) {
+            const float* src = B + ((long long)(n64 + u) * ktiles + kt) * TC_PRE_TILE;
+            float* dst = sB + s * B_FL + u * (TC_PRE_TILE / 2);
+            bulk_load(dst, src, TC_PRE_TILE / 2 * sizeof(float), &full[s]);
+            bulk_load(dst + BN * TC_BK, src + TC_PRE_TILE / 2, TC_PRE_TILE / 2 * sizeof(float), &full[s]);
+          }
+        }
+        float* sa = sA + s * PP_A_FL;
+        if (a_vec == 8) {  // whole k-tiles: each thread's row piece, 128 bytes, in one bulk copy
+          if ((int)threadIdx.x < rows)
+            bulk_load(sa + threadIdx.x * TC_K_STRIDE, A + (long long)(r0 + threadIdx.x) * c.lda + kt * TC_BK,
+                      TC_BK * 4, &full[s]);
+        } else if (a_vec == 2) pp_load_a<2>(sa, A, c.lda, r0, c.M, kt * TC_BK, c.K, threadIdx.x);
+        else pp_load_a<1>(sa, A, c.lda, r0, c.M, kt * TC_BK, c.K, threadIdx.x);
+        cp_async_mbar_arrive(&full[s]);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {  // ---- the consumer warpgroups: rows [64 h, 64 h + 64) of every tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int h = role - 1;
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, gq = lane >> 2, tq = lane & 3;
+    const int mr = h * 64 + w * 16 + gq;  // this thread's rows in the block tile: mr, mr + 8
+    float* __restrict__ C = static_cast<float*>(pick(c.C, g));
+    const float* __restrict__ bias = pick(c.bias, g);
+    const float* __restrict__ gate = static_cast<const float*>(pick(c.gate, g));
+    int p = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / ntn * TC_BM, n0 = t % ntn * BN;
+      float acc[NACC], fr[NACC];
+      uint32_t ah[TC_BK / 8][4], al[TC_BK / 8][4];
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] = 0.0f, fr[i] = 0.0f;
+      for (int kt = 0; kt < ktiles; ++kt, ++p) {
+        const int s = p % PP_RING;
+        mbar_wait_spin(&full[s], (p / PP_RING) & 1);
+        const float* a = sA + s * PP_A_FL + mr * TC_K_STRIDE + tq;
+        const float* bh = sB + s * B_FL;
+        const float* bl = bh + BN * TC_BK;
+#pragma unroll
+        for (int q = 0; q < TC_BK / 8; ++q) {
+          split_tf32(a[q * 8], ah[q][0], al[q][0]);
+          split_tf32(a[q * 8 + 8 * TC_K_STRIDE], ah[q][1], al[q][1]);
+          split_tf32(a[q * 8 + 4], ah[q][2], al[q][2]);
+          split_tf32(a[q * 8 + 8 * TC_K_STRIDE + 4], ah[q][3], al[q][3]);
+        }
+        reg_fence(fr);
+        wg_fence();
+        // every k8 step, past K too (A and B zero there: each product adds
+        // an exact +0, which leaves the sum's bits as they are)
+#pragma unroll
+        for (int q = 0; q < TC_BK / 8; ++q) {
+          const int o = 64 * q;  // two 4-k chunks per k8 step
+          if constexpr (BN == 128) {
+            wgmma_m64n128k8(fr, al[q], wg_desc(bh + o), q);
+            wgmma_m64n128k8(fr, ah[q], wg_desc(bl + o), 1);
+            wgmma_m64n128k8(fr, ah[q], wg_desc(bh + o), 1);
+          } else {
+            wgmma_m64n64k8(fr, al[q], wg_desc(bh + o), q);
+            wgmma_m64n64k8(fr, ah[q], wg_desc(bl + o), 1);
+            wgmma_m64n64k8(fr, ah[q], wg_desc(bh + o), 1);
+          }
+        }
+        wg_commit();
+        wg_wait<0>();
+        mbar_arrive_if(&empty[s], lane == 0);  // stage p's A and B are read
+        reg_fence(fr);
+#pragma unroll
+        for (int q = 0; q < TC_BK / 8; ++q) keep_alive(ah[q]), keep_alive(al[q]);
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[i] += fr[i];
+      }
+
+      // the epilogue, while the producer fills the next tile's first
+      // stages: the fragments into this consumer's staging rows (thread
+      // (w, gq, tq) holds rows w 16 + gq + 8 hh, columns 8 jn + 2 tq + e in
+      // acc[4 jn + 2 hh + e]), then each warp takes 16 whole rows with
+      // 16-byte reads, gate reads and stores, BN / 4 lanes a row. The gate
+      // and bias reads go first, in flight across the staging.
+      constexpr int LPR = BN / 4, RPI = 32 / LPR;  // lanes a row, rows an iteration
+      const int n = n0 + (lane % LPR) * 4;
+      float bv[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // this lane's columns' bias, the same for every row
+      if constexpr (EPI == EPI_BIAS_RELU) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bv[e] = n + e < c.N ? bias[n + e] : 0.0f;
+      }
+      constexpr int ROWS = 16 / RPI;  // iterations over this warp's 16 rows
+      // the gate's rows first, every read in flight before the first use
+      float gx[ROWS][4];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gx[i][e] = 0.0f;
+        if constexpr (EPI == EPI_GATE) {
+          const int m = m0 + h * 64 + w * 16 + i * RPI + lane / LPR;
+          const float* grow = gate + (long long)m * c.ldg + n;
+          if (m < c.M && c_vec && n + 3 < c.N) {
+            const float4 gv = *reinterpret_cast<const float4*>(grow);
+            gx[i][0] = gv.x, gx[i][1] = gv.y, gx[i][2] = gv.z, gx[i][3] = gv.w;
+          } else if (m < c.M) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) gx[i][e] = n + e < c.N ? grow[e] : 0.0f;
+          }
+        }
+      }
+      float* stg = sC + h * pp_stage_c(BN);
+      const int bar = 1 + h;  // named barrier of this warpgroup's 128 threads
+      asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");  // the last tile's rows are out
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int jn = 0; jn < BN / 8; ++jn) {
+          *reinterpret_cast<float2*>(stg + (w * 16 + gq + hh * 8) * CS + jn * 8 + tq * 2) =
+              make_float2(acc[4 * jn + 2 * hh], acc[4 * jn + 2 * hh + 1]);
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        const int r = w * 16 + i * RPI + lane / LPR;
+        const int m = m0 + h * 64 + r;
+        if (m >= c.M) continue;
+        const float4 v = *reinterpret_cast<const float4*>(stg + r * CS + (lane % LPR) * 4);
+        float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (EPI == EPI_BIAS_RELU) x[e] = fmaxf(x[e] + bv[e], 0.0f);
+          if (EPI == EPI_GATE) x[e] = gx[i][e] > 0.0f ? x[e] : 0.0f;
+        }
+        float* crow = C + (long long)m * c.ldc + n;
+        if (c_vec && n + 3 < c.N) {
+          *reinterpret_cast<float4*>(crow) = make_float4(x[0], x[1], x[2], x[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (n + e < c.N) crow[e] = x[e];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int EPI, int BN>
+int tc_presplit_launch(cudaStream_t st, const GemmCall& c, int a_vec, bool c_vec) {
+  constexpr int smem = pp_smem_bytes(BN);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(tc_presplit_kernel<EPI, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  // one block per SM, persistent over the (m, n) tiles of its group
+  const int tiles = cdiv(c.M, TC_BM) * cdiv(c.N, BN);
+  const int per = TC_WAVE_BLOCKS / c.groups > 1 ? TC_WAVE_BLOCKS / c.groups : 1;
+  dim3 grid(tiles < per ? tiles : per, 1, c.groups);
+  tc_presplit_kernel<EPI, BN><<<grid, PP_THREADS, smem, st>>>(c, a_vec, c_vec);
   return (int)cudaGetLastError();
 }
 
@@ -650,16 +939,24 @@ struct TcEngine : EngineShape<TC_BK, TC_FLUSH> {
     return (int)cudaGetLastError();
   }
   // run<true, *, EPI> with every group's B pre-split (presplit's fwd or dz
-  // for this product); ldb unused
+  // for this product; ldb unused), on tc_presplit_kernel; one split
   template <int EPI>
   static int run_presplit(cudaStream_t st, const GemmCall& c) {
-    if (!valid_call(c, true, EPI)) return (int)cudaErrorInvalidValue;
-    bool a_vec = c.lda % 4 == 0;
+    if (!valid_call(c, true, EPI) || c.splits != 1) return (int)cudaErrorInvalidValue;
+    // how A's row pieces come: 8, one bulk copy a row (whole k-tiles, every
+    // row 16-byte aligned); else cp.async of 2 floats (rows 8-byte aligned)
+    // or 1
+    int a_vec = c.K % TC_BK == 0 && c.lda % 4 == 0 ? 8 : c.lda % 2 == 0 ? 2 : 1;
+    bool c_vec = c.ldc % 4 == 0 && (EPI != EPI_GATE || c.ldg % 4 == 0);
     for (int g = 0; g < c.groups; ++g) {
-      a_vec = a_vec && (uintptr_t)c.A[g] % 16 == 0;
+      if (a_vec == 8 && (uintptr_t)c.A[g] % 16) a_vec = 2;
+      if (a_vec == 2 && (uintptr_t)c.A[g] % 8) a_vec = 1;
+      c_vec = c_vec && (uintptr_t)c.C[g] % 16 == 0 && (EPI != EPI_GATE || (uintptr_t)c.gate[g] % 16 == 0);
       if ((uintptr_t)c.B[g] % 16 != 0 || c.rsum[g]) return (int)cudaErrorInvalidValue;  // bulk copies: 16 B
     }
-    return tc_launch<true, false, EPI, TC_PRE_BN, true>(st, c, a_vec, false);
+    // the block tile's width: 128 (m64n128k8), or 64 for a narrow product
+    return c.N > TC_PRE_BN ? tc_presplit_launch<EPI, 128>(st, c, a_vec, c_vec)
+                           : tc_presplit_launch<EPI, TC_PRE_BN>(st, c, a_vec, c_vec);
   }
 };
 

@@ -69,7 +69,7 @@ def run_root(root: str) -> dict:
     cfg, data, net, (grid_b, H, coords, cw, targets, masks, g, inv_sum3) = cs.canonical_inputs(device)
     _, (layers, X, s0map, sq_b, esq_b, base, cnt, abk) = cs.mask_inputs(cfg, data, device)
     stacks, Xn, sq, esq, abk6, c = cs.heads_inputs(cfg, data, device, cfg.batch_size)
-    g2C = 2.0 * (1.0 + (1.0 - 0.23))  # as chip_smoke.py's K5 inputs
+    g2C = torch.tensor(2.0 * (1.0 + (1.0 - 0.23)), device=device)  # as chip_smoke.py's K5 inputs, on the device
     inputs = _sha256([list(net.parameters()), grid_b, H, coords, cw, targets, masks, g, inv_sum3, layers, X, s0map,
                       sq_b, esq_b, base, cnt, abk, stacks, Xn, sq, esq, abk6])
     print(f"[ab] {root}: inputs sha256 {inputs}", flush=True)

@@ -8,6 +8,13 @@ CUDA graph runs no wrapper when it is replayed: engine/step.py's captured
 chunk puts the counts back after the capture, and adds each graph's
 recorded launches at each replay.
 
+`presplit_products(k, dims)` is how many products with a pre-split B (the
+3xTF32 engine's warp-specialised kernel, TcEngine::run_presplit) one float32
+call of kernel `k` enqueues; each float32 wrapper K1-K5 adds that to the
+tracer's counter `presplit_products` where it launches its kernel, as it
+adds to `LAUNCHES` (so a captured step counts at its capture, not at its
+replays).
+
 `KERNELS` gives each train-step kernel's id K1-K6 its wrapper (module and
 name; the bf16 entry points share their float32 twin's id). `kernel(k)` is
 that wrapper, as its module holds it when the step is made, called inside
@@ -20,6 +27,8 @@ one, which the profiler credits with the kernel's device operations.
 import importlib
 
 import torch
+
+from marf_tpu_torch.utils import trace
 
 LAUNCHES = {
     "fused_train_kernel_warp": 0,  # K1, fused_step.py
@@ -49,6 +58,26 @@ KERNELS = {
     "K5": ("fused_implicit", "fused_implicit_train_kernel"),
     "K6": ("fused_mask", "fused_mask_backward_g"),
 }
+
+
+def presplit_products(k: str, dims) -> int:
+    """The pre-split products one float32 call of kernel `k` enqueues, from
+    the widths `dims` (input, hidden..., output) of the network whose hidden
+    weights it pre-splits: the rgb MLP for K1, K2 and K5 (a forward and a dz
+    product per hidden layer, the first layer's dz writing d(encoding)); the
+    mask head for K3 (its hidden layers after the first) and K4 (those again
+    in its recompute, and their ReLU-gated dz products). K6, and K5's mask
+    head, stream every B."""
+    layers = len(dims) - 1
+    per = {"K1": 2 * (layers - 1), "K2": 2 * (layers - 1), "K5": 2 * (layers - 1), "K3": layers - 2,
+           "K4": 2 * (layers - 2), "K6": 0}
+    return max(0, per[k])
+
+
+def count_presplit(k: str, dims) -> None:
+    """Add a float32 launch of kernel `k`'s pre-split products to the
+    tracer's counter `presplit_products`."""
+    trace.count("presplit_products", presplit_products(k, dims))
 
 
 def kernel(k: str):

@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from marf_tpu_torch.models.neural_image import NeuralImage
-from marf_tpu_torch.ops.cuda import LAUNCHES
+from marf_tpu_torch.ops.cuda import LAUNCHES, count_presplit
 from marf_tpu_torch.ops.cuda.fused_mask import checked_stacks, fused_mask_forward_reference
 from marf_tpu_torch.ops.cuda.fused_step import (
     bind_bf16,
@@ -88,7 +88,7 @@ def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw
         raise ValueError(f"{fn}: unsupported device {coords.device}")
     device = coords.device
     N = coords.shape[1]
-    L, _, c_dims, weights, biases, cw = rgb_net_args(fn, net, cw, device)
+    L, dims, c_dims, weights, biases, cw = rgb_net_args(fn, net, cw, device)
     _, mdims, c_mdims = checked_stacks(fn, stacks, x_cf)
     check_tensor(fn, "x_cf", x_cf, (mdims[0], N), device)  # as many columns as coords
     check_tensor(fn, "coords", coords, (2, N), device)
@@ -121,6 +121,8 @@ def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw
     if rc != 0:
         raise RuntimeError(f"{fn} ({cdt}) kernel launch failed: CUDA error {rc}")
     LAUNCHES[fn + sfx] += 1
+    if not sfx:
+        count_presplit("K5", dims)
     return rgb, m, sq, dcoords, msum, loss, list(zip(dws, dbs))
 
 

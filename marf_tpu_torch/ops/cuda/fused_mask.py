@@ -52,7 +52,7 @@ import ctypes
 import numpy as np
 import torch
 
-from marf_tpu_torch.ops.cuda import LAUNCHES
+from marf_tpu_torch.ops.cuda import LAUNCHES, count_presplit
 from marf_tpu_torch.ops.cuda.fused_step import bf16_round, bind_bf16, check_compute_dtype, check_tensor, ptr_array
 from marf_tpu_torch.ops.posenc import hanerf_pos_embedding
 
@@ -286,6 +286,8 @@ def fused_mask_forward(layers: list, x_cf: torch.Tensor, compute_dtype: str = "f
     if rc != 0:
         raise RuntimeError(f"{fn} ({compute_dtype}) kernel launch failed: CUDA error {rc}")
     LAUNCHES[fn + sfx] += 1
+    if not sfx:
+        count_presplit("K3", dims)
     return m
 
 
@@ -338,6 +340,8 @@ def fused_mask_backward_dedup(layers: list, x_cf, s0map, sq_b, esq_b, base, cnt,
     if rc != 0:
         raise RuntimeError(f"{fn} ({compute_dtype}) kernel launch failed: CUDA error {rc}")
     LAUNCHES[fn + sfx] += 1
+    if not sfx:
+        count_presplit("K4", dims)
     return list(zip(dws, dbs))
 
 

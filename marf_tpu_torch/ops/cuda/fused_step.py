@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from marf_tpu_torch.models.neural_image import COMPUTE_DTYPES, NeuralImage, encode_coords_cf
-from marf_tpu_torch.ops.cuda import LAUNCHES
+from marf_tpu_torch.ops.cuda import LAUNCHES, count_presplit
 
 # images per K1 call: the kernel keeps one dH accumulator per image in
 # registers (MAX_IMAGES in csrc/fused_step.cu, which rejects a larger B)
@@ -215,6 +215,8 @@ def _launch(net, coords, grid_b, H, cw, targets, masks, scal, compute_dtype):
     if rc != 0:
         raise RuntimeError(f"{fn} ({compute_dtype}) kernel launch failed: CUDA error {rc}")
     LAUNCHES[fn + sfx] += 1
+    if not sfx:
+        count_presplit("K2" if coords is not None else "K1", dims)
     return rgb, loss, list(zip(dws, dbs)), dout, sq
 
 

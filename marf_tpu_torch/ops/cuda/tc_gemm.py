@@ -60,6 +60,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_tc_presplit_floats.restype = ctypes.c_longlong
     lib.marf_tc_presplit.argtypes = [p, i, i, p, p, p]
     lib.marf_tc_presplit.restype = ctypes.c_int
+    ll = ctypes.c_longlong
+    lib.marf_tc_gemm_presplit_groups.argtypes = [i, i, i, i, i, p, i, ll, p, ll, p, i, ll, p, p, i, ll, p]
+    lib.marf_tc_gemm_presplit_groups.restype = ctypes.c_int
     lib.marf_tb_gemm_workspace.argtypes = [i, i, i, i, i]
     lib.marf_tb_gemm_workspace.restype = ctypes.c_longlong
     lib.marf_tb_gemm.argtypes = [i, i, i, i, i, i, i, p, i, p, i, p, i, p, p, i, i, p, p, p]
@@ -164,6 +167,49 @@ def tc_gemm(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, sp
         raise RuntimeError(f"tc_gemm kernel launch failed: CUDA error {rc}")
     LAUNCHES["tc_gemm_bf16" if bf16 else "tc_gemm"] += 1
     return (c, rs) if rowsum else c
+
+
+def tc_gemm_groups(a, w, layout: str, epilogue: str = "store", bias=None, gate=None):
+    """`tc_gemm` with a pre-split B over G operand sets in one launch (the
+    mask heads' grouped form of the forward and dz products): a [G, M, K],
+    w [G, rows, cols] (each group's weight, pre-split by `presplit`), bias
+    [G, N], gate [G, M, N], all contiguous float32; layout "mk,nk" (the
+    forward, B(k, n) = w[g, n, k]) or "mk,kn" (the dz product). Returns C
+    [G, M, N]. CPU tensors run `tc_gemm_reference` per group."""
+    if a.device.type == "cpu":
+        return torch.stack([tc_gemm_reference(a[g], w[g], layout, epilogue, None if bias is None else bias[g],
+                                              None if gate is None else gate[g]) for g in range(a.shape[0])])
+    if a.device.type != "cuda":
+        raise ValueError(f"tc_gemm_groups: unsupported device {a.device}")
+    if layout not in ("mk,nk", "mk,kn") or a.dim() != 3 or w.dim() != 3 or a.shape[0] != w.shape[0]:
+        raise ValueError(f"tc_gemm_groups: layout 'mk,nk' or 'mk,kn', A [G, M, K], W [G, rows, cols] "
+                         f"(got {layout}, {tuple(a.shape)}, {tuple(w.shape)})")
+    G, M = a.shape[:2]
+    _, _, _, N, K = _dims(a[0], w[0], layout)
+    device = a.device
+    for name, t in (("a", a), ("w", w)):
+        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"tc_gemm_groups: {name} must be a contiguous float32 tensor on {device}")
+    if (epilogue not in EPILOGUES or (epilogue == "bias_relu") != (bias is not None)
+            or (epilogue == "gate") != (gate is not None)):
+        raise ValueError(f"tc_gemm_groups: epilogue {epilogue!r} with bias={bias is not None}, "
+                         f"gate={gate is not None}")
+    if bias is not None:
+        check_tensor("tc_gemm_groups", "bias", bias, (G, N), device)
+    if gate is not None:
+        check_tensor("tc_gemm_groups", "gate", gate, (G, M, N), device)
+    lib = _library()
+    b = torch.stack([presplit(w[g])[0 if layout == "mk,nk" else 1] for g in range(G)])
+    c = torch.empty((G, M, N), dtype=torch.float32, device=device)
+    rc = lib.marf_tc_gemm_presplit_groups(
+        EPILOGUES[epilogue], G, M, N, K, a.data_ptr(), K, M * K, b.data_ptr(), b.shape[1], c.data_ptr(), N, M * N,
+        None if bias is None else bias.data_ptr(), None if gate is None else gate.data_ptr(), N, M * N,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"tc_gemm_groups kernel launch failed: CUDA error {rc}")
+    LAUNCHES["tc_gemm"] += 1
+    return c
 
 
 def tc_gemm_reference(a, b, layout: str, epilogue: str = "store", bias=None, gate=None, splits: int = 1,

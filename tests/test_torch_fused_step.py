@@ -506,6 +506,6 @@ def test_bf16_mask_plan_of_one_head_is_k3s_on_card(rng, cuda_device, HW):
     stack = fm.mask_w_stack(ImplicitMask(torch.Generator().manual_seed(0)).to(cuda_device), d(rng.randn(8, 384)))
     m3 = fm.fused_mask_forward(stack, d(X), "bfloat16")
     m5 = fi.fused_implicit_train_kernel(g.neural_image, [stack], d(rng.rand(2, K) * 2.2 - 1.1), d(X), None,
-                                        d(rng.rand(3, K)), 1.7)[1]
+                                        d(rng.rand(3, K)), torch.tensor(1.7, device=cuda_device))[1]
     torch.cuda.synchronize()
     assert torch.equal(m3, m5)

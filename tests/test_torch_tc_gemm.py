@@ -27,9 +27,10 @@ for every operand layout and epilogue, at ragged sizes and depths, with
 split-K and the folded row sums, from misaligned views (4-byte copies), and
 at K6's real dW split (within twice the plain version's distance from
 float64); the pre-split kernel bitwise equal to its plain version; the
-forward and dz products with B pre-split (bulk copies) against the plain
-version and float64, and bitwise equal to the same products with B split in
-shared memory.
+forward and dz products with B pre-split (the warp-specialised kernel) at
+the main path's sizes, one group or two, against the plain version and
+float64, and bitwise equal to a relaunch and to the same products with B
+split in shared memory.
 """
 
 import numpy as np
@@ -462,19 +463,59 @@ def test_presplit_matches_plain_on_card(rng, cuda_device, rows, cols):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2], ids=["groups1", "groups2"])
+@pytest.mark.parametrize("M", [1537, 44573, 216000], ids=["M1537", "M44573", "M216000"])
 @pytest.mark.parametrize("rows,cols", PRESPLIT_SHAPES, ids=["34to256", "256to256"])
 @pytest.mark.parametrize("layout,epilogue", [("mk,nk", "bias_relu"), ("mk,kn", "gate"), ("mk,kn", "store")],
                          ids=["forward", "dz_gated", "dz_store"])
-def test_tc_gemm_presplit_on_card(rng, cuda_device, rows, cols, layout, epilogue):
+def test_tc_gemm_presplit_on_card(rng, cuda_device, rows, cols, layout, epilogue, M, groups):
     """The rgb pipeline's forward and dz products with the weight W [rows,
-    cols] pre-split and streamed by bulk copies (M = 1,537 points, a
-    multiple of no tile): within 1e-5 of the plain version, within twice its
-    error of float64, and bitwise equal to the same product with B split in
-    shared memory."""
-    M = 1537
+    cols] pre-split and streamed by bulk copies, on the warp-specialised
+    kernel: at M = 1,537 points (fewer tiles than blocks), the shared head's
+    ragged dedup column count 44,573 and the main path's 216,000 (every
+    block walks many tiles, both consumers, the ring's phases wrapping), N
+    and K of 256 and 34, one group or two in one launch: within 1e-5 of the
+    plain version, within twice its error of float64, bitwise equal to a
+    relaunch and to the same product with B split in shared memory."""
+    w = torch.from_numpy(rng.randn(groups, rows, cols).astype(np.float32)).to(cuda_device)
+    N, K = (rows, cols) if layout == "mk,nk" else (cols, rows)
+    a = torch.from_numpy(rng.randn(groups, M, K).astype(np.float32)).to(cuda_device)
+    kw = {}
+    if epilogue == "bias_relu":
+        kw["bias"] = torch.from_numpy(rng.randn(groups, N).astype(np.float32)).to(cuda_device)
+    if epilogue == "gate":
+        kw["gate"] = torch.from_numpy(rng.randn(groups, M, N).astype(np.float32)).to(cuda_device)
+    if groups == 1:
+        one = {k: v[0] for k, v in kw.items()}
+        run = lambda: tg.tc_gemm(a[0], w[0], layout, epilogue, presplit_b=True, **one)[None]
+    else:
+        run = lambda: tg.tc_gemm_groups(a, w, layout, epilogue, **kw)
+    out, out2 = run(), run()
+    for g in range(groups):
+        one = {k: v[g] for k, v in kw.items()}
+        streamed = tg.tc_gemm(a[g], w[g], layout, epilogue, **one)
+        ref = tg.tc_gemm_reference(a[g], w[g], layout, epilogue, **one)
+        ref64 = tg.tc_gemm_reference(a[g].double(), w[g].double(), layout, epilogue,
+                                     **{k: v.double() for k, v in one.items()}).cpu().numpy()
+        torch.cuda.synchronize()
+        _check(out[g], ref, ref64)
+        assert torch.equal(out[g], streamed)
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,epilogue", [("mk,nk", "bias_relu"), ("mk,kn", "gate"), ("mk,kn", "store")],
+                         ids=["forward", "dz_gated", "dz_store"])
+def test_tc_gemm_presplit_misaligned_on_card(rng, cuda_device, layout, epilogue):
+    """The pre-split kernel's 4-byte copies of A: a view one float into
+    wider rows (odd row stride, pointer off 16 bytes), ragged K (zeros past
+    it) and N (a 128-wide tile over one pre-split tile and part of another):
+    within 1e-5 of the plain version, within twice its error of float64,
+    bitwise equal to the same product with B split in shared memory."""
+    M, rows, cols = 1537, 130, 77
     w = torch.from_numpy(rng.randn(rows, cols).astype(np.float32)).to(cuda_device)
     N, K = (rows, cols) if layout == "mk,nk" else (cols, rows)
-    a = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(cuda_device)
+    a = _operands(rng, "mk,nk", M, N, K, cuda_device, offset=1)[0]
     kw = {}
     if epilogue == "bias_relu":
         kw["bias"] = torch.from_numpy(rng.randn(N).astype(np.float32)).to(cuda_device)

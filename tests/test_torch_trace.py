@@ -12,7 +12,9 @@ keeps its meaning; under torch.profiler the training thread's spans are
 `marf.*` ranges with the same nesting (the writer thread runs with the
 profiler off: its spans are records only); a tiny shared-head dedup Model
 records its staging as one `setup.dedup` inside `setup.make_step` and
-counts its K, E and extra pairs.
+counts its K, E and extra pairs; the pre-split products that a float32
+call of K1-K5 enqueues, at the three benchmark configurations' widths,
+against a hand count, and their counter `presplit_products` in the summary.
 Card (`cuda`): in an eager chunk each `marf.K<i>` range holds its kernel's
 device operations; a replayed graph opens none and counts its launches.
 This file imports no JAX, so it runs on the card's machine as it is:
@@ -126,6 +128,43 @@ def test_a_counter_new_since_the_snapshot_shows_at_zero():
     t.count("frames", 0)
     t.count("dedup_extras", 0)
     assert t.summary(base) == ["counters: dedup_extras 0"]
+
+
+# the pre-split products a float32 step's kernels enqueue, counted by hand at
+# planar.yaml's widths (rgb 34 -> 256 x4 -> 3, the Ha-NeRF mask head 426 ->
+# 256 x4 -> 1): K1, K2 and K5 a forward and a dz product per hidden rgb layer
+# (4 + 4); K3 the mask head's hidden layers after its first (3), K4 those in
+# its recompute and their gated dz products (3 + 3); K6 none
+PRESPLIT_BY_HAND = {
+    "fixed_masks": {"K1": 8},
+    "implicit_heads": {"K5": 8, "K6": 0},
+    "implicit_shared": {"K3": 3, "K1": 8, "K4": 6},
+}
+
+
+@pytest.mark.parametrize("config", sorted(PRESPLIT_BY_HAND))
+def test_presplit_products_at_the_configurations_widths(config):
+    from marf_tpu_torch.models.implicit_mask import ImplicitMask
+    from marf_tpu_torch.models.neural_image import NeuralImageConfig
+    from marf_tpu_torch.ops.cuda import count_presplit, presplit_products
+
+    opt = load_options(resolve_yaml_path("planar"))
+    arch = NeuralImageConfig(layers=tuple(opt.arch.layers), posenc_L=opt.arch.posenc.L_2D)
+    head = ImplicitMask()
+    widths = {"rgb": [arch.input_dim] + [k_out for _, k_out in arch.layer_dims],
+              "mask": [head.layers[0].in_features] + [layer.out_features for layer in head.layers]}
+    assert widths == {"rgb": [34, 256, 256, 256, 256, 3], "mask": [426, 256, 256, 256, 256, 1]}
+    net = {"K1": "rgb", "K2": "rgb", "K5": "rgb", "K3": "mask", "K4": "mask", "K6": "mask"}
+    got = {k: presplit_products(k, widths[net[k]]) for k in PRESPLIT_BY_HAND[config]}
+    assert got == PRESPLIT_BY_HAND[config]
+    assert presplit_products("K2", widths["rgb"]) == 8
+
+    base = trace.snapshot()
+    for k in PRESPLIT_BY_HAND[config]:
+        count_presplit(k, widths[net[k]])
+    step = sum(PRESPLIT_BY_HAND[config].values())
+    assert trace.COUNTERS["presplit_products"] - base[1].get("presplit_products", 0) == step
+    assert f"presplit_products {step}" in trace.summary(base)[-1]
 
 
 # ----------------------------------------------------------------- the trainer
@@ -315,7 +354,7 @@ def cuda_device():
 
 
 # the hand-written kernels' device functions (csrc/*.cu, *.cuh)
-OWN_KERNEL = re.compile(r"\b(tc_gemm|tb_gemm|head|encode|encode_bwd|coords_bwd|mask_head_fwd|mask_head_bwd|presplit|"
+OWN_KERNEL = re.compile(r"\b(tc_gemm|tc_presplit|tb_gemm|head|encode|encode_bwd|coords_bwd|mask_head_fwd|mask_head_bwd|presplit|"
                         r"presplit_bf16|cast_bf16|colsum|reduce|reduce_group|reduce_tree_group)_kernel\b")
 
 
