@@ -3,7 +3,7 @@
 // tc_gemm.cuh:
 //   - GemmCall: one product shape over up to MAX_GROUP operand sets (one per
 //     mask head), the argument of the engine's `run`;
-//   - colsum_kernel, reduce_kernel, reduce_group_kernel and
+//   - colsum_kernel, reduce_group_kernel and
 //     reduce_tree_group_kernel: the stages of every reduction over points.
 //     Partials go to a workspace and are summed in a fixed order (in
 //     sequence, or pairwise for the engine's many dW partials), so there
@@ -47,16 +47,6 @@ __global__ void colsum_kernel(int Np, int ncol, int chunk, const float* __restri
   part[(long long)blockIdx.x * ncol + col] = s;
 }
 
-// out[i] = sum_{z < S} part[z*stride + i], in fixed order of z.
-__global__ void reduce_kernel(int S, int count, long long stride, const float* __restrict__ part,
-                              float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.0f;
-  for (int z = 0; z < S; ++z) s += part[(long long)z * stride + i];
-  out[i] = s;
-}
-
 // One pointer per group (mask head), passed by value.
 struct GroupPtrs {
   float* p[MAX_GROUP];
@@ -82,8 +72,8 @@ __device__ __forceinline__ auto pick(const Ptrs& t, int h) -> decltype(+t.p[0]) 
   return pick(t.p, h);
 }
 
-// reduce_kernel per group g = blockIdx.y: out.p[g][i] = sum_z part[g*gstride + z*stride + i]
-// (the same fixed order, so one group gives reduce_kernel's bits).
+// Per group g = blockIdx.y: out.p[g][i] = sum_{z < S} part[g*gstride + z*stride + i], in fixed
+// order of z.
 __global__ void reduce_group_kernel(int S, int count, long long stride, const float* __restrict__ part,
                                     long long gstride, GroupPtrs out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -202,11 +192,7 @@ inline GemmCall gemm_call(int M, int N, int K, const void* A, int lda, const voi
   return c;
 }
 
-void reduce(cudaStream_t st, int S, int count, long long stride, const float* part, float* out) {
-  reduce_kernel<<<cdiv(count, ELEM_THREADS), ELEM_THREADS, 0, st>>>(S, count, stride, part, out);
-}
-
-// reduce() for `groups` partial blocks gstride apart, into out.p[g]
+// `groups` blocks of S partials gstride apart, each summed into out.p[g]
 void reduce_group(cudaStream_t st, int groups, int S, int count, long long stride, const float* part,
                   long long gstride, const GroupPtrs& out) {
   reduce_group_kernel<<<dim3(cdiv(count, ELEM_THREADS), groups), ELEM_THREADS, 0, st>>>(S, count, stride, part,
@@ -218,6 +204,11 @@ inline GroupPtrs one_ptr(float* p) {
   GroupPtrs g{};
   g.p[0] = p;
   return g;
+}
+
+// out[i] = sum_{z < S} part[z*stride + i], in fixed order of z: reduce_group at one group
+void reduce(cudaStream_t st, int S, int count, long long stride, const float* part, float* out) {
+  reduce_group(st, 1, S, count, stride, part, 0, one_ptr(out));
 }
 
 // the column sums of D [Np, ncol] (K5's sum of m), in two fixed-order stages

@@ -1,52 +1,37 @@
 """The train step and its chunks (twin of marf_tpu/engine/step.py).
 
-Four gradient paths; the fused ones compute the autograd path's update:
-  - the autograd step (`graph_forward` + `graph_loss` + backward);
-  - the fused fixed-mask step: one call of the rgb kernel
-    (ops/cuda/fused_step.py) returns the MLP gradients and dH (K1, warp in
-    the kernel) or dcoords (K2, under fused_warp=off or more than 8 images);
-    autograd pulls them back to the warp through the expm (K1) or the warp
-    (K2) only. No autograd runs through the MLP;
-  - the fused shared-head implicit-mask step on deduplicated mask columns
-    (marf_tpu `_fused_implicit_dedup_grads`): K3 (mask forward) -> the rgb
-    kernel masked by the predicted m -> the gradient-blocked edge term -> K4
-    (mask backward, ops/cuda/fused_mask.py), with the cotangent
+`make_train_step` decides the gradient path once (`_decide_path`) and builds
+it with its builder (`_BUILDERS`), which stages that path's constants; the
+fused paths compute the autograd path's update:
+  - `_autograd_grads`: `graph_forward` + `graph_loss` + backward; on a mesh,
+    `_partitioned_grads` (marf_tpu's GSPMD step) on a rank's block;
+  - `_fixed_grads`, fixed masks: one call of the rgb kernel (`_rgb_leg`,
+    ops/cuda/fused_step.py) returns the MLP gradients and dH (K1, warp in the
+    kernel) or dcoords (K2: fused_warp=off, more than 8 images), which
+    autograd pulls back to the warp through the expm or the warp only;
+  - `_dedup_grads`, the shared mask head on dedup columns (marf_tpu
+    `_fused_implicit_dedup_grads`): K3 (mask forward) -> the rgb kernel
+    masked by the predicted m -> the gradient-blocked edge term -> K4 (mask
+    backward, ops/cuda/fused_mask.py), with the cotangent
     dL/dm = (a sq + b esq + c) m + k from `mask_cot_scalars`;
-  - the fused implicit-mask step without dedup, for per-image heads and for
-    the shared head under fused_dedup=off (marf_tpu `_fused_implicit_grads`):
-    K5 (mask forward + the rgb step with the unnormalized cotangent,
-    ops/cuda/fused_implicit.py) -> the 1 / (3 sum m) scaling -> the edge term
-    -> K6 (head-blocked mask backward, the same cotangent per column).
-The fused paths run their kernels at `arch.compute_dtype` (tpu.compute_dtype):
-float32 or bfloat16, K1-K6 each through the entry point of that dtype. Then
-the optimizer (optim.algo) with per-group learning rates (MLP at optim.lr, warp at
-optim.lr_warp, mask head at optim.lr_mask; reference model/planar.py:86-104),
-Homography_Error from the post-update warp, Mask_Error of the pre-update mask
-(implicit masks with premade masks), and the fix_first re-zero of warp 0
-(reference model/planar.py:156-158), in that order.
+  - `_heads_grads`, per-image heads or the shared head at fused_dedup=off
+    (marf_tpu `_fused_implicit_grads`): K5 (mask forward + the rgb step with
+    the unnormalized cotangent, ops/cuda/fused_implicit.py) -> the
+    1 / (3 sum m) scaling -> the edge term -> K6 (head-blocked mask backward).
+K1-K6 run at `arch.compute_dtype` (float32 or bfloat16). Then the optimizer
+(optim.algo, per-group learning rates; reference model/planar.py:86-104),
+Homography_Error from the post-update warp, Mask_Error of the pre-update
+mask, and the fix_first re-zero of warp 0 (reference model/planar.py:156-158).
 
-Given a `Mesh` (marf_tpu_torch/parallel/), `make_train_step` builds one
-rank of the pixel-sharded step instead: the same kernels on the rank's block
-of the pixel axis, with the sums over that axis taken over the ranks, or,
-off the fused paths, the partitioned autograd step (the twin of marf_tpu's
-GSPMD-partitioned XLA step): the networks on the rank's block, the maps
-gathered, the loss on every rank, the gradients summed.
-
-Per-step constants (the flat target/mask/grid streams, 1/(3 sum m) of fixed
-masks, the mask-head inputs X or their dedup structures, and the progress /
-alpha / c2f schedules for every step) are built once when the step is made,
-and the step reads its row of the schedules at a step counter on the
-device, which it advances; the learning rates of `optim.sched` move on the
-device too (`LrSchedule`). So a step reads no value back to the host and
-copies none to the device, and `make_train_chunk` captures it as CUDA
-graphs on a card (marf_tpu compiles its chunk into one `lax.scan`), a
-sharded step in segments split at its collectives, which run between the
-graphs' replays: its metrics stay on the device until a whole chunk is
-read at once.
+A step's constants and per-step tables (`_Tables`) are built when it is
+made; it reads its row at a device step counter and moves its learning rates
+on the device (`LrSchedule`), so `make_train_chunk` can capture it as CUDA
+graphs (marf_tpu's `lax.scan`).
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import math
 
@@ -341,278 +326,243 @@ def head_spans(cols: slice, span: int) -> list:
             for h in range(cols.start // span, -(-cols.stop // span))]
 
 
-def _coords_kernel(cfg: PlanarConfig) -> bool:
-    """Whether the rgb leg is K2 (coords from the warp) in place of K1."""
+def _decide_path(cfg: PlanarConfig, device: torch.device, n_ranks: int | None) -> tuple[str, str, bool]:
+    """`make_train_step`'s path on `device` and n_ranks ranks (None: no mesh):
+    (its kind, a key of `_BUILDERS`; the rgb leg; whether the ranks shard the
+    flat pixel axis: it divides over them, for per-image heads B >= n_ranks)."""
     from marf_tpu_torch.ops.cuda.fused_step import MAX_IMAGES
 
-    return cfg.fused_warp == "off" or cfg.batch_size > MAX_IMAGES
-
-
-def step_path(cfg: PlanarConfig, device: torch.device, n_ranks: int | None = None) -> tuple[str, bool]:
-    """The gradient path of `make_train_step` on `device`, named as its log
-    line names it, and whether n_ranks ranks (None: no mesh) shard the flat
-    pixel axis: it must divide over them (for fused per-image heads, whole
-    images: B >= n_ranks), else every rank runs the whole axis. A config
-    takes its own path on any number of ranks; sharded, the dedup step
-    backs the mask head with K6 and column counts where one card runs K4."""
     h, w = cfg.map_hw
     sharded = n_ranks is not None and (cfg.batch_size * h * w) % n_ranks == 0
-    rgb_leg = "K2" if _coords_kernel(cfg) else "K1"
+    rgb_leg = "K2" if cfg.fused_warp == "off" or cfg.batch_size > MAX_IMAGES else "K1"
     if use_fused_implicit(cfg, device):
         if cfg.build_single_masks:
             sharded = n_ranks is not None and cfg.batch_size >= n_ranks
-        if use_fused_dedup(cfg, device):
-            return f"fused implicit dedup (K3 -> {rgb_leg} -> {'K6 with column counts' if sharded else 'K4'})", sharded
-        heads = "per-image heads" if cfg.build_single_masks else "shared head, no dedup"
-        return f"fused implicit, {heads} (K5 -> K6)", sharded
-    return (f"fused ({rgb_leg})" if use_fused_step(cfg, device) else "autograd"), sharded
+        return ("dedup" if use_fused_dedup(cfg, device) else "heads"), rgb_leg, sharded
+    if use_fused_step(cfg, device):
+        return "fixed", rgb_leg, sharded
+    return ("partitioned" if sharded else "autograd"), rgb_leg, sharded
 
 
-def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, scheduler=None, use_homographies: bool = True,
-                    mesh=None):
-    """Build the step: a `TrainStep`, step(heavy=...) -> metrics dict of 0-d
-    tensors, one step at its device counter.
+def _path_name(cfg: PlanarConfig, kind: str, rgb_leg: str, sharded: bool) -> str:
+    if kind == "dedup":
+        return f"fused implicit dedup (K3 -> {rgb_leg} -> {'K6 with column counts' if sharded else 'K4'})"
+    if kind == "heads":
+        return f"fused implicit, {'per-image heads' if cfg.build_single_masks else 'shared head, no dedup'} (K5 -> K6)"
+    return f"fused ({rgb_leg})" if kind == "fixed" else "autograd"
 
-    Metric timing matches the reference's `log_scalars` call site
-    (model/planar.py:199-201): loss terms and PSNR from the pre-update
-    forward, Homography_Error from the post-update warp before the fix_first
-    re-zero. `heavy` marks the chunk-final step: with lazy metrics, only it
-    computes the metric-only work and the other rows report 0. The implicit
-    paths' edge term is not metric-only (its esq feeds K4 or K6), so it runs
-    every step.
 
-    With `mesh` (parallel/mesh.py) the step is one rank of a pixel-sharded
-    step (twin of marf_tpu/parallel/shard_fused.py): the kernels run on the
-    rank's contiguous block of the flat pixel axis N = B*HW (column order
-    b*HW + i), and what marf_tpu psums is summed over the ranks by one packed
-    all_reduce at each point (the step's `Collectives.psum`, parallel/mesh.py;
-    the normalizer of fixed masks once, when the step is made, outside any
-    capture): the masked-MSE normalizer, the loss partials,
-    the MLP, warp (dH before the expm VJP on K1) and mask-head gradients, the
-    dedup segment sums; the gradient-blocked edge term runs on every rank on
-    the gathered rgb [3, N]. The shared-head dedup step shards its dedup
-    columns apart from the positions, and backs the mask head with K6 and
-    the column counts on the rank's column block where one card runs K4.
-    Fused per-image heads shard by whole images: rank r holds images
-    [r B / D, (r+1) B / D), equal blocks when B % D == 0 (marf_tpu's
-    layout), uneven ones otherwise (where marf_tpu's trainer turns its
-    kernels off), so K5 and K6 see whole heads; the heads of other ranks
-    enter the gradient sum as zeros. Every rank passes the same `data` and
-    `heavy`; parameters and optimizer state stay replicated. Without a mesh
-    the block is the whole axis and every sum is the identity.
+def step_path(cfg: PlanarConfig, device: torch.device, n_ranks: int | None = None) -> tuple[str, bool]:
+    """`make_train_step`'s path (`_decide_path`), named as its log line names
+    it, and whether n_ranks ranks (None: no mesh) shard the flat pixel axis."""
+    kind, rgb_leg, sharded = _decide_path(cfg, device, n_ranks)
+    return _path_name(cfg, kind, rgb_leg, sharded), sharded
 
-    Off the fused paths a rank runs the partitioned autograd step (twin of
-    marf_tpu's GSPMD step, `partitioned_grads`). When N does not divide over
-    the ranks (fused per-image heads: B < D), every rank runs the
-    single-card step of its path, kernels included, on the whole axis with
-    no sums (marf_tpu keeps such data replicated).
-    """
-    device = graph.warp.device
-    fused = use_fused_step(cfg, device)
-    fused_implicit = use_fused_implicit(cfg, device)
-    dedup = fused_implicit and use_fused_dedup(cfg, device)
-    lazy = use_lazy_metrics(cfg, device)
-    h, w = cfg.map_hw
-    B = cfg.batch_size
-    HW = h * w
-    N = B * HW
-    path, sharded = step_path(cfg, device, None if mesh is None else mesh.world_size)
-    D, r = (mesh.world_size, mesh.rank) if sharded else (1, 0)
-    by_image = fused_implicit and cfg.build_single_masks  # whole images per rank
-    heads_own = range(r * B // D, (r + 1) * B // D)  # per-image heads: this rank's images
-    cols = slice(heads_own.start * HW, heads_own.stop * HW) if by_image else slice(r * (N // D), (r + 1) * (N // D))
-    Nl = cols.stop - cols.start  # this rank's positions
-    if not sharded:
-        collectives = None
-        reduce = lambda parts: parts  # noqa: E731
-        place = lambda t, n, start: t  # noqa: E731
-        # the means over positions (mask loss, Mask_Error): a mean, or a sum over N
-        pos_part, pos_mean = torch.mean, (lambda s: s)
-    else:
-        from marf_tpu_torch.parallel.mesh import Collectives, place_columns
 
-        collectives = Collectives()
-        reduce = collectives.psum
-        place = place_columns
-        pos_part, pos_mean = torch.sum, (lambda s: s / N)
-    steps = torch.arange(cfg.max_iter + 1, device=device)
-    progress = steps.to(torch.float32) / cfg.max_iter
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    alphas = alpha_schedule(steps, cfg.max_iter, cfg.alpha_initial, cfg.alpha_final) if cfg.use_edges else zero.expand(len(steps))
-    gt_hom = data.get("gt_hom") if use_homographies else None
-    masks_full = masks_ref = None  # the premade masks [1, N] and at this rank's positions, for Mask_Error
-    if cfg.use_implicit_mask and cfg.use_masks and data.get("masks") is not None:
-        masks_full = data["masks"].permute(1, 0, 2, 3).reshape(1, N)
-        masks_ref = masks_full[:, cols]
-    coords_kernel = _coords_kernel(cfg)
-    cdtype = cfg.arch.compute_dtype
-    if mesh is None:
-        where = f"on {device}"
-    else:
-        ranks = f"{mesh.world_size} ranks ({mesh.backend}), rank {mesh.rank} on {device}"
-        where = (f"sharded over {ranks}, {Nl} of {N} positions" if sharded else
-                 f"replicated on {ranks}, all {N} positions")
-        if not sharded:
-            why = (f"fewer images (B = {B}) than ranks for per-image heads" if by_image else
-                   f"the flat pixel axis (N = {B} x {h} x {w} = {N}) does not divide over {mesh.world_size} ranks")
-            log.warn(f"{why}; data stays replicated (single-card arithmetic on every rank)")
-    log.info(f"train step: {path}, {cdtype}, {where}")
+class _Layout:
+    """Where a step runs: the block `cols` of the flat pixel axis N = B*HW
+    (column order b*HW + i; per-image heads: images [r B / D, (r+1) B / D))
+    on rank r of D (0 of 1 unsharded); `reduce` sums {name: [tensors]} over
+    the ranks (one packed all_reduce), `place` puts a block in the whole axis
+    for a sum that gathers, a mean over positions is `pos_part` per rank and
+    `pos_mean` of the sum; the premade masks [1, N] and at this rank's
+    positions (or None); the log line's `where`, and `why` it is replicated."""
 
-    if fused or fused_implicit:
-        from marf_tpu_torch.ops.cuda import kernel
+    def __init__(self, cfg: PlanarConfig, device: torch.device, kind: str, sharded: bool, mesh, data: dict):
+        h, w = cfg.map_hw
+        B, HW, N = cfg.batch_size, h * w, cfg.batch_size * h * w
+        D, r = (mesh.world_size, mesh.rank) if sharded else (1, 0)
+        by_image = kind == "heads" and cfg.build_single_masks  # whole images per rank
+        cols = slice(r * B // D * HW, (r + 1) * B // D * HW) if by_image else slice(r * (N // D), (r + 1) * (N // D))
+        self.h, self.w, self.B, self.HW, self.N = h, w, B, HW, N
+        self.sharded, self.D, self.r, self.cols, self.Nl = sharded, D, r, cols, cols.stop - cols.start
+        self.collectives, self.reduce, self.place = None, (lambda parts: parts), (lambda t, n, start: t)
+        self.pos_part, self.pos_mean = torch.mean, (lambda s: s)
+        if sharded:
+            from marf_tpu_torch.parallel.mesh import Collectives, place_columns
 
-        # each wrapper called inside its profiler range marf.K<i> (ops/cuda `kernel`)
-        fused_train_kernel_warp, fused_train_kernel = kernel("K1"), kernel("K2")
-        arch = cfg.arch
-        cws = barf_c2f_weights(progress, tuple(arch.barf_c2f), arch.posenc_L) if (arch.posenc_L and arch.barf_c2f is not None) else None
-        targets_cf = data["rgb"].permute(1, 0, 2, 3).reshape(3, N)[:, cols].contiguous()
-        if (fused or dedup) and not coords_kernel:
-            # the kernel's (u, v, b) stream: the unwarped grid repeated per image
-            grid_b = torch.cat(
-                [graph.grid.T.repeat(1, B), torch.arange(B, dtype=torch.float32, device=device).repeat_interleave(HW)[None]]
-            )[:, cols].contiguous()
-        edges_cf = data["edges"].permute(1, 0, 2, 3).contiguous() if cfg.use_edges else None
-    if fused:
-        if cfg.use_masks and data.get("masks") is not None:
-            masks_cf = data["masks"].permute(1, 0, 2, 3).reshape(1, N)[:, cols].contiguous()
-        else:
-            masks_cf = torch.ones((1, Nl), dtype=torch.float32, device=device)
-        inv_sum3_fixed = 1.0 / (reduce({"m": [torch.sum(masks_cf)]})["m"][0] * 3.0)
-        me = data.get("masks_eroded")
-        me_cf = None if me is None else me.permute(1, 0, 2, 3).contiguous()
-        c_render = 10.0 ** float(cfg.w_render)
-        c_rgb = 10.0 ** float(cfg.w_rgb) if cfg.w_rgb is not None else None
-    if fused_implicit:
-        from marf_tpu_torch.ops.cuda.fused_mask import mask_w_stack, unfactor_mask_grads
+            self.collectives = Collectives()
+            self.reduce, self.place = self.collectives.psum, place_columns
+            self.pos_part, self.pos_mean = torch.sum, (lambda s: s / N)
+        self.masks_full = self.masks_ref = None
+        if cfg.use_implicit_mask and cfg.use_masks and data.get("masks") is not None:
+            self.masks_full = data["masks"].permute(1, 0, 2, 3).reshape(1, N)
+            self.masks_ref = self.masks_full[:, cols]
+        self.where, self.why = f"on {device}", None
+        if mesh is not None:
+            ranks = f"{mesh.world_size} ranks ({mesh.backend}), rank {mesh.rank} on {device}"
+            self.where = (f"sharded over {ranks}, {self.Nl} of {N} positions" if sharded else
+                          f"replicated on {ranks}, all {N} positions")
+            if not sharded:
+                self.why = (f"fewer images (B = {B}) than ranks for per-image heads" if by_image else
+                            f"the flat pixel axis (N = {B} x {h} x {w} = {N}) does not divide over {mesh.world_size} ranks")
 
-        fused_mask_forward, fused_mask_backward_dedup = kernel("K3"), kernel("K4")
-        fused_implicit_train_kernel, fused_mask_backward_g = kernel("K5"), kernel("K6")
+    def cf(self, t: torch.Tensor) -> torch.Tensor:
+        """A data stream [B, C, h, w] at this rank's positions, [C, Nl]."""
+        return t.permute(1, 0, 2, 3).reshape(t.shape[1], self.N)[:, self.cols].contiguous()
 
-    if dedup:
-        with trace.span("setup.dedup"):
-            X_all, cnt_all, slot0, ext_off, ext_img, ext_j, table, K = stage_mask_inputs(graph, data["rgb"], D, r)
-        E = K - HW  # known at setup: the extras' index ops run only when E > 0
-        trace.count("dedup_columns", K)
-        trace.count("dedup_extras", E)
-        trace.count("dedup_pairs", ext_off.numel())
-        K_pad = X_all.shape[1]
-        Klp = K_pad // D
-        kcols = slice(r * Klp, (r + 1) * Klp)  # this rank's dedup columns
-        X_loc, cnt_loc = X_all[:, kcols].contiguous(), cnt_all[:, kcols].contiguous()
-        # slot0 column p = n mod HW is affine over a contiguous block of
-        # positions: a window of Nl from `start` in T tiles of HW
-        start = (r * Nl) % HW
-        T = -(-(start + Nl) // HW)
-        log.info(f"mask-head dedup: K = {K} columns (HW = {HW}, E = {E}; padded to {K_pad}) for N = {N} positions; "
-                 + (f"{Klp} columns and " if sharded else "")
-                 + f"{ext_off.numel()} extra (position, column) pairs" + (" on this rank" if sharded else ""))
-    elif fused_implicit:
-        X_flat, table = stage_mask_x(graph, data["rgb"], cfg.build_single_masks)
-        X_flat = X_flat[:, cols].contiguous()
-        heads = list(graph.implicit_mask) if cfg.build_single_masks else [graph.implicit_mask]
-        own = heads_own if cfg.build_single_masks else range(1)  # this rank's heads
-    elif cfg.use_implicit_mask and sharded:
-        # the mask-head inputs at this rank's positions: its images' [426, HW]
-        # blocks, cut to its columns; constants while the view embedding is frozen
-        b0, b1 = cols.start // HW, -(-cols.stop // HW)
 
-        def mask_inputs():
-            x = mask_head_inputs_cf(graph.view_embedding, data["rgb"][b0:b1], graph.grid, cfg.mask_quantize_levels)
-            return x.transpose(0, 1).reshape(x.shape[1], -1)[:, cols.start - b0 * HW : cols.stop - b0 * HW]
+class _Tables:
+    """The per-step tables [max_iter + 1, ...] read at the step counter (`at`):
+    `steps`, `progress`, `alphas` and `cws` (c2f weights, made at the first
+    read, by a fused path); `zero`; `lazy`: metric-only work when heavy."""
 
-        if not cfg.train_view_embedding:
-            with torch.no_grad():
-                x_frozen = mask_inputs().contiguous()
-            mask_inputs = lambda: x_frozen  # noqa: E731
-        spans = head_spans(cols, HW)  # per-image heads: each image's columns on this rank
-    elif cfg.use_implicit_mask and not cfg.train_view_embedding:
-        # frozen view embedding: the dense mask-head inputs are constants
-        with torch.no_grad():
-            x = mask_head_inputs_cf(graph.view_embedding, data["rgb"], graph.grid, cfg.mask_quantize_levels)
-        if not cfg.build_single_masks:
-            x = x.transpose(0, 1).reshape(x.shape[1], -1)  # [426, B*HW]
-        data = dict(data, mask_head_inputs_cf=x)
+    def __init__(self, cfg: PlanarConfig, device: torch.device):
+        self.arch, self.lazy = cfg.arch, use_lazy_metrics(cfg, device)
+        self.steps = torch.arange(cfg.max_iter + 1, device=device)
+        self.progress = self.steps.to(torch.float32) / cfg.max_iter
+        self.zero = torch.zeros((), dtype=torch.float32, device=device)
+        self.alphas = (alpha_schedule(self.steps, cfg.max_iter, cfg.alpha_initial, cfg.alpha_final) if cfg.use_edges
+                       else self.zero.expand(len(self.steps)))
 
-    def warp_coords():
-        """The warped grid at this rank's positions, [2, Nl], contiguous (as
-        K2 and K5 take it), differentiable in the warp."""
-        return warp_grid_cf_flat(graph.grid, graph.warp)[:, cols].contiguous()
+    @functools.cached_property
+    def cws(self):
+        a = self.arch
+        return None if not a.posenc_L or a.barf_c2f is None else barf_c2f_weights(self.progress, tuple(a.barf_c2f),
+                                                                                    a.posenc_L)
 
+    @staticmethod
     def at(table, idx):
-        """table[idx] of a per-step table [max_iter + 1, ...], idx [1] on the
-        device (index_select: no index read back to the host)."""
-        return table.index_select(0, idx)[0]
+        return table.index_select(0, idx)[0]  # idx [1] on the device: no index read back to the host
 
-    def rgb_kernel_grads(idx, masks, g_loss_scale, inv_sum3, partials: dict, gather_rgb: bool):
-        """K1 or K2 on this step's warp at this rank's positions, then one sum
-        over the ranks of the warp (dH on K1) and MLP gradients, the rgb loss,
-        `partials` ({name: [tensors]}) and, with gather_rgb, the rgb gathered
-        to [3, N]; sets the MLP and warp gradients. Returns (rgb [3, N] when
-        gathered, else [3, Nl], rgb_loss, sq [1, Nl], the summed partials)."""
-        cw = None if cws is None else at(cws, idx)
-        if coords_kernel:
-            coords = warp_coords()
-            rgb_cf, rgb_loss, dmlp, dcoords, sq = fused_train_kernel(
-                graph.neural_image, coords.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3, cdtype
-            )
+
+def _warp_coords(graph: Graph, cols: slice) -> torch.Tensor:
+    """The warped grid at a rank's positions, [2, Nl], contiguous (as K2 and
+    K5 take it), differentiable in the warp."""
+    return warp_grid_cf_flat(graph.grid, graph.warp)[:, cols].contiguous()
+
+
+def _rgb_leg(cfg: PlanarConfig, graph: Graph, data: dict, lay: _Layout, tab: _Tables, leg: str):
+    """The rgb kernel K1 or K2 (`leg`), its inputs staged: grads(idx, masks,
+    g_loss_scale, inv_sum3, partials, gather_rgb) runs it at this rank's
+    positions, sums the warp (dH on K1) and MLP gradients, the rgb loss,
+    `partials` and, with gather_rgb, the rgb over the ranks, sets those
+    gradients; -> (rgb [3, N] gathered, else [3, Nl], rgb_loss, sq, sums)."""
+    from marf_tpu_torch.ops.cuda import kernel
+
+    run = kernel(leg)  # the wrapper called inside its profiler range marf.K<i> (ops/cuda `kernel`)
+    cols, N, cdtype, cws = lay.cols, lay.N, cfg.arch.compute_dtype, tab.cws
+    targets_cf = lay.cf(data["rgb"])
+    if leg == "K1":  # the kernel's (u, v, b) stream: the unwarped grid repeated per image
+        b = torch.arange(lay.B, dtype=torch.float32, device=graph.warp.device).repeat_interleave(lay.HW)
+        grid_b = torch.cat([graph.grid.T.repeat(1, lay.B), b[None]])[:, cols].contiguous()
+
+    def grads(idx, masks, g_loss_scale, inv_sum3, partials: dict, gather_rgb: bool):
+        cw = None if cws is None else tab.at(cws, idx)
+        if leg == "K2":
+            coords = _warp_coords(graph, cols)
+            rgb_cf, rgb_loss, dmlp, dcoords, sq = run(graph.neural_image, coords.detach(), cw, targets_cf, masks,
+                                                      g_loss_scale, inv_sum3, cdtype)
             (dgeo,) = torch.autograd.grad(coords, graph.warp, dcoords)
             finish = lambda g: g  # noqa: E731
         else:
             H = sl3_to_SL3(graph.warp)
-            rgb_cf, rgb_loss, dmlp, dgeo, sq = fused_train_kernel_warp(
-                graph.neural_image, grid_b, H.detach(), cw, targets_cf, masks, g_loss_scale, inv_sum3, cdtype
-            )
+            rgb_cf, rgb_loss, dmlp, dgeo, sq = run(graph.neural_image, grid_b, H.detach(), cw, targets_cf, masks,
+                                                   g_loss_scale, inv_sum3, cdtype)
             finish = lambda g: torch.autograd.grad(H, graph.warp, g)[0]  # noqa: E731
-        sums = reduce({"geo": [dgeo], "loss": [rgb_loss], "mlp": _flat(dmlp), **partials,
-                       "rgb": [place(rgb_cf, N, cols.start)] if gather_rgb else []})
+        sums = lay.reduce({"geo": [dgeo], "loss": [rgb_loss], "mlp": _flat(dmlp), **partials,
+                           "rgb": [lay.place(rgb_cf, N, cols.start)] if gather_rgb else []})
         set_grads(graph.neural_image.layers, _pairs(sums["mlp"]))
         graph.warp.grad = finish(sums["geo"][0])
         return (sums["rgb"][0] if gather_rgb else rgb_cf), sums["loss"][0], sq, sums
 
-    def edge_sq(rgb_cf):
-        """The gradient-blocked edge term's squared error at this rank's
-        positions, [1, Nl], from the whole rgb [3, N]; [3, B, h, w] keeps the
-        image axis as channels."""
-        edge_pred_cf = compute_edges(rgb_cf.reshape(3, B, h, w))
-        return torch.sum((edge_pred_cf - edges_cf) ** 2, dim=0).reshape(1, N)[:, cols]
+    return grads
 
-    def mask_terms(m, heavy: bool) -> dict:
-        """This rank's parts of the means over positions of the predicted
-        mask m [1, Nl]: the mask loss and, when computed, Mask_Error."""
-        parts = {"mask": [pos_part((1.0 - m) ** 2)]}
-        if masks_ref is not None and (heavy or not lazy):
-            parts["mask_error"] = [pos_part((m - masks_ref) ** 2)]
+
+class _ImplicitTerms:
+    """What the fused implicit paths share besides `implicit_loss_coeffs`
+    and `mask_cot_scalars`. Their edge term is not metric-only (its esq
+    feeds K4 or K6), so it runs every step."""
+
+    def __init__(self, cfg: PlanarConfig, data: dict, lay: _Layout, tab: _Tables):
+        self.lay, self.tab = lay, tab
+        self.edges_cf = data["edges"].permute(1, 0, 2, 3).contiguous() if cfg.use_edges else None
+
+    def edge_sq(self, rgb_cf):
+        """The edge term's squared error at this rank's positions, [1, Nl],
+        from the whole rgb [3, N] ([3, B, h, w]: images as channels)."""
+        lay = self.lay
+        edge_pred_cf = compute_edges(rgb_cf.reshape(3, lay.B, lay.h, lay.w))
+        return torch.sum((edge_pred_cf - self.edges_cf) ** 2, dim=0).reshape(1, lay.N)[:, lay.cols]
+
+    def mask_terms(self, m, heavy: bool) -> dict:
+        """This rank's parts of the mask loss and Mask_Error of m [1, Nl]."""
+        parts = {"mask": [self.lay.pos_part((1.0 - m) ** 2)]}
+        if self.lay.masks_ref is not None and (heavy or not self.tab.lazy):
+            parts["mask_error"] = [self.lay.pos_part((m - self.lay.masks_ref) ** 2)]
         return parts
 
-    def implicit_loss(rgb_loss, edge_loss, sums, alpha) -> tuple:
-        """The loss terms and Mask_Error (or None) of an implicit step."""
-        mask_loss = pos_mean(sums["mask"][0])
-        mask_error = pos_mean(sums["mask_error"][0]) if "mask_error" in sums else None
+    def loss(self, rgb_loss, edge_loss, sums: dict, alpha) -> tuple:
+        """The loss terms and Mask_Error (or None)."""
+        mask_loss = self.lay.pos_mean(sums["mask"][0])
+        mask_error = self.lay.pos_mean(sums["mask_error"][0]) if "mask_error" in sums else None
         loss = {"render": render_loss(rgb_loss, edge_loss, mask_loss, alpha), "rgb": rgb_loss, "mask": mask_loss,
                 "edge": edge_loss}
         return loss, mask_error
 
-    def fused_grads(idx, heavy: bool):
-        alpha = at(alphas, idx)
+
+def _fixed_grads(cfg, graph, optimizer, data, lay: _Layout, tab: _Tables, rgb_leg: str):
+    """The fixed-mask path: the masks' normalizer is summed over the ranks
+    once, here, outside any capture; the edge term is metric-only."""
+    rgb_grads = _rgb_leg(cfg, graph, data, lay, tab, rgb_leg)
+    masks = data.get("masks") if cfg.use_masks else None
+    masks_cf = torch.ones((1, lay.Nl), dtype=torch.float32, device=graph.warp.device) if masks is None else lay.cf(masks)
+    inv_sum3 = 1.0 / (lay.reduce({"m": [torch.sum(masks_cf)]})["m"][0] * 3.0)
+    me = data.get("masks_eroded")
+    me_cf = None if me is None else me.permute(1, 0, 2, 3).contiguous()
+    edges_cf = data["edges"].permute(1, 0, 2, 3).contiguous() if cfg.use_edges else None
+    c_render = 10.0 ** float(cfg.w_render)
+    c_rgb = 10.0 ** float(cfg.w_rgb) if cfg.w_rgb is not None else None
+    zero = tab.zero
+
+    def grads(idx, heavy: bool):
+        alpha = tab.at(tab.alphas, idx)
         # d total / d loss_rgb: the render term's (1 - alpha) plus the direct rgb term
         g_loss_scale = c_render * (1.0 - alpha)
         if c_rgb is not None:
             g_loss_scale = g_loss_scale + c_rgb
-        edges = cfg.use_edges and (heavy or not lazy)
-        rgb_cf, rgb_loss, _, _ = rgb_kernel_grads(idx, masks_cf, g_loss_scale, inv_sum3_fixed, {}, edges)
-        if edges:
-            # the gradient-blocked edge term; [3, B, h, w] keeps the image axis as channels
-            edge_loss = mse(compute_edges(rgb_cf.reshape(3, B, h, w)), edges_cf, me_cf)
-        else:
-            edge_loss = zero
+        edges = cfg.use_edges and (heavy or not tab.lazy)
+        rgb_cf, rgb_loss, _, _ = rgb_grads(idx, masks_cf, g_loss_scale, inv_sum3, {}, edges)
+        # the gradient-blocked edge term; [3, B, h, w] keeps the image axis as channels
+        edge_loss = mse(compute_edges(rgb_cf.reshape(3, lay.B, lay.h, lay.w)), edges_cf, me_cf) if edges else zero
         loss = {"render": render_loss(rgb_loss, edge_loss, zero, alpha), "rgb": rgb_loss, "mask": zero, "edge": edge_loss}
         return loss, None
 
+    return grads
+
+
+def _dedup_grads(cfg, graph, optimizer, data, lay: _Layout, tab: _Tables, rgb_leg: str):
+    """The dedup path on `stage_mask_inputs`; sharded, its dedup columns go
+    apart from the positions, and K6 with their counts takes K4's place."""
+    from marf_tpu_torch.ops.cuda import kernel
+    from marf_tpu_torch.ops.cuda.fused_mask import mask_w_stack, unfactor_mask_grads
+
+    fused_mask_forward, fused_mask_backward_dedup, fused_mask_backward_g = kernel("K3"), kernel("K4"), kernel("K6")
+    rgb_grads = _rgb_leg(cfg, graph, data, lay, tab, rgb_leg)
+    terms = _ImplicitTerms(cfg, data, lay, tab)
+    B, HW, N, Nl, reduce, cdtype, zero = lay.B, lay.HW, lay.N, lay.Nl, lay.reduce, cfg.arch.compute_dtype, tab.zero
+    with trace.span("setup.dedup"):
+        X_all, cnt_all, slot0, ext_off, ext_img, ext_j, table, K = stage_mask_inputs(graph, data["rgb"], lay.D, lay.r)
+    E = K - HW  # known at setup: the extras' index ops run only when E > 0
+    trace.count("dedup_columns", K)
+    trace.count("dedup_extras", E)
+    trace.count("dedup_pairs", ext_off.numel())
+    K_pad = X_all.shape[1]
+    Klp = K_pad // lay.D
+    kcols = slice(lay.r * Klp, (lay.r + 1) * Klp)  # this rank's dedup columns
+    X_loc, cnt_loc = X_all[:, kcols].contiguous(), cnt_all[:, kcols].contiguous()
+    # slot0 column p = n mod HW is affine over a contiguous block of
+    # positions: a window of Nl from `start` in T tiles of HW
+    start = (lay.r * Nl) % HW
+    T = -(-(start + Nl) // HW)
+    log.info(f"mask-head dedup: K = {K} columns (HW = {HW}, E = {E}; padded to {K_pad}) for N = {N} positions; "
+             + (f"{Klp} columns and " if lay.sharded else "")
+             + f"{ext_off.numel()} extra (position, column) pairs" + (" on this rank" if lay.sharded else ""))
+
     def extras_sum(v):
         """Per extra column, the sum of a position stream [1, Nl] over the
-        rank's positions that the column covers, [E]: the pairs written into
-        an image x column grid and summed over images in a fixed order (no
-        float scatter-add)."""
+        rank's positions it covers, [E]: the pairs written into an image x
+        column grid summed over images in a fixed order (no scatter-add)."""
         grid = v.new_zeros((B, E))
         grid[ext_img, ext_j] = v[0, ext_off]
         return torch.sum(grid, dim=0)
@@ -629,28 +579,28 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
             out[:, HW:K] = extras_sum(v)
         return out
 
-    def implicit_grads(idx, heavy: bool):
-        alpha = at(alphas, idx)
-        C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
+    def grads(idx, heavy: bool):
+        alpha = tab.at(tab.alphas, idx)
+        C = implicit_loss_coeffs(cfg, alpha)
         # ---- mask forward on this rank's dedup columns, gathered to all K
         # and expanded to its positions: m[n] = slot0[n] m[n mod HW] + the
         # one extra column that covers n
         stack = mask_w_stack(graph.implicit_mask, table)
         m_loc = fused_mask_forward(stack, X_loc, cdtype)
-        m_all = reduce({"m": [place(m_loc, K_pad, kcols.start)]})["m"][0][:, :K]  # pad cut
+        m_all = reduce({"m": [lay.place(m_loc, K_pad, kcols.start)]})["m"][0][:, :K]  # pad cut
         m_flat = slot0 * m_all[:, :HW].repeat(1, T)[:, start : start + Nl]
         if E:
             m_flat = m_flat.index_add(1, ext_off, m_all[:, HW + ext_j])
         inv_sum3 = 1.0 / (torch.dot(cnt_all[0, :K], m_all[0]) * 3.0)
         # ---- the rgb kernel, masked by the predicted m
-        rgb_cf, rgb_loss, sq, sums = rgb_kernel_grads(idx, m_flat, C_r, inv_sum3, mask_terms(m_flat, heavy),
-                                                      cfg.use_edges)
-        esq = edge_sq(rgb_cf) if cfg.use_edges else None
-        if not sharded:
+        rgb_cf, rgb_loss, sq, sums = rgb_grads(idx, m_flat, C[0], inv_sum3, terms.mask_terms(m_flat, heavy),
+                                               cfg.use_edges)
+        esq = terms.edge_sq(rgb_cf) if cfg.use_edges else None
+        if not lay.sharded:
             # ---- K4: the extras' segment sums go in `base`, slot0's in the
             # kernel; base and cnt are 0 on the pad columns, so is their cotangent
             edge_loss = torch.sum(m_flat * m_flat * esq) * inv_sum3 if cfg.use_edges else zero
-            a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
+            a_s, b_s, c_s, k_s = mask_cot_scalars(*C, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
             base = c_s * cnt_all
             if E:
                 tail = a_s * extras_sum(sq)
@@ -668,28 +618,47 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
                 parts.update(edge=[torch.sum(m_flat * m_flat * esq)], esq=[column_sums(esq)])
             s = reduce(parts)
             edge_loss = s["edge"][0] * inv_sum3 if esq is not None else zero
-            a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
+            a_s, b_s, c_s, k_s = mask_cot_scalars(*C, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
             (dstack,) = fused_mask_backward_g([stack], X_loc, s["sq"][0][:, kcols],
                                               s["esq"][0][:, kcols] if esq is not None else None,
                                               torch.stack([a_s, b_s, k_s]), c_s, cnt_loc, cdtype)
             dstack = _pairs(reduce({"g": _flat(dstack)})["g"])
         set_grads(graph.implicit_mask.layers, unfactor_mask_grads(dstack, table))
-        return implicit_loss(rgb_loss, edge_loss, sums, alpha)
+        return terms.loss(rgb_loss, edge_loss, sums, alpha)
 
-    def implicit_heads_grads(idx, heavy: bool):
-        alpha = at(alphas, idx)
-        C_r, C_e, C_m = implicit_loss_coeffs(cfg, alpha)
+    return grads
+
+
+def _heads_grads(cfg, graph, optimizer, data, lay: _Layout, tab: _Tables, rgb_leg: str):
+    """The K5 -> K6 path on `stage_mask_x`; sharded, per-image heads go by
+    whole images, the heads of other ranks entering the sum as zeros."""
+    from marf_tpu_torch.ops.cuda import kernel
+    from marf_tpu_torch.ops.cuda.fused_mask import mask_w_stack, unfactor_mask_grads
+
+    fused_implicit_train_kernel, fused_mask_backward_g = kernel("K5"), kernel("K6")
+    terms = _ImplicitTerms(cfg, data, lay, tab)
+    N, cols, reduce, cdtype, cws = lay.N, lay.cols, lay.reduce, cfg.arch.compute_dtype, tab.cws
+    targets_cf = lay.cf(data["rgb"])
+    X_flat, table = stage_mask_x(graph, data["rgb"], cfg.build_single_masks)
+    X_flat = X_flat[:, cols].contiguous()
+    heads = list(graph.implicit_mask) if cfg.build_single_masks else [graph.implicit_mask]
+    own = range(lay.r * lay.B // lay.D, (lay.r + 1) * lay.B // lay.D) if cfg.build_single_masks else range(1)
+
+    def grads(idx, heavy: bool):
+        alpha = tab.at(tab.alphas, idx)
+        C = implicit_loss_coeffs(cfg, alpha)
         stacks = [mask_w_stack(heads[i], table) for i in own]
         # ---- K5: the mask forward on every head's column block, then the rgb
         # step masked by m with the unnormalized cotangent 2 C_r (rgb - t) m^2
-        coords = warp_coords()
+        coords = _warp_coords(graph, cols)
         rgb_cf, m_flat, sq, dcoords_u, msum, loss_u, dmlp_u = fused_implicit_train_kernel(
-            graph.neural_image, stacks, coords.detach(), X_flat, None if cws is None else at(cws, idx), targets_cf, 2.0 * C_r,
-            cdtype,
+            graph.neural_image, stacks, coords.detach(), X_flat, None if cws is None else tab.at(cws, idx), targets_cf,
+            2.0 * C[0], cdtype,
         )
         (dwarp_u,) = torch.autograd.grad(coords, graph.warp, dcoords_u)
         sums = reduce({"msum": [msum], "loss": [loss_u], "warp": [dwarp_u], "mlp": _flat(dmlp_u),
-                       **mask_terms(m_flat, heavy), "rgb": [place(rgb_cf, N, cols.start)] if cfg.use_edges else []})
+                       **terms.mask_terms(m_flat, heavy),
+                       "rgb": [lay.place(rgb_cf, N, cols.start)] if cfg.use_edges else []})
         # the masked-MSE normalization 1 / (3 sum m): K5's outputs are linear in it
         inv_sum3 = 1.0 / (sums["msum"][0] * 3.0)
         rgb_loss = sums["loss"][0] * inv_sum3
@@ -697,14 +666,13 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         set_grads(graph.neural_image.layers, [(dw * inv_sum3, db * inv_sum3) for dw, db in _pairs(sums["mlp"])])
         # ---- the gradient-blocked edge term, per position [1, Nl]
         if cfg.use_edges:
-            esq = edge_sq(sums["rgb"][0])
+            esq = terms.edge_sq(sums["rgb"][0])
             edge_loss = reduce({"e": [torch.sum(m_flat * m_flat * esq)]})["e"][0] * inv_sum3
         else:
-            esq = None
-            edge_loss = zero
+            esq, edge_loss = None, tab.zero
         # ---- K6: each head's backward on its block with the per-column
         # cotangent; the heads of other ranks enter the sum as zeros
-        a_s, b_s, c_s, k_s = mask_cot_scalars(C_r, C_e, C_m, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
+        a_s, b_s, c_s, k_s = mask_cot_scalars(*C, inv_sum3, rgb_loss, edge_loss, N, cfg.use_edges)
         dstacks = dict(zip(own, fused_mask_backward_g(stacks, X_flat, sq, esq, torch.stack([a_s, b_s, k_s]), c_s,
                                                       compute_dtype=cdtype)))
         like = _flat(dstacks[own[0]])
@@ -712,55 +680,117 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
                          for i in range(len(heads))})
         for i, head in enumerate(heads):
             set_grads(head.layers, unfactor_mask_grads(_pairs(summed[i]), table))
-        return implicit_loss(rgb_loss, edge_loss, sums, alpha)
+        return terms.loss(rgb_loss, edge_loss, sums, alpha)
 
-    def partitioned_grads(idx, heavy: bool):
-        """The autograd step on a rank's block (twin of marf_tpu's GSPMD
-        step): the warp, the neural image and the mask heads at this rank's
-        positions; rgb [3, N] and m [1, N] gathered by one sum; graph_loss
-        on the whole maps on every rank (the edge convs, the masked-MSE
-        normalizers and the mask mean of one card, no halo); its cotangent
-        at this rank's positions back through the rank's networks (also
-        through differentiable edges); one sum of every gradient."""
+    return grads
+
+
+def _partitioned_grads(cfg, graph, optimizer, data, lay: _Layout, tab: _Tables, rgb_leg: str):
+    """Autograd on a rank's block: the networks at its positions, rgb and m
+    gathered by one sum, one card's graph_loss on the whole maps on every
+    rank (no halo), its cotangent back through the rank's networks, one sum
+    of the gradients."""
+    cols, N, HW = lay.cols, lay.N, lay.HW
+    if cfg.use_implicit_mask:
+        # the mask-head inputs at this rank's positions: its images' [426, HW]
+        # blocks, cut to its columns; constants while the view embedding is frozen
+        b0, b1 = cols.start // HW, -(-cols.stop // HW)
+
+        def mask_inputs():
+            x = mask_head_inputs_cf(graph.view_embedding, data["rgb"][b0:b1], graph.grid, cfg.mask_quantize_levels)
+            return x.transpose(0, 1).reshape(x.shape[1], -1)[:, cols.start - b0 * HW : cols.stop - b0 * HW]
+
+        if not cfg.train_view_embedding:
+            with torch.no_grad():
+                x_frozen = mask_inputs().contiguous()
+            mask_inputs = lambda: x_frozen  # noqa: E731
+        spans = head_spans(cols, HW)  # per-image heads: each image's columns on this rank
+
+    def grads(idx, heavy: bool):
         optimizer.zero_grad(set_to_none=True)
-        local = [graph.neural_image(warp_coords(), at(progress, idx))]
+        local = [graph.neural_image(_warp_coords(graph, cols), tab.at(tab.progress, idx))]
         if cfg.use_implicit_mask:
             x = mask_inputs()
             if cfg.build_single_masks:
                 local.append(torch.cat([graph.implicit_mask[b](x[:, lo:hi]) for b, lo, hi in spans], dim=1))
             else:
                 local.append(graph.implicit_mask(x))
-        gathered = reduce({"maps": [place(t.detach(), N, cols.start) for t in local]})["maps"]
+        gathered = lay.reduce({"maps": [lay.place(t.detach(), N, cols.start) for t in local]})["maps"]
         maps = [t.detach().requires_grad_() for t in gathered]
-        loss = graph_loss(map_outputs(cfg, *maps), data, cfg, at(steps, idx))
+        loss = graph_loss(map_outputs(cfg, *maps), data, cfg, tab.at(tab.steps, idx))
         cots = torch.autograd.grad(summarize_loss(loss, cfg.loss_weight), maps)
         torch.autograd.backward(local, [c[:, cols] for c in cots])
         params = [p for p in graph.parameters() if p.requires_grad]
-        sums = reduce({"g": [torch.zeros_like(p) if p.grad is None else p.grad for p in params]})["g"]
+        sums = lay.reduce({"g": [torch.zeros_like(p) if p.grad is None else p.grad for p in params]})["g"]
         for p, g in zip(params, sums):
             p.grad = g
         mask_error = None
-        if masks_full is not None and (heavy or not lazy):
-            mask_error = mse(maps[1].detach(), masks_full)
+        if lay.masks_full is not None and (heavy or not tab.lazy):
+            mask_error = mse(maps[1].detach(), lay.masks_full)
         return {k: v.detach() for k, v in loss.items()}, mask_error
 
-    def autograd_grads(idx, heavy: bool):
+    return grads
+
+
+def _autograd_grads(cfg, graph, optimizer, data, lay: _Layout, tab: _Tables, rgb_leg: str):
+    """The autograd step; with a frozen view embedding the dense mask-head
+    inputs are constants, staged here into the step's own `data`."""
+    if cfg.use_implicit_mask and not cfg.train_view_embedding:
+        with torch.no_grad():
+            x = mask_head_inputs_cf(graph.view_embedding, data["rgb"], graph.grid, cfg.mask_quantize_levels)
+        if not cfg.build_single_masks:
+            x = x.transpose(0, 1).reshape(x.shape[1], -1)  # [426, B*HW]
+        data = dict(data, mask_head_inputs_cf=x)
+
+    def grads(idx, heavy: bool):
         optimizer.zero_grad(set_to_none=True)
-        outputs = graph_forward(graph, data, cfg, at(progress, idx))
-        loss = graph_loss(outputs, data, cfg, at(steps, idx))
+        outputs = graph_forward(graph, data, cfg, tab.at(tab.progress, idx))
+        loss = graph_loss(outputs, data, cfg, tab.at(tab.steps, idx))
         summarize_loss(loss, cfg.loss_weight).backward()
         mask_error = None
-        if masks_ref is not None and (heavy or not lazy):
-            mask_error = mse(outputs["mask_prediction_map"].detach().permute(1, 0, 2, 3).reshape(1, N), masks_ref)
+        if lay.masks_ref is not None and (heavy or not tab.lazy):
+            m = outputs["mask_prediction_map"].detach()
+            mask_error = mse(m.permute(1, 0, 2, 3).reshape(1, lay.N), lay.masks_ref)
         return {k: v.detach() for k, v in loss.items()}, mask_error
 
-    if fused_implicit:
-        grads_fn = implicit_grads if dedup else implicit_heads_grads
-    elif fused:
-        grads_fn = fused_grads
-    else:
-        grads_fn = partitioned_grads if sharded else autograd_grads
+    return grads
 
+
+# each path's builder: (cfg, graph, optimizer, data, layout, tables, rgb leg)
+# -> grads(idx [1] on the device, heavy) -> (loss terms, Mask_Error or None)
+_BUILDERS = {"autograd": _autograd_grads, "partitioned": _partitioned_grads, "fixed": _fixed_grads,
+             "dedup": _dedup_grads, "heads": _heads_grads}
+
+
+def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, scheduler=None, use_homographies: bool = True,
+                    mesh=None):
+    """Build the step: a `TrainStep`, step(heavy=...) -> metrics dict of 0-d
+    tensors, one step at its device counter: the path's gradients
+    (`_decide_path`, `_BUILDERS`), then the tail that every path shares.
+
+    Metric timing matches the reference's `log_scalars` call site
+    (model/planar.py:199-201): loss terms and PSNR from the pre-update
+    forward, Homography_Error from the post-update warp before the fix_first
+    re-zero. `heavy` marks the chunk-final step: with lazy metrics, only it
+    computes the metric-only work and the other rows report 0.
+
+    With `mesh` (parallel/mesh.py) the step is one rank of a pixel-sharded
+    step (marf_tpu/parallel/shard_fused.py, `_Layout`): what marf_tpu psums
+    is summed over the ranks by one packed all_reduce at each point. Every
+    rank passes the same `data` and `heavy`; parameters and optimizer state
+    stay replicated. When N does not divide over the ranks (per-image heads:
+    B < D), every rank runs its path's single-card step, with no sums."""
+    device = graph.warp.device
+    kind, rgb_leg, sharded = _decide_path(cfg, device, None if mesh is None else mesh.world_size)
+    lay = _Layout(cfg, device, kind, sharded, mesh, data)
+    if lay.why is not None:
+        log.warn(f"{lay.why}; data stays replicated (single-card arithmetic on every rank)")
+    name = _path_name(cfg, kind, rgb_leg, sharded)
+    log.info(f"train step: {name}, {cfg.arch.compute_dtype}, {lay.where}")
+    tab = _Tables(cfg, device)
+    grads_fn = _BUILDERS[kind](cfg, graph, optimizer, data, lay, tab, rgb_leg)
+    gt_hom = data.get("gt_hom") if use_homographies else None
+    zero = tab.zero
     counter = torch.zeros((), dtype=torch.int64, device=device)  # the step, carried on the device
 
     def step_fn(heavy: bool) -> dict:
@@ -775,31 +805,26 @@ def make_train_step(cfg: PlanarConfig, graph: Graph, optimizer, data: dict, sche
         metrics["finite"] = check_finite(loss)
         with torch.no_grad():
             if gt_hom is not None:
-                metrics["Homography_Error"] = (
-                    homography_error(sl3_to_SL3(graph.warp), gt_hom) if (heavy or not lazy) else zero
-                )
-            if masks_ref is not None:
-                metrics["Mask_Error"] = mask_error if (heavy or not lazy) else zero
+                metrics["Homography_Error"] = (homography_error(sl3_to_SL3(graph.warp), gt_hom)
+                                               if (heavy or not tab.lazy) else zero)
+            if lay.masks_ref is not None:
+                metrics["Mask_Error"] = mask_error if (heavy or not tab.lazy) else zero
             if cfg.fix_first:
                 graph.warp[0].zero_()
         counter.add_(1)
         return metrics
 
-    return TrainStep(step_fn, counter, graph, optimizer, scheduler, mesh, collectives, path, where)
+    return TrainStep(step_fn, counter, graph, optimizer, scheduler, mesh, lay.collectives, name, lay.where)
 
 
 class TrainStep:
     """A train step from `make_train_step`: `step(heavy=...)` runs one step
     at the step counter, a 0-d int64 tensor on the device (marf_tpu's
-    `TrainState.step`), and advances it; the per-step tables (c2f weights,
-    alpha, progress) are read at it on the device, so the step reads no
-    value from the host and a CUDA graph can capture it. Returns the
-    metrics, a dict of 0-d tensors. `heavy` marks the chunk-final step.
-    `set_step(it)` writes the counter (after a restore) in place. `path`
-    and `layout` are what its log line names: the gradient path and where
-    it runs (one device, sharded or replicated over a mesh). `collectives`
-    (parallel/mesh.py `Collectives`) takes a sharded step's sums; None
-    without them (one device, replicated).
+    `TrainState.step`), advances it and returns the metrics, a dict of 0-d
+    tensors; `heavy` marks the chunk-final step. `set_step(it)` writes the
+    counter (after a restore) in place. `path` and `layout` are what its log
+    line names. `collectives` (parallel/mesh.py) takes a sharded step's sums
+    (None unsharded).
 
     Capture needs every tensor the step reads or writes across steps to
     keep its storage: parameters and optimizer state are updated in place,
@@ -808,16 +833,9 @@ class TrainStep:
 
     def __init__(self, fn, counter: torch.Tensor, graph: Graph, optimizer, scheduler, mesh, collectives, path: str,
                  layout: str):
-        self._fn = fn
-        self.path = path
-        self.layout = layout
-        self.counter = counter
-        self.graph = graph
-        self.optimizer = optimizer
-        self.scheduler = scheduler
-        self.mesh = mesh
-        self.collectives = collectives
-        self.device = counter.device
+        self._fn, self.path, self.layout, self.counter, self.device = fn, path, layout, counter, counter.device
+        self.graph, self.optimizer, self.scheduler = graph, optimizer, scheduler
+        self.mesh, self.collectives = mesh, collectives
         self.chunk_state = None  # what its chunks share (`_ChunkState`), made by the first `make_train_chunk`
 
     def __call__(self, *, heavy: bool = True) -> dict:
@@ -827,9 +845,8 @@ class TrainStep:
         self.counter.fill_(int(it))
 
     def bound_tensors(self) -> list:
-        """The tensors a captured step reads and writes in place: the
-        parameters, the optimizer's state and learning rates, the schedule's
-        position and table, the counter."""
+        """The tensors a captured step reads and writes in place: parameters,
+        optimizer state and rates, the schedule's position and table, counter."""
         out = [self.counter, *self.graph.parameters()]
         out += [t for st in self.optimizer.state.values() for t in st.values() if isinstance(t, torch.Tensor)]
         out += [g["lr"] for g in self.optimizer.param_groups if isinstance(g["lr"], torch.Tensor)]
@@ -840,10 +857,8 @@ class TrainStep:
 
 def chunk_mode(step: TrainStep, capture: bool | None = None) -> tuple[bool, str]:
     """(capture, why) of a step's chunks. None (the default) captures on a
-    card: one device's step whole, a step under a mesh in segments split at
-    its collectives (`_Segments`), which run between the replays. A chunk
-    runs eager on the CPU, with or without a mesh, and when the caller
-    passes capture=False; capture=True on the CPU raises."""
+    card (a step under a mesh in `_Segments`); a chunk runs eager on the CPU
+    and at capture=False; capture=True on the CPU raises."""
     if step.device.type != "cuda":
         if capture:
             raise ValueError(f"capture=True: CUDA graphs capture a step on a card, not on {step.device}")
@@ -858,12 +873,10 @@ def chunk_mode(step: TrainStep, capture: bool | None = None) -> tuple[bool, str]
 class _Segments:
     """One step captured as CUDA graphs split at its collectives, the twin
     of marf_tpu's jit(shard_map(scan(step))): graph i runs from collective
-    i - 1 to collective i (one graph when the step has none). Every graph
-    is captured into the chunk state's memory pool on one stream, the one
-    autograd's backward takes from its forward, which may lie in an
-    earlier graph. `buffers[i]` is collective i's packed buffer: `replay`
-    all-reduces it in place between graph i and graph i + 1, on the stream
-    the graphs replay on. `launches[i]` are the kernel launches graph i
+    i - 1 to collective i, all in one memory pool on one stream (autograd's
+    backward may use its forward's, in an earlier graph). `replay`
+    all-reduces `buffers[i]`, collective i's packed buffer, in place between
+    graph i and graph i + 1. `launches[i]` are the kernel launches graph i
     recorded; the capture itself counts none."""
 
     def __init__(self, pool):
@@ -908,22 +921,15 @@ class _Segments:
 class _ChunkState:
     """What a step's chunks share: the metric rows [capacity, k] on the
     device and their row counter, written by each step; after the first
-    captured chunk, the light and the heavy step as `_Segments` in one
-    memory pool, and the storage of the tensors they were captured on.
-    For a step with collectives, `issued[heavy]` holds each distinct list
-    of collectives its steps of that kind issued (`Collectives.issued`):
-    a captured step replays one list, so every step of a kind, eager or
-    captured, must issue the same."""
+    captured chunk, the light and the heavy step as `_Segments` and the
+    storage of the tensors they were captured on. `issued[heavy]` holds each
+    distinct list of collectives the steps of that kind issued: a captured
+    step replays one list, so every step of a kind must issue the same."""
 
     def __init__(self, step: TrainStep):
-        self.step = step
-        self.capacity = 0
-        self.keys = None
-        self.rows = None
+        self.step, self.capacity, self.keys, self.rows, self.issued, self.bound = step, 0, None, None, {}, None
         self.row = torch.zeros((1,), dtype=torch.int64, device=step.device)
         self.segments = None  # {heavy: _Segments}
-        self.issued = {}
-        self.bound = None
         self.mode = None  # the chunk mode last logged
 
     def reserve(self, n: int) -> None:
@@ -954,12 +960,10 @@ class _ChunkState:
                                    f"of collectives; a captured step replays one: {sorted(lists)}")
 
     def capture(self) -> None:
-        """Capture the light and the heavy step, each recording its metric
-        row (warmed up: the first chunk ran both eagerly), each as
-        `_Segments` split at its collectives, on one side stream into one
-        memory pool. Capture runs no step and no collective and counts no
-        launch; it raises where the step's collectives differ from the
-        eager steps' of its kind, or between those."""
+        """Capture the light and the heavy step (warmed up by the first
+        chunk), each recording its metric row, as `_Segments` on one side
+        stream into one memory pool. It runs no step and no collective and
+        counts no launch; it raises where the steps' collectives differ."""
         device = self.step.device
         coll = self.step.collectives
         self.check_issued()
@@ -1013,11 +1017,9 @@ class ChunkMetrics:
 class TrainChunk:
     """`make_train_chunk`'s chunk: calling it dispatches n steps (the last
     heavy) and returns their `ChunkMetrics` without waiting for them.
-    `mode` names how (`chunk_mode`), with a captured sharded step's
-    segments per light and heavy step once it is captured. Each call is a
-    tracer span (utils/trace.py) of what it ran: `chunk.eager`,
-    `chunk.warmup` then `chunk.capture`, or `chunk.replay`; then
-    `chunk.copy` for the rows' read."""
+    `mode` names how (`chunk_mode`; a captured sharded step's segments).
+    Each call is a tracer span (utils/trace.py) of what it ran: `chunk.eager`,
+    `chunk.warmup` then `chunk.capture`, or `chunk.replay`; then `chunk.copy`."""
 
     def __init__(self, step: TrainStep, n: int, capture: bool, why: str):
         self.step, self.n, self.capture, self.why = step, n, capture, why
@@ -1084,14 +1086,11 @@ def make_train_chunk(step: TrainStep, n: int, capture: bool | None = None) -> Tr
     """Twin of marf_tpu's `make_train_chunk` (a `lax.scan` of n steps, under
     `shard_map` on a mesh): a chunk of n steps of `step`, the last heavy,
     whose metrics land in the step's rows [n, k] on the device. On a card
-    (`chunk_mode`) the step is captured as CUDA graphs: the first chunk of
-    the step runs eagerly as real training (it carries the kernels' build
-    and warm-up) and then captures a light and a heavy step, a sharded
-    step's split at its collectives; every later chunk, of any length up
-    to the first ones', replays the light one n - 1 times and the heavy one
-    once, a sharded step's with its collectives run between the graphs. A
-    capture that fails raises. capture=False runs the chunk eagerly (the
-    oracle), as the CPU always does."""
+    (`chunk_mode`) the first chunk runs eagerly as real training (with the
+    kernels' build and warm-up), then captures a light and a heavy step
+    (`_Segments`); every later chunk, of any length up to the first ones',
+    replays the light one n - 1 times and the heavy one once. A capture that
+    fails raises. capture=False runs eagerly (the oracle), as the CPU does."""
     capture, why = chunk_mode(step, capture)
     if n < 1:
         raise ValueError(f"a chunk of {n} steps")

@@ -28,7 +28,7 @@ ranges on the thread that started it: the writer's spans are records only.
     setup.*           engine/trainer.py phases               load_dataset, build_networks,
                                                              optimizer (with its restore),
                                                              visualizer, make_step
-      setup.dedup     engine/step.py make_train_step         the shared head's dedup staging
+      setup.dedup     engine/step.py _dedup_grads            the shared head's dedup staging
                                                              (stage_mask_inputs), inside
                                                              setup.make_step
     train.iter        Model.train                            one chunk: dispatch and reads

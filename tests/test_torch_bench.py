@@ -9,6 +9,8 @@ canonical case at 96x128 with 24x32 patches, 200 steps on the CPU (the
 kernels' plain versions; no launches).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import json
 
 import numpy as np

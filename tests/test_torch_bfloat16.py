@@ -16,6 +16,8 @@ of the max-abs). The 5-step trajectories take the float32 trajectories'
 tolerances (tests/test_torch_train_step.py, tests/test_torch_implicit.py).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

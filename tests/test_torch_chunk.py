@@ -28,6 +28,8 @@ parallel). Sizes: the small configs of tests/test_torch_models.py against
 marf_tpu; the trainer tests at H=96, W=128, 48x64 patches.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import os
 import shutil
 
@@ -269,8 +271,20 @@ def test_non_finite_loss_names_its_step(tmp_path, monkeypatch):
 
 # ------------------------------------------------------------- checkpoints
 
+# torch's CPU pool when the fixture was written: its state is bitwise the
+# straight run's only at that size, as the CPU sums split by thread
+FIXTURE_THREADS = 8
 
-def test_checkpoint_from_before_the_device_schedule_resumes_bitwise(tmp_path, deterministic):
+
+@pytest.fixture
+def fixture_threads():
+    before = torch.get_num_threads()
+    torch.set_num_threads(FIXTURE_THREADS)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_checkpoint_from_before_the_device_schedule_resumes_bitwise(tmp_path, deterministic, fixture_threads):
     """The fixture (LambdaLR state, float rates) resumed at step 3 runs steps
     4-6 bitwise as the run that never stopped; the new checkpoints keep the
     fixture's format (float rates, the optimizer's keys, last_epoch)."""

@@ -8,6 +8,8 @@ port's synthetic scene at the tiny size (32x64 photos, 3 images) by
 rtol=1e-5 (float32 matmul order of the normalization).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import os
 import shutil
 

@@ -10,6 +10,8 @@ disk and no writer thread; a slow frame makes the next hand-off wait; and
 the tracer keeps spans from several threads apart.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import copy
 import os
 import sys

@@ -13,6 +13,8 @@ Tolerances: float32 values (rgb, sq, loss) rtol=1e-5; gradients by relative
 error to the max-abs <= 1e-4 (different summation order).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

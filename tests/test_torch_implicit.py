@@ -17,6 +17,8 @@ mask head atol 5e-4 (Adam amplifies reordering noise in near-zero gradient
 components).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -31,6 +31,8 @@ their sign into +-lr, and two implementations part by up to 2e-3 on those
 weights after 3 steps (1.1e-3 between the two autograd paths at seed 3).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,8 @@ Oracle: a real torch module tree with the reference's state_dict naming
 way the refshims' MARF_DUMP_INIT hook does.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import numpy as np
 import pytest
 

@@ -16,6 +16,8 @@ on the CPU the backward of an index gather (the per-point H in the K1 plain
 version) accumulates in parallel and so differs run to run in the last bits.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import os
 import shutil
 

@@ -9,6 +9,8 @@ order of the two frameworks); gradients by relative error to the max-abs
 <= 1e-4 (summation order).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import dataclasses
 
 import jax

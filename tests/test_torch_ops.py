@@ -12,6 +12,8 @@ cotangent (measured up to 1.2e-5 at n = 2 over three seeds); filters against cv2
 float64 at the tolerances of tests/test_filters.py (float32 against float64).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import cv2
 import jax
 import jax.numpy as jnp

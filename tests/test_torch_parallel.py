@@ -24,6 +24,8 @@ one spawn of the two ranks (a module fixture), the 2-D mesh in one spawn of
 four, and every spawn carries a timeout.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import os
 import shutil
 

@@ -8,6 +8,8 @@ which lacks flax:
     python -m pytest tests/test_torch_parallel_card.py -m cuda
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,8 @@ backward accumulates in parallel). Sizes are `TINY` of
 tests/test_torch_trainer.py; 6 steps in chunks of 2.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import glob
 import json
 import os

@@ -23,6 +23,8 @@ The multi-step sharded chunk against marf_tpu's runs in
 tests/test_torch_parallel.py's 2-rank spawn.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import math
 import types
 

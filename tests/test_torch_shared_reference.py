@@ -10,6 +10,8 @@ This file imports no JAX."""
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import os
 
 import numpy as np

@@ -33,6 +33,8 @@ float64, and bitwise equal to a relaunch and to the same products with B
 split in shared memory.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import numpy as np
 import pytest
 import torch

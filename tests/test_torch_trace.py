@@ -21,6 +21,8 @@ This file imports no JAX, so it runs on the card's machine as it is:
 `python -m pytest tests/test_torch_trace.py -m cuda`.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import glob
 import json
 import os

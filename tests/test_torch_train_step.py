@@ -11,6 +11,8 @@ reaches ~3e-3) still takes a step of up to lr, and rounding changes that
 step; measured up to 9.2e-3 (layer-1 bias, masks on).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,8 @@ trainers' parameter updates within 2e-2 in L2 norm (Adam amplifies float32
 rounding in near-zero gradient components, tests/test_torch_train_step.py).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget of this worker)
+
 import os
 import subprocess
 import sys
