@@ -40,8 +40,9 @@
 // .bf16, B landed by cp.async in core matrices K- or MN-major): the mask's
 // first layer reads X channels-first (A MN-major; in bf16 X's per-head
 // blocks and the first-layer weights converted once per call), its hidden
-// layers read activations and weights K-major (in bf16 the hidden weights
-// converted to bf16 tiles once per call), the rgb forward and dz products
+// layers read activations K-major and every head's weights pre-split once
+// per call in one launch (split into TF32 hi and lo, or converted to bf16
+// tiles), on the pre-split kernel, the rgb forward and dz products
 // read their weights pre-split once per call (W and W^T as core-matrix
 // tiles in device memory, the pre-split kernel; fused_step.cu), and the
 // rgb dW products read dz and the layer input point-major, with db folded
@@ -67,14 +68,16 @@ struct ImplicitPlan {
   long long msum_part, total;
 };
 
-// T: the activations' storage type; the bf16 mask plan pre-splits (converts)
-// the hidden weights, as the bf16 engine reads them, the float32 one streams
+// T: the activations' storage type. The mask plan pre-splits every head's
+// hidden weights (split into TF32 hi and lo, or converted to bf16 tiles);
+// its pre-split, like its activations, is read only before the rgb stage,
+// which reuses the same workspace from offset 0.
 template <class T>
 ImplicitPlan make_implicit_plan(int N, int n_heads, int L, int n_rgb, const int* rgb_dims, int n_mask,
                                 const int* mask_dims) {
   ImplicitPlan I{};
   const int nh = n_heads < MAX_GROUP ? n_heads : MAX_GROUP;
-  I.mask = make_mask_plan<T>(N / n_heads, nh, n_mask, mask_dims, false, sizeof(T) == 2);
+  I.mask = make_mask_plan<T>(N / n_heads, nh, n_mask, mask_dims, false);
   const long long rgb_total = make_plan<T>(N, 0, L, n_rgb, rgb_dims).total;
   Arena a;
   a.take(I.mask.total > rgb_total ? I.mask.total : rgb_total);  // both stages start at offset 0

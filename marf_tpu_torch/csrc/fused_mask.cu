@@ -41,22 +41,22 @@
 // forward activations and weights K-major and X point-major). The 56-wide
 // first layer reads X channels-first in place (lda = the row stride of X),
 // in the forward as A and in its dW as B, so X is never relaid.
-// K3 and K4 run one head; the weights of hidden layers 1..3 are the same B
-// for every block and k-tile of their products, so each call splits them
-// into TF32 hi and lo once (presplit_kernel, both orientations, 3 MB) and
-// their forward and ReLU-gated dz products run on the engine's
-// warp-specialised pre-split kernel, as the rgb pipeline's do. K4's forward recompute
-// runs the same launches as K3, so its m is bitwise K3's (the Pallas kernel
-// recomputes it too).
+// The weights of hidden layers 1..3 are the same B for every block and
+// k-tile of their products, so each call splits every head's into TF32 hi
+// and lo once, in one launch (presplit_kernel over a table of weights, both
+// orientations, 3 MB a head), and their forward and ReLU-gated dz products
+// run on the engine's warp-specialised pre-split kernel, as the rgb
+// pipeline's do; in bf16 the same launch converts them to bf16 tiles. K3
+// and K4 run one head. K4's forward recompute runs the same launches as K3,
+// so its m is bitwise K3's (the Pallas kernel recomputes it too).
 // K6 runs all heads in one launch per product: the head is part of the
 // block index (blockIdx.z = head * splits + split, as the TPU grid's g //
 // T), its W, bias and partial buffers come from the GemmCall's pointer
 // table (passed by value), and the dW partials are per head, each head's
-// reduce a fixed-order sum (one launch for all heads); in float32 its
-// products split B in shared memory, in bf16 they read every head's hidden
-// weights as bf16 tiles converted once per call. db is folded into the dW product (the row sums of dz
-// over each split, from the same fragment reads), so no column-sum pass
-// re-reads dz. The head pass and its reduces run once over all heads too.
+// reduce a fixed-order sum (one launch for all heads). db is folded into
+// the dW product (the row sums of dz over each split, from the same
+// fragment reads), so no column-sum pass re-reads dz. The head pass and its
+// reduces run once over all heads too.
 // K6's workspace spans all N columns (up to MAX_GROUP heads at a time):
 // four 256-wide activations and two dz buffers, 6 x 256 x 4 B = 6 KB per
 // column, 1.33 GB at N = 216,000 in float32, half that in bf16 (the
@@ -91,11 +91,11 @@
 
 namespace {
 
-// K6's plan: the workspace of up to MAX_GROUP heads, reused by each group;
-// in bf16 the hidden weights converted to bf16 tiles (pre-split)
+// K6's plan: the workspace of up to MAX_GROUP heads, reused by each group,
+// every head's hidden weights pre-split
 template <class T>
 MaskPlan g_plan(int HW, int n_heads, int n_layers, const int* dims) {
-  return make_mask_plan<T>(HW, n_heads < MAX_GROUP ? n_heads : MAX_GROUP, n_layers, dims, true, sizeof(T) == 2);
+  return make_mask_plan<T>(HW, n_heads < MAX_GROUP ? n_heads : MAX_GROUP, n_layers, dims, true);
 }
 
 // K6 at storage type T (the entry points below): the heads in groups of up
@@ -126,11 +126,11 @@ extern "C" {
 
 // Floats of workspace one call needs (the wrapper allocates it).
 long long marf_mask_forward_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan<float>(K, 1, n_layers, dims, false, true).total;
+  return make_mask_plan<float>(K, 1, n_layers, dims, false).total;
 }
 
 long long marf_mask_backward_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan<float>(K, 1, n_layers, dims, true, true).total;
+  return make_mask_plan<float>(K, 1, n_layers, dims, true).total;
 }
 
 long long marf_mask_backward_g_workspace(int N, int n_heads, int n_layers, const int* dims) {
@@ -143,7 +143,7 @@ int marf_mask_forward(int K, int n_layers, const int* dims, const float* X, cons
                       const float* const* bias, float* m, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const MaskPlan P = make_mask_plan<float>(K, 1, n_layers, dims, false, true);
+  const MaskPlan P = make_mask_plan<float>(K, 1, n_layers, dims, false);
   int rc = hidden_forward<float>(st, P, K, n_layers, dims, X, W, bias, ws);
   if (rc) return rc;
   return mask_head_forward<float>(st, P, n_layers, dims, W, bias, ws, m);
@@ -156,7 +156,7 @@ int marf_mask_backward_dedup(int K, int HW, int B, int n_layers, const int* dims
                              const float* cnt, const float* abk, const float* const* W, const float* const* bias,
                              float* const* dW, float* const* db, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims) || HW < 0 || HW > K || B < 1) return (int)cudaErrorInvalidValue;
-  const MaskPlan P = make_mask_plan<float>(K, 1, n_layers, dims, true, true);
+  const MaskPlan P = make_mask_plan<float>(K, 1, n_layers, dims, true);
   return mask_backward<float>((cudaStream_t)stream, P, K, n_layers, dims, X, W, bias,
                               DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
 }
@@ -177,18 +177,18 @@ int marf_mask_backward_g(int N, int n_heads, int n_layers, const int* dims, cons
 // marf_mask_backward_g (X and the weights float32, as the wrapper keeps
 // them; converted to bf16 in the call).
 long long marf_mask_forward_bf16_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan<bf16>(K, 1, n_layers, dims, false, true).total;
+  return make_mask_plan<bf16>(K, 1, n_layers, dims, false).total;
 }
 
 long long marf_mask_backward_bf16_workspace(int K, int n_layers, const int* dims) {
-  return make_mask_plan<bf16>(K, 1, n_layers, dims, true, true).total;
+  return make_mask_plan<bf16>(K, 1, n_layers, dims, true).total;
 }
 
 int marf_mask_forward_bf16(int K, int n_layers, const int* dims, const float* X, const float* const* W,
                            const float* const* bias, float* m, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const MaskPlan P = make_mask_plan<bf16>(K, 1, n_layers, dims, false, true);
+  const MaskPlan P = make_mask_plan<bf16>(K, 1, n_layers, dims, false);
   int rc = hidden_forward<bf16>(st, P, K, n_layers, dims, X, W, bias, ws);
   if (rc) return rc;
   return mask_head_forward<bf16>(st, P, n_layers, dims, W, bias, ws, m);
@@ -199,7 +199,7 @@ int marf_mask_backward_dedup_bf16(int K, int HW, int B, int n_layers, const int*
                                   const float* cnt, const float* abk, const float* const* W, const float* const* bias,
                                   float* const* dW, float* const* db, float* ws, void* stream) {
   if (!valid_mask_dims(K, n_layers, dims) || HW < 0 || HW > K || B < 1) return (int)cudaErrorInvalidValue;
-  const MaskPlan P = make_mask_plan<bf16>(K, 1, n_layers, dims, true, true);
+  const MaskPlan P = make_mask_plan<bf16>(K, 1, n_layers, dims, true);
   return mask_backward<bf16>((cudaStream_t)stream, P, K, n_layers, dims, X, W, bias,
                              DedupCot{HW, B, s0map, sq, esq, base, cnt, abk}, dW, db, ws);
 }

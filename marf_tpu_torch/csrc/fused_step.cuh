@@ -375,7 +375,7 @@ int fused_step(int Np, int B, int L, int n_layers, const int* dims, const float*
   // ---- the hidden layers' weights, split into TF32 hi and lo (or
   // converted to bf16) once for every block of their forward and dz products
   for (int l = 0; l < last; ++l) {
-    const int rc = Eng::presplit(st, W[l], dims[l + 1], dims[l], ws + P.wsplit[l][0], ws + P.wsplit[l][1]);
+    const int rc = presplit_one<Eng>(st, W[l], dims[l + 1], dims[l], ws + P.wsplit[l][0], ws + P.wsplit[l][1]);
     if (rc) return rc;
   }
 

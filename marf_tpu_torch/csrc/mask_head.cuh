@@ -15,9 +15,10 @@
 // GemmCall's pointer tables):
 //   - hidden_forward: the hidden layers' GEMMs over X [56, ldx] read in place
 //     (X points at head 0's block, rows are ldx apart), with the weights of
-//     hidden layers 1.. pre-split once per call where the plan asks for it
-//     (MaskPlan::presplit: K3 and K4, and every bf16 call), for their
-//     forward and dz products;
+//     every head's hidden layers 1.. pre-split once per call, in one launch
+//     (split into TF32 hi and lo in float32, converted to bf16 tiles in
+//     bf16), for their forward and dz products on the engine's pre-split
+//     kernel;
 //   - mask_head_fwd_kernel: the 256 -> 1 sigmoid layer, one warp per column;
 //   - mask_backward: forward recompute, the head pass with the in-kernel
 //     cotangent (a functor: DedupCot for K4, ColumnCot for K6) and the
@@ -167,15 +168,14 @@ mask_head_bwd_kernel(int K, int F, int chunk, const T* __restrict__ X, GroupCons
 
 // Offsets (floats) into the workspace of one call on nh heads of HW columns;
 // dw_gs, col_gs, head_gs: one head's share of dw_part, col_part, head_part.
-// With presplit, wsplit[h][l] holds head h's hidden layer l (l >= 1) as the
-// pre-split B of its forward [0] and dz [1] products. In bf16, xb holds X
+// wsplit[h][l] holds head h's hidden layer l (l >= 1) as the pre-split B of
+// its forward [0] and dz [1] products. In bf16, xb holds X
 // [dims[0], ldxb] converted to bf16, head h's columns from h xhs on (xhs =
 // round8(HW), so every head's block starts on 16 bytes whatever HW), and
 // w0b each head's first-layer W [dims[1], ldw0b], rows padded to 16 bytes,
 // head h's from h w0hs on (xhs, w0hs in bf16 values).
 struct MaskPlan {
   int nh, HW, head_blocks, head_chunk, head_stride, ldxb, xhs, ldw0b;
-  bool presplit;
   long long acts[MAX_LAYERS], dz[2], dw_part, col_part, head_part, dw_gs, col_gs, head_gs, xb, w0b, w0hs, total;
   long long wsplit[MAX_GROUP][MAX_LAYERS][2];
 };
@@ -184,13 +184,12 @@ struct MaskPlan {
 // = 1. col_part holds the db partials, the folded row sums per head and
 // partial. T: the activations' storage type.
 template <class T>
-MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool backward, bool presplit) {
+MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool backward) {
   using Eng = typename EngineOf<T>::type;
   constexpr bool BF16 = sizeof(T) == 2;
   MaskPlan P{};
   P.nh = nh;
   P.HW = HW;
-  P.presplit = presplit;
   Arena a;
   const long long cols = (long long)nh * HW;
   int widest = 1;
@@ -198,7 +197,7 @@ MaskPlan make_mask_plan(int HW, int nh, int n_layers, const int* dims, bool back
     P.acts[l] = a.take_of<T>(cols * dims[l + 1]);
     widest = dims[l + 1] > widest ? dims[l + 1] : widest;
   }
-  for (int h = 0; presplit && h < nh; ++h) {
+  for (int h = 0; h < nh; ++h) {
     for (int l = 1; l + 1 < n_layers; ++l) {
       P.wsplit[h][l][0] = a.take(Eng::weight_floats(dims[l + 1], dims[l]));
       P.wsplit[h][l][1] = a.take(Eng::weight_floats(dims[l], dims[l + 1]));
@@ -268,20 +267,20 @@ const void* mask_x(const MaskPlan& P, float* ws, const float* X, int h) {
 
 // The hidden layers' forward on nh heads of HW columns: acts[l] =
 // relu(W_h[l] x + b_h[l]), x = X (channels-first, rows ldx apart, head h at
-// column h HW) for l = 0. With P.presplit, the weights of layers 1.. are
-// first split into wsplit (both orientations, so mask_backward's dz
-// products read them too) and their products read B pre-split; layer 0
-// (A = X point-major) streams its B. In bf16, every head's block of X and
-// its first layer's W are first converted into xb and w0b (one launch
-// each), and layer 0 reads those; the hidden weights are then pre-split
-// (converted to bf16 tiles) for every head, as the bf16 engine reads them.
+// column h HW) for l = 0. The weights of every head's layers 1.. are first
+// pre-split into wsplit, in one launch (a table of nh (n_layers - 2)
+// weights; both orientations, so mask_backward's dz products read them
+// too), and their products read B pre-split; layer 0 (A = X point-major)
+// streams its B. In bf16, every head's block of X and its first layer's W
+// are first converted into xb and w0b (one launch each), and layer 0 reads
+// those; the bf16 pre-split converts the hidden weights to bf16 tiles, as
+// the bf16 engine reads them.
 template <class T>
 int hidden_forward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, const int* dims, const float* X,
                    const float* const* W, const float* const* bias, float* ws) {
   using Eng = typename EngineOf<T>::type;
   constexpr bool BF16 = sizeof(T) == 2;
   if (BF16) {
-    if (!P.presplit) return (int)cudaErrorInvalidValue;
     GroupConstPtrs xs{}, w0s{};
     for (int h = 0; h < P.nh; ++h) xs.p[h] = X + (long long)h * P.HW, w0s.p[h] = W[h * n_layers];
     cast_bf16(st, P.nh, xs, dims[0], P.HW, ldx, reinterpret_cast<bf16*>(ws + P.xb), P.ldxb, P.xhs);
@@ -289,29 +288,32 @@ int hidden_forward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, co
     cast_bf16(st, P.nh, w0s, dims[1], dims[0], dims[0], reinterpret_cast<bf16*>(ws + P.w0b), P.ldw0b, P.w0hs);
     MARF_CHECK_LAUNCH();
   }
-  for (int h = 0; P.presplit && h < P.nh; ++h) {
+  // one launch for every head's hidden weights (another per PRESPLIT_MAX more)
+  PresplitTable t{};
+  for (int h = 0; h < P.nh; ++h) {
     for (int l = 1; l + 1 < n_layers; ++l) {
-      const int rc = Eng::presplit(st, W[h * n_layers + l], dims[l + 1], dims[l], ws + P.wsplit[h][l][0],
-                                   ws + P.wsplit[h][l][1]);
-      if (rc) return rc;
+      presplit_add(t, W[h * n_layers + l], dims[l + 1], dims[l], ws + P.wsplit[h][l][0], ws + P.wsplit[h][l][1]);
+      if (t.n == PRESPLIT_MAX || (h + 1 == P.nh && l + 2 == n_layers)) {
+        const int rc = Eng::presplit(st, t);
+        if (rc) return rc;
+        t.n = 0;
+      }
     }
   }
   for (int l = 0; l + 1 < n_layers; ++l) {
-    const bool pre = P.presplit && l > 0;
     GemmCall c = gemm_call(P.HW, dims[l + 1], dims[l], nullptr, l == 0 ? (BF16 ? P.ldxb : ldx) : dims[l], nullptr,
                            l == 0 && BF16 ? P.ldw0b : dims[l], nullptr, dims[l + 1]);
     c.groups = P.nh;
     for (int h = 0; h < P.nh; ++h) {
       c.A[h] = l > 0 ? mask_act<T>(P, ws, l - 1, dims, h) : mask_x<T>(P, ws, X, h);
-      if (pre) c.B[h] = ws + P.wsplit[h][l][0];
-      else if (l == 0 && BF16) c.B[h] = reinterpret_cast<const bf16*>(ws + P.w0b) + h * P.w0hs;
+      if (l > 0) c.B[h] = ws + P.wsplit[h][l][0];
+      else if (BF16) c.B[h] = reinterpret_cast<const bf16*>(ws + P.w0b) + h * P.w0hs;
       else c.B[h] = W[h * n_layers + l];
       c.C[h] = mask_act<T>(P, ws, l, dims, h);
       c.bias[h] = bias[h * n_layers + l];
     }
     const int rc = l == 0 ? Eng::template run<false, false, EPI_BIAS_RELU>(st, c)
-                   : pre  ? Eng::template run_presplit<EPI_BIAS_RELU>(st, c)
-                          : Eng::template run<true, false, EPI_BIAS_RELU>(st, c);
+                          : Eng::template run_presplit<EPI_BIAS_RELU>(st, c);
     if (rc) return rc;
   }
   return 0;
@@ -333,7 +335,7 @@ int mask_head_forward(cudaStream_t st, const MaskPlan& P, int n_layers, const in
 // The heads' backward on nh heads of HW columns (X as in hidden_forward):
 // the forward recompute, the head pass with the cotangent `cot` (indexed by
 // the column across the heads, h HW + p), then dW/db of every layer
-// through the hidden layers (ReLU-gated dX, B pre-split with P.presplit;
+// through the hidden layers (ReLU-gated dX, B pre-split;
 // split-K dW products with db folded in and a fixed-order sum; no dX for
 // X). dW, db: head-major tables like W, bias.
 template <class T, class Cot>
@@ -395,11 +397,11 @@ int mask_backward(cudaStream_t st, const MaskPlan& P, int ldx, int n_layers, con
       d.groups = nh, d.ldg = in;
       for (int h = 0; h < nh; ++h) {
         d.A[h] = dz(cur, h, out);
-        d.B[h] = P.presplit ? ws + P.wsplit[h][l][1] : (const void*)W[h * n_layers + l];
+        d.B[h] = ws + P.wsplit[h][l][1];
         d.C[h] = dz(cur ^ 1, h, in);
         d.gate[h] = mask_act<T>(P, ws, l - 1, dims, h);
       }
-      rc = P.presplit ? Eng::template run_presplit<EPI_GATE>(st, d) : Eng::template run<true, true, EPI_GATE>(st, d);
+      rc = Eng::template run_presplit<EPI_GATE>(st, d);
       if (rc) return rc;
       cur ^= 1;
     }

@@ -29,6 +29,20 @@ int run_presplit_epi(cudaStream_t st, int epi, const GemmCall& c) {
 }
 
 // The split-K layout of K into `splits` (at most) chunks aligned to Eng's k-tile.
+// n (1 to PRESPLIT_MAX) weights W[e] [rows[e], cols[e]] pre-split on engine
+// Eng in one launch, each into fwd[e] and dz[e].
+template <class Eng>
+int presplit_table(int n, const float* const* W, const int* rows, const int* cols, float* const* fwd,
+                   float* const* dz, void* stream) {
+  if (n < 1 || n > PRESPLIT_MAX) return (int)cudaErrorInvalidValue;
+  PresplitTable t{};
+  for (int e = 0; e < n; ++e) {
+    if (rows[e] < 1 || cols[e] < 1) return (int)cudaErrorInvalidValue;
+    presplit_add(t, W[e], rows[e], cols[e], fwd[e], dz[e]);
+  }
+  return Eng::presplit((cudaStream_t)stream, t);
+}
+
 template <class Eng>
 void split_k(int K, int splits, int& n, int& chunk) {
   chunk = cdiv(cdiv(K, splits), Eng::k_tile) * Eng::k_tile;
@@ -126,12 +140,12 @@ int marf_tc_gemm_presplit_groups(int epi, int groups, int M, int N, int K, const
 // Floats of the pre-split B of a product of N columns and depth K.
 long long marf_tc_presplit_floats(int N, int K) { return presplit_floats(N, K); }
 
-// W [rows, cols] (row-major) pre-split as the B of its forward product ("mk,nk",
-// N = rows, K = cols) into fwd and of its dz product ("mk,kn", N = cols,
-// K = rows) into dz.
-int marf_tc_presplit(const float* W, int rows, int cols, float* fwd, float* dz, void* stream) {
-  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
-  return TcEngine::presplit((cudaStream_t)stream, W, rows, cols, fwd, dz);
+// Each of n weights W[e] [rows[e], cols[e]] (row-major) pre-split as the B
+// of its forward product ("mk,nk", N = rows, K = cols) into fwd[e] and of
+// its dz product ("mk,kn", N = cols, K = rows) into dz[e], in one launch.
+int marf_tc_presplit(int n, const float* const* W, const int* rows, const int* cols, float* const* fwd,
+                     float* const* dz, void* stream) {
+  return presplit_table<TcEngine>(n, W, rows, cols, fwd, dz, stream);
 }
 
 // The bf16 engine (TbEngine), marf_tc_gemm's contract with A, B and gate
@@ -152,11 +166,12 @@ int marf_tb_gemm(int a_k_contig, int b_n_contig, int b_split, int epi, int M, in
 // Floats of the bf16 pre-converted B of a product of N columns and depth K.
 long long marf_tb_presplit_floats(int N, int K) { return presplit_bf16_floats(N, K); }
 
-// W [rows, cols] (row-major float32) converted to bf16 tiles as the B of
-// its forward product into fwd and of its dz product into dz.
-int marf_tb_presplit(const float* W, int rows, int cols, float* fwd, float* dz, void* stream) {
-  if (rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
-  return TbEngine::presplit((cudaStream_t)stream, W, rows, cols, fwd, dz);
+// Each of n weights W[e] (row-major float32) converted to bf16 tiles as the
+// B of its forward product into fwd[e] and of its dz product into dz[e], in
+// one launch.
+int marf_tb_presplit(int n, const float* const* W, const int* rows, const int* cols, float* const* fwd,
+                     float* const* dz, void* stream) {
+  return presplit_table<TbEngine>(n, W, rows, cols, fwd, dz, stream);
 }
 
 }  // extern "C"

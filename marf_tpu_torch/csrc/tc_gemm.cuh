@@ -44,10 +44,12 @@
 //     offset 1024 B between row groups), transposing a point-major tile on
 //     the way; it runs while the tensor cores work on the previous tile.
 //   - B pre-split (the forward and dz products of the rgb pipeline and of
-//     the dedup mask head (K3, K4), whose B is a weight matrix, the same for
-//     every block and k-tile of the call): presplit_kernel writes W's hi and
-//     lo once per call into device memory, in both orientations (W for the
-//     forward, W^T for the dz product), laid out as the split pass lays out
+//     every mask head's hidden layers (K3-K6), whose B is a weight matrix,
+//     the same for every block and k-tile of the call): presplit_kernel
+//     writes W's hi and lo once per call into device memory (a table of
+//     weights in one launch: every head's hidden layers), in both
+//     orientations (W for the forward, W^T for the dz product), laid out as
+//     the split pass lays out
 //     a tile and ordered [n-tile][k-tile][hi | lo], so one (n, k) tile is 16
 //     contiguous KB, which bulk copies (cp.async.bulk ...
 //     mbarrier::complete_tx::bytes) bring into shared memory. There is no
@@ -369,17 +371,51 @@ __device__ __forceinline__ void tc_split_tile(const float* raw, float* hi, float
 // floats of a pre-split B of N columns and depth K
 inline long long presplit_floats(int N, int K) { return (long long)cdiv(N, TC_PRE_BN) * cdiv(K, TC_BK) * TC_PRE_TILE; }
 
-// W [rows, cols] (row-major, nn.Linear's [out, in]) as the pre-split B of
-// the two products that read it, blockIdx.y = 0: B(k, n) = W[n, k] (the
-// forward, N = rows, K = cols) into fwd; 1: B(k, n) = W[k, n] (the dz
-// product, N = cols, K = rows) into dz. Tile (n / 64, k / 32) starts at
-// ((n / 64) ktiles + k / 32) TC_PRE_TILE, its hi part then its lo part,
-// each as tc_split_tile writes one (cm_off), zeros past N and K. One thread
-// per row and 4-k chunk, row-fastest as tc_split_tile.
-__global__ void presplit_kernel(const float* __restrict__ W, int rows, int cols, float* __restrict__ fwd,
-                                float* __restrict__ dz) {
-  const bool t = blockIdx.y == 1;
-  const int N = t ? cols : rows, K = t ? rows : cols;
+// A table of weights pre-split in one launch: entry e's W [rows[e],
+// cols[e]] (row-major, nn.Linear's [out, in]) into fwd[e] and dz[e]. The
+// mask heads put every head's hidden layers into one table; a pipeline with
+// one weight per layer gives a table of one. Read by the kernels as a
+// __grid_constant__ parameter, so indexing it by blockIdx.z copies nothing
+// to local memory.
+constexpr int PRESPLIT_MAX = 64;  // entries per launch (2 KB of parameters): 16 heads x 4 hidden layers
+struct PresplitTable {
+  int n;
+  int rows[PRESPLIT_MAX], cols[PRESPLIT_MAX];
+  const float* W[PRESPLIT_MAX];
+  float* fwd[PRESPLIT_MAX];
+  float* dz[PRESPLIT_MAX];
+};
+
+inline void presplit_add(PresplitTable& t, const float* W, int rows, int cols, float* fwd, float* dz) {
+  t.rows[t.n] = rows, t.cols[t.n] = cols, t.W[t.n] = W, t.fwd[t.n] = fwd, t.dz[t.n] = dz;
+  ++t.n;
+}
+
+// The grid of a table's pre-split: blockIdx.z the entry, blockIdx.y the
+// orientation, `per_thread` floats of the larger one written by a thread
+dim3 presplit_grid(const PresplitTable& t, long long (*floats)(int, int), int per_thread) {
+  long long units = 0;
+  for (int e = 0; e < t.n; ++e) {
+    const long long f = floats(t.rows[e], t.cols[e]), d = floats(t.cols[e], t.rows[e]);
+    units = f > units ? f : units;
+    units = d > units ? d : units;
+  }
+  return dim3(cdiv(units / per_thread, ELEM_THREADS), 2, t.n);
+}
+
+// Entry e = blockIdx.z of the table as the pre-split B of the two products
+// that read its W, blockIdx.y = 0: B(k, n) = W[n, k] (the forward, N = rows,
+// K = cols) into fwd; 1: B(k, n) = W[k, n] (the dz product, N = cols, K =
+// rows) into dz. Tile (n / 64, k / 32) starts at ((n / 64) ktiles + k / 32)
+// TC_PRE_TILE, its hi part then its lo part, each as tc_split_tile writes
+// one (cm_off), zeros past N and K. One thread per row and 4-k chunk,
+// row-fastest as tc_split_tile.
+__global__ void presplit_kernel(const __grid_constant__ PresplitTable t) {
+  const int e = blockIdx.z;
+  const float* __restrict__ W = t.W[e];
+  const int rows = t.rows[e], cols = t.cols[e];
+  const bool tr = blockIdx.y == 1;
+  const int N = tr ? cols : rows, K = tr ? rows : cols;
   const int ktiles = (K + TC_BK - 1) / TC_BK;
   constexpr int UNITS = TC_PRE_BN * (TC_BK / 4);  // per tile
   const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -390,9 +426,9 @@ __global__ void presplit_kernel(const float* __restrict__ W, int rows, int cols,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int k = k0 + j;
-    v[j] = n < N && k < K ? (t ? W[(long long)k * cols + n] : W[(long long)n * cols + k]) : 0.0f;
+    v[j] = n < N && k < K ? (tr ? W[(long long)k * cols + n] : W[(long long)n * cols + k]) : 0.0f;
   }
-  float* o = (t ? dz : fwd) + (long long)tile * TC_PRE_TILE;
+  float* o = (tr ? t.dz[e] : t.fwd[e]) + (long long)tile * TC_PRE_TILE;
   split_store4(v, o, o + TC_PRE_TILE / 2, cm_off(r, c));
 }
 
@@ -929,13 +965,13 @@ struct TcEngine : EngineShape<TC_BK, TC_FLUSH> {
     }
     return tc_launch<AK, BNC, EPI, 64>(st, c, a_vec, b_vec);
   }
-  // W [rows, cols] as the pre-split B of its forward product (fwd,
-  // presplit_floats(rows, cols) floats) and of its dz product (dz,
-  // presplit_floats(cols, rows)), in one launch
-  static int presplit(cudaStream_t st, const float* W, int rows, int cols, float* fwd, float* dz) {
-    const long long f = presplit_floats(rows, cols), d = presplit_floats(cols, rows);
-    const long long units = (f > d ? f : d) / 8;  // a thread per 4 k of a row, hi and lo
-    presplit_kernel<<<dim3(cdiv(units, ELEM_THREADS), 2), ELEM_THREADS, 0, st>>>(W, rows, cols, fwd, dz);
+  // Each W [rows, cols] of the table as the pre-split B of its forward
+  // product (fwd, presplit_floats(rows, cols) floats) and of its dz product
+  // (dz, presplit_floats(cols, rows)), in one launch
+  static int presplit(cudaStream_t st, const PresplitTable& t) {
+    if (t.n < 1 || t.n > PRESPLIT_MAX) return (int)cudaErrorInvalidValue;
+    // a thread per 4 k of a row, hi and lo
+    presplit_kernel<<<presplit_grid(t, presplit_floats, 8), ELEM_THREADS, 0, st>>>(t);
     return (int)cudaGetLastError();
   }
   // run<true, *, EPI> with every group's B pre-split (presplit's fwd or dz
@@ -987,8 +1023,8 @@ struct TcEngine : EngineShape<TC_BK, TC_FLUSH> {
 //     tensor cores truncate as they accumulate); a dW product writes a
 //     partial per 32 k-tiles (2,048 points), summed pairwise;
 //   - B pre-converted (the template flag B_PRE; the hidden weights of the
-//     rgb pipeline and of the dedup mask head): presplit_bf16_kernel writes
-//     W and W^T once per call as bf16 tiles of 64 n by 64 k in the K-major
+//     rgb pipeline and of every mask head): presplit_bf16_kernel writes
+//     W and W^T once per call (a table of weights in one launch) as bf16 tiles of 64 n by 64 k in the K-major
 //     core-matrix layout, ordered [n-tile][k-tile], 8 KB a tile, each
 //     loaded by one cp.async.bulk on an mbarrier;
 //   - operands: bf16, every row 16-byte aligned (leading dimensions that
@@ -1121,16 +1157,18 @@ inline long long presplit_bf16_floats(int N, int K) {
   return (long long)cdiv(N, TC_PRE_BN) * cdiv(K, TB_BK) * (TB_PRE_TILE / 2);
 }
 
-// W [rows, cols] float32 (row-major, nn.Linear's [out, in]) as the bf16 B of
-// the two products that read it, blockIdx.y = 0: B(k, n) = W[n, k] (the
-// forward) into fwd; 1: B(k, n) = W[k, n] (the dz product) into dz. Tile
-// (n / 64, k / 64) starts at ((n / 64) ktiles + k / 64) TB_PRE_TILE, in
-// tb_core_off's K-major layout, zeros past N and K. One thread per row and
-// 8-k chunk, 16 bytes written.
-__global__ void presplit_bf16_kernel(const float* __restrict__ W, int rows, int cols, bf16* __restrict__ fwd,
-                                     bf16* __restrict__ dz) {
-  const bool t = blockIdx.y == 1;
-  const int N = t ? cols : rows, K = t ? rows : cols;
+// Entry e = blockIdx.z of the table (float32 W, row-major, nn.Linear's
+// [out, in]) as the bf16 B of the two products that read it, blockIdx.y =
+// 0: B(k, n) = W[n, k] (the forward) into fwd; 1: B(k, n) = W[k, n] (the dz
+// product) into dz. Tile (n / 64, k / 64) starts at ((n / 64) ktiles + k /
+// 64) TB_PRE_TILE, in tb_core_off's K-major layout, zeros past N and K. One
+// thread per row and 8-k chunk, 16 bytes written.
+__global__ void presplit_bf16_kernel(const __grid_constant__ PresplitTable t) {
+  const int e = blockIdx.z;
+  const float* __restrict__ W = t.W[e];
+  const int rows = t.rows[e], cols = t.cols[e];
+  const bool tr = blockIdx.y == 1;
+  const int N = tr ? cols : rows, K = tr ? rows : cols;
   const int ktiles = (K + TB_BK - 1) / TB_BK;
   constexpr int UNITS = TC_PRE_BN * (TB_BK / 8);  // per tile
   const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1144,11 +1182,12 @@ __global__ void presplit_bf16_kernel(const float* __restrict__ W, int rows, int 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int k = k0 + 2 * j + h;
-      x[h] = n < N && k < K ? (t ? W[(long long)k * cols + n] : W[(long long)n * cols + k]) : 0.0f;
+      x[h] = n < N && k < K ? (tr ? W[(long long)k * cols + n] : W[(long long)n * cols + k]) : 0.0f;
     }
     v[j] = pack_bf16(__float2bfloat16_rn(x[0]), __float2bfloat16_rn(x[1]));
   }
-  bf16* o = (t ? dz : fwd) + (long long)tile * TB_PRE_TILE + tb_core_off<true, TC_PRE_BN>(r, 8 * c);
+  bf16* o = reinterpret_cast<bf16*>(tr ? t.dz[e] : t.fwd[e]) + (long long)tile * TB_PRE_TILE +
+            tb_core_off<true, TC_PRE_BN>(r, 8 * c);
   *reinterpret_cast<uint4*>(o) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
@@ -1415,14 +1454,14 @@ struct TbEngine : EngineShape<TB_BK, TB_FLUSH> {
     }
     return tb_launch<AK, BNC, EPI, 64>(st, c);
   }
-  // W [rows, cols] float32 as the bf16 B of its forward product (fwd,
-  // presplit_bf16_floats(rows, cols) floats) and of its dz product (dz,
-  // presplit_bf16_floats(cols, rows)), in one launch: converted, not split
-  static int presplit(cudaStream_t st, const float* W, int rows, int cols, float* fwd, float* dz) {
-    const long long f = presplit_bf16_floats(rows, cols), d = presplit_bf16_floats(cols, rows);
-    const long long units = (f > d ? f : d) / 4;  // a thread per 8 k of a row
-    presplit_bf16_kernel<<<dim3(cdiv(units, ELEM_THREADS), 2), ELEM_THREADS, 0, st>>>(
-        W, rows, cols, reinterpret_cast<bf16*>(fwd), reinterpret_cast<bf16*>(dz));
+  // Each float32 W [rows, cols] of the table as the bf16 B of its forward
+  // product (fwd, presplit_bf16_floats(rows, cols) floats) and of its dz
+  // product (dz, presplit_bf16_floats(cols, rows)), in one launch:
+  // converted, not split
+  static int presplit(cudaStream_t st, const PresplitTable& t) {
+    if (t.n < 1 || t.n > PRESPLIT_MAX) return (int)cudaErrorInvalidValue;
+    // a thread per 8 k of a row
+    presplit_bf16_kernel<<<presplit_grid(t, presplit_bf16_floats, 4), ELEM_THREADS, 0, st>>>(t);
     return (int)cudaGetLastError();
   }
   // run<true, *, EPI> with every group's B pre-converted (presplit's fwd or
@@ -1436,6 +1475,14 @@ struct TbEngine : EngineShape<TB_BK, TB_FLUSH> {
     return tb_launch<true, false, EPI, TC_PRE_BN, true>(st, c);
   }
 };
+
+// One weight W [rows, cols] pre-split on engine Eng (a table of one)
+template <class Eng>
+int presplit_one(cudaStream_t st, const float* W, int rows, int cols, float* fwd, float* dz) {
+  PresplitTable t{};
+  presplit_add(t, W, rows, cols, fwd, dz);
+  return Eng::presplit(st, t);
+}
 
 // The engine of a pipeline whose activations are stored as T
 template <class T>

@@ -8,9 +8,9 @@ CUDA graph runs no wrapper when it is replayed: engine/step.py's captured
 chunk puts the counts back after the capture, and adds each graph's
 recorded launches at each replay.
 
-`presplit_products(k, dims)` is how many products with a pre-split B (the
+`presplit_products(k, dims, ...)` is how many products with a pre-split B (the
 3xTF32 engine's warp-specialised kernel, TcEngine::run_presplit) one float32
-call of kernel `k` enqueues; each float32 wrapper K1-K5 adds that to the
+call of kernel `k` enqueues; each float32 wrapper K1-K6 adds that to the
 tracer's counter `presplit_products` where it launches its kernel, as it
 adds to `LAUNCHES` (so a captured step counts at its capture, not at its
 replays).
@@ -60,24 +60,32 @@ KERNELS = {
 }
 
 
-def presplit_products(k: str, dims) -> int:
+MAX_GROUP = 16  # mask heads per grouped launch (csrc/mlp_kernels.cuh)
+
+
+def presplit_products(k: str, dims, heads: int = 1, mask_dims=None) -> int:
     """The pre-split products one float32 call of kernel `k` enqueues, from
     the widths `dims` (input, hidden..., output) of the network whose hidden
     weights it pre-splits: the rgb MLP for K1, K2 and K5 (a forward and a dz
     product per hidden layer, the first layer's dz writing d(encoding)); the
-    mask head for K3 (its hidden layers after the first) and K4 (those again
-    in its recompute, and their ReLU-gated dz products). K6, and K5's mask
-    head, stream every B."""
+    mask head for K3 (its hidden layers after the first), K4 (those again
+    in its recompute, and their ReLU-gated dz products) and K6 (as K4, once
+    per group of up to MAX_GROUP of its `heads`: one grouped launch over a
+    group's heads is one product). K5 adds its mask heads' forward, from
+    their widths `mask_dims`: as K3's, once per group of its `heads`."""
     layers = len(dims) - 1
-    per = {"K1": 2 * (layers - 1), "K2": 2 * (layers - 1), "K5": 2 * (layers - 1), "K3": layers - 2,
-           "K4": 2 * (layers - 2), "K6": 0}
+    groups = -(-heads // MAX_GROUP)
+    per = {"K1": 2 * (layers - 1), "K2": 2 * (layers - 1), "K3": layers - 2, "K4": 2 * (layers - 2),
+           "K6": groups * 2 * (layers - 2)}
+    if k == "K5":
+        return max(0, 2 * (layers - 1)) + groups * max(0, len(mask_dims) - 3)
     return max(0, per[k])
 
 
-def count_presplit(k: str, dims) -> None:
+def count_presplit(k: str, dims, heads: int = 1, mask_dims=None) -> None:
     """Add a float32 launch of kernel `k`'s pre-split products to the
     tracer's counter `presplit_products`."""
-    trace.count("presplit_products", presplit_products(k, dims))
+    trace.count("presplit_products", presplit_products(k, dims, heads, mask_dims))
 
 
 def kernel(k: str):

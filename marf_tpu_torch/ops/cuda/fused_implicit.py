@@ -122,7 +122,7 @@ def fused_implicit_train_kernel(net: NeuralImage, stacks: list, coords, x_cf, cw
         raise RuntimeError(f"{fn} ({cdt}) kernel launch failed: CUDA error {rc}")
     LAUNCHES[fn + sfx] += 1
     if not sfx:
-        count_presplit("K5", dims)
+        count_presplit("K5", dims, n_heads, mdims)
     return rgb, m, sq, dcoords, msum, loss, list(zip(dws, dbs))
 
 

@@ -372,7 +372,7 @@ def fused_mask_backward_g(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None,
         raise ValueError(f"{fn}: unsupported device {x_cf.device}")
     device = x_cf.device
     n_heads, N = len(stacks), x_cf.shape[1]
-    _, _, c_dims = checked_stacks(fn, stacks, x_cf)
+    _, dims, c_dims = checked_stacks(fn, stacks, x_cf)
     for name, t, shape in (("sq", sq, (1, N)), ("esq", esq, (1, N)), ("cnt", cnt, (1, N)), ("abk", abk, (3,))):
         if t is not None:
             check_tensor(fn, name, t, shape, device)
@@ -393,6 +393,8 @@ def fused_mask_backward_g(stacks: list, x_cf, sq, esq, abk, c: float, cnt=None,
     if rc != 0:
         raise RuntimeError(f"{fn} ({compute_dtype}) kernel launch failed: CUDA error {rc}")
     LAUNCHES[fn + sfx] += 1
+    if not sfx:
+        count_presplit("K6", dims, n_heads)
     n = len(stacks[0])
     return [list(zip(dws[h * n : (h + 1) * n], dbs[h * n : (h + 1) * n])) for h in range(n_heads)]
 

@@ -16,8 +16,10 @@ memory (64 columns by 32 deep, K-major 8 x 4 core matrices of 128 bytes,
 element (n, k) of a tile at (n // 8) 256 + (k // 4) 32 + (n % 8) 4 + k % 4),
 tiles ordered [n-tile][k-tile][hi | lo], zeros past the edges; once as the B
 of the forward product ("mk,nk": B(k, n) = W[n, k]) and once as the B of the
-dz product ("mk,kn": B(k, n) = W[k, n]). The rgb pipeline (K1, K2, K5) writes
-it once per call and streams each tile into shared memory with one bulk copy.
+dz product ("mk,kn": B(k, n) = W[k, n]). The rgb pipeline (K1, K2, K5) and
+the mask heads (K3-K6) write it once per call and stream each tile into shared
+memory with one bulk copy; `presplit_table` pre-splits a table of weights in
+one launch, as the mask heads pre-split every head's hidden layers.
 
 The bf16 engine's pre-split (`presplit_bf16`) converts W to bf16 and lays it
 out in tiles of 64 columns by 64 deep, K-major 8 x 8 core matrices of 128
@@ -41,7 +43,7 @@ import ctypes
 import torch
 
 from marf_tpu_torch.ops.cuda import LAUNCHES
-from marf_tpu_torch.ops.cuda.fused_step import check_tensor
+from marf_tpu_torch.ops.cuda.fused_step import check_tensor, ptr_array
 
 SOURCES = ["tc_gemm.cu"]
 PRE_BN, BK = 64, 32  # a pre-split tile's width and depth (TC_PRE_BN, TC_BK in csrc/tc_gemm.cuh)
@@ -58,7 +60,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_tc_gemm.restype = ctypes.c_int
     lib.marf_tc_presplit_floats.argtypes = [i, i]
     lib.marf_tc_presplit_floats.restype = ctypes.c_longlong
-    lib.marf_tc_presplit.argtypes = [p, i, i, p, p, p]
+    lib.marf_tc_presplit.argtypes = [i, p, p, p, p, p, p]
     lib.marf_tc_presplit.restype = ctypes.c_int
     ll = ctypes.c_longlong
     lib.marf_tc_gemm_presplit_groups.argtypes = [i, i, i, i, i, p, i, ll, p, ll, p, i, ll, p, p, i, ll, p]
@@ -69,7 +71,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.marf_tb_gemm.restype = ctypes.c_int
     lib.marf_tb_presplit_floats.argtypes = [i, i]
     lib.marf_tb_presplit_floats.restype = ctypes.c_longlong
-    lib.marf_tb_presplit.argtypes = [p, i, i, p, p, p]
+    lib.marf_tb_presplit.argtypes = [i, p, p, p, p, p, p]
     lib.marf_tb_presplit.restype = ctypes.c_int
 
 
@@ -199,7 +201,7 @@ def tc_gemm_groups(a, w, layout: str, epilogue: str = "store", bias=None, gate=N
     if gate is not None:
         check_tensor("tc_gemm_groups", "gate", gate, (G, M, N), device)
     lib = _library()
-    b = torch.stack([presplit(w[g])[0 if layout == "mk,nk" else 1] for g in range(G)])
+    b = torch.stack([pre[0 if layout == "mk,nk" else 1] for pre in presplit_table(list(w))])
     c = torch.empty((G, M, N), dtype=torch.float32, device=device)
     rc = lib.marf_tc_gemm_presplit_groups(
         EPILOGUES[epilogue], G, M, N, K, a.data_ptr(), K, M * K, b.data_ptr(), b.shape[1], c.data_ptr(), N, M * N,
@@ -243,22 +245,43 @@ def presplit(w: torch.Tensor):
     and of its dz product (module docstring): (fwd [presplit_floats(rows,
     cols)], dz [presplit_floats(cols, rows)]). CPU tensors run
     `presplit_reference`."""
-    if w.device.type == "cpu":
-        return presplit_reference(w)
-    if w.device.type != "cuda":
-        raise ValueError(f"presplit: unsupported device {w.device}")
-    if w.dtype != torch.float32 or w.dim() != 2 or not w.is_contiguous():
-        raise ValueError(f"presplit: W must be a contiguous 2-d float32 tensor, got {w.dtype} {tuple(w.shape)}")
+    return presplit_table([w])[0]
+
+
+PRESPLIT_MAX = 64  # weights per launch of the pre-split (csrc/tc_gemm.cuh)
+
+
+def presplit_table(ws: list, bf16: bool = False) -> list:
+    """Each weight of `ws` (at most PRESPLIT_MAX, contiguous 2-d float32, of
+    any shapes) pre-split as `presplit` lays out one (bf16: converted as
+    `presplit_bf16` does), all in one launch, as the mask heads pre-split
+    every head's hidden layers: [(fwd, dz)]. CPU tensors run the plain
+    version of each weight."""
+    name = "presplit_bf16" if bf16 else "presplit"
+    if ws[0].device.type == "cpu":
+        ref = presplit_bf16_reference if bf16 else presplit_reference
+        return [ref(w) for w in ws]
+    device = ws[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if len(ws) > PRESPLIT_MAX:
+        raise ValueError(f"{name}: at most {PRESPLIT_MAX} weights a launch, got {len(ws)}")
+    for w in ws:
+        if w.device != device or w.dtype != torch.float32 or w.dim() != 2 or not w.is_contiguous():
+            raise ValueError(f"{name}: W must be a contiguous 2-d float32 tensor on {device}, "
+                             f"got {w.dtype} {tuple(w.shape)} on {w.device}")
     lib = _library()
-    rows, cols = w.shape
-    fwd = torch.empty(lib.marf_tc_presplit_floats(rows, cols), dtype=torch.float32, device=w.device)
-    dz = torch.empty(lib.marf_tc_presplit_floats(cols, rows), dtype=torch.float32, device=w.device)
-    rc = lib.marf_tc_presplit(w.data_ptr(), rows, cols, fwd.data_ptr(), dz.data_ptr(),
-                              torch.cuda.current_stream(w.device).cuda_stream)
+    floats = lib.marf_tb_presplit_floats if bf16 else lib.marf_tc_presplit_floats
+    out = [(torch.empty(floats(*w.shape), dtype=torch.float32, device=device),
+            torch.empty(floats(*w.shape[::-1]), dtype=torch.float32, device=device)) for w in ws]
+    ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
+    rc = (lib.marf_tb_presplit if bf16 else lib.marf_tc_presplit)(
+        len(ws), ptr_array(ws), ints([w.shape[0] for w in ws]), ints([w.shape[1] for w in ws]),
+        ptr_array([f for f, _ in out]), ptr_array([d for _, d in out]), torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"presplit kernel launch failed: CUDA error {rc}")
-    LAUNCHES["tc_presplit"] += 1
-    return fwd, dz
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES["tc_presplit_bf16" if bf16 else "tc_presplit"] += 1
+    return out
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -296,22 +319,7 @@ def presplit_bf16(w: torch.Tensor):
     its forward and of its dz product (module docstring): (fwd, dz), float32
     tensors of presplit_bf16_floats(rows, cols) and (cols, rows) floats
     holding the bf16 values. CPU tensors run `presplit_bf16_reference`."""
-    if w.device.type == "cpu":
-        return presplit_bf16_reference(w)
-    if w.device.type != "cuda":
-        raise ValueError(f"presplit_bf16: unsupported device {w.device}")
-    if w.dtype != torch.float32 or w.dim() != 2 or not w.is_contiguous():
-        raise ValueError(f"presplit_bf16: W must be a contiguous 2-d float32 tensor, got {w.dtype} {tuple(w.shape)}")
-    lib = _library()
-    rows, cols = w.shape
-    fwd = torch.empty(lib.marf_tb_presplit_floats(rows, cols), dtype=torch.float32, device=w.device)
-    dz = torch.empty(lib.marf_tb_presplit_floats(cols, rows), dtype=torch.float32, device=w.device)
-    rc = lib.marf_tb_presplit(w.data_ptr(), rows, cols, fwd.data_ptr(), dz.data_ptr(),
-                              torch.cuda.current_stream(w.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"presplit_bf16 kernel launch failed: CUDA error {rc}")
-    LAUNCHES["tc_presplit_bf16"] += 1
-    return fwd, dz
+    return presplit_table([w], bf16=True)[0]
 
 
 def _presplit_bf16_one(bt: torch.Tensor) -> torch.Tensor:

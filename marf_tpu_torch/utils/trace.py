@@ -59,7 +59,7 @@ ranges on the thread that started it: the writer's spans are records only.
                       found the frame before still being written
     tb_events         TB events written (scalars, images); tb_bytes their bytes
     presplit_products the 3xTF32 engine's pre-split products (its
-                      warp-specialised kernel) that K1-K5's float32 calls
+                      warp-specialised kernel) that K1-K6's float32 calls
                       enqueued (ops/cuda presplit_products): eager steps
                       and captures, not replays
     ckpt_bytes        checkpoint bytes written

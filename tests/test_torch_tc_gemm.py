@@ -327,6 +327,24 @@ def test_presplit_bf16_plain_layout(rng, rows, cols):
         assert not vals[off[~inside]].any()
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["tf32", "bf16"])
+def test_presplit_table_plain_layout(rng, bf16):
+    """The plain version of the pre-split of a table of weights of mixed
+    shapes (a mask head's hidden layers beside an rgb layer and a ragged
+    one): each entry's buffers are that weight's own plain pre-split, whose
+    layout the tests above hold to the formula, at that weight's sizes."""
+    shapes = [(256, 256)] * 3 + [(256, 34), (130, 77)]
+    ws = [torch.from_numpy(rng.randn(r, c).astype(np.float32)) for r, c in shapes]
+    out = tg.presplit_table(ws, bf16=bf16)
+    ref, floats = ((tg.presplit_bf16_reference, tg.presplit_bf16_floats) if bf16
+                   else (tg.presplit_reference, tg.presplit_floats))
+    assert len(out) == len(ws)
+    for (fwd, dz), w in zip(out, ws):
+        assert fwd.shape == (floats(*w.shape),) and dz.shape == (floats(*w.shape[::-1]),)
+        for o, r in zip((fwd, dz), ref(w)):
+            assert torch.equal(o.view(torch.int32), r.view(torch.int32))
+
+
 def test_port_tf32_matches_emulation(rng):
     edges = [1.0 + 2.0**-11, -(1.0 + 2.0**-11), 0.0, -0.0, 3e38, -3e38]
     x = np.concatenate([rng.randn(4096), edges]).astype(np.float32)
@@ -465,20 +483,47 @@ def test_presplit_matches_plain_on_card(rng, cuda_device, rows, cols):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("groups", [1, 2], ids=["groups1", "groups2"])
-@pytest.mark.parametrize("M", [1537, 44573, 216000], ids=["M1537", "M44573", "M216000"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["tf32", "bf16"])
+def test_presplit_table_matches_plain_on_card(rng, cuda_device, bf16):
+    """The pre-split of a table of weights in one launch, as the per-image
+    mask heads pre-split theirs (5 heads x 3 hidden layers of 256 x 256),
+    and a table of mixed shapes: each entry's buffers, for W and W^T,
+    bitwise equal to that weight's plain pre-split."""
+    ref = tg.presplit_bf16_reference if bf16 else tg.presplit_reference
+    key = "tc_presplit_bf16" if bf16 else "tc_presplit"
+    for shapes in ([(256, 256)] * 15, [(256, 256), (256, 34), (130, 77), (3, 256)]):
+        ws = [torch.from_numpy(rng.randn(r, c).astype(np.float32)).to(cuda_device) for r, c in shapes]
+        before = LAUNCHES[key]
+        out = tg.presplit_table(ws, bf16=bf16)
+        torch.cuda.synchronize()
+        assert LAUNCHES[key] == before + 1
+        for (fwd, dz), w in zip(out, ws):
+            for o, r in zip((fwd, dz), ref(w)):
+                assert torch.equal(o.view(torch.int32), r.view(torch.int32))
+
+
+# (points, groups) of the pre-split products: the rgb pipeline's and the
+# shared head's at one group or two, and the per-image heads' five groups of
+# 43,200 columns and of a ragged 8,641
+PRESPLIT_M_GROUPS = [(M, g) for M in (1537, 44573, 216000) for g in (1, 2)] + [(43200, 5), (8641, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,groups", PRESPLIT_M_GROUPS, ids=[f"M{M}-groups{g}" for M, g in PRESPLIT_M_GROUPS])
 @pytest.mark.parametrize("rows,cols", PRESPLIT_SHAPES, ids=["34to256", "256to256"])
 @pytest.mark.parametrize("layout,epilogue", [("mk,nk", "bias_relu"), ("mk,kn", "gate"), ("mk,kn", "store")],
                          ids=["forward", "dz_gated", "dz_store"])
 def test_tc_gemm_presplit_on_card(rng, cuda_device, rows, cols, layout, epilogue, M, groups):
-    """The rgb pipeline's forward and dz products with the weight W [rows,
-    cols] pre-split and streamed by bulk copies, on the warp-specialised
-    kernel: at M = 1,537 points (fewer tiles than blocks), the shared head's
-    ragged dedup column count 44,573 and the main path's 216,000 (every
-    block walks many tiles, both consumers, the ring's phases wrapping), N
-    and K of 256 and 34, one group or two in one launch: within 1e-5 of the
-    plain version, within twice its error of float64, bitwise equal to a
-    relaunch and to the same product with B split in shared memory."""
+    """The forward and dz products with the weight W [rows, cols] pre-split
+    and streamed by bulk copies, on the warp-specialised kernel: at M =
+    1,537 points (fewer tiles than blocks), the shared head's ragged dedup
+    column count 44,573 and the main path's 216,000 (every block walks many
+    tiles, both consumers, the ring's phases wrapping), N and K of 256 and
+    34, one group or two in one launch; and the per-image mask heads' own
+    grouped products, five groups of 43,200 columns (26 blocks a group) and
+    of a ragged 8,641: within 1e-5 of the plain version, within twice its
+    error of float64, bitwise equal to a relaunch and to the same product
+    with B split in shared memory."""
     w = torch.from_numpy(rng.randn(groups, rows, cols).astype(np.float32)).to(cuda_device)
     N, K = (rows, cols) if layout == "mk,nk" else (cols, rows)
     a = torch.from_numpy(rng.randn(groups, M, K).astype(np.float32)).to(cuda_device)

@@ -13,8 +13,8 @@ keeps its meaning; under torch.profiler the training thread's spans are
 profiler off: its spans are records only); a tiny shared-head dedup Model
 records its staging as one `setup.dedup` inside `setup.make_step` and
 counts its K, E and extra pairs; the pre-split products that a float32
-call of K1-K5 enqueues, at the three benchmark configurations' widths,
-against a hand count, and their counter `presplit_products` in the summary.
+call of K1-K6 enqueues, at the three benchmark configurations' widths and
+at 17 heads (two groups), against a hand count, and their counter `presplit_products` in the summary.
 Card (`cuda`): in an eager chunk each `marf.K<i>` range holds its kernel's
 device operations; a replayed graph opens none and counts its launches.
 This file imports no JAX, so it runs on the card's machine as it is:
@@ -134,13 +134,17 @@ def test_a_counter_new_since_the_snapshot_shows_at_zero():
 
 # the pre-split products a float32 step's kernels enqueue, counted by hand at
 # planar.yaml's widths (rgb 34 -> 256 x4 -> 3, the Ha-NeRF mask head 426 ->
-# 256 x4 -> 1): K1, K2 and K5 a forward and a dz product per hidden rgb layer
-# (4 + 4); K3 the mask head's hidden layers after its first (3), K4 those in
-# its recompute and their gated dz products (3 + 3); K6 none
+# 256 x4 -> 1), a grouped launch over up to 16 heads counting once: K1, K2
+# and K5 a forward and a dz product per hidden rgb layer (4 + 4); K3 the mask
+# head's hidden layers after its first (3); K4 those in its recompute and
+# their gated dz products (3 + 3); K5 adds its heads' forward of those 3
+# layers per group (8 + 3 at 5 heads, 8 + 3 + 3 at 17: two groups); K6 its
+# recompute and gated dz per group (6 at 5 heads, 12 at 17)
 PRESPLIT_BY_HAND = {
-    "fixed_masks": {"K1": 8},
-    "implicit_heads": {"K5": 8, "K6": 0},
-    "implicit_shared": {"K3": 3, "K1": 8, "K4": 6},
+    "fixed_masks": (1, {"K1": 8}),
+    "implicit_heads": (5, {"K5": 11, "K6": 6}),
+    "implicit_heads_17": (17, {"K5": 14, "K6": 12}),
+    "implicit_shared": (1, {"K3": 3, "K1": 8, "K4": 6}),
 }
 
 
@@ -156,15 +160,17 @@ def test_presplit_products_at_the_configurations_widths(config):
     widths = {"rgb": [arch.input_dim] + [k_out for _, k_out in arch.layer_dims],
               "mask": [head.layers[0].in_features] + [layer.out_features for layer in head.layers]}
     assert widths == {"rgb": [34, 256, 256, 256, 256, 3], "mask": [426, 256, 256, 256, 256, 1]}
-    net = {"K1": "rgb", "K2": "rgb", "K5": "rgb", "K3": "mask", "K4": "mask", "K6": "mask"}
-    got = {k: presplit_products(k, widths[net[k]]) for k in PRESPLIT_BY_HAND[config]}
-    assert got == PRESPLIT_BY_HAND[config]
+    heads, by_hand = PRESPLIT_BY_HAND[config]
+    args = {"K1": (widths["rgb"],), "K2": (widths["rgb"],), "K3": (widths["mask"],), "K4": (widths["mask"],),
+            "K5": (widths["rgb"], heads, widths["mask"]), "K6": (widths["mask"], heads)}
+    got = {k: presplit_products(k, *args[k]) for k in by_hand}
+    assert got == by_hand
     assert presplit_products("K2", widths["rgb"]) == 8
 
     base = trace.snapshot()
-    for k in PRESPLIT_BY_HAND[config]:
-        count_presplit(k, widths[net[k]])
-    step = sum(PRESPLIT_BY_HAND[config].values())
+    for k in by_hand:
+        count_presplit(k, *args[k])
+    step = sum(by_hand.values())
     assert trace.COUNTERS["presplit_products"] - base[1].get("presplit_products", 0) == step
     assert f"presplit_products {step}" in trace.summary(base)[-1]
 
